@@ -3,26 +3,44 @@
     python3 chip_smoke.py
 
 Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
-``ldpc_sims_tpu``), in four phases:
+``ldpc_sims_tpu``), in these phases:
 
 1. build the CUDA decode kernels from the checkout's sources, print
    ptxas's register/shared-memory report and the card's name and power
    limit;
 2. hold each kernel against its plain PyTorch version on the card at
-   wifi1944, batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75,
-   β=0.1, clamp 20), the registry's trained layered-8; and wifi648 once.
-   Hard bits must agree wherever |posterior| > 1e-3 and posteriors within
-   1e-4 absolute + 1e-4 relative;
-3. the main path at full width: ``run_sweep`` → ``mc_step`` →
-   ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch 32768,
-   flooding-20 and trained layered-8 at 1.5 and 2.0 dB, with the launch
-   counters set to 0 just before and read just after each; checks the
+   batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75, β=0.1,
+   clamp 20), the registry's trained layered-8 on wifi1944 and wifi648
+   flooding-20; posteriors within 1e-4 absolute + 1e-4 relative and hard
+   bits equal wherever |posterior| > 1e-3. Then the early-stop forms, on
+   wifi1944 and wifi648 at 1.5 and 3.0 dB, each exactly equal to the plain
+   version: the fixed kernels' unsatisfied-check counts (also against an
+   external bits·Hᵀ mod 2), the early-stop kernels at K = 1 and 2
+   (bits and iterations), the ``done_in`` skip (flagged rows of a
+   sentinel-filled output untouched), both drivers, and the probe driver
+   forced into its overflow branch at 0 dB;
+3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
+   → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
+   32768, with the launch counters set to 0 just before and read just
+   after each run: flooding-20 and trained layered-8 at 1.5 and 2.0 dB;
+   layered-20 with ``early_stop`` and ``es_mode='auto'`` at 2.5 and 3.5
+   dB (the mode chosen per point and both calibration times, a profile of
+   one step in each mode); ``es_mode='probe'`` and ``'requeue'`` alone at
+   3.5 dB; flooding-20 with ``es_mode='freeze'`` at 2.0 dB. Checks the
    error rates (uncoded BER against the QPSK formula, coded below
-   uncoded, BLER falling with SNR) and prints BER/BLER and steady-state
-   decoded info bits/s;
-4. at the main path's batch of 32768, holds each kernel against its plain
-   version once more, times both with CUDA events and prints the
-   ``kernels`` JSON line with each kernel's bound.
+   uncoded, BLER falling with SNR), prints BER/BLER and steady-state
+   decoded info bits/s, and checks on one shared batch at 3.0 dB, where
+   the stragglers fit the probe's capacity, that the probe decode's
+   stragglers equal the fixed layered-20 decode bit for bit;
+3b. the ``ofdm-qam16`` preset's own configuration (16-QAM over OFDM-64,
+   layered-20, ``es_mode='auto'``) at 8 and 10 dB, 4 chunks per point;
+4. at batch 32768, holds each kernel against its plain version once more,
+   times both with CUDA events and prints the ``kernels`` JSON line with
+   each kernel's bound: one row per kernel with the launches of its own
+   main-path run, and a row ``minsum_qc_layered@es_auto`` for the layered
+   kernel's launches on the es-auto path, timed as one probe chunk at 3.5
+   dB (the ``hard_unsat`` probe and the ``done_in`` pass); then the times
+   of both drivers.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -31,6 +49,7 @@ line of standard output is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -44,14 +63,23 @@ SCHEDULES = os.path.join(ROOT, "docs", "artifacts",
 TOL = 1e-4  # posterior tolerance, absolute and relative
 HARD_MARGIN = 1e-3  # hard bits compared where |posterior| exceeds this
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-# f32 operations one min-sum iteration needs per edge: the v2c subtract,
-# |v|, the negative count, the two-minima update (2), the exclusive-sign
-# parity, the exclusive-minimum select, the offset and its max with 0 (2),
-# the sign and alpha multiplies (2), the clamp (2) = 14; plus the posterior
-# accumulate for flooding (1) or the message difference and posterior
-# update for layered (2)
-OPS_PER_EDGE_ITER = {"flooding": 15, "layered": 16}
+# H100 SXM f32 outside the tensor cores: 67 TFLOP/s counts a fused
+# multiply-add as 2; none of the decode's operations is one, so it issues
+# at most half that many
+F32_OPS_PER_S = 67e12 / 2
+# f32 operations one min-sum iteration needs per edge whatever its
+# parameters: the v2c subtract, |v|, the negative count, the two-minima
+# update (2), the exclusive-sign parity, the exclusive-minimum select and
+# the sign multiply; then the posterior accumulate for flooding (1) or the
+# message difference and posterior update for layered (2)
+OPS_PER_EDGE_ITER = {"flooding": 8 + 1, "layered": 8 + 2}
+# one syndrome check per edge: the sign test and the parity update
+OPS_PER_EDGE_CHECK = 2
+# the kernels line's row for minsum_qc_layered's launches on the
+# es_mode='auto' path (its hard_unsat probe and done_in pass)
+ES_AUTO_ROW = "minsum_qc_layered@es_auto"
+KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
+TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
 
 
 def fail(msg: str) -> None:
@@ -86,7 +114,21 @@ def compare(kernel_out, plain_out, tag: str) -> float:
     return max_abs
 
 
-def channel_llrs(code, batch: int, snrdb: float, seed: int):
+def exact(pairs, tag: str) -> float:
+    """Hold integer outputs (bits, counts) of a kernel against the plain
+    version's: they must be equal. Returns max |diff| (0)."""
+    import torch
+
+    for got, want in pairs:
+        if got.shape != want.shape or not torch.equal(got, want):
+            n_bad = (int((got != want).sum()) if got.shape == want.shape
+                     else "shape")
+            fail(f"{tag}: differs from the plain version ({n_bad})")
+    return 0.0
+
+
+def channel_llrs(code, batch: int, snrdb: float, seed: int,
+                 with_coded: bool = False):
     """LLRs of random codewords through the port's QPSK/OFDM-32 chain."""
     import torch
 
@@ -101,7 +143,42 @@ def channel_llrs(code, batch: int, snrdb: float, seed: int):
     snr = 10.0 ** (snrdb / 10.0)
     rx = phy.awgn(gen, tx, snr)
     sym = phy.ofdm_demodulate(rx)
-    return phy.demodulate_qpsk_llr(sym, snr).reshape(batch, code.n)
+    llr = phy.demodulate_qpsk_llr(sym, snr).reshape(batch, code.n)
+    return (llr, coded) if with_coded else llr
+
+
+def external_unsat(bits, code):
+    """Unsatisfied checks per row as bits·Hᵀ mod 2, summed."""
+    import numpy as np
+    import torch
+
+    H = torch.from_numpy(np.asarray(code.H, np.float32)).to(bits.device)
+    return torch.remainder(bits.float() @ H.T, 2.0).sum(1).to(torch.int32)
+
+
+def edge_ops(schedule: str, iterations: int, alpha=1.0, beta=0.0,
+             clamp=None) -> int:
+    """f32 operations per edge over ``iterations`` iterations with these
+    parameters: an iteration whose β is not 0 adds the offset and its max
+    with 0 (2), an α other than 1 its multiply (1), a clamp its two
+    bounds (2)."""
+    def table(v):
+        return tuple(v) if isinstance(v, (tuple, list)) else (v,) * iterations
+
+    al, be = table(alpha), table(beta)
+    per = OPS_PER_EDGE_ITER[schedule] + (2 if clamp is not None else 0)
+    return sum(per + (a != 1.0) + 2 * (b != 0.0) for a, b in zip(al, be))
+
+
+def uncoded_ber(modulation: str, snrdb: float) -> float:
+    """Uncoded BER of Gray QPSK or 16-QAM at symbol SNR ``snrdb``."""
+    q = lambda x: 0.5 * math.erfc(x / math.sqrt(2))  # noqa: E731
+    snr = 10 ** (snrdb / 10)
+    if modulation == "qpsk":  # amplitude 1/sqrt2, sigma^2 = 1/(2 snr)
+        return q(math.sqrt(snr))
+    # 16-QAM, per axis levels ±1, ±3 over sqrt10: x = d / sigma
+    x = math.sqrt(snr / 5)
+    return (3 * q(x) + 2 * q(3 * x) - q(5 * x)) / 4
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -120,17 +197,17 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def profile_step(step, label: str, card: str) -> None:
+def profile_step(step, label: str, card: str, snrdb: float = 1.5) -> None:
     """Device time by kernel over one steady mc_step (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step(1, 1.5)  # warm
+    step(1, snrdb)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = step(2, 1.5)
+        out = step(2, snrdb)
         torch.stack(list(out.values())).tolist()  # the step's host read
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -150,12 +227,75 @@ def profile_step(step, label: str, card: str) -> None:
               "torch.profiler", flush=True)
         return
     rows.sort(reverse=True)
-    print(f"  {label} profile of one mc_step [{card}]: wall "
+    print(f"  {label} profile of one mc_step at {snrdb:g} dB [{card}]: wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1 - busy / wall_us:.3f}", flush=True)
     for us, key, n in rows[:8]:
         print(f"    {us / 1e3:9.3f} ms {us / busy:6.1%}  x{n}  {key[:70]}",
               flush=True)
+
+
+class Events:
+    """A ``metrics`` sink for run_sweep: keeps the step and es-auto events."""
+
+    def __init__(self):
+        self.steps = []
+        self.auto = []
+
+    def log(self, event, **fields):
+        if event == "sweep-step":
+            self.steps.append(fields)
+        elif event == "es-auto":
+            self.auto.append(fields)
+
+
+def drive(label, code, cfg, sweep, need, card):
+    """One main-path run: counters to 0, run_sweep, counters read.
+
+    Fails unless every kernel in ``need`` was launched; checks the rates.
+    Returns (result, launch counts, events, steady info bits/s)."""
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.parallel import run_sweep
+
+    ev = Events()
+    mq.reset_launch_counts()
+    res = run_sweep(code, cfg, sweep, log=None, metrics=ev, device="cuda")
+    counts = dict(mq.LAUNCHES)
+    n_steps = len(ev.steps)
+    for name in need:
+        if counts[name] == 0:
+            fail(f"{label}: the main path never launched {name}")
+    modes = {}
+    for e in ev.steps:
+        modes[e["mode"]] = modes.get(e["mode"], 0) + 1
+    per = {k: v / n_steps for k, v in counts.items() if v}
+    print(f"  {label}: launches {counts} over {n_steps} mc_steps "
+          f"(per mc_step {per}; mc_steps per mode {modes})", flush=True)
+    for a in ev.auto:
+        print(f"  {label} calibration @ {a['snrdb']:g} dB: fixed "
+              f"{a['fixed'] * 1e3!r} ms, probe {a['probe'] * 1e3!r} ms "
+              f"-> {a['mode']} [{card}]", flush=True)
+    steady = ev.steps[1:]  # the first step pays one-time set-up
+    rate = (sum(e["info_bits"] for e in steady)
+            / sum(e["wall_s"] for e in steady))
+    for snr, unc, ber, bler, bits in zip(
+            res.snrdb, res.uncoded_ber, res.coded_ber, res.coded_bler,
+            res.info_bits):
+        print(f"  {label} @ {snr:g} dB: uncoded BER {unc!r}, coded BER "
+              f"{ber!r}, BLER {bler!r} ({bits:.4g} info bits) [{card}]",
+              flush=True)
+        theory = uncoded_ber(cfg.modulation, snr)
+        if not all(math.isfinite(v) for v in (unc, ber, bler)):
+            fail(f"{label} @ {snr:g} dB: non-finite rates")
+        if abs(unc - theory) > 1e-3:
+            fail(f"{label} @ {snr:g} dB: uncoded BER {unc} is not the "
+                 f"{cfg.modulation} value {theory}")
+        if not ber < unc:
+            fail(f"{label} @ {snr:g} dB: coded BER {ber} not below "
+                 f"uncoded {unc}")
+    print(f"  {label}: steady-state {rate!r} decoded info bits/s over "
+          f"{len(steady)} steps [{card}]", flush=True)
+    return res, counts, ev, rate
 
 
 def main() -> None:
@@ -172,12 +312,13 @@ def main() -> None:
             os.path.abspath(ldpc_sims_tpu_torch.__file__))) != ROOT:
         fail(f"imported {ldpc_sims_tpu_torch.__file__}, not this checkout's")
 
+    from ldpc_sims_tpu_torch.cli.main import PRESETS
     from ldpc_sims_tpu_torch.codes import get_code
     from ldpc_sims_tpu_torch.convert import load_trained_schedule
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
     from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, qc_plan
     from ldpc_sims_tpu_torch.ops.chain import LinkConfig
-    from ldpc_sims_tpu_torch.parallel import SweepConfig, mc_step, run_sweep
+    from ldpc_sims_tpu_torch.parallel import SweepConfig, mc_step
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -213,7 +354,7 @@ def main() -> None:
         ("minsum_qc_flooding", w648, dict(
             iterations=20, schedule="flooding"), "wifi648 flooding-20"),
     ]
-    max_err = {name: 0.0 for name in mq.LAUNCHES}
+    max_err = {name: 0.0 for name in (*mq.LAUNCHES, ES_AUTO_ROW)}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
         k_post = mq.bp_qc_cuda(llr, code.qc, output="posterior", **kw)
@@ -223,6 +364,101 @@ def main() -> None:
         max_err[name] = max(max_err[name], compare(k_post, p_post, tag))
         if not torch.equal(k_bits, (k_post > 0).to(torch.int8)):
             fail(f"hard output disagrees with the posterior's signs: {tag}")
+
+    print("== phase 2b: early-stop forms vs plain versions (batch 4096)",
+          flush=True)
+    B = 4096
+    for code in (w1944, w648):
+        qc = code.qc
+        for snrdb in (1.5, 3.0):
+            at = f"{code.name} @ {snrdb:g} dB"
+            llr = channel_llrs(code, B, snrdb, seed=int(snrdb * 10))
+            # fixed decode + unsatisfied-check count
+            for sched, iters in (("flooding", 20), ("layered", 4)):
+                kw = dict(iterations=iters, schedule=sched,
+                          output="hard_unsat")
+                kb, ku = mq.bp_qc_cuda(llr, qc, **kw)
+                pb, pu = decode_roll(llr, qc, **kw)
+                exact([(kb, pb), (ku, pu), (ku, external_unsat(kb, code))],
+                      f"{at} {sched}-{iters} hard_unsat")
+                print(f"  {at} {sched}-{iters} hard_unsat: bits and counts "
+                      f"equal, = bits·Hᵀ mod 2; {int((ku == 0).sum())} of "
+                      f"{B} satisfied", flush=True)
+            # early stop, K = 1 and 2
+            for sched in ("flooding", "layered"):
+                for K in (1, 2):
+                    kw = dict(iterations=20, schedule=sched,
+                              output="hard_iters", early_stop=True,
+                              es_check_every=K)
+                    kb, ki = mq.bp_qc_cuda(llr, qc, **kw)
+                    pb, pi = decode_roll(llr, qc, **kw)
+                    name = mq.KERNELS[sched, True]
+                    max_err[name] = max(max_err[name], exact(
+                        [(kb, pb), (ki, pi)], f"{at} {sched}-20 ES K={K}"))
+                    print(f"  {at} {sched}-20 early stop K={K}: bits and "
+                          f"iterations equal; mean iterations "
+                          f"{float(ki.float().mean()):.3f}, "
+                          f"{int((ki == 20).sum())} at the budget",
+                          flush=True)
+            # done_in: about half the codewords flagged
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(int(snrdb * 100))
+            mask = torch.rand(B, generator=gen, device="cuda") < 0.5
+            for es in (False, True):
+                kw = dict(iterations=20, schedule="layered", early_stop=es,
+                          output="hard_iters" if es else "hard")
+                sentinel = torch.full(llr.shape, 7, dtype=torch.int8,
+                                      device="cuda")
+                got = mq.bp_qc_cuda(llr, qc, done_in=mask, out=sentinel,
+                                    **kw)
+                want = decode_roll(llr, qc, done_in=mask, **kw)
+                kb, pb = (got[0], want[0]) if es else (got, want)
+                pairs = [(kb[~mask], pb[~mask])]
+                if es:
+                    pairs.append((got[1], want[1]))
+                exact(pairs, f"{at} layered-20 done_in (es={es})")
+                if not bool((kb[mask] == 7).all()):
+                    fail(f"{at}: done_in rows were written (es={es})")
+                print(f"  {at} layered-20 done_in (early stop {es}): "
+                      f"{int(mask.sum())} flagged rows untouched, the rest "
+                      "equal", flush=True)
+            # the drivers against plain compositions of their steps
+            rb, ri = mq.bp_qc_requeue(llr, qc, 20, probe_iters=4,
+                                      es_check_every=2, schedule="layered",
+                                      output="hard_iters")
+            es_kw = dict(schedule="layered", output="hard_iters",
+                         early_stop=True, es_check_every=2)
+            b1, i1 = decode_roll(llr, qc, iterations=4, **es_kw)
+            b2, i2 = decode_roll(llr, qc, iterations=20, **es_kw)
+            done = i1 < 4
+            exact([(rb, torch.where(done[:, None], b1, b2)),
+                   (ri, torch.where(done, i1, 4 + i2))],
+                  f"{at} bp_qc_requeue")
+            pb_, pi_ = mq.bp_qc_probe_requeue(llr, qc, 20, probe_iters=4,
+                                              output="hard_iters")
+            b1, u1 = decode_roll(llr, qc, iterations=4, schedule="layered",
+                                 output="hard_unsat")
+            b2 = decode_roll(llr, qc, iterations=20, schedule="layered")
+            done = u1 == 0
+            over = B - int(done.sum()) > mq.probe_capacity(B)
+            keep = done & (not over)
+            exact([(pb_, torch.where(keep[:, None], b1, b2)),
+                   (pi_, torch.where(keep, 4, 24).to(torch.int32))],
+                  f"{at} bp_qc_probe_requeue")
+            print(f"  {at} drivers: requeue ({int((ri > 4).sum())} "
+                  f"re-decoded) and probe ({B - int(done.sum())} "
+                  f"stragglers, overflow {over}) equal", flush=True)
+    llr = channel_llrs(w648, B, 0.0, seed=5)
+    pb_, pi_ = mq.bp_qc_probe_requeue(llr, w648.qc, 20, probe_iters=4,
+                                      output="hard_iters")
+    exact([(pb_, decode_roll(llr, w648.qc, iterations=20,
+                             schedule="layered"))],
+          "wifi648 @ 0 dB probe overflow")
+    if not bool((pi_ == 24).all()):
+        fail("wifi648 @ 0 dB: the probe driver did not take its overflow "
+             "branch")
+    print("  wifi648 @ 0 dB probe overflow: every codeword re-decoded at "
+          "the full budget, bits equal", flush=True)
 
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
@@ -240,61 +476,125 @@ def main() -> None:
             bp_iterations=8, bp_method="min-sum", clamp=None,
             bp_schedule="layered", alpha=a8, beta=b8), "minsum_qc_layered"),
     }
-
-    class Steps:
-        def __init__(self):
-            self.events = []
-
-        def log(self, event, **fields):
-            if event == "sweep-step":
-                self.events.append(fields)
-
     launches, per_step = {}, {}
-    rates = {}
     for label, (cfg, kname) in configs.items():
-        steps = Steps()
-        mq.reset_launch_counts()
-        res = run_sweep(w1944, cfg, sweep, log=None, metrics=steps,
-                        device="cuda")
-        counts = dict(mq.LAUNCHES)
-        if counts[kname] == 0:
-            fail(f"{label}: the main path never launched {kname}")
-        n_steps = len(steps.events)
+        res, counts, ev, _ = drive(label, w1944, cfg, sweep, [kname], card)
         launches[kname] = counts[kname]
-        per_step[kname] = counts[kname] / n_steps
-        print(f"  {label}: launches {counts} over {n_steps} mc_steps "
-              f"({counts[kname] / n_steps:g} per mc_step)", flush=True)
-        steady = steps.events[1:]  # the first step pays one-time set-up
-        rate = (sum(e["info_bits"] for e in steady)
-                / sum(e["wall_s"] for e in steady))
-        rates[label] = rate
-        for snr, unc, ber, bler, bits in zip(
-                res.snrdb, res.uncoded_ber, res.coded_ber, res.coded_bler,
-                res.info_bits):
-            print(f"  {label} @ {snr:g} dB: uncoded BER {unc!r}, coded BER "
-                  f"{ber!r}, BLER {bler!r} ({bits:.4g} info bits) "
-                  f"[{card}]", flush=True)
-            # QPSK per component: amplitude 1/sqrt2, sigma^2 = 1/(2 snr)
-            theory = 0.5 * math.erfc(math.sqrt(10 ** (snr / 10)) / math.sqrt(2))
-            if not all(math.isfinite(v) for v in (unc, ber, bler)):
-                fail(f"{label} @ {snr:g} dB: non-finite rates")
-            if abs(unc - theory) > 1e-3:
-                fail(f"{label} @ {snr:g} dB: uncoded BER {unc} is not the "
-                     f"QPSK value {theory}")
-            if not ber < unc:
-                fail(f"{label} @ {snr:g} dB: coded BER {ber} not below "
-                     f"uncoded {unc}")
+        per_step[kname] = counts[kname] / len(ev.steps)
         if not res.coded_bler[1] < res.coded_bler[0]:
             fail(f"{label}: BLER does not fall from 1.5 to 2.0 dB")
-        print(f"  {label}: steady-state {rate!r} decoded info bits/s over "
-              f"{len(steady)} steps [{card}]", flush=True)
         profile_step(mc_step(w1944, cfg, batch, device="cuda"), label, card)
+
+    # the early-stop path: es_mode='auto' chooses per point
+    es_cfg = LinkConfig(bp_iterations=20, bp_method="min-sum", clamp=None,
+                        bp_schedule="layered", early_stop=True,
+                        es_mode="auto", es_probe_iters=4)
+    es_sweep = dataclasses.replace(
+        sweep, snrdb=(2.5, 3.5), max_info_bits=6 * batch * w1944.k)
+    res, counts, ev, _ = drive("layered-20 es auto", w1944, es_cfg,
+                               es_sweep, ["minsum_qc_layered"], card)
+    # the layered kernel's launches on this path (fixed chunks: one full
+    # pass; probe chunks: the hard_unsat probe and the done_in pass), a
+    # row of their own beside the trained layered-8 path's
+    launches[ES_AUTO_ROW] = counts["minsum_qc_layered"]
+    per_step[ES_AUTO_ROW] = counts["minsum_qc_layered"] / len(ev.steps)
+    if len(ev.auto) != 2:
+        fail("es auto: expected one calibration per point")
+    # strictly lower where the lower SNR saw frame errors at all
+    lo, hi = res.coded_bler
+    if not (hi < lo or hi == lo == 0.0):
+        fail("layered-20 es auto: BLER does not fall from 2.5 to 3.5 dB")
+    for mode in ("freeze", "probe"):
+        cfg = dataclasses.replace(
+            es_cfg, early_stop=mode == "probe", es_mode=mode)
+        profile_step(mc_step(w1944, cfg, batch, device="cuda"),
+                     f"layered-20 {'fixed' if mode == 'freeze' else mode}",
+                     card, snrdb=2.5)
+    one = dataclasses.replace(sweep, snrdb=(3.5,))
+    for mode, kname in (("probe", "minsum_qc_layered"),
+                        ("requeue", "minsum_qc_layered_es")):
+        _, counts, ev, _ = drive(
+            f"layered-20 es {mode}", w1944,
+            dataclasses.replace(es_cfg, es_mode=mode), one, [kname], card)
+        if mode == "requeue":
+            launches[kname] = counts[kname]
+            per_step[kname] = counts[kname] / len(ev.steps)
+    _, counts, ev, _ = drive(
+        "flooding-20 es freeze", w1944,
+        LinkConfig(bp_iterations=20, bp_method="min-sum", clamp=None,
+                   early_stop=True),
+        dataclasses.replace(sweep, snrdb=(2.0,)),
+        ["minsum_qc_flooding_es"], card)
+    launches["minsum_qc_flooding_es"] = counts["minsum_qc_flooding_es"]
+    per_step["minsum_qc_flooding_es"] = (counts["minsum_qc_flooding_es"]
+                                         / len(ev.steps))
+
+    # the probe rescues no worse than the fixed decode, on one batch at
+    # 3.0 dB, where the stragglers fit the capacity (the compact path)
+    llr30, coded30 = channel_llrs(w1944, batch, 3.0, seed=11,
+                                  with_coded=True)
+    bits_p, it_p = mq.bp_qc_probe_requeue(llr30, w1944.qc, 20, probe_iters=4,
+                                          output="hard_iters")
+    bits_f = mq.bp_qc_cuda(llr30, w1944.qc, 20, schedule="layered")
+    strag = it_p > 4
+    n_strag = int(strag.sum())
+    if not 0 < n_strag <= mq.probe_capacity(batch):
+        fail(f"shared batch @ 3 dB: {n_strag} stragglers, not the compact "
+             "path")
+    exact([(bits_p[strag], bits_f[strag])], "probe stragglers vs fixed")
+    err_p = int((bits_p != coded30).sum())
+    err_f = int((bits_f != coded30).sum())
+    print(f"  shared batch @ 3 dB: {n_strag} stragglers (capacity "
+          f"{mq.probe_capacity(batch)}) equal fixed layered-20 bit for bit; "
+          f"bit errors probe {err_p}, fixed {err_f}", flush=True)
+    if err_p > err_f + 1e-5 * coded30.numel():
+        fail("the probe decode is worse than fixed layered-20")
+
+    # -- phase 3b: the ofdm-qam16 preset -----------------------------------
+    print("== phase 3b: the ofdm-qam16 preset at 8 and 10 dB", flush=True)
+    p = PRESETS["ofdm-qam16"]
+    q_code = get_code(p["code"])
+    q_cfg = LinkConfig(**p["link"])
+    q_sweep = SweepConfig(**p["sweep"])
+    chunk_bits = q_sweep.steps_per_sync * q_sweep.batch_cw * q_code.k
+    q_sweep = dataclasses.replace(
+        q_sweep, snrdb=(8.0, 10.0), max_info_bits=4 * chunk_bits,
+        min_info_bits=0, target_frame_errors=10**12)
+    drive("ofdm-qam16", q_code, q_cfg, q_sweep, ["minsum_qc_layered"], card)
 
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
     llr = channel_llrs(w1944, batch, 1.5, seed=7)
+    llr25 = channel_llrs(w1944, batch, 2.5, seed=12)
     E = len(qc_plan(w1944.qc)[0]) * w1944.qc.z
+    n = w1944.n
+
+    def bound(nbytes, ops):
+        t_bytes = nbytes / BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    def row(name, ms, plain_ms, bnd):
+        print(f"  {name}: {ms!r} ms (plain {plain_ms!r} ms, bound "
+              f"{bnd[0]!r} ms, {bnd[1]}) [{card}]", flush=True)
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": TPU_KERNEL,
+            "launches": launches[name],
+            "launches_per_mc_step": per_step[name],
+            "max_abs_err": max_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bnd[0],
+            "bound_by": bnd[1],
+            # no single PyTorch call computes a min-sum decode
+            "library_ms": None,
+        }
+
     timed = {
         "minsum_qc_flooding": dict(iterations=20, schedule="flooding"),
         "minsum_qc_layered": dict(iterations=8, schedule="layered",
@@ -311,27 +611,125 @@ def main() -> None:
         plain_ms = cuda_time_ms(
             lambda: decode_roll(llr, w1944.qc, **kw), 3, warmup=1)
         # bytes: LLRs read once (f32), hard bits written once (int8)
-        nbytes = batch * w1944.n * (4 + 1)
-        ops = (batch * E * kw["iterations"]
-               * OPS_PER_EDGE_ITER[kw["schedule"]])
-        t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu",
-            "replaces": "ldpc_sims_tpu/kernels/minsum_qc.py:788",
-            "launches": launches[name],
-            "launches_per_mc_step": per_step[name],
-            "max_abs_err": max_err[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            # no single PyTorch call computes a min-sum decode
-            "library_ms": None,
-        })
-        print(f"  {name}: {ms!r} ms (plain {plain_ms!r} ms, bound "
-              f"{max(t_bytes, t_ops)!r} ms) [{card}]", flush=True)
+        kernels.append(row(name, ms, plain_ms, bound(
+            batch * n * (4 + 1), batch * E * edge_ops(**kw))))
+
+    # the early-stop kernels at 2.5 dB, bound by the iterations they ran
+    for sched in ("flooding", "layered"):
+        name = mq.KERNELS[sched, True]
+        kw = dict(iterations=20, schedule=sched, early_stop=True)
+        kb, ki = mq.bp_qc_cuda(llr25, w1944.qc, output="hard_iters", **kw)
+        pb, pi = decode_roll(llr25, w1944.qc, output="hard_iters", **kw)
+        max_err[name] = max(max_err[name], exact(
+            [(kb, pb), (ki, pi)], f"{name} at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr25, w1944.qc, **kw), 20)
+        plain_ms = cuda_time_ms(
+            lambda: decode_roll(llr25, w1944.qc, **kw), 3, warmup=1)
+        ran = int(ki.sum())
+        checks = batch + ran  # the entry check and one after each iteration
+        print(f"  {name}: mean iterations {ran / batch:.4f} of 20",
+              flush=True)
+        # bytes: LLRs, bits, and the iteration counts (int32)
+        kernels.append(row(name, ms, plain_ms, bound(
+            batch * (n * (4 + 1) + 4),
+            ran * E * edge_ops(sched, 1) + checks * E * OPS_PER_EDGE_CHECK,
+        )))
+
+    # the layered kernel's two launches in one es-auto probe chunk at 3.5
+    # dB, where es auto chose probe: the hard_unsat probe-4 over the whole
+    # batch, then layered-20 over the codewords it left unsatisfied
+    qc = w1944.qc
+    full = dict(iterations=20, schedule="layered")
+    per_it = E * edge_ops("layered", 1)
+    per_check = E * OPS_PER_EDGE_CHECK
+    io_bytes = batch * n * 5  # LLRs read once, bits written once
+    llr35 = channel_llrs(w1944, batch, 3.5, seed=13)
+    probe = dict(iterations=4, schedule="layered", output="hard_unsat")
+    kb, ku = mq.bp_qc_cuda(llr35, qc, **probe)
+    pb, pu = decode_roll(llr35, qc, **probe)
+    max_err[ES_AUTO_ROW] = exact([(kb, pb), (ku, pu)],
+                                 f"hard_unsat probe-4 at batch {batch}")
+    done = ku == 0
+    todo = batch - int(done.sum())
+    if todo > mq.probe_capacity(batch):
+        fail(f"3.5 dB: {todo} stragglers overflow the probe's capacity")
+    kb = mq.bp_qc_cuda(llr35, qc, done_in=done, **full)
+    pb = decode_roll(llr35, qc, done_in=done, **full)
+    max_err[ES_AUTO_ROW] = max(max_err[ES_AUTO_ROW], exact(
+        [(kb[~done], pb[~done])], f"done_in layered-20 at batch {batch}"))
+    p_ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr35, qc, **probe), 20)
+    p_plain = cuda_time_ms(lambda: decode_roll(llr35, qc, **probe), 3, 1)
+    p_bytes, p_ops = io_bytes + batch * 4, batch * (4 * per_it + per_check)
+    b_ms, b_by = bound(p_bytes, p_ops)
+    print(f"  hard_unsat probe-4 at 3.5 dB: {p_ms!r} ms (plain {p_plain!r} "
+          f"ms, bound {b_ms!r} ms, {b_by}) [{card}]", flush=True)
+    d_ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr35, qc, done_in=done,
+                                              **full), 20)
+    d_plain = cuda_time_ms(
+        lambda: decode_roll(llr35, qc, done_in=done, **full), 3, 1)
+    # bytes: the flags, and the LLRs and bits of the decoded codewords
+    d_bytes, d_ops = todo * n * 5 + batch * 4, todo * 20 * per_it
+    b_ms, b_by = bound(d_bytes, d_ops)
+    print(f"  done_in layered-20 at 3.5 dB ({todo} of {batch} decoded): "
+          f"{d_ms!r} ms (plain {d_plain!r} ms, bound {b_ms!r} ms, {b_by}) "
+          f"[{card}]", flush=True)
+    kernels.append(row(ES_AUTO_ROW, p_ms + d_ms, p_plain + d_plain,
+                       bound(p_bytes + d_bytes, p_ops + d_ops)))
+    # the drivers against plain compositions of their passes, at 2.5 dB
+    # (where the probe overflows) and 3.0 dB (its compact path), each
+    # bound by the iterations and checks its passes ran
+    es = dict(schedule="layered", early_stop=True, output="hard_iters")
+
+    def plain_requeue(x):
+        b1, i1 = decode_roll(x, qc, iterations=4, **es)
+        done = i1 < 4
+        b2, i2 = decode_roll(x, qc, iterations=20, done_in=done, **es)
+        return (torch.where(done[:, None], b1, b2),
+                torch.where(done, i1, 4 + i2))
+
+    def plain_probe(x):
+        b1, u = decode_roll(x, qc, iterations=4, schedule="layered",
+                            output="hard_unsat")
+        done = u == 0
+        keep = done & (batch - int(done.sum()) <= mq.probe_capacity(batch))
+        b2 = decode_roll(x, qc, done_in=keep, **full)
+        return torch.where(keep[:, None], b1, b2)
+
+    for snrdb, x in ((2.5, llr25), (3.0, llr30)):
+        at = f"at {snrdb:g} dB [{card}]"
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(x, qc, **full), 20)
+        print(f"  fixed layered-20 {at}: {ms!r} ms", flush=True)
+        _, it = mq.bp_qc_cuda(x, qc, **full, early_stop=True,
+                              output="hard_iters")
+        ran = int(it.sum())
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(x, qc, early_stop=True,
+                                                **full), 20)
+        b_ms, b_by = bound(io_bytes + batch * 4,
+                           ran * per_it + (batch + ran) * per_check)
+        print(f"  layered-20 es freeze {at}: {ms!r} ms (bound {b_ms!r} ms, "
+              f"{b_by})", flush=True)
+        _, it = mq.bp_qc_requeue(x, qc, 20, probe_iters=4, es_check_every=1,
+                                 schedule="layered", output="hard_iters")
+        ran = int(it.sum())  # probe and second pass together
+        ms = cuda_time_ms(lambda: mq.bp_qc_requeue(
+            x, qc, 20, probe_iters=4, es_check_every=1,
+            schedule="layered"), 20)
+        plain_ms = cuda_time_ms(lambda: plain_requeue(x), 3, 1)
+        b_ms, b_by = bound(io_bytes + batch * 4,
+                           ran * per_it + (batch + ran) * per_check)
+        print(f"  bp_qc_requeue K=1 {at}: {ms!r} ms (plain {plain_ms!r} ms, "
+              f"bound {b_ms!r} ms, {b_by})", flush=True)
+        _, it = mq.bp_qc_probe_requeue(x, qc, 20, probe_iters=4,
+                                       output="hard_iters")
+        redo = int((it > 4).sum())
+        ms = cuda_time_ms(lambda: mq.bp_qc_probe_requeue(
+            x, qc, 20, probe_iters=4), 20)
+        plain_ms = cuda_time_ms(lambda: plain_probe(x), 3, 1)
+        b_ms, b_by = bound(io_bytes, batch * (4 * per_it + per_check)
+                           + redo * 20 * per_it)
+        print(f"  bp_qc_probe_requeue {at}, {redo} of {batch} re-decoded: "
+              f"{ms!r} ms (plain {plain_ms!r} ms, bound {b_ms!r} ms, "
+              f"{b_by})", flush=True)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -4,10 +4,15 @@
         --snr 1.5,2.0 --batch 32768 --max-bits 1e9
     python -m ldpc_sims_tpu_torch sweep --schedule layered --iters 8 \\
         --bp-alpha 0.86,0.86,... --bp-beta 0.12,0.14,...
+    python -m ldpc_sims_tpu_torch sweep --schedule layered --early-stop \\
+        --es-mode auto --snr 2.5,3.5
+    python -m ldpc_sims_tpu_torch sweep --preset ofdm-qam16
 
 Defaults are the main path: (1944,972), QPSK over OFDM-32, flooding-20
-min-sum, on the card. ``--device cpu`` runs the plain version. Presets
-and the other subcommands are not ported yet (ROADMAP A12).
+min-sum, on the card. ``--device cpu`` runs the plain version. The
+``PRESETS`` table is the JAX package's; ``ofdm-qam16`` runs, and the other
+four raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+The other subcommands are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -20,7 +25,62 @@ import time
 
 import numpy as np
 
-__all__ = ["build_parser", "main"]
+__all__ = ["PRESETS", "build_parser", "main"]
+
+# The five benchmark configurations of the JAX package's CLI
+# (ldpc_sims_tpu/cli/main.py PRESETS, BASELINE.json "configs").
+PRESETS: dict[str, dict] = {
+    # 1: small (128,64) regular LDPC, BPSK/AWGN, 10-iteration min-sum
+    "small-cpu": dict(
+        code="peg128_64",
+        link=dict(modulation="bpsk", bp_iterations=10, bp_method="min-sum",
+                  clamp=None, ofdm_size=32),
+        sweep=dict(snrdb=(2.0,), batch_cw=1024, target_frame_errors=50,
+                   max_info_bits=2e6),
+    ),
+    # 2: 802.11n (648,324), 0-6 dB, 20-iteration sum-product, layered
+    #    with early stop and es_mode='auto'
+    "wifi648-sweep": dict(
+        code="wifi648",
+        link=dict(modulation="qpsk", bp_iterations=20,
+                  bp_method="sum-product", clamp=None, ofdm_size=32,
+                  bp_schedule="layered", early_stop=True,
+                  es_mode="auto"),
+        sweep=dict(snrdb=tuple(np.linspace(0, 6, 13).tolist()),
+                   batch_cw=4096, target_frame_errors=100,
+                   steps_per_sync=8),
+    ),
+    # 3: the message-quantized min-sum decoder over a grid of bit widths
+    "quantized-minsum": dict(
+        code="wifi648",
+        link=dict(modulation="qpsk", bp_iterations=20, bp_method="min-sum",
+                  clamp=None, ofdm_size=32),
+        sweep=dict(snrdb=tuple(np.linspace(0, 6, 7).tolist()),
+                   batch_cw=4096, target_frame_errors=100,
+                   steps_per_sync=8),
+        msg_qbits_grid=(3, 4, 5),
+    ),
+    # 4: OFDM end to end, 64 subcarriers, 16-QAM, layered min-sum with
+    #    early stop and es_mode='auto'
+    "ofdm-qam16": dict(
+        code="wifi1944",
+        link=dict(modulation="qam16", bp_iterations=20,
+                  bp_method="min-sum", clamp=None, ofdm_size=64,
+                  bp_schedule="layered", early_stop=True,
+                  es_mode="auto"),
+        sweep=dict(snrdb=tuple(np.linspace(4, 12, 9).tolist()),
+                   batch_cw=4096, target_frame_errors=100,
+                   steps_per_sync=8),
+    ),
+    # 5: the reference chain (64,32) for BER parity studies
+    "reference": dict(
+        code="ref6432",
+        link=dict(modulation="qpsk", bp_iterations=3,
+                  bp_method="sum-product-ref", clamp=20.0, ofdm_size=32),
+        sweep=dict(snrdb=tuple(float(s) for s in range(11)),
+                   batch_cw=4096, target_frame_errors=100),
+    ),
+}
 
 
 def _parse_snr(spec: str) -> tuple[float, ...]:
@@ -54,23 +114,42 @@ def cmd_sweep(args) -> None:
     from ldpc_sims_tpu_torch.ops.chain import LinkConfig
     from ldpc_sims_tpu_torch.parallel import SweepConfig, run_sweep
 
-    code = get_code(args.code)
-    link = LinkConfig(
-        modulation=args.modulation,
-        ofdm_size=args.ofdm_size,
-        bp_iterations=args.iters,
-        bp_method=args.method,
-        bp_schedule=args.schedule,
-        alpha=args.bp_alpha,
-        beta=args.bp_beta,
-        clamp=args.clamp if args.clamp > 0 else None,
-    )
-    sweep = SweepConfig(
-        snrdb=_parse_snr(args.snr), batch_cw=args.batch,
-        target_frame_errors=args.target_errors,
-        max_info_bits=args.max_bits, steps_per_sync=args.steps_per_sync,
-        seed=args.seed,
-    )
+    if args.preset:
+        p = PRESETS[args.preset]
+        if "msg_qbits_grid" in p:
+            raise NotImplementedError(
+                f"preset {args.preset!r} sweeps msg_qbits message "
+                "quantization, which is not ported yet (ROADMAP B8)"
+            )
+        code = get_code(p["code"])
+        link = LinkConfig(**p["link"])
+        sweep = SweepConfig(**p["sweep"], seed=args.seed)
+    else:
+        code = get_code(args.code)
+        link = LinkConfig(
+            modulation=args.modulation,
+            ofdm_size=args.ofdm_size,
+            bp_iterations=args.iters,
+            bp_method=args.method,
+            bp_schedule=args.schedule,
+            alpha=args.bp_alpha,
+            beta=args.bp_beta,
+            clamp=args.clamp if args.clamp > 0 else None,
+            early_stop=args.early_stop,
+            es_mode=args.es_mode,
+            es_check_every=args.es_check_every,
+            es_probe_iters=args.es_probe_iters,
+            es_probe_alpha=(_parse_ab(args.es_probe_alpha)
+                            if args.es_probe_alpha else None),
+            es_probe_beta=(_parse_ab(args.es_probe_beta)
+                           if args.es_probe_beta else None),
+        )
+        sweep = SweepConfig(
+            snrdb=_parse_snr(args.snr), batch_cw=args.batch,
+            target_frame_errors=args.target_errors,
+            max_info_bits=args.max_bits, steps_per_sync=args.steps_per_sync,
+            seed=args.seed,
+        )
     os.makedirs(args.out, exist_ok=True)
     stamp = time.strftime("%Y%m%d-%H%M%S")
     manifest = args.manifest or os.path.join(args.out, f"{stamp}_sweep.json")
@@ -78,6 +157,7 @@ def cmd_sweep(args) -> None:
                        device=args.device)
     out = {
         "code": code.name,
+        "preset": args.preset,
         "link": dataclasses.asdict(link),
         **result.as_dict(),
     }
@@ -92,7 +172,12 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("sweep", help="Monte-Carlo BER/BLER sweep")
     sp.add_argument("--code", default="wifi1944")
-    sp.add_argument("--modulation", default="qpsk", choices=["bpsk", "qpsk"])
+    sp.add_argument("--preset", choices=sorted(PRESETS),
+                    help="a whole configuration of the JAX package's "
+                         "table (the code, link and sweep flags are then "
+                         "ignored)")
+    sp.add_argument("--modulation", default="qpsk",
+                    choices=["bpsk", "qpsk", "qam16"])
     sp.add_argument("--ofdm-size", type=int, default=32)
     sp.add_argument("--iters", type=int, default=20)
     sp.add_argument("--method", default="min-sum",
@@ -106,6 +191,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="min-sum offset: a float or a per-iteration list")
     sp.add_argument("--clamp", type=float, default=0.0,
                     help="c2v message clamp (0 = none)")
+    sp.add_argument("--early-stop", action="store_true",
+                    help="per-codeword syndrome termination")
+    sp.add_argument("--es-mode", default="freeze",
+                    choices=["freeze", "requeue", "probe", "auto"],
+                    help="early-stop strategy (requeue: early-stop probe, "
+                         "then a full-budget pass over the stragglers; "
+                         "probe: fixed probe with a fused syndrome count, "
+                         "then a fixed full-budget pass over the "
+                         "stragglers; auto: the sweep times fixed against "
+                         "probe per SNR point and keeps the faster)")
+    sp.add_argument("--es-check-every", type=int, default=1,
+                    help="syndrome-check stride under --early-stop (must "
+                         "divide --iters)")
+    sp.add_argument("--es-probe-iters", type=int, default=4,
+                    help="probe budget for --es-mode requeue/probe/auto")
+    sp.add_argument("--es-probe-alpha", default="", type=str,
+                    help="probe-pass alpha schedule for --es-mode probe "
+                         "(comma list; empty = --bp-alpha)")
+    sp.add_argument("--es-probe-beta", default="", type=str,
+                    help="probe-pass beta schedule (see --es-probe-alpha)")
     sp.add_argument("--snr", default="1.5,2.0",
                     help="symbol SNR grid in dB: 'lo:hi:n' or 'a,b,c'")
     sp.add_argument("--batch", type=int, default=32768)

@@ -11,6 +11,24 @@
 //     (:170-174, :318-323).
 // Both take scalar alpha/beta as a table with one repeated row, an optional
 // clamp, and emit hard bits (int8) or the posterior (f32, log(Pr1/Pr0)).
+// Both take two optional forms:
+//   * done_in (`with_done_in` :521-528, :752-757): a CTA whose codeword is
+//     flagged returns at entry and writes nothing;
+//   * unsat_out (`output='hard_unsat'`, `syndrome_unsat` :277-291,
+//     :515-516): after the last iteration each thread counts the
+//     unsatisfied checks among its rows of the shared-memory posterior,
+//     and a shared-memory integer sum gives one count per codeword (an
+//     integer sum, so the same in any order).
+// Two more entry points carry early stop (`early_stop` :469-508):
+//   * minsum_qc_flooding_es, minsum_qc_layered_es: the CTA checks its
+//     syndrome at entry (unless done_in is given: those codewords are
+//     known unconverged) and after every check_every-th iteration with a
+//     block-wide vote (__syncthreads_or), stops at the first satisfying
+//     state, writes the iterations it ran (0 at entry, (r+1)*K at the r-th
+//     check, `iterations` if never) and emits the posterior it stopped at.
+//     The TPU kernel decodes a 128-lane tile and has to keep updating its
+//     frozen lanes behind masks until the whole tile is done; a CTA decodes
+//     one codeword, so it simply leaves the loop.
 //
 // Design. One CTA decodes one codeword. Its c2v messages (P planes of z
 // floats, 27,864 B at wifi1944) and its posterior (n floats, 7,776 B) stay
@@ -32,13 +50,17 @@
 // clamped. Built with --fmad=false so the arithmetic matches the plain
 // PyTorch version (ops/bp_roll.py) bit for bit.
 //
-// What bounds it on the H100: the shared-memory residency of ~36 KB per
-// codeword caps a SM at 6 resident codewords, and the per-edge f32 work
-// (about 16 ops per edge per iteration) is issued by few warps, so the
-// kernel is latency bound well above both the byte bound and the f32 op
-// bound (PERF.md). The plain design stays until a faster one (compressed
+// What bounds the fixed forms on the H100: the shared-memory residency of
+// ~36 KB per codeword caps a SM at 6 resident codewords, and the per-edge
+// f32 work (about 16 ops per edge per iteration) is issued by few warps,
+// so the kernel is latency bound well above both the byte bound and the
+// f32 op bound (PERF.md). The plain design stays until a faster one (compressed
 // messages: two minima, index and sign bits per check; several codewords
-// per CTA) is measured against it.
+// per CTA) is measured against it. The early-stop forms do the work of the
+// iterations each codeword runs plus one syndrome pass (about one
+// iteration's reads, no writes) per check; a CTA that finishes early frees
+// its SM slot for the next codeword, so the grid's time follows the mean
+// of the iterations, not their maximum.
 
 #include <cuda_runtime.h>
 
@@ -118,15 +140,71 @@ __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
   }
 }
 
+// One iteration: the serial-C sweep over the mb block rows (layered), or
+// all checks from the posterior and then the posterior rebuilt (flooding).
+// Ends with __syncthreads(), so the posterior is complete on return.
 template <bool kLayered>
-__device__ __forceinline__ void decode(const float* __restrict__ llr,
-                                       float* __restrict__ post_out,
-                                       int8_t* __restrict__ bits_out,
-                                       const int* __restrict__ plan_g,
-                                       const float* __restrict__ ab, int z,
-                                       int mb, int nb, int P, int iterations,
-                                       float clamp) {
+__device__ __forceinline__ void iterate(const Plan& pl, float* msg,
+                                        float* post, const float* l, int z,
+                                        int mb, int n, float alpha,
+                                        float beta, float clamp) {
+  if (kLayered) {
+    for (int i = 0; i < mb; ++i) {
+      for (int r = threadIdx.x; r < z; r += blockDim.x)
+        check_update<true>(pl, msg, post, z, i, r, alpha, beta, clamp);
+      __syncthreads();
+    }
+  } else {
+    for (int c = threadIdx.x; c < mb * z; c += blockDim.x)
+      check_update<false>(pl, msg, post, z, c / z, c % z, alpha, beta,
+                          clamp);
+    __syncthreads();
+    for (int v = threadIdx.x; v < n; v += blockDim.x) {
+      const int j = v / z, q = v % z;
+      float acc = -l[v];
+      for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
+        const int p = pl.col_planes[e];
+        int r = q - pl.plane_shift[p];
+        if (r < 0) r += z;
+        acc = acc + msg[p * z + r];
+      }
+      post[v] = acc;
+    }
+    __syncthreads();
+  }
+}
+
+// This thread's count of unsatisfied checks (its checks c = tid + k*blockDim)
+// for the hard decisions of the posterior (bit 1 where post < 0).
+__device__ __forceinline__ int local_unsat(const Plan& pl, const float* post,
+                                           int z, int mb) {
+  int count = 0;
+  for (int c = threadIdx.x; c < mb * z; c += blockDim.x) {
+    const int i = c / z, r = c % z;
+    int parity = 0;
+    for (int p = pl.row_ptr[i]; p < pl.row_ptr[i + 1]; ++p) {
+      int q = r + pl.plane_shift[p];
+      if (q >= z) q -= z;
+      parity ^= post[pl.plane_col[p] * z + q] < 0.f ? 1 : 0;
+    }
+    count += parity;
+  }
+  return count;
+}
+
+// aux_out: the iterations run (kEarlyStop), else the unsatisfied-check
+// count when not null. done_in: codewords to skip, when not null.
+template <bool kLayered, bool kEarlyStop>
+__device__ __forceinline__ void decode(
+    const float* __restrict__ llr, float* __restrict__ post_out,
+    int8_t* __restrict__ bits_out, const int* __restrict__ done_in,
+    int* __restrict__ aux_out, const int* __restrict__ plan_g,
+    const float* __restrict__ ab, int z, int mb, int nb, int P,
+    int iterations, int check_every, float clamp) {
+  // the flag is the same for the whole CTA, so the return is uniform
+  if (done_in != nullptr && done_in[blockIdx.x] != 0) return;
   extern __shared__ float4 smem_f4[];
+  __shared__ int unsat_sum;
   int* plan = reinterpret_cast<int*>(smem_f4);
   float* msg = reinterpret_cast<float*>(smem_f4) + plan_ints_padded(mb, nb, P);
   const int n = nb * z;
@@ -143,31 +221,36 @@ __device__ __forceinline__ void decode(const float* __restrict__ llr,
   const Plan pl{plan, plan + (mb + 1), plan + (mb + 1) + P,
                 plan + (mb + 1) + 2 * P, plan + (mb + 1) + 2 * P + (nb + 1)};
 
-  for (int it = 0; it < iterations; ++it) {
-    const float alpha = ab[2 * it], beta = ab[2 * it + 1];
-    if (kLayered) {
-      for (int i = 0; i < mb; ++i) {
-        for (int r = threadIdx.x; r < z; r += blockDim.x)
-          check_update<true>(pl, msg, post, z, i, r, alpha, beta, clamp);
-        __syncthreads();
+  if (kEarlyStop) {
+    int ran = iterations;
+    // the vote returns the same value to every thread: `done` is uniform
+    bool done = done_in == nullptr &&
+                !__syncthreads_or(local_unsat(pl, post, z, mb) != 0);
+    if (done) ran = 0;
+    const int rounds = iterations / check_every;
+    for (int r = 0; r < rounds && !done; ++r) {
+      for (int k = 0; k < check_every; ++k) {
+        const int it = r * check_every + k;
+        iterate<kLayered>(pl, msg, post, l, z, mb, n, ab[2 * it],
+                          ab[2 * it + 1], clamp);
       }
-    } else {
-      for (int c = threadIdx.x; c < mb * z; c += blockDim.x)
-        check_update<false>(pl, msg, post, z, c / z, c % z, alpha, beta,
-                            clamp);
-      __syncthreads();
-      for (int v = threadIdx.x; v < n; v += blockDim.x) {
-        const int j = v / z, q = v % z;
-        float acc = -l[v];
-        for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
-          const int p = pl.col_planes[e];
-          int r = q - pl.plane_shift[p];
-          if (r < 0) r += z;
-          acc = acc + msg[p * z + r];
-        }
-        post[v] = acc;
+      if (!__syncthreads_or(local_unsat(pl, post, z, mb) != 0)) {
+        done = true;
+        ran = (r + 1) * check_every;
       }
+    }
+    if (threadIdx.x == 0) aux_out[blockIdx.x] = ran;
+  } else {
+    for (int it = 0; it < iterations; ++it)
+      iterate<kLayered>(pl, msg, post, l, z, mb, n, ab[2 * it],
+                        ab[2 * it + 1], clamp);
+    if (aux_out != nullptr) {
+      const int mine = local_unsat(pl, post, z, mb);
+      if (threadIdx.x == 0) unsat_sum = 0;
       __syncthreads();
+      if (mine != 0) atomicAdd(&unsat_sum, mine);
+      __syncthreads();
+      if (threadIdx.x == 0) aux_out[blockIdx.x] = unsat_sum;
     }
   }
 
@@ -182,38 +265,47 @@ __device__ __forceinline__ void decode(const float* __restrict__ llr,
 
 }  // namespace
 
-__global__ void minsum_qc_flooding(const float* llr, float* post_out,
-                                   int8_t* bits_out, const int* plan,
-                                   const float* ab, int z, int mb, int nb,
-                                   int P, int iterations, float clamp) {
-  decode<false>(llr, post_out, bits_out, plan, ab, z, mb, nb, P, iterations,
-                clamp);
-}
+#define MINSUM_QC_KERNEL(name, layered, early_stop)                          \
+  __global__ void name(const float* llr, float* post_out, int8_t* bits_out, \
+                       const int* done_in, int* aux_out, const int* plan,   \
+                       const float* ab, int z, int mb, int nb, int P,       \
+                       int iterations, int check_every, float clamp) {      \
+    decode<layered, early_stop>(llr, post_out, bits_out, done_in, aux_out,  \
+                                plan, ab, z, mb, nb, P, iterations,         \
+                                check_every, clamp);                        \
+  }
 
-__global__ void minsum_qc_layered(const float* llr, float* post_out,
-                                  int8_t* bits_out, const int* plan,
-                                  const float* ab, int z, int mb, int nb,
-                                  int P, int iterations, float clamp) {
-  decode<true>(llr, post_out, bits_out, plan, ab, z, mb, nb, P, iterations,
-               clamp);
-}
+MINSUM_QC_KERNEL(minsum_qc_flooding, false, false)
+MINSUM_QC_KERNEL(minsum_qc_layered, true, false)
+MINSUM_QC_KERNEL(minsum_qc_flooding_es, false, true)
+MINSUM_QC_KERNEL(minsum_qc_layered_es, true, true)
 
 extern "C" {
 
 // Launches one decode on `stream`: grid = batch CTAs, one codeword each.
 // `out` is int8 hard bits when out_hard != 0, else the f32 posterior in
 // the log(Pr1/Pr0) convention; both (batch, nb*z) row-major. `ab` holds
-// `iterations` rows of (alpha, beta). clamp = +inf for no clamp. Returns
-// the CUDA error code of the launch (0 on success).
-int minsum_qc_decode(int layered, const float* llr, void* out, int out_hard,
-                     const int* plan, const float* ab, int batch, int z,
-                     int mb, int nb, int P, int iterations, float clamp,
-                     cudaStream_t stream) {
+// `iterations` rows of (alpha, beta). clamp = +inf for no clamp.
+// done_in: (batch,) int32 flags of codewords to skip, or null. aux_out:
+// (batch,) int32, the iterations run when early_stop != 0 (then required),
+// else the unsatisfied-check counts, or null. check_every must divide
+// iterations. Returns the CUDA error code of the launch (0 on success).
+int minsum_qc_decode(int layered, int early_stop, const float* llr,
+                     void* out, int out_hard, const int* done_in,
+                     int* aux_out, const int* plan, const float* ab,
+                     int batch, int z, int mb, int nb, int P, int iterations,
+                     int check_every, float clamp, cudaStream_t stream) {
+  using Kernel = void (*)(const float*, float*, int8_t*, const int*, int*,
+                          const int*, const float*, int, int, int, int, int,
+                          int, float);
+  const Kernel fn = layered ? (early_stop ? minsum_qc_layered_es
+                                          : minsum_qc_layered)
+                            : (early_stop ? minsum_qc_flooding_es
+                                          : minsum_qc_flooding);
   const int smem = smem_bytes(z, mb, nb, P);
-  const void* fn = layered ? reinterpret_cast<const void*>(&minsum_qc_layered)
-                           : reinterpret_cast<const void*>(&minsum_qc_flooding);
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      reinterpret_cast<const void*>(fn),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // layered: one thread per check of a block row; flooding: 256 threads
   // stride over the checks, then over the variables
@@ -221,13 +313,9 @@ int minsum_qc_decode(int layered, const float* llr, void* out, int out_hard,
   if (threads > 1024) threads = 1024;
   float* post_out = out_hard ? nullptr : static_cast<float*>(out);
   int8_t* bits_out = out_hard ? static_cast<int8_t*>(out) : nullptr;
-  if (layered) {
-    minsum_qc_layered<<<batch, threads, smem, stream>>>(
-        llr, post_out, bits_out, plan, ab, z, mb, nb, P, iterations, clamp);
-  } else {
-    minsum_qc_flooding<<<batch, threads, smem, stream>>>(
-        llr, post_out, bits_out, plan, ab, z, mb, nb, P, iterations, clamp);
-  }
+  fn<<<batch, threads, smem, stream>>>(llr, post_out, bits_out, done_in,
+                                       aux_out, plan, ab, z, mb, nb, P,
+                                       iterations, check_every, clamp);
   return static_cast<int>(cudaGetLastError());
 }
 

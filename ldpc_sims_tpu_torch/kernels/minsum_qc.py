@@ -1,16 +1,22 @@
-"""CUDA QC-LDPC min-sum decode kernels and their ctypes wrapper.
+"""CUDA QC-LDPC min-sum decode kernels, their ctypes wrapper and the
+two early-stop drivers.
 
 The port of the Pallas kernel ``bp_qc_pallas``
-(``ldpc_sims_tpu/kernels/minsum_qc.py:603-810``) in its two fixed-iteration
-min-sum forms: ``minsum_qc_flooding`` and ``minsum_qc_layered``, both in
-``csrc/minsum_qc.cu`` (its header says how they work and what bounds them
-on the H100). The source is compiled with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` of the checkout on first use and loaded with ctypes.
+(``ldpc_sims_tpu/kernels/minsum_qc.py:603-810``) in its min-sum forms:
+``minsum_qc_flooding`` and ``minsum_qc_layered`` (fixed iterations, with
+the optional ``done_in`` skip and ``hard_unsat`` count), and
+``minsum_qc_flooding_es`` and ``minsum_qc_layered_es`` (per-codeword early
+stop), all in ``csrc/minsum_qc.cu`` (its header says how they work and
+what bounds them on the H100). The source is compiled with ``nvcc`` for
+``sm_90a`` into ``build/kernels/`` of the checkout on first use and
+loaded with ctypes. The drivers :func:`bp_qc_requeue` and
+:func:`bp_qc_probe_requeue` port the JAX functions of the same names
+(``:820-901``, ``:912-1053``).
 
-:func:`bp_qc_cuda` launches the kernel for a CUDA tensor and runs the
-plain version (:func:`..ops.bp_roll.decode_roll`) for a CPU tensor;
-nothing else selects the plain version. ``LAUNCHES`` counts the kernel
-launches per kernel name.
+:func:`bp_qc_cuda` launches a kernel for a CUDA tensor and runs the
+plain version (:func:`..ops.bp_roll.decode_roll`) for a CPU tensor, and
+so do the drivers through it; nothing else selects the plain version.
+``LAUNCHES`` counts the kernel launches per kernel name.
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ __all__ = [
     "KERNELS",
     "SOURCE",
     "bp_qc_cuda",
+    "bp_qc_probe_requeue",
+    "bp_qc_requeue",
     "build",
+    "probe_capacity",
     "minsum_qc_cuda",
     "reset_launch_counts",
     "smem_bytes",
@@ -48,12 +57,20 @@ NVCC_FLAGS = (
     # no fused multiply-add: keeps the arithmetic equal to the plain version
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-# kernel name per schedule
-KERNELS = {"flooding": "minsum_qc_flooding", "layered": "minsum_qc_layered"}
+# kernel name per (schedule, early_stop)
+KERNELS = {
+    ("flooding", False): "minsum_qc_flooding",
+    ("layered", False): "minsum_qc_layered",
+    ("flooding", True): "minsum_qc_flooding_es",
+    ("layered", True): "minsum_qc_layered_es",
+}
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNELS.values()}
 # dynamic shared memory one H100 CTA may use
 _SMEM_LIMIT = 232_448
+# the JAX pallas backend pads the batch to 128 lanes (ldpc_sims_tpu/ops/
+# bp.py:608-615); the probe driver's overflow rule depends on it
+_JAX_TILE = 128
 
 
 def reset_launch_counts() -> None:
@@ -101,8 +118,8 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.minsum_qc_decode.argtypes = [
-        i32, vp, vp, i32, vp, vp, i32, i32, i32, i32, i32, i32,
-        ctypes.c_float, vp,
+        i32, i32, vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+        i32, ctypes.c_float, vp,
     ]
     lib.minsum_qc_decode.restype = i32
     lib.minsum_qc_error_string.argtypes = [i32]
@@ -164,36 +181,79 @@ def bp_qc_cuda(
     clamp: float | None = None,
     schedule: str = "flooding",
     output: str = "hard",
-) -> torch.Tensor:
+    early_stop: bool = False,
+    es_check_every: int = 1,
+    done_in: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
+):
     """(batch, n) f32 channel LLRs (log Pr1/Pr0) → hard bits or posterior.
 
-    Min-sum, ``iterations`` fixed; ``alpha``/``beta`` scalars or
-    length-``iterations`` tuples (a frozen per-iteration schedule);
-    ``clamp`` bounds each c2v message; ``schedule`` 'flooding' or
-    'layered' (serial-C); ``output`` 'hard' (int8 bits) or 'posterior'
-    (f32, log(Pr1/Pr0)). Any batch size ≥ 1 works.
+    Min-sum; ``alpha``/``beta`` scalars or length-``iterations`` tuples
+    (a frozen per-iteration schedule); ``clamp`` bounds each c2v message;
+    ``schedule`` 'flooding' or 'layered' (serial-C). ``output``: 'hard'
+    (int8 bits), 'posterior' (f32, log(Pr1/Pr0)), 'hard_unsat' ((bits,
+    (batch,) int32 unsatisfied-check counts) after a fixed decode) or,
+    with ``early_stop``, 'hard_iters' ((bits, (batch,) int32 iterations
+    run)). ``early_stop``: each codeword stops at its first
+    syndrome-satisfying state, checked at entry and every
+    ``es_check_every`` iterations (K must divide ``iterations``).
+    ``done_in``: (batch,) mask of codewords not to decode: their rows of
+    the output are not written (unspecified in a fresh output) and, under
+    early stop, their iteration count is 0. ``out``: an optional (batch,
+    n) output buffer to write into. Any batch size ≥ 1 works.
     """
-    if schedule not in KERNELS:
+    if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if output not in ("hard", "posterior"):
-        raise ValueError(f"kernel output must be 'hard' or 'posterior', "
-                         f"got {output!r}")
+    if output not in ("hard", "posterior", "hard_iters", "hard_unsat"):
+        raise ValueError(f"kernel output must be 'hard' or 'posterior', or "
+                         f"'hard_iters'/'hard_unsat', got {output!r}")
+    if output == "hard_iters" and not early_stop:
+        raise ValueError("output='hard_iters' requires early_stop=True")
+    if output == "hard_unsat" and early_stop:
+        raise ValueError(
+            "output='hard_unsat' is the fixed-decode fused-syndrome path; "
+            "early_stop computes syndromes already"
+        )
+    if es_check_every < 1 or iterations % es_check_every:
+        raise ValueError(
+            f"es_check_every={es_check_every} must divide "
+            f"iterations={iterations}"
+        )
     if isinstance(alpha, list):
         alpha = tuple(alpha)
     if isinstance(beta, list):
         beta = tuple(beta)
     _ab_table(alpha, beta, iterations)  # validates tuple lengths
+    B = llr.shape[0]
+    if done_in is not None and tuple(done_in.shape) != (B,):
+        raise ValueError(f"done_in must have shape ({B},)")
+    hard = output != "posterior"
+    out_dtype = torch.int8 if hard else torch.float32
+    if out is not None and (out.shape != llr.shape or out.dtype != out_dtype
+                            or out.device != llr.device
+                            or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous {out_dtype} tensor of shape "
+            f"{tuple(llr.shape)} on {llr.device}"
+        )
     if llr.device.type == "cpu":
-        return decode_roll(llr, qc, iterations=iterations, alpha=alpha,
-                           beta=beta, clamp=clamp, output=output,
-                           schedule=schedule)
+        res = decode_roll(llr, qc, iterations=iterations, alpha=alpha,
+                          beta=beta, clamp=clamp, output=output,
+                          schedule=schedule, early_stop=early_stop,
+                          es_check_every=es_check_every, done_in=done_in)
+        if out is None:
+            return res
+        main = res[0] if isinstance(res, tuple) else res
+        rows = slice(None) if done_in is None else ~done_in.bool()
+        out[rows] = main[rows]
+        return (out, res[1]) if isinstance(res, tuple) else out
     if llr.device.type != "cuda":
         raise ValueError(f"no decode kernel for device {llr.device}")
     if llr.dtype != torch.float32:
         raise ValueError(f"llr must be float32, got {llr.dtype}")
     if llr.dim() != 2 or llr.shape[1] != qc.nb * qc.z:
         raise ValueError("llr width does not match the QC code")
-    if llr.shape[0] < 1:
+    if B < 1:
         raise ValueError("empty batch")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
@@ -204,25 +264,141 @@ def bp_qc_cuda(
             f"the {_SMEM_LIMIT} B a CTA can have"
         )
     plan, ab = _device_tables(qc, alpha, beta, iterations, str(llr.device))
-    B, n = llr.shape
-    hard = output == "hard"
-    out = torch.empty((B, n), dtype=torch.int8 if hard else torch.float32,
-                      device=llr.device)
+    if out is None:
+        out = torch.empty(llr.shape, dtype=out_dtype, device=llr.device)
+    flags = None
+    if done_in is not None:
+        flags = done_in.to(device=llr.device, dtype=torch.int32).contiguous()
+    aux = None
+    if early_stop or output == "hard_unsat":
+        # zeros: a skipped codeword reports 0 iterations
+        aux = torch.zeros(B, dtype=torch.int32, device=llr.device)
     lib = _library()
     stream = torch.cuda.current_stream(llr.device).cuda_stream
     P = len(qc_plan(qc)[0])
     err = lib.minsum_qc_decode(
-        int(schedule == "layered"), llr.data_ptr(), out.data_ptr(),
-        int(hard), plan.data_ptr(), ab.data_ptr(), B, qc.z, qc.mb, qc.nb,
-        P, iterations, math.inf if clamp is None else float(clamp), stream,
+        int(schedule == "layered"), int(early_stop), llr.data_ptr(),
+        out.data_ptr(), int(hard),
+        None if flags is None else flags.data_ptr(),
+        None if aux is None else aux.data_ptr(),
+        plan.data_ptr(), ab.data_ptr(), B, qc.z, qc.mb, qc.nb, P,
+        iterations, es_check_every,
+        math.inf if clamp is None else float(clamp), stream,
     )
+    name = KERNELS[schedule, bool(early_stop)]
     if err != 0:
         msg = lib.minsum_qc_error_string(err).decode()
-        raise RuntimeError(f"{KERNELS[schedule]} launch failed: {msg}")
-    LAUNCHES[KERNELS[schedule]] += 1
+        raise RuntimeError(f"{name} launch failed: {msg}")
+    LAUNCHES[name] += 1
+    if output in ("hard_iters", "hard_unsat"):
+        return out, aux
     return out
 
 
 def minsum_qc_cuda(llr, qc, **kw):
     """Alias of :func:`bp_qc_cuda` (the JAX package's ``minsum_qc_pallas``)."""
     return bp_qc_cuda(llr, qc, **kw)
+
+
+def bp_qc_requeue(
+    llr: torch.Tensor,
+    qc: QcStructure,
+    iterations: int = 20,
+    probe_iters: int = 4,
+    alpha=1.0,
+    beta=0.0,
+    clamp: float | None = None,
+    es_check_every: int = 2,
+    schedule: str = "flooding",
+    output: str = "hard",
+):
+    """Early-stop decode as an early-stop probe, then a full-budget
+    early-stop pass over the codewords the probe did not finish.
+
+    The JAX function's results: ``done = iters1 < probe_iters``; bits are
+    the probe's where done, else the second pass's; iterations are
+    ``iters1`` where done, else ``probe_iters + iters2``. A frozen
+    per-iteration schedule runs its prefix in the probe. The TPU sorts
+    the converged lanes to the front so that whole tiles skip; a CTA
+    decodes one codeword, so the second pass is one launch over the whole
+    batch with ``done_in = done``, writing straight into the probe's bits.
+    """
+    if output not in ("hard", "hard_iters"):
+        raise ValueError("bp_qc_requeue outputs hard bits only")
+    a_probe = alpha[:probe_iters] if isinstance(alpha, tuple) else alpha
+    b_probe = beta[:probe_iters] if isinstance(beta, tuple) else beta
+    kw = dict(clamp=clamp, schedule=schedule, output="hard_iters",
+              early_stop=True, es_check_every=es_check_every)
+    bits, iters1 = bp_qc_cuda(llr, qc, probe_iters, a_probe, b_probe, **kw)
+    # converged := finished under budget at a checked state; a codeword
+    # that converged exactly at the budget is re-decoded, which is merely
+    # redundant
+    done = iters1 < probe_iters
+    _, iters2 = bp_qc_cuda(llr, qc, iterations, alpha, beta, done_in=done,
+                           out=bits, **kw)
+    if output == "hard_iters":
+        return bits, torch.where(done, iters1, probe_iters + iters2)
+    return bits
+
+
+def probe_capacity(batch: int) -> int:
+    """The JAX probe driver's straggler capacity C for a batch padded to
+    the TPU's lane tile T: ``min(B, max(T, ⌈B/(4·T)⌉·T))``."""
+    padded = -(-batch // _JAX_TILE) * _JAX_TILE
+    return min(padded,
+               max(_JAX_TILE, -(-padded // (4 * _JAX_TILE)) * _JAX_TILE))
+
+
+def bp_qc_probe_requeue(
+    llr: torch.Tensor,
+    qc: QcStructure,
+    iterations: int = 20,
+    probe_iters: int = 6,
+    alpha=1.0,
+    beta=0.0,
+    probe_alpha=None,
+    probe_beta=None,
+    clamp: float | None = None,
+    schedule: str = "layered",
+    output: str = "hard",
+):
+    """Adaptive decode: a fixed ``probe_iters`` probe with the fused
+    unsatisfied-check count, then a fixed full-budget pass over the
+    codewords whose syndrome fails.
+
+    The JAX function's results, its overflow rule included: with C =
+    :func:`probe_capacity` of the batch, ``overflowed = (B − n_done) > C``
+    and on overflow every codeword re-decodes at the full budget (bits
+    from the second pass, ``probe_iters + iterations`` for all);
+    otherwise done codewords keep the probe's bits and report
+    ``probe_iters``. ``overflowed`` is computed on the device and becomes
+    part of the second pass's ``done_in`` mask, so the driver never reads
+    the device from the host. The probe's (α, β) is ``probe_alpha``/
+    ``probe_beta`` or else the full schedule; a tuple of another length
+    than ``probe_iters`` is cut to its first ``probe_iters`` entries, as
+    the JAX function does (silently).
+    """
+    if output not in ("hard", "hard_iters"):
+        raise ValueError("bp_qc_probe_requeue outputs hard bits only")
+    pa = alpha if probe_alpha is None else probe_alpha
+    pb = beta if probe_beta is None else probe_beta
+    for t, nm in ((pa, "es_probe_alpha"), (pb, "es_probe_beta")):
+        if isinstance(t, tuple) and len(t) < probe_iters:
+            raise ValueError(
+                f"{nm} has {len(t)} entries for probe_iters={probe_iters}"
+            )
+    if isinstance(pa, tuple):
+        pa = pa[:probe_iters]
+    if isinstance(pb, tuple):
+        pb = pb[:probe_iters]
+    bits, unsat = bp_qc_cuda(llr, qc, probe_iters, pa, pb, clamp=clamp,
+                             schedule=schedule, output="hard_unsat")
+    done = unsat == 0
+    overflowed = (llr.shape[0] - done.sum()) > probe_capacity(llr.shape[0])
+    keep = done & ~overflowed
+    bp_qc_cuda(llr, qc, iterations, alpha, beta, clamp=clamp,
+               schedule=schedule, done_in=keep, out=bits)
+    if output == "hard_iters":
+        iters = torch.where(keep, probe_iters, probe_iters + iterations)
+        return bits, iters.to(torch.int32)
+    return bits

@@ -1,6 +1,6 @@
 """Plain PyTorch QC-LDPC min-sum decode: the port of ``ops/bp_roll.py``.
 
-This module is the plain version of both CUDA decode kernels
+This module is the plain version of the CUDA decode kernels
 (:mod:`ldpc_sims_tpu_torch.kernels.minsum_qc`): the CPU runs it, the tests
 hold it against the JAX package, and ``chip_smoke.py`` holds each kernel
 against it on the card. It repeats the kernels' arithmetic in the same
@@ -18,9 +18,10 @@ variable ``j·z + (r + s) mod z``. Variable orientation is
 ``roll(·, −s)``. ``torch.roll`` and ``jnp.roll`` shift the same way.
 
 Scope: min-sum with scalar or per-iteration (tuple) α/β, optional clamp,
-flooding and layered (serial-C) schedules, outputs ``hard`` and
-``posterior``. :func:`..ops.bp.bp_decode` rejects what the JAX function
-takes beyond that, naming its ROADMAP item.
+flooding and layered (serial-C) schedules, per-codeword early stop with a
+check stride, a mask of codewords to skip, and the outputs ``hard``,
+``posterior``, ``hard_iters`` and ``hard_unsat``. :func:`..ops.bp.bp_decode`
+rejects what the JAX function takes beyond that, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from ldpc_sims_tpu_torch.codes.library import QcStructure
 
-__all__ = ["decode_roll", "qc_plan"]
+__all__ = ["decode_roll", "qc_plan", "unsat_checks"]
 
 _BIG = 1e30
 
@@ -78,6 +79,20 @@ def _minsum_excl(x: torch.Tensor, alpha, beta) -> torch.Tensor:
     return exsign * torch.clamp_min(exmin - beta, 0.0) * alpha
 
 
+def unsat_checks(post: torch.Tensor, qc: QcStructure) -> torch.Tensor:
+    """(B,) int32 count of unsatisfied checks of the hard decisions of a
+    (B, nb, z) internal posterior (log Pr0/Pr1: bit 1 where post < 0)."""
+    planes, group_c, _ = qc_plan(qc)
+    bits = (post < 0).to(torch.int32)
+    total = torch.zeros(post.shape[0], dtype=torch.int32, device=post.device)
+    for ps in group_c:
+        # check i·z+r sees variable j·z+(r+s): roll the bits by −s
+        par = sum(torch.roll(bits[:, planes[p][1]], -planes[p][2], -1)
+                  for p in ps)
+        total += (par & 1).sum(-1, dtype=torch.int32)
+    return total
+
+
 def decode_roll(
     llr: torch.Tensor,
     qc: QcStructure,
@@ -88,9 +103,12 @@ def decode_roll(
     clamp: float | None = None,
     output: str = "hard",
     schedule: str = "flooding",
+    early_stop: bool = False,
+    es_check_every: int = 1,
+    done_in: torch.Tensor | None = None,
 ):
     """QC-LDPC min-sum decode; the contract of :func:`..ops.bp.bp_decode`
-    for QC codes, outputs 'hard' (int8 bits) and 'posterior'.
+    for QC codes, and of the Pallas kernel's early-stop forms.
 
     llr: (batch, n) channel LLRs, log(Pr1/Pr0) convention, on any device.
     ``alpha``/``beta`` may be length-``iterations`` tuples (a frozen
@@ -101,11 +119,35 @@ def decode_roll(
     and updates every check. ``schedule='layered'``: serial-C over the mb
     block rows, each row reading the current posterior and folding its
     message change back into it.
+
+    ``early_stop``: each codeword freezes at its first syndrome-satisfying
+    state, checked on the channel decisions at entry and after every
+    ``es_check_every``-th iteration (K must divide ``iterations``); its
+    iteration count is 0 at entry, (r+1)·K at the r-th check, and
+    ``iterations`` if it never converges. ``done_in``: optional (batch,)
+    mask of codewords that are not decoded at all; their output is
+    unspecified (zeros here) and, under early stop, their count is 0,
+    and the others skip the entry check.
+
+    Outputs: 'hard' (int8 bits), 'posterior' (f32), 'hard_iters'
+    ((bits, iters), iters constant without early stop) and 'hard_unsat'
+    ((bits, unsat): the count of unsatisfied checks per codeword after a
+    fixed decode; not with early stop).
     """
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if output not in ("hard", "posterior"):
+    if output not in ("hard", "posterior", "hard_iters", "hard_unsat"):
         raise ValueError(f"unknown output {output!r}")
+    if output == "hard_unsat" and early_stop:
+        raise ValueError(
+            "output='hard_unsat' is the fixed-decode fused-syndrome path; "
+            "early_stop computes syndromes already"
+        )
+    if es_check_every < 1 or iterations % es_check_every:
+        raise ValueError(
+            f"es_check_every={es_check_every} must divide "
+            f"iterations={iterations}"
+        )
     z, nb, mb = qc.z, qc.nb, qc.mb
     planes, group_c, group_v = qc_plan(qc)
     P = len(planes)
@@ -134,13 +176,25 @@ def decode_roll(
             y = torch.clamp(y, -clamp, clamp)
         return y
 
-    # internal convention log(Pr0/Pr1), variable-block layout (B, nb, z)
-    Lv = (-llr).to(torch.float32).reshape(B, nb, z)
-    c2v = [torch.zeros((B, z), dtype=torch.float32, device=dev)] * P
+    # The state of the codewords still being decoded: L (nb planes of
+    # (b, z), variable orientation) and c2v (P planes, check orientation).
+    # Layered keeps the running posterior in L; flooding keeps the channel
+    # LLRs there and rebuilds the posterior from c2v. Every operation is
+    # per codeword, so decoding a subset of the rows changes no row.
+    def posterior(L: list, c2v: list) -> torch.Tensor:
+        if schedule == "layered":
+            return torch.stack(L, 1)
+        rows = []
+        for j in range(nb):
+            acc = L[j]
+            for p in group_v[j]:
+                acc = acc + torch.roll(c2v[p], planes[p][2], -1)
+            rows.append(acc)
+        return torch.stack(rows, 1)  # (b, nb, z)
 
-    if schedule == "layered":
-        L = [Lv[:, j] for j in range(nb)]
-        for it in range(iterations):
+    def iterate(L: list, c2v: list, it: int) -> tuple[list, list]:
+        if schedule == "layered":
+            L, c2v = list(L), list(c2v)
             for i in range(mb):
                 ps = group_c[i]
                 xs = torch.stack([
@@ -152,19 +206,8 @@ def decode_roll(
                     _, j, s = planes[p]
                     L[j] = L[j] + torch.roll(y[k] - c2v[p], s, -1)
                     c2v[p] = y[k]
-        return _emit(torch.stack(L, 1), output, n)
-
-    def posterior(c2v: list) -> torch.Tensor:
-        rows = []
-        for j in range(nb):
-            acc = Lv[:, j]
-            for p in group_v[j]:
-                acc = acc + torch.roll(c2v[p], planes[p][2], -1)
-            rows.append(acc)
-        return torch.stack(rows, 1)  # (B, nb, z)
-
-    for it in range(iterations):
-        post = posterior(c2v)
+            return L, c2v
+        post = posterior(L, c2v)
         new: list = [None] * P
         for i in range(mb):
             ps = group_c[i]
@@ -175,13 +218,60 @@ def decode_roll(
             y = excl_update(xs, it)
             for k, p in enumerate(ps):
                 new[p] = y[k]
-        c2v = new
-    return _emit(posterior(c2v), output, n)
+        return L, new
+
+    # internal convention log(Pr0/Pr1), variable-block layout (B, nb, z)
+    Lv = (-llr).to(torch.float32).reshape(B, nb, z)
+    idx = torch.arange(B, device=dev)
+    if done_in is not None:
+        done_in = done_in.to(device=dev, dtype=torch.bool).reshape(B)
+        idx = idx[~done_in]
+    L = [Lv[idx, j] for j in range(nb)]
+    c2v = [torch.zeros((idx.numel(), z), dtype=torch.float32,
+                       device=dev)] * P
+    post = torch.zeros((B, nb, z), dtype=torch.float32, device=dev)
+    iters = torch.full((B,), iterations, dtype=torch.int32, device=dev)
+
+    if not early_stop:
+        for it in range(iterations):
+            L, c2v = iterate(L, c2v, it)
+        post[idx] = posterior(L, c2v)
+        return _emit(post, output, n, iters, qc)
+
+    if done_in is not None:
+        iters[done_in] = 0
+
+    def retire(L, c2v, idx, count):
+        """Freeze the codewords whose syndrome holds at this state."""
+        p = posterior(L, c2v)
+        ok = unsat_checks(p, qc) == 0
+        post[idx[ok]] = p[ok]
+        iters[idx[ok]] = count
+        go = ~ok
+        return [x[go] for x in L], [x[go] for x in c2v], idx[go]
+
+    K = es_check_every
+    if done_in is None:
+        L, c2v, idx = retire(L, c2v, idx, 0)
+    for r in range(iterations // K):
+        if idx.numel() == 0:
+            break
+        for kk in range(K):
+            L, c2v = iterate(L, c2v, r * K + kk)
+        L, c2v, idx = retire(L, c2v, idx, (r + 1) * K)
+    post[idx] = posterior(L, c2v)
+    return _emit(post, output, n, iters, qc)
 
 
-def _emit(post: torch.Tensor, output: str, n: int):
+def _emit(post: torch.Tensor, output: str, n: int, iters: torch.Tensor,
+          qc: QcStructure):
     """(B, nb, z) internal posterior log(Pr0/Pr1) → requested output."""
     B = post.shape[0]
     if output == "posterior":
         return (-post).reshape(B, n)
-    return (post < 0).to(torch.int8).reshape(B, n)
+    bits = (post < 0).to(torch.int8).reshape(B, n)
+    if output == "hard_iters":
+        return bits, iters
+    if output == "hard_unsat":
+        return bits, unsat_checks(post, qc)
+    return bits

@@ -20,6 +20,10 @@ from ldpc_sims_tpu_torch.ops.encode import encode
 __all__ = ["LinkConfig", "link_step", "BITS_PER_SYMBOL"]
 
 BITS_PER_SYMBOL = {"bpsk": 1, "qpsk": 2, "qam16": 4}
+_MODULATE = {"bpsk": phy.modulate_bpsk, "qpsk": phy.modulate_qpsk,
+             "qam16": phy.modulate_qam16}
+_LLR = {"bpsk": phy.bpsk_llr, "qpsk": phy.demodulate_qpsk_llr,
+        "qam16": phy.qam16_llr}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +70,8 @@ class LinkConfig:
 
 
 def _check_ported(cfg: LinkConfig, weights) -> None:
-    if cfg.modulation not in ("bpsk", "qpsk"):
-        raise NotImplementedError(
-            f"modulation {cfg.modulation!r} is not ported yet (ROADMAP A5)"
-        )
+    if cfg.modulation not in BITS_PER_SYMBOL:
+        raise ValueError(f"unknown modulation {cfg.modulation!r}")
     if cfg.qbits is not None:
         raise NotImplementedError(
             "the quantized-ADC branch (qbits) is not ported yet (ROADMAP A5)"
@@ -120,8 +122,7 @@ def link_step(
 
     info = phy.random_bits(gen, (batch_cw, k))
     coded = encode(info, code)
-    mod = phy.modulate_qpsk if cfg.modulation == "qpsk" else phy.modulate_bpsk
-    tx_sym = mod(coded)  # (B, S)
+    tx_sym = _MODULATE[cfg.modulation](coded)  # (B, S)
 
     tx_time = phy.ofdm_modulate(tx_sym.reshape(rows, -1), cfg.ofdm_size)
     if cfg.cyclic_prefix:
@@ -135,9 +136,7 @@ def link_step(
     if cfg.cyclic_prefix:
         rx = phy.remove_cyclic_prefix(rx, cfg.cyclic_prefix)
     rx_sym = phy.ofdm_demodulate(rx)  # (rows, g·S)
-    llr_fn = (phy.demodulate_qpsk_llr if cfg.modulation == "qpsk"
-              else phy.bpsk_llr)
-    llrs = llr_fn(rx_sym, snr).reshape(batch_cw, n)
+    llrs = _LLR[cfg.modulation](rx_sym, snr).reshape(batch_cw, n)
 
     bits_est = bp_decode(
         llrs,
@@ -149,6 +148,10 @@ def link_step(
         clamp=cfg.clamp,
         early_stop=cfg.early_stop,
         es_mode=cfg.es_mode,
+        es_check_every=cfg.es_check_every,
+        es_probe_iters=cfg.es_probe_iters,
+        es_probe_alpha=cfg.es_probe_alpha,
+        es_probe_beta=cfg.es_probe_beta,
         layered_group=cfg.bp_layered_group,
         msg_qbits=cfg.msg_qbits,
         output="hard",

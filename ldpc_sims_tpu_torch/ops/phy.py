@@ -2,12 +2,12 @@
 
 Shapes and conventions are the JAX package's: bits and LLR streams are
 ``(batch, num)``; OFDM symbol blocks ``(batch, n_sym, ofdm_size)``,
-complex64. QPSK Gray map (b0, b1) → ((1−2 b0) + j(1−2 b1))/√2; AWGN with
-per-complex-component σ² = 1/(2·snr), snr the linear symbol SNR; exact
-per-bit Gaussian LLRs in the log(Pr1/Pr0) convention; unitary DFTs.
-Randomness comes from an explicit ``torch.Generator`` and lands on its
-device. The quantizer, the AGCs and 16-QAM are not ported yet
-(ROADMAP A5).
+complex64. QPSK Gray map (b0, b1) → ((1−2 b0) + j(1−2 b1))/√2; 16-QAM
+Gray map per axis (s, m) → (1−2s)(3−2m)/√10; AWGN with per-complex-component
+σ² = 1/(2·snr), snr the linear symbol SNR; exact per-bit Gaussian LLRs in
+the log(Pr1/Pr0) convention; unitary DFTs. Randomness comes from an
+explicit ``torch.Generator`` and lands on its device. The quantizer and
+the AGCs are not ported yet (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ __all__ = [
     "demodulate_qpsk_llr",
     "modulate_bpsk",
     "bpsk_llr",
+    "modulate_qam16",
+    "qam16_llr",
     "ofdm_modulate",
     "ofdm_demodulate",
     "awgn",
@@ -69,6 +71,54 @@ def bpsk_llr(sym: torch.Tensor, snr) -> torch.Tensor:
     noise_power = 0.5 * (1.0 / snr)
     re = sym.real
     return ((re - 1.0) ** 2 - (re + 1.0) ** 2) / (2.0 * noise_power)
+
+
+def _inv_sqrt10(device) -> torch.Tensor:
+    """1/√10 rounded as the JAX package rounds it (f32 sqrt, f32 divide)."""
+    return 1.0 / torch.sqrt(torch.tensor(10.0, device=device))
+
+
+def modulate_qam16(bits: torch.Tensor) -> torch.Tensor:
+    """(batch, 4S) bits → (batch, S) Gray-mapped 16-QAM, unit energy.
+
+    Per axis, bits (s, m): level = (1−2s)·(3−2m)/√10 (s the sign bit, m
+    the magnitude bit)."""
+    b = bits.reshape(bits.shape[0], -1, 4).to(torch.float32)
+    scale = _inv_sqrt10(bits.device)
+    re = (1.0 - 2.0 * b[..., 0]) * (3.0 - 2.0 * b[..., 1]) * scale
+    im = (1.0 - 2.0 * b[..., 2]) * (3.0 - 2.0 * b[..., 3]) * scale
+    return torch.complex(re, im)
+
+
+def qam16_llr(sym: torch.Tensor, snr) -> torch.Tensor:
+    """Exact 16-QAM LLRs, log(Pr1/Pr0), σ² = 1/(2 snr) per component.
+
+    Full enumeration over the 4 levels of each axis with an exact
+    log-sum-exp (not max-log)."""
+    dev = sym.device
+    snr = torch.as_tensor(snr, dtype=torch.float32, device=dev)
+    noise_power = torch.broadcast_to(0.5 * (1.0 / snr), sym.shape)
+    levels = torch.tensor([-3.0, -1.0, 1.0, 3.0], device=dev) \
+        * _inv_sqrt10(dev)
+    # the Gray map's bits per level: -3: s=1,m=0; -1: s=1,m=1;
+    # +1: s=0,m=1; +3: s=0,m=0
+    s_bit = torch.tensor([True, True, False, False], device=dev)
+    m_bit = torch.tensor([False, True, True, False], device=dev)
+    ninf = torch.tensor(-torch.inf, device=dev)
+
+    def axis_llrs(r):
+        d = -((r[..., None] - levels) ** 2) / (2.0 * noise_power[..., None])
+
+        def bit_llr(bit_of_level):
+            on = torch.logsumexp(torch.where(bit_of_level, d, ninf), -1)
+            off = torch.logsumexp(torch.where(bit_of_level, ninf, d), -1)
+            return on - off
+
+        return bit_llr(s_bit), bit_llr(m_bit)
+
+    l0, l1 = axis_llrs(sym.real)
+    l2, l3 = axis_llrs(sym.imag)
+    return torch.stack([l0, l1, l2, l3], dim=-1).reshape(sym.shape[0], -1)
 
 
 def ofdm_modulate(symbols: torch.Tensor, ofdm_size: int) -> torch.Tensor:

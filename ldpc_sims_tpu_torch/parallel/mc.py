@@ -155,19 +155,43 @@ def run_sweep(
     — an interrupted sweep resumes from it (finished points are skipped).
     Manifest writes happen at most every ``save_every_s`` seconds and at
     point boundaries. ``metrics``: optional object with
-    ``log(event, **fields)`` receiving one event per step and per finished
-    point. ``device``: where the steps run (``'cuda'`` by default).
+    ``log(event, **fields)`` receiving one event per step, per finished
+    point and per ``es_mode='auto'`` choice (``es-auto``, with each
+    mode's calibration time in seconds). ``device``: where the steps run
+    (``'cuda'`` by default). With ``early_stop`` and ``es_mode='auto'``,
+    each point times the fixed decode against ``es_mode='probe'`` on its
+    first chunks and keeps the faster (``es_auto_mode`` in the manifest;
+    a resumed point reuses it).
     """
-    if link_cfg.es_mode == "auto":
-        if link_cfg.early_stop:
-            raise NotImplementedError(
-                "es_mode='auto' times the fixed decode against the "
-                "early-stop probe decode, which is not ported yet "
-                "(ROADMAP B3 and B4)"
-            )
-        link_cfg = dataclasses.replace(link_cfg, es_mode="freeze")
-    step = mc_step(code, link_cfg, sweep.batch_cw, mesh, weights,
-                   steps_per_sync=sweep.steps_per_sync, device=device)
+    if link_cfg.es_mode == "auto" and link_cfg.early_stop:
+        # the adaptive decode's dispatch: the probe decode beats the fixed
+        # decode above an SNR-dependent crossover and loses below it, so
+        # 'auto' times both on each point's first chunks (each mode warmed
+        # once per sweep first) and keeps the faster, recorded per point
+        # in the manifest as es_auto_mode. Every calibration chunk's
+        # counts accumulate into the point, as in the JAX package (both
+        # decoders give full-budget-grade BER: stragglers re-decode at the
+        # full budget). The choice rests on this process's clocks.
+        steps = {
+            "fixed": mc_step(
+                code, dataclasses.replace(link_cfg, early_stop=False,
+                                          es_mode="freeze"),
+                sweep.batch_cw, mesh, weights,
+                steps_per_sync=sweep.steps_per_sync, device=device),
+            "probe": mc_step(
+                code, dataclasses.replace(link_cfg, es_mode="probe"),
+                sweep.batch_cw, mesh, weights,
+                steps_per_sync=sweep.steps_per_sync, device=device),
+        }
+    else:
+        if link_cfg.es_mode == "auto":  # auto without early_stop
+            link_cfg = dataclasses.replace(link_cfg, es_mode="freeze")
+        # the one mode's name, as the step events report it
+        only = link_cfg.es_mode if link_cfg.early_stop else "fixed"
+        steps = {only: mc_step(code, link_cfg, sweep.batch_cw, mesh, weights,
+                               steps_per_sync=sweep.steps_per_sync,
+                               device=device)}
+    warmed: set[str] = set()
     timer = PhaseTimer()  # first step vs steady-state split
 
     state: dict[str, Any] = {"points": {}}
@@ -200,17 +224,39 @@ def run_sweep(
             pkey, {k: 0.0 for k in _COUNT_KEYS} | {"steps": 0, "wall_s": 0.0}
         )
         point_seed = stable_seed(sweep.seed, i)
+        chosen = acc.get("es_auto_mode") if len(steps) > 1 else next(
+            iter(steps))
+        timings: dict[str, float] = {}
 
         while not _point_done(acc, sweep):
+            if chosen is not None:
+                mode = chosen
+            else:  # calibration: warm each mode once, then time each
+                mode = next(m for m in steps if m not in timings)
             seed = stable_seed(point_seed, int(acc["steps"]))
             phase = "first-step" if not timer.counts else "steady-step"
             t0 = time.perf_counter()
             with timer.phase(phase):
-                out = step(seed, snrdb)
+                out = steps[mode](seed, snrdb)
                 # one host read of the chunk's counts
                 vals = torch.stack([out[k] for k in _COUNT_KEYS]).tolist()
                 counts = {k: float(v) for k, v in zip(_COUNT_KEYS, vals)}
             dt = time.perf_counter() - t0
+            if chosen is None:
+                if mode in warmed:
+                    timings[mode] = dt
+                    if len(timings) == len(steps):
+                        chosen = min(timings, key=timings.get)
+                        acc["es_auto_mode"] = chosen
+                        if log:
+                            t = ", ".join(f"{m}: {v * 1e3:.1f} ms"
+                                          for m, v in timings.items())
+                            log(f"es auto @{snrdb:g} dB: {t} -> {chosen}")
+                        if metrics is not None:
+                            metrics.log("es-auto", snrdb=float(snrdb),
+                                        mode=chosen, **timings)
+                else:
+                    warmed.add(mode)
             acc["wall_s"] += dt
             for k in _COUNT_KEYS:
                 acc[k] += counts[k]
@@ -218,7 +264,7 @@ def run_sweep(
             state["points"][pkey] = acc
             if metrics is not None:
                 metrics.log("sweep-step", snrdb=float(snrdb), wall_s=dt,
-                            **counts)
+                            mode=mode, **counts)
             if time.perf_counter() - last_save >= save_every_s:
                 save()
                 last_save = time.perf_counter()

@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -21,12 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from ldpc_sims_tpu.cli.main import PRESETS as JAX_PRESETS
 from ldpc_sims_tpu.codes import get_code as jax_get_code
 from ldpc_sims_tpu.ops import LinkConfig as JaxLinkConfig
 from ldpc_sims_tpu.ops import encode as jax_encode
 from ldpc_sims_tpu.ops import link_step as jax_link_step
 from ldpc_sims_tpu.ops import phy as jax_phy
 from ldpc_sims_tpu_torch.codes import get_code
+from ldpc_sims_tpu_torch.cli.main import PRESETS
 from ldpc_sims_tpu_torch.cli.main import main as cli_main
 from ldpc_sims_tpu_torch.ops import LinkConfig, encode, link_step, phy
 from ldpc_sims_tpu_torch.parallel import SweepConfig, mc_step, run_sweep
@@ -94,6 +97,57 @@ def test_awgn_and_bits_statistics():
         assert abs(float(part.var()) - 1 / (2 * snr)) < 0.01
 
 
+def test_qam16_matches_jax():
+    """Gray 16-QAM and its exact log-sum-exp LLRs, on shared inputs."""
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2, (8, 512)).astype(np.int8)
+    sym = phy.modulate_qam16(torch.from_numpy(bits))
+    jsym = np.asarray(jax_phy.modulate_qam16(jnp.asarray(bits)))
+    np.testing.assert_allclose(sym.numpy(), jsym, rtol=1e-5, atol=1e-5)
+    assert abs(float((sym.abs() ** 2).mean()) - 1.0) < 0.05
+    for snrdb in (4.0, 12.0):
+        snr = np.float32(10 ** (snrdb / 10))
+        sigma = 1.0 / np.sqrt(2.0 * snr)
+        noise = (sigma * (rng.normal(size=sym.shape)
+                          + 1j * rng.normal(size=sym.shape))).astype(
+            np.complex64)
+        rx = jsym + noise
+        llr = phy.qam16_llr(torch.from_numpy(rx), torch.tensor(snr))
+        jllr = np.asarray(jax_phy.qam16_llr(jnp.asarray(rx),
+                                            jnp.asarray(snr)))
+        assert llr.shape == (8, 512)
+        np.testing.assert_allclose(llr.numpy(), jllr, rtol=1e-5, atol=1e-5)
+    # noiseless: every LLR has the sign of its bit
+    clean = phy.qam16_llr(sym, torch.tensor(10.0))
+    np.testing.assert_array_equal((clean > 0).numpy(), bits == 1)
+
+
+def test_link_step_qam16_probe_frame_errors_match_jax():
+    """wifi648, 16-QAM over OFDM-64, layered-8 with es_mode='probe' at
+    7 dB, 256 codewords: frame errors within the binomial 4σ bound of
+    their difference, and the 16-QAM uncoded BER within 4σ of theory."""
+    batch, snrdb = 256, 7.0
+    kw = dict(modulation="qam16", ofdm_size=64, bp_iterations=8,
+              bp_method="min-sum", clamp=None, bp_schedule="layered",
+              early_stop=True, es_mode="probe", es_probe_iters=3)
+    jout = jax_link_step(jax.random.key(1), jnp.float32(snrdb),
+                         jax_get_code("wifi648"), JaxLinkConfig(**kw), batch)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    out = link_step(gen, snrdb, get_code("wifi648"), LinkConfig(**kw),
+                    batch)
+    f_jax, f_ours = int(jout["frame_errors"]), int(out["frame_errors"])
+    p = (f_jax + f_ours) / (2 * batch)
+    assert 0.2 < p < 0.8
+    assert abs(f_jax - f_ours) <= 4 * math.sqrt(2 * batch * p * (1 - p))
+    x = math.sqrt(10 ** (snrdb / 10) / 5)
+    q = lambda t: 0.5 * math.erfc(t / math.sqrt(2))  # noqa: E731
+    theory = (3 * q(x) + 2 * q(3 * x) - q(5 * x)) / 4
+    nbits = batch * 648
+    ber = int(out["uncoded_bit_errors"]) / nbits
+    assert abs(ber - theory) < 4 * math.sqrt(theory * (1 - theory) / nbits)
+
+
 def test_link_step_frame_errors_match_jax():
     """wifi1944 flooding-20 at 1.5 dB, 256 codewords: frame-error counts
     agree within the binomial 4σ bound of their difference."""
@@ -133,7 +187,6 @@ def test_link_step_arrays_and_grouping():
 
 
 @pytest.mark.parametrize("over, match", [
-    (dict(modulation="qam16"), "ROADMAP A5"),
     (dict(qbits=3), "ROADMAP A5"),
     (dict(snr_per_symbol=True), "ROADMAP A5"),
 ])
@@ -192,11 +245,83 @@ def test_mc_step_chunk_and_guard():
         mc_step(code, SMALL, 8, mesh=object(), device="cpu")
 
 
-def test_sweep_es_auto_needs_early_stop_port():
-    cfg = LinkConfig(bp_method="min-sum", early_stop=True, es_mode="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        run_sweep(get_code("wifi648"), cfg, SweepConfig(snrdb=(1.0,)),
-                  log=None, device="cpu")
+class Events:
+    def __init__(self):
+        self.steps, self.auto = [], []
+
+    def log(self, event, **fields):
+        if event == "sweep-step":
+            self.steps.append(fields["mode"])
+        elif event == "es-auto":
+            self.auto.append(fields)
+
+
+def test_sweep_es_auto_needs_early_stop_port(tmp_path):
+    """es_mode='auto' calibrates only with early stop: without it the
+    sweep runs the fixed decode alone and records no choice."""
+    cfg = dataclasses.replace(SMALL, es_mode="auto")
+    sweep = SweepConfig(snrdb=(2.0,), batch_cw=16, max_info_bits=8000,
+                        min_info_bits=0, target_frame_errors=10**9)
+    path = str(tmp_path / "m.json")
+    seen = Events()
+    run_sweep(get_code("wifi648"), cfg, sweep, manifest_path=path,
+              log=None, metrics=seen, device="cpu")
+    assert seen.steps == ["fixed", "fixed"] and seen.auto == []
+    with open(path) as f:
+        assert "es_auto_mode" not in json.load(f)["points"]["2"]
+
+
+def test_sweep_es_auto_calibrates_and_resumes(tmp_path, monkeypatch):
+    """With early stop, each point warms each mode once per sweep, times
+    both, keeps the faster and records it; every calibration chunk's
+    counts go into the point (the JAX package's behaviour, ROADMAP §C); a
+    resumed point reuses the recorded mode without calibrating."""
+    import ldpc_sims_tpu_torch.parallel.mc as mc
+
+    build = mc.mc_step
+
+    def slow_probe(code, cfg, *a, **kw):
+        step = build(code, cfg, *a, **kw)
+        if cfg.es_mode != "probe":
+            return step
+
+        def run(seed, snrdb):
+            time.sleep(0.3)  # the probe decode loses every calibration
+            return step(seed, snrdb)
+        return run
+
+    monkeypatch.setattr(mc, "mc_step", slow_probe)
+    cfg = dataclasses.replace(SMALL, bp_schedule="layered", early_stop=True,
+                              es_mode="auto", es_probe_iters=1)
+    code = get_code("wifi648")
+    chunk = 16 * code.k
+    sweep = SweepConfig(snrdb=(2.0, 3.0), batch_cw=16,
+                        max_info_bits=5 * chunk, min_info_bits=0,
+                        target_frame_errors=10**9)
+    path = str(tmp_path / "m.json")
+    seen = Events()
+    run_sweep(code, cfg, sweep, manifest_path=path, log=None,
+              metrics=seen, device="cpu")
+    # point 1 warms and times both modes; point 2 only times them
+    assert seen.steps == ["fixed", "fixed", "probe", "probe", "fixed",
+                          "fixed", "probe", "fixed", "fixed", "fixed"]
+    assert [a["mode"] for a in seen.auto] == ["fixed", "fixed"]
+    assert all(a["probe"] > a["fixed"] for a in seen.auto)
+    with open(path) as f:
+        points = json.load(f)["points"]
+    for key in ("2", "3"):  # the calibration chunks count
+        assert points[key]["es_auto_mode"] == "fixed"
+        assert points[key]["steps"] == 5 and points[key]["frames"] == 80
+    # resume with a larger budget: the recorded mode, no calibration
+    points["3"]["es_auto_mode"] = "probe"
+    with open(path, "w") as f:
+        json.dump({"points": points, "steps_per_sync": 1}, f)
+    again = Events()
+    run_sweep(code, cfg, dataclasses.replace(sweep,
+                                             max_info_bits=7 * chunk),
+              manifest_path=path, log=None, metrics=again, device="cpu")
+    assert again.steps == ["fixed", "fixed", "probe", "probe"]
+    assert again.auto == []
 
 
 def test_cuda_request_without_card_raises():
@@ -221,6 +346,79 @@ def test_cli_sweep_on_cpu(tmp_path, capsys):
         rec = json.load(f)
     assert rec["code"] == "wifi648_r12" and rec["snrdb"] == [2.0]
     assert rec["link"]["alpha"] == [0.8, 0.8, 0.9]
+
+
+def test_presets_match_jax():
+    """The port's PRESETS give the JAX table's LinkConfig and SweepConfig."""
+    from ldpc_sims_tpu.parallel import SweepConfig as JaxSweepConfig
+
+    assert set(PRESETS) == set(JAX_PRESETS)
+    for name, p in PRESETS.items():
+        jp = JAX_PRESETS[name]
+        assert p["code"] == jp["code"]
+        assert p.get("msg_qbits_grid") == jp.get("msg_qbits_grid")
+        assert (dataclasses.asdict(LinkConfig(**p["link"]))
+                == dataclasses.asdict(JaxLinkConfig(**jp["link"])))
+        assert (dataclasses.asdict(SweepConfig(**p["sweep"]))
+                == dataclasses.asdict(JaxSweepConfig(**jp["sweep"])))
+
+
+def test_cli_preset_ofdm_qam16(tmp_path, monkeypatch):
+    """--preset ofdm-qam16 runs the preset's configuration (the sweep is
+    cut here to one point of 32 codewords)."""
+    import ldpc_sims_tpu_torch.parallel as par
+
+    calls = []
+    real = par.run_sweep
+
+    def short(code, link, sweep, **kw):
+        calls.append((code.name, link, sweep))
+        return real(code, link, dataclasses.replace(
+            sweep, snrdb=(10.0,), batch_cw=32, steps_per_sync=1,
+            max_info_bits=1, min_info_bits=0), **kw)
+
+    monkeypatch.setattr(par, "run_sweep", short)
+    cli_main(["sweep", "--preset", "ofdm-qam16", "--device", "cpu",
+              "--out", str(tmp_path)])
+    (name, link, sweep), = calls
+    p = PRESETS["ofdm-qam16"]
+    assert name == "wifi1944_r12"
+    assert link == LinkConfig(**p["link"])
+    assert sweep == SweepConfig(**p["sweep"])
+    assert link.modulation == "qam16" and link.es_mode == "auto"
+    curves = [f for f in os.listdir(tmp_path) if f.endswith("_curves.json")]
+    with open(tmp_path / curves[0]) as f:
+        rec = json.load(f)
+    assert rec["preset"] == "ofdm-qam16" and rec["snrdb"] == [10.0]
+    assert rec["coded_ber"][0] < rec["uncoded_ber"][0]
+
+
+@pytest.mark.parametrize("preset, match", [
+    ("small-cpu", "ROADMAP A4"),
+    ("wifi648-sweep", "ROADMAP A4 and B5"),
+    ("quantized-minsum", "ROADMAP B8"),
+    ("reference", "ROADMAP A4"),
+])
+def test_cli_unported_presets_raise(tmp_path, preset, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli_main(["sweep", "--preset", preset, "--device", "cpu",
+                  "--out", str(tmp_path)])
+
+
+def test_cli_early_stop_flags(tmp_path):
+    cli_main(["sweep", "--code", "wifi648", "--iters", "4", "--batch", "32",
+              "--snr", "3.0", "--max-bits", "1000", "--device", "cpu",
+              "--out", str(tmp_path), "--schedule", "layered",
+              "--early-stop", "--es-mode", "probe", "--es-probe-iters", "2",
+              "--es-probe-alpha", "0.9,0.8", "--modulation", "qam16",
+              "--ofdm-size", "64"])
+    curves = [f for f in os.listdir(tmp_path) if f.endswith("_curves.json")]
+    with open(tmp_path / curves[0]) as f:
+        link = json.load(f)["link"]
+    assert link["early_stop"] and link["es_mode"] == "probe"
+    assert link["es_probe_iters"] == 2 and link["es_probe_alpha"] == [0.9,
+                                                                     0.8]
+    assert link["modulation"] == "qam16"
 
 
 def test_package_imports_no_jax():

@@ -123,11 +123,9 @@ def test_freeze_minsum_weights():
 
 @pytest.mark.parametrize("kw, match", [
     (dict(method="sum-product"), "ROADMAP A4 and B5"),
-    (dict(early_stop=True), "ROADMAP B3"),
     (dict(msg_qbits=4), "ROADMAP B8"),
     (dict(weights={"ms_alpha": np.ones(4)}), "ROADMAP A10"),
     (dict(layered_group=2, schedule="layered"), "ROADMAP B9"),
-    (dict(output="hard_iters"), "ROADMAP B6"),
     (dict(dtype=torch.bfloat16), "ROADMAP B10"),
     (dict(backend="dense"), "ROADMAP A4"),
 ])
@@ -136,6 +134,24 @@ def test_unported_features_raise(kw, match):
     llr = torch.zeros((2, code.n))
     with pytest.raises(NotImplementedError, match=match):
         bp_decode(llr, code, iterations=4, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(early_stop=True),
+    dict(output="hard_iters"),
+], ids=["early_stop", "hard_iters"])
+def test_early_stop_and_hard_iters_decode(kw):
+    """Early stop and the iteration-count output, which raised until they
+    were ported: a clean codeword passes at entry; without early stop the
+    count is the fixed budget, as in the JAX roll backend."""
+    code = get_code("wifi648")
+    _, cw = channel_llrs(code, 4, 8.0)
+    llr = ((2.0 * cw - 1.0) * 8.0).astype(np.float32)  # noiseless
+    bits, iters = bp_decode(torch.from_numpy(llr), code, iterations=4,
+                            **dict(kw, output="hard_iters"))
+    np.testing.assert_array_equal(bits.numpy(), cw)
+    assert iters.dtype == torch.int32
+    assert iters.tolist() == ([0] * 4 if kw.get("early_stop") else [4] * 4)
 
 
 def test_non_qc_code_not_ported():

@@ -53,6 +53,16 @@ def llrs(code, batch, device, mu=2.0, seed=0):
     return torch.from_numpy(x).to(device), cw
 
 
+def mixed_llrs(code, batch, device, seed=0):
+    """LLRs whose mean grows from 1 to 12 over the rows: some codewords
+    pass at entry, some converge after a few iterations, some never."""
+    rng = np.random.default_rng(seed)
+    cw = code.encode_np(rng.integers(0, 2, (batch, code.k)))
+    mu = np.linspace(1.0, 12.0, batch)[:, None]
+    x = (2.0 * cw - 1.0) * mu + rng.normal(0, 1, cw.shape) * np.sqrt(2 * mu)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
 CONFIGS = {
     "flooding-20": dict(iterations=20, schedule="flooding"),
     "flooding-a-b-clamp": dict(iterations=20, schedule="flooding",
@@ -82,6 +92,88 @@ def test_kernel_matches_plain_version(cuda, name, config):
     assert torch.equal(bits, (post > 0).to(torch.int8))
 
 
+CODES = ["wifi648", "wifi1944", "qc1944_r56"]
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("name", CODES)
+def test_hard_unsat_matches_plain_version(cuda, name, schedule):
+    code = get_code(name)
+    x = mixed_llrs(code, 37, cuda)
+    kw = dict(iterations=4, schedule=schedule, output="hard_unsat")
+    bits, unsat = mq.bp_qc_cuda(x, code.qc, **kw)
+    ref_bits, ref_unsat = decode_roll(x, code.qc, **kw)
+    assert torch.equal(bits, ref_bits) and torch.equal(unsat, ref_unsat)
+    H = torch.from_numpy(code.H.astype(np.float32)).to(cuda)
+    ext = torch.remainder(bits.float() @ H.T, 2).sum(1).to(torch.int32)
+    assert torch.equal(unsat, ext)
+    assert (unsat == 0).any() and (unsat > 0).any()
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("name", CODES)
+def test_early_stop_kernel_matches_plain_version(cuda, name, schedule, K):
+    code = get_code(name)
+    x = mixed_llrs(code, 37, cuda, seed=2)
+    kw = dict(iterations=12, schedule=schedule, output="hard_iters",
+              early_stop=True, es_check_every=K)
+    mq.reset_launch_counts()
+    bits, iters = mq.bp_qc_cuda(x, code.qc, **kw)
+    assert mq.LAUNCHES[f"minsum_qc_{schedule}_es"] == 1
+    ref_bits, ref_iters = decode_roll(x, code.qc, **kw)
+    assert torch.equal(iters, ref_iters) and torch.equal(bits, ref_bits)
+    assert len(set(iters.tolist())) > 1  # several exits exercised
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("name", CODES)
+def test_done_in_skips_flagged_codewords(cuda, name, early_stop):
+    code = get_code(name)
+    x = mixed_llrs(code, 37, cuda, seed=3)
+    done = torch.arange(37, device=cuda) % 3 == 0
+    out = torch.full(x.shape, 7, dtype=torch.int8, device=cuda)
+    kw = dict(iterations=8, schedule="layered", early_stop=early_stop,
+              output="hard_iters" if early_stop else "hard")
+    got = mq.bp_qc_cuda(x, code.qc, done_in=done, out=out, **kw)
+    want = decode_roll(x, code.qc, done_in=done, **kw)
+    if early_stop:
+        assert torch.equal(got[1], want[1])
+        assert (got[1][done] == 0).all()
+        got, want = got[0], want[0]
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got[~done], want[~done])
+    assert (got[done] == 7).all()
+
+
+@pytest.mark.parametrize("name", CODES)
+def test_drivers_match_plain_version(cuda, name):
+    """Both drivers on the card equal the same drivers on the CPU, where
+    they run the plain version."""
+    code = get_code(name)
+    x = mixed_llrs(code, 64, cuda, seed=4)
+    for driver, kw in (
+        (mq.bp_qc_requeue, dict(iterations=12, probe_iters=4,
+                                es_check_every=2, schedule="layered")),
+        (mq.bp_qc_probe_requeue, dict(iterations=12, probe_iters=3)),
+    ):
+        bits, iters = driver(x, code.qc, output="hard_iters", **kw)
+        ref_bits, ref_iters = driver(x.cpu(), code.qc, output="hard_iters",
+                                     **kw)
+        assert torch.equal(bits.cpu(), ref_bits)
+        assert torch.equal(iters.cpu(), ref_iters)
+
+
+def test_probe_overflow_on_card(cuda):
+    code = get_code("wifi648")
+    x, _ = llrs(code, 512, cuda, mu=0.3, seed=5)
+    bits, iters = mq.bp_qc_probe_requeue(x, code.qc, 8, probe_iters=2,
+                                         output="hard_iters")
+    assert (iters == 10).all()
+    assert torch.equal(bits, decode_roll(x, code.qc, iterations=8,
+                                         schedule="layered"))
+
+
 def test_kernel_decodes_and_counts_launches(cuda):
     code = get_code("wifi1944")
     x, cw = llrs(code, 64, cuda, mu=4.0, seed=1)
@@ -90,7 +182,9 @@ def test_kernel_decodes_and_counts_launches(cuda):
     a, b = trained8()
     lbits = bp_decode(x, code, iterations=8, alpha=a, beta=b,
                       schedule="layered")
-    assert mq.LAUNCHES == {"minsum_qc_flooding": 1, "minsum_qc_layered": 1}
+    assert mq.LAUNCHES == {"minsum_qc_flooding": 1, "minsum_qc_layered": 1,
+                           "minsum_qc_flooding_es": 0,
+                           "minsum_qc_layered_es": 0}
     np.testing.assert_array_equal(bits.cpu().numpy(), cw)
     np.testing.assert_array_equal(lbits.cpu().numpy(), cw)
     soft = bp_decode(x, code, iterations=4, output="soft")
@@ -125,3 +219,20 @@ def test_link_step_and_sweep_on_card(cuda):
     res = run_sweep(code, cfg, SweepConfig(snrdb=(2.0,), batch_cw=512,
                                            max_info_bits=1e6), log=None)
     assert res.coded_bler[0] < 0.2 and res.frames[0] >= 1024
+
+
+def test_es_auto_sweep_and_qam16_on_card(cuda, tmp_path):
+    code = get_code("wifi1944")
+    cfg = LinkConfig(modulation="qam16", ofdm_size=64, bp_iterations=20,
+                     bp_method="min-sum", clamp=None, bp_schedule="layered",
+                     early_stop=True, es_mode="auto")
+    path = str(tmp_path / "m.json")
+    mq.reset_launch_counts()
+    res = run_sweep(code, cfg, SweepConfig(snrdb=(8.0,), batch_cw=512,
+                                           max_info_bits=2e6),
+                    manifest_path=path, log=None)
+    assert mq.LAUNCHES["minsum_qc_layered"] >= 4
+    with open(path) as f:
+        assert json.load(f)["points"]["8"]["es_auto_mode"] in ("fixed",
+                                                              "probe")
+    assert res.coded_ber[0] < res.uncoded_ber[0]

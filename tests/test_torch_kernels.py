@@ -5,7 +5,7 @@ loops transliterated to NumPy over that plan.
 The CUDA kernels run only on the card (tests/test_torch_gpu.py); what
 they compute is checked here by running the loops of
 csrc/minsum_qc.cu line for line in NumPy on the plan table the wrapper
-hands them, against the plain version.
+hands them, fixed and early-stop forms, against the plain version.
 """
 
 import os
@@ -58,6 +58,105 @@ def unpack_plan(qc):
     return row_ptr, col, shift, col_ptr, col_planes
 
 
+def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
+                   early_stop=False, check_every=1):
+    """The kernels' decode for a (B, n) LLR batch; returns the posterior
+    in the log(Pr1/Pr0) convention and the (B,) iterations each codeword
+    ran (``iterations`` for the fixed forms). Each codeword is one CTA:
+    under early stop it votes on its syndrome at entry and after every
+    ``check_every``-th iteration and leaves the loop when it holds."""
+    f32 = np.float32
+    row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
+    ab = mq._ab_table(alpha, beta, iterations)
+    z, mb, nb = qc.z, qc.mb, qc.nb
+    clamp = f32(np.inf if clamp is None else clamp)
+
+    def check_update(msg, post, i, r, a, b):
+        B = msg.shape[2]
+        p0, p1 = row_ptr[i], row_ptr[i + 1]
+        min1 = np.full(B, 1e30, f32)
+        min2 = np.full(B, 1e30, f32)
+        idx = np.full(B, -1)
+        nneg = np.zeros(B, np.int64)
+        for p in range(p0, p1):
+            q = (r + shift[p]) % z
+            v = post[col[p] * z + q] - msg[p, r]
+            av = np.abs(v)
+            nneg += v < 0
+            lt1 = av < min1
+            lt2 = ~lt1 & (av < min2)
+            min2 = np.where(lt1, min1, np.where(lt2, av, min2))
+            min1 = np.where(lt1, av, min1)
+            idx = np.where(lt1, p, idx)
+        for p in range(p0, p1):
+            q = (r + shift[p]) % z
+            vi = col[p] * z + q
+            old = msg[p, r].copy()
+            v = post[vi] - old
+            exneg = (nneg - (v < 0)) & 1
+            sgn = np.where(exneg == 1, f32(-1), f32(1))
+            exmin = np.where(idx == p, min2, min1)
+            y = (sgn * np.maximum(exmin - f32(b), f32(0))) * f32(a)
+            y = np.minimum(np.maximum(y, -clamp), clamp).astype(f32)
+            msg[p, r] = y
+            if layered:
+                post[vi] = post[vi] + (y - old)
+
+    def iterate(msg, post, lv, it):
+        a, b = ab[it]
+        if layered:
+            for i in range(mb):
+                for r in range(z):
+                    check_update(msg, post, i, r, a, b)
+        else:
+            for c in range(mb * z):
+                check_update(msg, post, c // z, c % z, a, b)
+            for v in range(nb * z):
+                j, q = divmod(v, z)
+                acc = lv[v].copy()
+                for e in range(col_ptr[j], col_ptr[j + 1]):
+                    p = col_planes[e]
+                    acc = acc + msg[p, (q - shift[p]) % z]
+                post[v] = acc
+
+    def unsat(post):
+        """local_unsat summed over the CTA's threads."""
+        count = np.zeros(post.shape[1], np.int64)
+        for c in range(mb * z):
+            i, r = divmod(c, z)
+            parity = np.zeros(post.shape[1], np.int64)
+            for p in range(row_ptr[i], row_ptr[i + 1]):
+                parity ^= post[col[p] * z + (r + shift[p]) % z] < 0
+            count += parity
+        return count
+
+    B = llr.shape[0]
+    msg = np.zeros((len(col), z, B), f32)
+    post = (-llr.T).astype(f32)  # (n, B)
+    lv = post.copy()
+    iters = np.full(B, iterations)
+    if not early_stop:
+        for it in range(iterations):
+            iterate(msg, post, lv, it)
+        return -post.T, iters
+
+    out = np.zeros_like(post)
+    idx = np.arange(B)
+    K = check_every
+    for r in range(-1, iterations // K):
+        if r >= 0:
+            for k in range(K):
+                iterate(msg, post, lv, r * K + k)
+        ok = unsat(post) == 0  # the CTAs whose vote passes leave the loop
+        out[:, idx[ok]] = post[:, ok]
+        iters[idx[ok]] = (r + 1) * K
+        msg, post, lv, idx = msg[..., ~ok], post[:, ~ok], lv[:, ~ok], idx[~ok]
+        if idx.size == 0:
+            break
+    out[:, idx] = post
+    return -out.T, iters
+
+
 @pytest.mark.parametrize(
     "name", [n for n in list_codes() if get_code(n).qc is not None
              and get_code(n).n <= 1944]
@@ -88,69 +187,6 @@ def test_smem_bytes_wifi1944():
                                                           + 1944)
 
 
-def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered):
-    """csrc/minsum_qc.cu's decode loops in NumPy (float32 throughout),
-    over the wrapper's plan and (α, β) table; returns the posterior in
-    the log(Pr1/Pr0) convention."""
-    f32 = np.float32
-    row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
-    ab = mq._ab_table(alpha, beta, iterations)
-    z, mb, nb = qc.z, qc.mb, qc.nb
-    B = llr.shape[0]
-    msg = np.zeros((len(col), z, B), f32)
-    post = (-llr.T).astype(f32)  # (n, B)
-    lv = post.copy()
-    clamp = f32(np.inf if clamp is None else clamp)
-
-    def check_update(i, r, a, b):
-        p0, p1 = row_ptr[i], row_ptr[i + 1]
-        min1 = np.full(B, 1e30, f32)
-        min2 = np.full(B, 1e30, f32)
-        idx = np.full(B, -1)
-        nneg = np.zeros(B, np.int64)
-        for p in range(p0, p1):
-            q = (r + shift[p]) % z
-            v = post[col[p] * z + q] - msg[p, r]
-            av = np.abs(v)
-            nneg += v < 0
-            lt1 = av < min1
-            lt2 = ~lt1 & (av < min2)
-            min2 = np.where(lt1, min1, np.where(lt2, av, min2))
-            min1 = np.where(lt1, av, min1)
-            idx = np.where(lt1, p, idx)
-        for p in range(p0, p1):
-            q = (r + shift[p]) % z
-            vi = col[p] * z + q
-            old = msg[p, r].copy()
-            v = post[vi] - old
-            exneg = (nneg - (v < 0)) & 1
-            sgn = np.where(exneg == 1, f32(-1), f32(1))
-            exmin = np.where(idx == p, min2, min1)
-            y = (sgn * np.maximum(exmin - f32(b), f32(0))) * f32(a)
-            y = np.minimum(np.maximum(y, -clamp), clamp).astype(f32)
-            msg[p, r] = y
-            if layered:
-                post[vi] = post[vi] + (y - old)
-
-    for it in range(iterations):
-        a, b = ab[it]
-        if layered:
-            for i in range(mb):
-                for r in range(z):
-                    check_update(i, r, a, b)
-        else:
-            for c in range(mb * z):
-                check_update(c // z, c % z, a, b)
-            for v in range(nb * z):
-                j, q = divmod(v, z)
-                acc = lv[v].copy()
-                for e in range(col_ptr[j], col_ptr[j + 1]):
-                    p = col_planes[e]
-                    acc = acc + msg[p, (q - shift[p]) % z]
-                post[v] = acc
-    return -post.T
-
-
 @pytest.mark.parametrize("kw", [
     dict(iterations=3, layered=False, alpha=1.0, beta=0.0, clamp=None),
     dict(iterations=3, layered=False, alpha=0.75, beta=0.1, clamp=2.0),
@@ -160,12 +196,44 @@ def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered):
 def test_kernel_loops_match_plain_version(kw):
     qc = get_code("wifi648").qc
     llr = noisy_llrs(648, 4, seed=3)
-    ours = emulate_kernel(llr, qc, **kw)
+    ours, _ = emulate_kernel(llr, qc, **kw)
     layered = kw.pop("layered")
     ref = decode_roll(torch.from_numpy(llr), qc, output="posterior",
                       schedule="layered" if layered else "flooding",
                       **kw).numpy()
     np.testing.assert_array_equal(ours, ref)
+
+
+def bpsk_llrs(snrdb, seed):
+    """One BPSK all-zero codeword of wifi648 over AWGN: log(Pr1/Pr0)."""
+    rng = np.random.default_rng(seed)
+    sigma = 10 ** (-snrdb / 20.0)
+    r = 1.0 + sigma * rng.normal(0, 1, 648)
+    return (-2.0 * r / (sigma * sigma)).astype(np.float32)
+
+
+@pytest.mark.parametrize("layered, K", [(False, 1), (True, 1), (True, 2)],
+                         ids=["flooding-K1", "layered-K1", "layered-K2"])
+def test_early_stop_kernel_loop_matches_plain_version(layered, K):
+    """The ES kernels' loop (entry vote, K iterations, vote, leave) in
+    NumPy against the plain version: posteriors and counts exactly."""
+    qc = get_code("wifi648").qc
+    rng = np.random.default_rng(3)
+    # one codeword per regime: passes at entry, converges, never converges
+    llr = np.stack([bpsk_llrs(12.0, seed=4), bpsk_llrs(4.0, seed=5),
+                    bpsk_llrs(2.5, seed=6),
+                    rng.normal(0, 3, 648).astype(np.float32)])
+    ours, iters = emulate_kernel(llr, qc, iterations=6, alpha=0.8,
+                                 beta=0.05, clamp=None, layered=layered,
+                                 early_stop=True, check_every=K)
+    kw = dict(iterations=6, alpha=0.8, beta=0.05, early_stop=True,
+              es_check_every=K, schedule="layered" if layered else "flooding")
+    ref = decode_roll(torch.from_numpy(llr), qc, output="posterior", **kw)
+    _, ref_iters = decode_roll(torch.from_numpy(llr), qc,
+                               output="hard_iters", **kw)
+    np.testing.assert_array_equal(ours, ref.numpy())
+    np.testing.assert_array_equal(iters, ref_iters.numpy())
+    assert iters[0] == 0 and iters[-1] == 6 and 0 < iters[1] < 6
 
 
 @pytest.mark.parametrize("kw, match", [
@@ -180,11 +248,15 @@ def test_wrapper_rejects_bad_arguments(kw, match):
 
 
 def test_launch_counters_start_and_reset():
-    assert set(mq.LAUNCHES) == {"minsum_qc_flooding", "minsum_qc_layered"}
+    names = {"minsum_qc_flooding", "minsum_qc_layered",
+             "minsum_qc_flooding_es", "minsum_qc_layered_es"}
+    assert set(mq.LAUNCHES) == names
     mq.LAUNCHES["minsum_qc_layered"] += 3
     mq.reset_launch_counts()
-    assert mq.LAUNCHES == {"minsum_qc_flooding": 0, "minsum_qc_layered": 0}
-    # the plain version on the CPU is no launch
-    mq.bp_qc_cuda(torch.zeros((2, 648)), get_code("wifi648").qc,
-                  iterations=2)
+    assert mq.LAUNCHES == {name: 0 for name in names}
+    # the plain version on the CPU is no launch, whatever the form
+    qc, z = get_code("wifi648").qc, torch.zeros((2, 648))
+    mq.bp_qc_cuda(z, qc, iterations=2)
+    mq.bp_qc_cuda(z, qc, iterations=2, early_stop=True)
+    mq.bp_qc_probe_requeue(z, qc, iterations=2, probe_iters=1)
     assert sum(mq.LAUNCHES.values()) == 0
