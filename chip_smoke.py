@@ -18,7 +18,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    external bits·Hᵀ mod 2), the early-stop kernels at K = 1 and 2
    (bits and iterations), the ``done_in`` skip (flagged rows of a
    sentinel-filled output untouched), both drivers, and the probe driver
-   forced into its overflow branch at 0 dB;
+   forced into its overflow branch at 0 dB. Then (2c) every sum-product
+   and message-quantized form (sum-product, min-sum with 4-bit messages,
+   sum-product with 4-bit messages; both schedules) on wifi1944 and
+   wifi648 at 1.5 dB with 64 rows saturated at |LLR| = 60: posteriors
+   within the tolerance and finite, and bits, unsatisfied-check counts,
+   early-stop bits and iterations, the ``done_in`` skip and both drivers
+   exactly equal to the plain version;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -34,13 +40,25 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    stragglers equal the fixed layered-20 decode bit for bit;
 3b. the ``ofdm-qam16`` preset's own configuration (16-QAM over OFDM-64,
    layered-20, ``es_mode='auto'``) at 8 and 10 dB, 4 chunks per point;
+3c. the ``wifi648-sweep`` preset (wifi648, layered-20 sum-product,
+   ``es_mode='auto'``) at 2.0 and 3.0 dB, 4 chunks of 8 × 4096 per point,
+   its 2.0 dB BLER held within 4σ of the JAX package's committed curve;
+   the same configuration in flooding, flooding with ``es_mode='freeze'``
+   and layered with ``es_mode='requeue'`` at 2.0 dB (the other three
+   sum-product kernels on a main path); the ``quantized-minsum`` preset at
+   2.0 dB for message widths 3, 4 and 5, each BLER held within 4σ of its
+   committed curve; one wifi648 point behind a 3-bit ADC with the global
+   AGC at 8 dB, coded BER below uncoded;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
    main-path run, and a row ``minsum_qc_layered@es_auto`` for the layered
    kernel's launches on the es-auto path, timed as one probe chunk at 3.5
-   dB (the ``hard_unsat`` probe and the ``done_in`` pass); then the times
-   of both drivers.
+   dB (the ``hard_unsat`` probe and the ``done_in`` pass); the four
+   sum-product kernels and ``minsum_qc_flooding@msgq4`` (the quantized
+   form, with the quantized-minsum run's launches), bound by the f32 and
+   special-function-unit instructions counted in the SASS of their edge
+   sequence; then the times of both drivers.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -75,9 +93,39 @@ F32_OPS_PER_S = 67e12 / 2
 OPS_PER_EDGE_ITER = {"flooding": 8 + 1, "layered": 8 + 2}
 # one syndrome check per edge: the sign test and the parity update
 OPS_PER_EDGE_CHECK = 2
+# H100 SXM special-function units: 16 results per clock per SM, an eighth
+# of the f32 issue rate
+SFU_OPS_PER_S = F32_OPS_PER_S / 8
+# f32 operations one sum-product iteration needs per edge besides its
+# transcendental sequence (counted from the SASS): the v2c subtract, the
+# negative count, the Σlt accumulate, the exclusive-sign parity and the
+# sign multiply; then the posterior as for min-sum
+SP_OPS_PER_EDGE_ITER = {"flooding": 5 + 1, "layered": 5 + 2}
 # the kernels line's row for minsum_qc_layered's launches on the
 # es_mode='auto' path (its hard_unsat probe and done_in pass)
 ES_AUTO_ROW = "minsum_qc_layered@es_auto"
+# the kernels line's row for the 4-bit quantized flooding kernel
+MSGQ_ROW = "minsum_qc_flooding@msgq4"
+# BLER anchors of the JAX package's committed curves at 2.0 dB, (BLER,
+# frames): wifi648-sweep (docs/artifacts/r5_sweeps/20260821-124859_curves.json)
+# and quantized-minsum (docs/artifacts/20260817-105931_curves_msgq{b}.json)
+WIFI648_SWEEP_BLER = (0.007110595703125, 32768)
+QUANTIZED_BLER = {3: (0.99560546875, 4096), 4: (0.606201171875, 4096),
+                  5: (0.232666015625, 4096)}
+# the probe kernels whose SASS gives the per-edge instruction counts: they
+# call the decode source's own device functions, built with its flags
+EDGE_PROBE = r"""
+extern "C" __global__ void probe_sp_edge(const float* v, const float* t,
+                                         float* y) {
+  const int i = threadIdx.x;
+  y[i] = sp_mag(fminf(t[i] - sp_lt(v[i]), -1e-12f));
+}
+extern "C" __global__ void probe_msgq(const float* v, float* y, float step,
+                                      float clip) {
+  const int i = threadIdx.x;
+  y[i] = quantize(v[i], step, clip);
+}
+"""
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
 
@@ -145,6 +193,61 @@ def channel_llrs(code, batch: int, snrdb: float, seed: int,
     sym = phy.ofdm_demodulate(rx)
     llr = phy.demodulate_qpsk_llr(sym, snr).reshape(batch, code.n)
     return (llr, coded) if with_coded else llr
+
+
+def bler_within_4sigma(label: str, bler: float, frames: float, ref) -> None:
+    """Fail unless ``bler`` over ``frames`` is within 4σ of the reference
+    (BLER, frames): the binomial σ of the difference, pooled."""
+    p_ref, n_ref = ref
+    pool = (bler * frames + p_ref * n_ref) / (frames + n_ref)
+    sigma = math.sqrt(pool * (1 - pool) * (1 / frames + 1 / n_ref))
+    print(f"  {label}: BLER {bler!r} over {frames:g} frames against the JAX "
+          f"curve's {p_ref!r} over {n_ref} (4σ = {4 * sigma!r})", flush=True)
+    if abs(bler - p_ref) > 4 * sigma:
+        fail(f"{label}: BLER {bler} is not within 4σ of {p_ref}")
+
+
+def edge_instruction_counts() -> dict:
+    """f32 and MUFU instructions of the sum-product edge sequence (lt, the
+    exclusive sum, the magnitude) and of the message quantization,
+    from the SASS of probe kernels built from the decode source with its
+    flags; each function is counted up to its first EXIT, so the rare
+    slow paths (the division's) are left out."""
+    import re
+    import shutil
+
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+
+    mq.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = mq.BUILD_DIR / "edge_probe.cu"
+    cubin = mq.BUILD_DIR / "edge_probe.cubin"
+    src.write_text(f'#include "{mq.SOURCE}"\n' + EDGE_PROBE)
+    flags = [f for f in mq.NVCC_FLAGS if f not in (
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([mq._nvcc(), *flags, "-cubin", "-o", str(cubin),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"f32": 0, "mufu": 0, "open": True}
+            continue
+        m = op.search(line)
+        if fn is None or m is None or not counts[fn]["open"]:
+            continue
+        base = m.group(1).split(".")[0]
+        if base == "EXIT":
+            counts[fn]["open"] = False
+        elif base == "MUFU":
+            counts[fn]["mufu"] += 1
+        elif base.startswith("F") and base != "FLO":
+            counts[fn]["f32"] += 1
+    return {k: (v["f32"], v["mufu"]) for k, v in counts.items()}
 
 
 def external_unsat(bits, code):
@@ -249,11 +352,13 @@ class Events:
             self.auto.append(fields)
 
 
-def drive(label, code, cfg, sweep, need, card):
+def drive(label, code, cfg, sweep, need, card, coded_below=True):
     """One main-path run: counters to 0, run_sweep, counters read.
 
-    Fails unless every kernel in ``need`` was launched; checks the rates.
-    Returns (result, launch counts, events, steady info bits/s)."""
+    Fails unless every kernel in ``need`` was launched; checks the rates
+    (with ``coded_below``, coded BER below uncoded). Returns (result,
+    launch counts, events, steady info bits/s); ``events.mc_steps``
+    counts the run's mc_steps."""
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
     from ldpc_sims_tpu_torch.parallel import run_sweep
 
@@ -261,7 +366,7 @@ def drive(label, code, cfg, sweep, need, card):
     mq.reset_launch_counts()
     res = run_sweep(code, cfg, sweep, log=None, metrics=ev, device="cuda")
     counts = dict(mq.LAUNCHES)
-    n_steps = len(ev.steps)
+    n_steps = ev.mc_steps = len(ev.steps) * sweep.steps_per_sync
     for name in need:
         if counts[name] == 0:
             fail(f"{label}: the main path never launched {name}")
@@ -269,7 +374,8 @@ def drive(label, code, cfg, sweep, need, card):
     for e in ev.steps:
         modes[e["mode"]] = modes.get(e["mode"], 0) + 1
     per = {k: v / n_steps for k, v in counts.items() if v}
-    print(f"  {label}: launches {counts} over {n_steps} mc_steps "
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"  {label}: launches {launched} over {n_steps} mc_steps "
           f"(per mc_step {per}; mc_steps per mode {modes})", flush=True)
     for a in ev.auto:
         print(f"  {label} calibration @ {a['snrdb']:g} dB: fixed "
@@ -290,11 +396,12 @@ def drive(label, code, cfg, sweep, need, card):
         if abs(unc - theory) > 1e-3:
             fail(f"{label} @ {snr:g} dB: uncoded BER {unc} is not the "
                  f"{cfg.modulation} value {theory}")
-        if not ber < unc:
+        if coded_below and not ber < unc:
             fail(f"{label} @ {snr:g} dB: coded BER {ber} not below "
                  f"uncoded {unc}")
     print(f"  {label}: steady-state {rate!r} decoded info bits/s over "
-          f"{len(steady)} steps [{card}]", flush=True)
+          f"{len(steady)} chunks of {sweep.steps_per_sync} mc_steps "
+          f"[{card}]", flush=True)
     return res, counts, ev, rate
 
 
@@ -354,7 +461,7 @@ def main() -> None:
         ("minsum_qc_flooding", w648, dict(
             iterations=20, schedule="flooding"), "wifi648 flooding-20"),
     ]
-    max_err = {name: 0.0 for name in (*mq.LAUNCHES, ES_AUTO_ROW)}
+    max_err = {name: 0.0 for name in (*mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW)}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
         k_post = mq.bp_qc_cuda(llr, code.qc, output="posterior", **kw)
@@ -392,7 +499,7 @@ def main() -> None:
                               es_check_every=K)
                     kb, ki = mq.bp_qc_cuda(llr, qc, **kw)
                     pb, pi = decode_roll(llr, qc, **kw)
-                    name = mq.KERNELS[sched, True]
+                    name = mq.KERNELS["min-sum", sched, True, False]
                     max_err[name] = max(max_err[name], exact(
                         [(kb, pb), (ki, pi)], f"{at} {sched}-20 ES K={K}"))
                     print(f"  {at} {sched}-20 early stop K={K}: bits and "
@@ -460,6 +567,73 @@ def main() -> None:
     print("  wifi648 @ 0 dB probe overflow: every codeword re-decoded at "
           "the full budget, bits equal", flush=True)
 
+    print("== phase 2c: sum-product and quantized forms vs plain versions "
+          "(batch 4096)", flush=True)
+    rules = (("sum-product", None), ("min-sum", 4), ("sum-product", 4))
+    for code in (w1944, w648):
+        qc = code.qc
+        llr = channel_llrs(code, B, 1.5, seed=21)
+        # saturated rows: |LLR| = 60 with the channel's signs
+        llr[:64] = torch.where(llr[:64] > 0, 60.0, -60.0)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(22)
+        mask = torch.rand(B, generator=gen, device="cuda") < 0.5
+        for method, qb in rules:
+            for sched in ("flooding", "layered"):
+                at = f"{code.name} {sched} {method} msg_qbits={qb}"
+                kw = dict(schedule=sched, method=method, msg_qbits=qb)
+                name = mq.KERNELS[method, sched, False, qb is not None]
+                fixed = dict(iterations=10, **kw)
+                kp = mq.bp_qc_cuda(llr, qc, output="posterior", **fixed)
+                pp = decode_roll(llr, qc, output="posterior", **fixed)
+                torch.cuda.synchronize()
+                max_err[name] = max(max_err[name],
+                                    compare(kp, pp, f"{at} posterior"))
+                kb, ku = mq.bp_qc_cuda(llr, qc, output="hard_unsat", **fixed)
+                pb, pu = decode_roll(llr, qc, output="hard_unsat", **fixed)
+                exact([(kb, pb), (ku, pu), (kb, (kp > 0).to(torch.int8)),
+                       (ku, external_unsat(kb, code))], f"{at} hard_unsat")
+                es = dict(iterations=20, early_stop=True, es_check_every=1,
+                          output="hard_iters", **kw)
+                kb, ki = mq.bp_qc_cuda(llr, qc, **es)
+                pb, pi = decode_roll(llr, qc, **es)
+                es_name = mq.KERNELS[method, sched, True, qb is not None]
+                max_err[es_name] = max(max_err[es_name], exact(
+                    [(kb, pb), (ki, pi)], f"{at} early stop"))
+                sentinel = torch.full(llr.shape, 7, dtype=torch.int8,
+                                      device="cuda")
+                mq.bp_qc_cuda(llr, qc, done_in=mask, out=sentinel, **fixed)
+                pb = decode_roll(llr, qc, done_in=mask, **fixed)
+                exact([(sentinel[~mask], pb[~mask])], f"{at} done_in")
+                if not bool((sentinel[mask] == 7).all()):
+                    fail(f"{at}: done_in rows were written")
+                print(f"  {at}: bits, counts (= bits·Hᵀ mod 2), early-stop "
+                      f"bits and iterations (mean "
+                      f"{float(ki.float().mean()):.3f}) and done_in equal",
+                      flush=True)
+        # both drivers with sum-product
+        sp = dict(method="sum-product", schedule="layered")
+        rb, ri = mq.bp_qc_requeue(llr, qc, 20, probe_iters=4,
+                                  es_check_every=2, output="hard_iters", **sp)
+        es = dict(early_stop=True, es_check_every=2, output="hard_iters",
+                  **sp)
+        b1, i1 = decode_roll(llr, qc, iterations=4, **es)
+        b2, i2 = decode_roll(llr, qc, iterations=20, **es)
+        done = i1 < 4
+        exact([(rb, torch.where(done[:, None], b1, b2)),
+               (ri, torch.where(done, i1, 4 + i2))],
+              f"{code.name} sum-product bp_qc_requeue")
+        pb_, pi_ = mq.bp_qc_probe_requeue(llr, qc, 20, probe_iters=4,
+                                          output="hard_iters", **sp)
+        b1, u1 = decode_roll(llr, qc, iterations=4, output="hard_unsat", **sp)
+        b2 = decode_roll(llr, qc, iterations=20, **sp)
+        keep = (u1 == 0) & (B - int((u1 == 0).sum()) <= mq.probe_capacity(B))
+        exact([(pb_, torch.where(keep[:, None], b1, b2)),
+               (pi_, torch.where(keep, 4, 24).to(torch.int32))],
+              f"{code.name} sum-product bp_qc_probe_requeue")
+        print(f"  {code.name} sum-product drivers: requeue and probe equal",
+              flush=True)
+
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
           flush=True)
@@ -480,7 +654,7 @@ def main() -> None:
     for label, (cfg, kname) in configs.items():
         res, counts, ev, _ = drive(label, w1944, cfg, sweep, [kname], card)
         launches[kname] = counts[kname]
-        per_step[kname] = counts[kname] / len(ev.steps)
+        per_step[kname] = counts[kname] / ev.mc_steps
         if not res.coded_bler[1] < res.coded_bler[0]:
             fail(f"{label}: BLER does not fall from 1.5 to 2.0 dB")
         profile_step(mc_step(w1944, cfg, batch, device="cuda"), label, card)
@@ -497,7 +671,7 @@ def main() -> None:
     # pass; probe chunks: the hard_unsat probe and the done_in pass), a
     # row of their own beside the trained layered-8 path's
     launches[ES_AUTO_ROW] = counts["minsum_qc_layered"]
-    per_step[ES_AUTO_ROW] = counts["minsum_qc_layered"] / len(ev.steps)
+    per_step[ES_AUTO_ROW] = counts["minsum_qc_layered"] / ev.mc_steps
     if len(ev.auto) != 2:
         fail("es auto: expected one calibration per point")
     # strictly lower where the lower SNR saw frame errors at all
@@ -518,7 +692,7 @@ def main() -> None:
             dataclasses.replace(es_cfg, es_mode=mode), one, [kname], card)
         if mode == "requeue":
             launches[kname] = counts[kname]
-            per_step[kname] = counts[kname] / len(ev.steps)
+            per_step[kname] = counts[kname] / ev.mc_steps
     _, counts, ev, _ = drive(
         "flooding-20 es freeze", w1944,
         LinkConfig(bp_iterations=20, bp_method="min-sum", clamp=None,
@@ -527,7 +701,7 @@ def main() -> None:
         ["minsum_qc_flooding_es"], card)
     launches["minsum_qc_flooding_es"] = counts["minsum_qc_flooding_es"]
     per_step["minsum_qc_flooding_es"] = (counts["minsum_qc_flooding_es"]
-                                         / len(ev.steps))
+                                         / ev.mc_steps)
 
     # the probe rescues no worse than the fixed decode, on one batch at
     # 3.0 dB, where the stragglers fit the capacity (the compact path)
@@ -562,6 +736,68 @@ def main() -> None:
         min_info_bits=0, target_frame_errors=10**12)
     drive("ofdm-qam16", q_code, q_cfg, q_sweep, ["minsum_qc_layered"], card)
 
+    # -- phase 3c: the wifi648 presets -------------------------------------
+    print("== phase 3c: the wifi648-sweep and quantized-minsum presets",
+          flush=True)
+    p = PRESETS["wifi648-sweep"]
+    s_code = get_code(p["code"])
+    s_cfg = LinkConfig(**p["link"])
+    s_sweep = SweepConfig(**p["sweep"])
+    chunk_bits = s_sweep.steps_per_sync * s_sweep.batch_cw * s_code.k
+    s_sweep = dataclasses.replace(
+        s_sweep, snrdb=(2.0, 3.0), max_info_bits=4 * chunk_bits,
+        min_info_bits=0, target_frame_errors=10**12)
+    res, counts, ev, _ = drive("wifi648-sweep", s_code, s_cfg, s_sweep,
+                               ["sumproduct_qc_layered"], card)
+    launches["sumproduct_qc_layered"] = counts["sumproduct_qc_layered"]
+    per_step["sumproduct_qc_layered"] = (counts["sumproduct_qc_layered"]
+                                         / ev.mc_steps)
+    if len(ev.auto) != 2:
+        fail("wifi648-sweep: expected one es-auto calibration per point")
+    bler_within_4sigma("wifi648-sweep @ 2 dB", res.coded_bler[0],
+                       res.frames[0], WIFI648_SWEEP_BLER)
+    # the other three sum-product kernels on the preset's configuration
+    two = dataclasses.replace(s_sweep, snrdb=(2.0,),
+                              max_info_bits=2 * chunk_bits)
+    for label, over, kname in (
+            ("flooding", dict(bp_schedule="flooding", early_stop=False,
+                              es_mode="freeze"), "sumproduct_qc_flooding"),
+            ("flooding es freeze", dict(bp_schedule="flooding",
+                                        es_mode="freeze"),
+             "sumproduct_qc_flooding_es"),
+            ("layered es requeue", dict(es_mode="requeue"),
+             "sumproduct_qc_layered_es")):
+        _, counts, ev, _ = drive(f"wifi648-sweep {label}", s_code,
+                                 dataclasses.replace(s_cfg, **over), two,
+                                 [kname], card)
+        launches[kname] = counts[kname]
+        per_step[kname] = counts[kname] / ev.mc_steps
+    p = PRESETS["quantized-minsum"]
+    q_code = get_code(p["code"])
+    q_sweep = SweepConfig(**p["sweep"])
+    q_sweep = dataclasses.replace(
+        q_sweep, snrdb=(2.0,), max_info_bits=2 * chunk_bits,
+        min_info_bits=0, target_frame_errors=10**12)
+    for qb in p["msg_qbits_grid"]:
+        q_cfg = dataclasses.replace(LinkConfig(**p["link"]), msg_qbits=qb)
+        # at 3 bits the decoder adds errors: coded BER above uncoded, as
+        # in the committed curve
+        res, counts, ev, _ = drive(f"quantized-minsum msgq{qb}", q_code,
+                                   q_cfg, q_sweep,
+                                   ["minsum_qc_flooding_msgq"], card,
+                                   coded_below=False)
+        bler_within_4sigma(f"quantized-minsum msgq{qb} @ 2 dB",
+                           res.coded_bler[0], res.frames[0],
+                           QUANTIZED_BLER[qb])
+        if qb == 4:
+            launches[MSGQ_ROW] = counts["minsum_qc_flooding_msgq"]
+            per_step[MSGQ_ROW] = counts["minsum_qc_flooding_msgq"] / \
+                ev.mc_steps
+    adc = dataclasses.replace(LinkConfig(**p["link"]), qbits=3, agc="global")
+    drive("wifi648 3-bit ADC, global AGC", q_code, adc,
+          dataclasses.replace(q_sweep, snrdb=(8.0,)),
+          ["minsum_qc_flooding"], card)
+
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
@@ -570,9 +806,11 @@ def main() -> None:
     E = len(qc_plan(w1944.qc)[0]) * w1944.qc.z
     n = w1944.n
 
-    def bound(nbytes, ops):
+    def bound(nbytes, ops, sfu_ops=0):
+        """The larger of the byte time, the f32 issue time of ``ops`` and
+        the special-function-unit time of ``sfu_ops``."""
         t_bytes = nbytes / BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
+        t_ops = max(ops / F32_OPS_PER_S, sfu_ops / SFU_OPS_PER_S) * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
@@ -591,7 +829,7 @@ def main() -> None:
             "plain_ms": plain_ms,
             "bound_ms": bnd[0],
             "bound_by": bnd[1],
-            # no single PyTorch call computes a min-sum decode
+            # no single PyTorch call computes a BP decode
             "library_ms": None,
         }
 
@@ -616,7 +854,7 @@ def main() -> None:
 
     # the early-stop kernels at 2.5 dB, bound by the iterations they ran
     for sched in ("flooding", "layered"):
-        name = mq.KERNELS[sched, True]
+        name = mq.KERNELS["min-sum", sched, True, False]
         kw = dict(iterations=20, schedule=sched, early_stop=True)
         kb, ki = mq.bp_qc_cuda(llr25, w1944.qc, output="hard_iters", **kw)
         pb, pi = decode_roll(llr25, w1944.qc, output="hard_iters", **kw)
@@ -675,6 +913,58 @@ def main() -> None:
           f"[{card}]", flush=True)
     kernels.append(row(ES_AUTO_ROW, p_ms + d_ms, p_plain + d_plain,
                        bound(p_bytes + d_bytes, p_ops + d_ops)))
+
+    # the sum-product kernels (fixed at 1.5 dB, early stop at 2.5 dB) and
+    # the 4-bit quantized flooding kernel at 1.5 dB, bound by the f32 and
+    # MUFU instructions of their edge sequence in the SASS
+    ins = edge_instruction_counts()
+    sp_f32, sp_mufu = ins["probe_sp_edge"]
+    q_f32, q_mufu = ins["probe_msgq"]
+    print(f"  SASS per edge: sum-product sequence {sp_f32} f32 + {sp_mufu} "
+          f"MUFU instructions; quantization {q_f32} f32 + "
+          f"{q_mufu} MUFU", flush=True)
+    for sched in ("flooding", "layered"):
+        name = mq.KERNELS["sum-product", sched, False, False]
+        kw = dict(iterations=20, schedule=sched, method="sum-product")
+        max_err[name] = max(max_err[name], compare(
+            mq.bp_qc_cuda(llr, w1944.qc, output="posterior", **kw),
+            decode_roll(llr, w1944.qc, output="posterior", **kw),
+            f"{name} at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, w1944.qc, **kw), 10)
+        plain_ms = cuda_time_ms(
+            lambda: decode_roll(llr, w1944.qc, **kw), 2, warmup=1)
+        per = SP_OPS_PER_EDGE_ITER[sched] + sp_f32
+        kernels.append(row(name, ms, plain_ms, bound(
+            batch * n * 5, batch * 20 * E * per, batch * 20 * E * sp_mufu)))
+    for sched in ("flooding", "layered"):
+        name = mq.KERNELS["sum-product", sched, True, False]
+        kw = dict(iterations=20, schedule=sched, early_stop=True,
+                  method="sum-product")
+        kb, ki = mq.bp_qc_cuda(llr25, w1944.qc, output="hard_iters", **kw)
+        pb, pi = decode_roll(llr25, w1944.qc, output="hard_iters", **kw)
+        max_err[name] = max(max_err[name], exact(
+            [(kb, pb), (ki, pi)], f"{name} at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr25, w1944.qc, **kw), 10)
+        plain_ms = cuda_time_ms(
+            lambda: decode_roll(llr25, w1944.qc, **kw), 2, warmup=1)
+        ran = int(ki.sum())
+        print(f"  {name}: mean iterations {ran / batch:.4f} of 20",
+              flush=True)
+        per = SP_OPS_PER_EDGE_ITER[sched] + sp_f32
+        kernels.append(row(name, ms, plain_ms, bound(
+            batch * (n * 5 + 4),
+            ran * E * per + (batch + ran) * E * OPS_PER_EDGE_CHECK,
+            ran * E * sp_mufu)))
+    kw = dict(iterations=20, schedule="flooding", msg_qbits=4)
+    max_err[MSGQ_ROW] = compare(
+        mq.bp_qc_cuda(llr, w1944.qc, output="posterior", **kw),
+        decode_roll(llr, w1944.qc, output="posterior", **kw),
+        f"{MSGQ_ROW} at batch {batch}")
+    ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, w1944.qc, **kw), 20)
+    plain_ms = cuda_time_ms(lambda: decode_roll(llr, w1944.qc, **kw), 3, 1)
+    kernels.append(row(MSGQ_ROW, ms, plain_ms, bound(
+        batch * n * 5, batch * E * (edge_ops("flooding", 20) + 20 * q_f32),
+        batch * E * 20 * q_mufu)))
     # the drivers against plain compositions of their passes, at 2.5 dB
     # (where the probe overflows) and 3.0 dB (its compact path), each
     # bound by the iterations and checks its passes ran

@@ -6,13 +6,17 @@
         --bp-alpha 0.86,0.86,... --bp-beta 0.12,0.14,...
     python -m ldpc_sims_tpu_torch sweep --schedule layered --early-stop \\
         --es-mode auto --snr 2.5,3.5
-    python -m ldpc_sims_tpu_torch sweep --preset ofdm-qam16
+    python -m ldpc_sims_tpu_torch sweep --preset wifi648-sweep
+    python -m ldpc_sims_tpu_torch sweep --code wifi648 --method sum-product \
+        --msg-qbits 4 --qbits 3 --clipdb 0 --agc global
 
 Defaults are the main path: (1944,972), QPSK over OFDM-32, flooding-20
 min-sum, on the card. ``--device cpu`` runs the plain version. The
-``PRESETS`` table is the JAX package's; ``ofdm-qam16`` runs, and the other
-four raise ``NotImplementedError`` naming the ROADMAP item they wait for.
-The other subcommands are not ported yet (ROADMAP A12).
+``PRESETS`` table is the JAX package's; ``wifi648-sweep``,
+``quantized-minsum`` (one sweep, manifest and curves file per message
+width, tagged ``_msgq{b}``) and ``ofdm-qam16`` run, and ``small-cpu`` and
+``reference`` raise ``NotImplementedError`` naming ROADMAP A4 (non-QC
+decoding). The other subcommands are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -116,14 +120,10 @@ def cmd_sweep(args) -> None:
 
     if args.preset:
         p = PRESETS[args.preset]
-        if "msg_qbits_grid" in p:
-            raise NotImplementedError(
-                f"preset {args.preset!r} sweeps msg_qbits message "
-                "quantization, which is not ported yet (ROADMAP B8)"
-            )
         code = get_code(p["code"])
         link = LinkConfig(**p["link"])
         sweep = SweepConfig(**p["sweep"], seed=args.seed)
+        grids = p.get("msg_qbits_grid", (None,))
     else:
         code = get_code(args.code)
         link = LinkConfig(
@@ -135,6 +135,9 @@ def cmd_sweep(args) -> None:
             alpha=args.bp_alpha,
             beta=args.bp_beta,
             clamp=args.clamp if args.clamp > 0 else None,
+            qbits=args.qbits if args.qbits > 0 else None,
+            clip_ratio=10 ** (args.clipdb / 10.0),
+            agc=args.agc,
             early_stop=args.early_stop,
             es_mode=args.es_mode,
             es_check_every=args.es_check_every,
@@ -150,21 +153,31 @@ def cmd_sweep(args) -> None:
             max_info_bits=args.max_bits, steps_per_sync=args.steps_per_sync,
             seed=args.seed,
         )
+        grids = (args.msg_qbits if args.msg_qbits > 0 else None,)
     os.makedirs(args.out, exist_ok=True)
     stamp = time.strftime("%Y%m%d-%H%M%S")
-    manifest = args.manifest or os.path.join(args.out, f"{stamp}_sweep.json")
-    result = run_sweep(code, link, sweep, manifest_path=manifest,
-                       device=args.device)
-    out = {
-        "code": code.name,
-        "preset": args.preset,
-        "link": dataclasses.asdict(link),
-        **result.as_dict(),
-    }
-    path = os.path.join(args.out, f"{stamp}_curves.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"curves -> {path}")
+    for qb in grids:
+        link_q = dataclasses.replace(link, msg_qbits=qb)
+        tag = f"_msgq{qb}" if qb else ""
+        if args.manifest:
+            # one manifest per width: a shared one would resume each width
+            # from the counts of the one before
+            root, ext = os.path.splitext(args.manifest)
+            manifest = root + (tag if len(grids) > 1 else "") + ext
+        else:
+            manifest = os.path.join(args.out, f"{stamp}_sweep{tag}.json")
+        result = run_sweep(code, link_q, sweep, manifest_path=manifest,
+                           device=args.device)
+        out = {
+            "code": code.name,
+            "preset": args.preset,
+            "link": dataclasses.asdict(link_q),
+            **result.as_dict(),
+        }
+        path = os.path.join(args.out, f"{stamp}_curves{tag}.json")
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"curves -> {path}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -181,7 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--ofdm-size", type=int, default=32)
     sp.add_argument("--iters", type=int, default=20)
     sp.add_argument("--method", default="min-sum",
-                    help="min-sum (other methods are not ported yet)")
+                    choices=["min-sum", "sum-product", "sum-product-ref"],
+                    help="check rule (sum-product-ref, the reference's "
+                         "tanh-product rule, is not ported yet)")
     sp.add_argument("--schedule", default="flooding",
                     choices=["flooding", "layered"])
     sp.add_argument("--bp-alpha", default="1.0", type=_parse_ab,
@@ -191,6 +206,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="min-sum offset: a float or a per-iteration list")
     sp.add_argument("--clamp", type=float, default=0.0,
                     help="c2v message clamp (0 = none)")
+    sp.add_argument("--msg-qbits", type=int, default=0,
+                    help="quantize each c2v message to 2^b - 1 levels over "
+                         "+-20 (0 = none)")
+    sp.add_argument("--qbits", type=int, default=0,
+                    help="ADC quantizer bits (0 = ideal ADC)")
+    sp.add_argument("--clipdb", type=float, default=0.0,
+                    help="ADC clip level over the AGC's, in dB "
+                         "(clip_ratio = 10^(clipdb/10))")
+    sp.add_argument("--agc", default="global",
+                    choices=["global", "per-symbol"],
+                    help="ADC gain control: the stream's std or the "
+                         "per-OFDM-symbol analytic one")
     sp.add_argument("--early-stop", action="store_true",
                     help="per-codeword syndrome termination")
     sp.add_argument("--es-mode", default="freeze",

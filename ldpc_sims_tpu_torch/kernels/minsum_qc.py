@@ -1,13 +1,14 @@
-"""CUDA QC-LDPC min-sum decode kernels, their ctypes wrapper and the
-two early-stop drivers.
+"""CUDA QC-LDPC decode kernels, their ctypes wrapper and the two early-stop
+drivers.
 
 The port of the Pallas kernel ``bp_qc_pallas``
-(``ldpc_sims_tpu/kernels/minsum_qc.py:603-810``) in its min-sum forms:
-``minsum_qc_flooding`` and ``minsum_qc_layered`` (fixed iterations, with
-the optional ``done_in`` skip and ``hard_unsat`` count), and
-``minsum_qc_flooding_es`` and ``minsum_qc_layered_es`` (per-codeword early
-stop), all in ``csrc/minsum_qc.cu`` (its header says how they work and
-what bounds them on the H100). The source is compiled with ``nvcc`` for
+(``ldpc_sims_tpu/kernels/minsum_qc.py:603-810``) in its min-sum and
+sum-product forms, each with and without message quantization:
+``{minsum,sumproduct}_qc_flooding`` and ``_layered`` (fixed iterations,
+with the optional ``done_in`` skip and ``hard_unsat`` count) and their
+``_es`` forms (per-codeword early stop), and the ``_msgq`` form of each,
+all in ``csrc/minsum_qc.cu`` (its header says how they work and what
+bounds them on the H100). The source is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` of the checkout on first use and
 loaded with ctypes. The drivers :func:`bp_qc_requeue` and
 :func:`bp_qc_probe_requeue` port the JAX functions of the same names
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from ldpc_sims_tpu_torch.codes.library import QcStructure
-from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, qc_plan
+from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, msg_qstep, qc_plan
 
 __all__ = [
     "LAUNCHES",
@@ -57,12 +58,14 @@ NVCC_FLAGS = (
     # no fused multiply-add: keeps the arithmetic equal to the plain version
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-# kernel name per (schedule, early_stop)
+METHODS = ("min-sum", "sum-product")
+# entry point of csrc/minsum_qc.cu per (method, schedule, early_stop,
+# quantized): minsum_qc_flooding, ..., sumproduct_qc_layered_es_msgq
 KERNELS = {
-    ("flooding", False): "minsum_qc_flooding",
-    ("layered", False): "minsum_qc_layered",
-    ("flooding", True): "minsum_qc_flooding_es",
-    ("layered", True): "minsum_qc_layered_es",
+    (m, s, es, q): (f"{m.replace('-', '')}_qc_{s}" + ("_es" if es else "")
+                    + ("_msgq" if q else ""))
+    for m in METHODS for s in ("flooding", "layered")
+    for es in (False, True) for q in (False, True)
 }
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNELS.values()}
@@ -117,13 +120,16 @@ def build() -> tuple[Path, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.minsum_qc_decode.argtypes = [
-        i32, i32, vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-        i32, ctypes.c_float, vp,
+    f32 = ctypes.c_float
+    lib.bp_qc_decode.argtypes = [
+        i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32,
+        i32, i32, i32, f32, f32, f32, vp,
     ]
-    lib.minsum_qc_decode.restype = i32
-    lib.minsum_qc_error_string.argtypes = [i32]
-    lib.minsum_qc_error_string.restype = ctypes.c_char_p
+    lib.bp_qc_decode.restype = i32
+    lib.bp_qc_max_row_degree.argtypes = []
+    lib.bp_qc_max_row_degree.restype = i32
+    lib.bp_qc_error_string.argtypes = [i32]
+    lib.bp_qc_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -185,11 +191,17 @@ def bp_qc_cuda(
     es_check_every: int = 1,
     done_in: torch.Tensor | None = None,
     out: torch.Tensor | None = None,
+    method: str = "min-sum",
+    msg_qbits: int | None = None,
+    msg_qclip: float = 20.0,
 ):
     """(batch, n) f32 channel LLRs (log Pr1/Pr0) → hard bits or posterior.
 
-    Min-sum; ``alpha``/``beta`` scalars or length-``iterations`` tuples
-    (a frozen per-iteration schedule); ``clamp`` bounds each c2v message;
+    ``method``: 'min-sum' with ``alpha``/``beta`` scalars or
+    length-``iterations`` tuples (a frozen per-iteration schedule), or
+    'sum-product' (stable log domain; scalar α/β are ignored, tuples
+    raise). ``clamp`` bounds each c2v message; ``msg_qbits`` then
+    quantizes it to ``2**msg_qbits − 1`` levels over ±``msg_qclip``.
     ``schedule`` 'flooding' or 'layered' (serial-C). ``output``: 'hard'
     (int8 bits), 'posterior' (f32, log(Pr1/Pr0)), 'hard_unsat' ((bits,
     (batch,) int32 unsatisfied-check counts) after a fixed decode) or,
@@ -223,6 +235,12 @@ def bp_qc_cuda(
         alpha = tuple(alpha)
     if isinstance(beta, list):
         beta = tuple(beta)
+    if method not in METHODS:
+        raise ValueError(f"unsupported kernel method {method!r}")
+    if method != "min-sum" and (isinstance(alpha, tuple)
+                                or isinstance(beta, tuple)):
+        raise ValueError("per-iteration alpha/beta require min-sum")
+    qstep = msg_qstep(msg_qbits, msg_qclip)
     _ab_table(alpha, beta, iterations)  # validates tuple lengths
     B = llr.shape[0]
     if done_in is not None and tuple(done_in.shape) != (B,):
@@ -240,7 +258,9 @@ def bp_qc_cuda(
         res = decode_roll(llr, qc, iterations=iterations, alpha=alpha,
                           beta=beta, clamp=clamp, output=output,
                           schedule=schedule, early_stop=early_stop,
-                          es_check_every=es_check_every, done_in=done_in)
+                          es_check_every=es_check_every, done_in=done_in,
+                          method=method, msg_qbits=msg_qbits,
+                          msg_qclip=msg_qclip)
         if out is None:
             return res
         main = res[0] if isinstance(res, tuple) else res
@@ -263,6 +283,17 @@ def bp_qc_cuda(
             f"code needs {smem} B of shared memory per codeword, more than "
             f"the {_SMEM_LIMIT} B a CTA can have"
         )
+    lib = _library()
+    planes, group_c, _ = qc_plan(qc)
+    degree = max(len(ps) for ps in group_c)
+    # the sum-product kernels keep a check's lt values in a per-thread array
+    cap = lib.bp_qc_max_row_degree()
+    if method == "sum-product" and degree > cap:
+        raise ValueError(
+            f"the QC code with a {qc.mb}x{qc.nb} base of z={qc.z} has a "
+            f"check of degree {degree}; the sum-product kernels take at "
+            f"most {cap}"
+        )
     plan, ab = _device_tables(qc, alpha, beta, iterations, str(llr.device))
     if out is None:
         out = torch.empty(llr.shape, dtype=out_dtype, device=llr.device)
@@ -273,21 +304,23 @@ def bp_qc_cuda(
     if early_stop or output == "hard_unsat":
         # zeros: a skipped codeword reports 0 iterations
         aux = torch.zeros(B, dtype=torch.int32, device=llr.device)
-    lib = _library()
     stream = torch.cuda.current_stream(llr.device).cuda_stream
-    P = len(qc_plan(qc)[0])
-    err = lib.minsum_qc_decode(
-        int(schedule == "layered"), int(early_stop), llr.data_ptr(),
+    quant = qstep is not None
+    err = lib.bp_qc_decode(
+        int(method == "sum-product"), int(schedule == "layered"),
+        int(early_stop), int(quant), llr.data_ptr(),
         out.data_ptr(), int(hard),
         None if flags is None else flags.data_ptr(),
         None if aux is None else aux.data_ptr(),
-        plan.data_ptr(), ab.data_ptr(), B, qc.z, qc.mb, qc.nb, P,
+        plan.data_ptr(), ab.data_ptr(), B, qc.z, qc.mb, qc.nb, len(planes),
         iterations, es_check_every,
-        math.inf if clamp is None else float(clamp), stream,
+        math.inf if clamp is None else float(clamp),
+        qstep if quant else 1.0, float(msg_qclip) if quant else math.inf,
+        stream,
     )
-    name = KERNELS[schedule, bool(early_stop)]
+    name = KERNELS[method, schedule, bool(early_stop), quant]
     if err != 0:
-        msg = lib.minsum_qc_error_string(err).decode()
+        msg = lib.bp_qc_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg}")
     LAUNCHES[name] += 1
     if output in ("hard_iters", "hard_unsat"):
@@ -311,6 +344,9 @@ def bp_qc_requeue(
     es_check_every: int = 2,
     schedule: str = "flooding",
     output: str = "hard",
+    method: str = "min-sum",
+    msg_qbits: int | None = None,
+    msg_qclip: float = 20.0,
 ):
     """Early-stop decode as an early-stop probe, then a full-budget
     early-stop pass over the codewords the probe did not finish.
@@ -318,24 +354,27 @@ def bp_qc_requeue(
     The JAX function's results: ``done = iters1 < probe_iters``; bits are
     the probe's where done, else the second pass's; iterations are
     ``iters1`` where done, else ``probe_iters + iters2``. A frozen
-    per-iteration schedule runs its prefix in the probe. The TPU sorts
-    the converged lanes to the front so that whole tiles skip; a CTA
-    decodes one codeword, so the second pass is one launch over the whole
-    batch with ``done_in = done``, writing straight into the probe's bits.
+    per-iteration schedule runs its prefix in the probe; ``method`` and
+    the message quantization apply to both passes. The TPU sorts the
+    converged lanes to the front so that whole tiles skip; a CTA decodes
+    one codeword, so the second pass is one launch over the whole batch
+    with ``done_in = done``, writing straight into the probe's bits.
     """
     if output not in ("hard", "hard_iters"):
         raise ValueError("bp_qc_requeue outputs hard bits only")
     a_probe = alpha[:probe_iters] if isinstance(alpha, tuple) else alpha
     b_probe = beta[:probe_iters] if isinstance(beta, tuple) else beta
     kw = dict(clamp=clamp, schedule=schedule, output="hard_iters",
-              early_stop=True, es_check_every=es_check_every)
-    bits, iters1 = bp_qc_cuda(llr, qc, probe_iters, a_probe, b_probe, **kw)
+              early_stop=True, es_check_every=es_check_every, method=method,
+              msg_qbits=msg_qbits, msg_qclip=msg_qclip)
+    bits, iters1 = bp_qc_cuda(llr, qc, probe_iters, alpha=a_probe,
+                              beta=b_probe, **kw)
     # converged := finished under budget at a checked state; a codeword
     # that converged exactly at the budget is re-decoded, which is merely
     # redundant
     done = iters1 < probe_iters
-    _, iters2 = bp_qc_cuda(llr, qc, iterations, alpha, beta, done_in=done,
-                           out=bits, **kw)
+    _, iters2 = bp_qc_cuda(llr, qc, iterations, alpha=alpha, beta=beta,
+                           done_in=done, out=bits, **kw)
     if output == "hard_iters":
         return bits, torch.where(done, iters1, probe_iters + iters2)
     return bits
@@ -361,6 +400,9 @@ def bp_qc_probe_requeue(
     clamp: float | None = None,
     schedule: str = "layered",
     output: str = "hard",
+    method: str = "min-sum",
+    msg_qbits: int | None = None,
+    msg_qclip: float = 20.0,
 ):
     """Adaptive decode: a fixed ``probe_iters`` probe with the fused
     unsatisfied-check count, then a fixed full-budget pass over the
@@ -376,7 +418,8 @@ def bp_qc_probe_requeue(
     the device from the host. The probe's (α, β) is ``probe_alpha``/
     ``probe_beta`` or else the full schedule; a tuple of another length
     than ``probe_iters`` is cut to its first ``probe_iters`` entries, as
-    the JAX function does (silently).
+    the JAX function does (silently). ``method`` and the message
+    quantization apply to both passes.
     """
     if output not in ("hard", "hard_iters"):
         raise ValueError("bp_qc_probe_requeue outputs hard bits only")
@@ -391,13 +434,15 @@ def bp_qc_probe_requeue(
         pa = pa[:probe_iters]
     if isinstance(pb, tuple):
         pb = pb[:probe_iters]
-    bits, unsat = bp_qc_cuda(llr, qc, probe_iters, pa, pb, clamp=clamp,
-                             schedule=schedule, output="hard_unsat")
+    kw = dict(clamp=clamp, schedule=schedule, method=method,
+              msg_qbits=msg_qbits, msg_qclip=msg_qclip)
+    bits, unsat = bp_qc_cuda(llr, qc, probe_iters, alpha=pa, beta=pb,
+                             output="hard_unsat", **kw)
     done = unsat == 0
     overflowed = (llr.shape[0] - done.sum()) > probe_capacity(llr.shape[0])
     keep = done & ~overflowed
-    bp_qc_cuda(llr, qc, iterations, alpha, beta, clamp=clamp,
-               schedule=schedule, done_in=keep, out=bits)
+    bp_qc_cuda(llr, qc, iterations, alpha=alpha, beta=beta, done_in=keep,
+               out=bits, **kw)
     if output == "hard_iters":
         iters = torch.where(keep, probe_iters, probe_iters + iterations)
         return bits, iters.to(torch.int32)

@@ -1,9 +1,10 @@
 """Belief-propagation decode dispatch: the port of ``ops/bp.py:bp_decode``.
 
-The port decodes quasi-cyclic codes with min-sum under the flooding and
-the layered (serial-C) schedule, with scalar or per-iteration α/β, an
-optional clamp and per-codeword early stop in the JAX package's three
-modes (freeze, requeue, probe). Backends:
+The port decodes quasi-cyclic codes with min-sum (scalar or
+per-iteration α/β) or the stable log-domain sum-product under the
+flooding and the layered (serial-C) schedule, with an optional clamp,
+message quantization (``msg_qbits``/``msg_qclip``) and per-codeword early
+stop in the JAX package's three modes (freeze, requeue, probe). Backends:
 
 * ``'cuda'``: the hand-written kernels of
   :mod:`ldpc_sims_tpu_torch.kernels.minsum_qc` and their drivers (on a
@@ -58,6 +59,7 @@ def bp_decode(
     es_probe_alpha=None,
     es_probe_beta=None,
     msg_qbits: int | None = None,
+    msg_qclip: float = 20.0,
     weights=None,
     output: str = "hard",
     backend: str = "auto",
@@ -65,16 +67,21 @@ def bp_decode(
     layered_group: int = 1,
     dtype=torch.float32,
 ) -> torch.Tensor:
-    """Decode a batch of codewords with min-sum BP.
+    """Decode a batch of codewords with BP.
 
     Args:
       llr: (batch, n) channel LLRs, convention log(Pr1/Pr0).
       code: a quasi-cyclic :class:`LdpcCode`.
       iterations: BP iterations (fixed trip count).
+      method: 'min-sum' or 'sum-product' (stable log domain, the JAX
+        roll backend's expm1/log1p form).
       alpha, beta: normalization / offset for min-sum, scalars or
         length-``iterations`` tuples (a frozen per-iteration schedule,
         :func:`freeze_minsum_weights`).
       clamp: per-iteration c2v message clamp; None = no clamp.
+      msg_qbits, msg_qclip: optional uniform quantization of each c2v
+        message after the clamp: ``2**msg_qbits − 1`` levels over
+        ±``msg_qclip`` (the quantized-decoder study).
       early_stop: per-codeword syndrome termination; each codeword
         freezes at its first syndrome-satisfying state.
       es_mode: 'freeze' (the semantics above), 'requeue' (an early-stop
@@ -92,7 +99,7 @@ def bp_decode(
       backend: 'auto' | 'cuda' | 'roll' (module docs).
       schedule: 'flooding' | 'layered'.
 
-    ``msg_qbits``, ``weights``, ``layered_group > 1``, other methods,
+    ``weights``, ``layered_group > 1``, ``method='sum-product-ref'``,
     other dtypes and non-QC codes are not ported yet.
     """
     if method not in ("min-sum", "sum-product", "sum-product-ref"):
@@ -119,6 +126,10 @@ def bp_decode(
         es_probe_alpha = tuple(es_probe_alpha)
     if isinstance(es_probe_beta, list):
         es_probe_beta = tuple(es_probe_beta)
+    if (isinstance(alpha, tuple) or isinstance(beta, tuple)) and (
+        method != "min-sum"
+    ):
+        raise ValueError("per-iteration alpha/beta require method='min-sum'")
     for v, nm in ((alpha, "alpha"), (beta, "beta")):
         if isinstance(v, tuple) and len(v) != iterations:
             raise ValueError(
@@ -165,14 +176,10 @@ def bp_decode(
                 "at 1"
             )
 
-    if method != "min-sum":
+    if method == "sum-product-ref":
         raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP A4 and B5); "
-            "the port decodes min-sum only"
-        )
-    if msg_qbits is not None:
-        raise NotImplementedError(
-            "msg_qbits message quantization is not ported yet (ROADMAP B8)"
+            "method='sum-product-ref' (the reference's tanh-product rule) "
+            "is not ported yet (ROADMAP A4)"
         )
     if weights is not None:
         raise NotImplementedError(
@@ -183,15 +190,14 @@ def bp_decode(
             f"message storage dtype {dtype} is not ported yet (ROADMAP B10)"
         )
     llr = llr.to(torch.float32).contiguous()
+    kw = dict(iterations=iterations, alpha=alpha, beta=beta, clamp=clamp,
+              schedule=schedule, method=method, msg_qbits=msg_qbits,
+              msg_qclip=msg_qclip)
     if output == "hard_iters" and not early_stop:
-        bits = bp_decode(llr, code, iterations=iterations, alpha=alpha,
-                         beta=beta, clamp=clamp, backend=backend,
-                         schedule=schedule)
+        bits = bp_decode(llr, code, backend=backend, **kw)
         return bits, torch.full((llr.shape[0],), iterations,
                                 dtype=torch.int32, device=llr.device)
-    kw = dict(iterations=iterations, alpha=alpha, beta=beta, clamp=clamp,
-              schedule=schedule,
-              output="posterior" if output == "soft" else output)
+    kw["output"] = "posterior" if output == "soft" else output
     if backend == "roll":
         out = decode_roll(llr, code.qc, early_stop=early_stop, **kw)
     else:

@@ -1,4 +1,4 @@
-"""Plain PyTorch QC-LDPC min-sum decode: the port of ``ops/bp_roll.py``.
+"""Plain PyTorch QC-LDPC BP decode: the port of ``ops/bp_roll.py``.
 
 This module is the plain version of the CUDA decode kernels
 (:mod:`ldpc_sims_tpu_torch.kernels.minsum_qc`): the CPU runs it, the tests
@@ -17,11 +17,20 @@ variable ``j·z + (r + s) mod z``. Variable orientation is
 ``roll(plane, s)`` (column q ↔ variable j·z+q); the inverse is
 ``roll(·, −s)``. ``torch.roll`` and ``jnp.roll`` shift the same way.
 
-Scope: min-sum with scalar or per-iteration (tuple) α/β, optional clamp,
-flooding and layered (serial-C) schedules, per-codeword early stop with a
-check stride, a mask of codewords to skip, and the outputs ``hard``,
-``posterior``, ``hard_iters`` and ``hard_unsat``. :func:`..ops.bp.bp_decode`
-rejects what the JAX function takes beyond that, naming its ROADMAP item.
+Scope: min-sum with scalar or per-iteration (tuple) α/β and the stable
+log-domain sum-product, optional clamp and message quantization
+(``msg_qbits``), flooding and layered (serial-C) schedules, per-codeword
+early stop with a check stride, a mask of codewords to skip, and the
+outputs ``hard``, ``posterior``, ``hard_iters`` and ``hard_unsat``.
+:func:`..ops.bp.bp_decode` rejects what the JAX function takes beyond
+that, naming its ROADMAP item.
+
+On the card every elementwise operation here is one CUDA kernel that
+computes each element alone (``exp``, ``expm1``, ``log1p`` and ``log``
+are libdevice's), as the decode kernels do. On the CPU PyTorch computes
+some transcendentals (``log1p``) one way in vector lanes and another in
+a tensor's scalar tail, so a sum-product result there can differ in the
+last bit with the position of a codeword in the batch.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 
 from ldpc_sims_tpu_torch.codes.library import QcStructure
 
-__all__ = ["decode_roll", "qc_plan", "unsat_checks"]
+__all__ = ["decode_roll", "msg_qstep", "qc_plan", "unsat_checks"]
 
 _BIG = 1e30
 
@@ -57,6 +66,17 @@ def qc_plan(qc: QcStructure):
     return planes, group_c, group_v
 
 
+def msg_qstep(msg_qbits: int | None, msg_qclip: float) -> float | None:
+    """The message quantization step ``2·msg_qclip/(2**msg_qbits − 1)``,
+    or None without quantization."""
+    if msg_qbits is None:
+        return None
+    if int(msg_qbits) != msg_qbits or msg_qbits < 1 or not msg_qclip > 0:
+        raise ValueError(f"msg_qbits={msg_qbits!r} must be a positive "
+                         f"integer and msg_qclip={msg_qclip!r} positive")
+    return 2.0 * msg_qclip / (2**int(msg_qbits) - 1)
+
+
 def _exclusive_sign(x: torch.Tensor) -> torch.Tensor:
     """Exclusive sign product over dim 0 as a negative-count parity.
 
@@ -77,6 +97,23 @@ def _minsum_excl(x: torch.Tensor, alpha, beta) -> torch.Tensor:
     exmin = torch.where(onehot, min2, min1)
     exsign = _exclusive_sign(x)
     return exsign * torch.clamp_min(exmin - beta, 0.0) * alpha
+
+
+def _sumproduct_excl(x: torch.Tensor) -> torch.Tensor:
+    """Stable exclusive sum-product over dim 0 of (d, B, z), the JAX roll
+    backend's ``expm1``/``log1p`` form: ``a = max(|x|, 1e-12)``,
+    ``lt = log(−expm1(−a)) − log1p(exp(−a))``, ``s = min(Σlt − lt,
+    −1e-12)``, magnitude ``log1p(exp(s)) − log(−expm1(s))`` (at most
+    28.3). The row sum runs left to right over the slots, as the kernels
+    take it."""
+    a = torch.clamp_min(x.abs(), 1e-12)
+    lt = torch.log(-torch.expm1(-a)) - torch.log1p(torch.exp(-a))
+    total = torch.zeros_like(lt[0])
+    for k in range(lt.shape[0]):
+        total = total + lt[k]
+    s = torch.clamp_max(total - lt, -1e-12)
+    mag = torch.log1p(torch.exp(s)) - torch.log(-torch.expm1(s))
+    return _exclusive_sign(x) * mag
 
 
 def unsat_checks(post: torch.Tensor, qc: QcStructure) -> torch.Tensor:
@@ -106,13 +143,20 @@ def decode_roll(
     early_stop: bool = False,
     es_check_every: int = 1,
     done_in: torch.Tensor | None = None,
+    method: str = "min-sum",
+    msg_qbits: int | None = None,
+    msg_qclip: float = 20.0,
 ):
-    """QC-LDPC min-sum decode; the contract of :func:`..ops.bp.bp_decode`
-    for QC codes, and of the Pallas kernel's early-stop forms.
+    """QC-LDPC BP decode; the contract of :func:`..ops.bp.bp_decode` for
+    QC codes, and of the Pallas kernel's early-stop forms.
 
     llr: (batch, n) channel LLRs, log(Pr1/Pr0) convention, on any device.
-    ``alpha``/``beta`` may be length-``iterations`` tuples (a frozen
-    per-iteration normalization/offset schedule).
+    ``method``: 'min-sum' or 'sum-product'. Min-sum's ``alpha``/``beta``
+    may be length-``iterations`` tuples (a frozen per-iteration
+    normalization/offset schedule); sum-product ignores scalar α/β and
+    rejects tuples. Each c2v message is clamped to ±``clamp``, then with
+    ``msg_qbits`` rounded to the step ``2·msg_qclip/(2**msg_qbits − 1)``
+    (half to even, after a true division) and clipped to ±``msg_qclip``.
 
     ``schedule='flooding'``: each iteration rebuilds the posterior as
     LLR + Σ c2v in check-sorted order, forms v2c = roll(post, −s) − c2v
@@ -136,6 +180,8 @@ def decode_roll(
     """
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
+    if method not in ("min-sum", "sum-product"):
+        raise ValueError(f"unknown method {method!r}")
     if output not in ("hard", "posterior", "hard_iters", "hard_unsat"):
         raise ValueError(f"unknown output {output!r}")
     if output == "hard_unsat" and early_stop:
@@ -161,19 +207,32 @@ def decode_roll(
         ms_a = torch.tensor(alpha, dtype=torch.float32, device=dev)
     if isinstance(beta, (tuple, list)):
         ms_b = torch.tensor(beta, dtype=torch.float32, device=dev)
+    if (ms_a is not None or ms_b is not None) and method != "min-sum":
+        raise ValueError("per-iteration alpha/beta require min-sum")
     for arr, name in ((ms_a, "alpha"), (ms_b, "beta")):
         if arr is not None and arr.shape != (iterations,):
             raise ValueError(
                 f"per-iteration {name} must have shape ({iterations},), "
                 f"got {tuple(arr.shape)}"
             )
+    qstep = msg_qstep(msg_qbits, msg_qclip)
+    if qstep is not None:
+        # a tensor on the device: dividing a CUDA tensor by a Python
+        # scalar multiplies by its reciprocal instead
+        qstep = torch.tensor(qstep, dtype=torch.float32, device=dev)
 
     def excl_update(x: torch.Tensor, it: int) -> torch.Tensor:
-        a = alpha if ms_a is None else ms_a[it]
-        b = beta if ms_b is None else ms_b[it]
-        y = _minsum_excl(x, a, b)
+        if method == "min-sum":
+            a = alpha if ms_a is None else ms_a[it]
+            b = beta if ms_b is None else ms_b[it]
+            y = _minsum_excl(x, a, b)
+        else:
+            y = _sumproduct_excl(x)
         if clamp is not None:
             y = torch.clamp(y, -clamp, clamp)
+        if qstep is not None:
+            y = torch.clamp(torch.round(y / qstep) * qstep, -msg_qclip,
+                            msg_qclip)
         return y
 
     # The state of the codewords still being decoded: L (nb planes of

@@ -30,9 +30,9 @@ _LLR = {"bpsk": phy.bpsk_llr, "qpsk": phy.demodulate_qpsk_llr,
 class LinkConfig:
     """Static configuration of the link chain; the JAX package's fields
     and defaults. Defaults replicate the reference experiment family:
-    QPSK over 32-subcarrier OFDM, analytic LLRs, sum-product BP with
-    clamp 20 (the port decodes min-sum only so far: pass
-    ``bp_method='min-sum'``)."""
+    QPSK over 32-subcarrier OFDM, analytic LLRs, reference sum-product BP
+    with clamp 20 (``sum-product-ref`` is not ported yet: pass
+    ``bp_method='min-sum'`` or ``'sum-product'``)."""
 
     ofdm_size: int = 32
     modulation: str = "qpsk"
@@ -57,7 +57,7 @@ class LinkConfig:
     # quantized-ADC path (None = ideal ADC)
     qbits: int | None = None
     clip_ratio: float = 1.0
-    agc: str = "global"
+    agc: str = "global"  # 'global' | 'per-symbol'
     agc_clip: float = 10.0
     legacy_clip: bool = True
     # per-OFDM-symbol random SNR
@@ -72,10 +72,8 @@ class LinkConfig:
 def _check_ported(cfg: LinkConfig, weights) -> None:
     if cfg.modulation not in BITS_PER_SYMBOL:
         raise ValueError(f"unknown modulation {cfg.modulation!r}")
-    if cfg.qbits is not None:
-        raise NotImplementedError(
-            "the quantized-ADC branch (qbits) is not ported yet (ROADMAP A5)"
-        )
+    if cfg.qbits is not None and cfg.agc not in ("global", "per-symbol"):
+        raise ValueError(f"unknown agc {cfg.agc!r}")
     if cfg.snr_per_symbol:
         raise NotImplementedError(
             "snr_per_symbol is not ported yet (ROADMAP A5)"
@@ -100,9 +98,13 @@ def link_step(
     Draws the info bits, then the channel noise, from ``gen``; runs on
     ``gen.device``. Returns raw error counts and denominators (0-d int32
     tensors): uncoded/coded bit errors and frame errors. Coded BER counts
-    the info bits ``[:, :k]``, BLER the full codeword. With
-    ``return_arrays=True`` also returns the LLRs, coded bits and time
-    samples.
+    the info bits ``[:, :k]``, BLER the full codeword. With ``cfg.qbits``
+    the receiver's ADC quantizes the time samples (CP included) after the
+    ``cfg.agc`` gain control and the decoder takes the LLRs of the
+    quantized samples; the uncoded BER still counts the ideal ADC's LLRs,
+    as in the JAX package. With ``return_arrays=True`` also returns the
+    LLRs, coded bits and time samples (and the quantized LLRs and samples
+    with ``qbits``).
     """
     _check_ported(cfg, weights)
     n, k = code.n, code.k
@@ -132,14 +134,30 @@ def link_step(
                    / 10.0)
     rx_time = phy.awgn(gen, tx_time, snr)
 
-    rx = rx_time
-    if cfg.cyclic_prefix:
-        rx = phy.remove_cyclic_prefix(rx, cfg.cyclic_prefix)
-    rx_sym = phy.ofdm_demodulate(rx)  # (rows, g·S)
-    llrs = _LLR[cfg.modulation](rx_sym, snr).reshape(batch_cw, n)
+    def demod_and_llr(samples):
+        if cfg.cyclic_prefix:
+            samples = phy.remove_cyclic_prefix(samples, cfg.cyclic_prefix)
+        rx_sym = phy.ofdm_demodulate(samples)  # (rows, g·S)
+        return _LLR[cfg.modulation](rx_sym, snr).reshape(batch_cw, n)
+
+    llrs = demod_and_llr(rx_time)
+    decode_llrs = llrs
+    if cfg.qbits is not None:
+        if cfg.agc == "global":
+            clip = phy.agc_global(rx_time) * cfg.clip_ratio
+            q_time = phy.quantize_complex(rx_time, cfg.qbits, clip,
+                                          cfg.legacy_clip)
+        else:  # per OFDM symbol, from the known SNR
+            factor = phy.agc_per_symbol(
+                snr.expand(rows, tx_time.shape[1]), cfg.agc_clip,
+                cfg.clip_ratio)[..., None]
+            q = phy.quantize_complex(rx_time * factor, cfg.qbits,
+                                     cfg.agc_clip, cfg.legacy_clip)
+            q_time = q / factor
+        decode_llrs = demod_and_llr(q_time)
 
     bits_est = bp_decode(
-        llrs,
+        decode_llrs,
         code,
         iterations=cfg.bp_iterations,
         method=cfg.bp_method,
@@ -154,6 +172,7 @@ def link_step(
         es_probe_beta=cfg.es_probe_beta,
         layered_group=cfg.bp_layered_group,
         msg_qbits=cfg.msg_qbits,
+        msg_qclip=cfg.msg_qclip,
         output="hard",
         schedule=cfg.bp_schedule,
     )
@@ -178,4 +197,6 @@ def link_step(
         out.update(llrs=llrs, coded=coded, rx_time=strip(rx_time),
                    tx_time=strip(tx_time),
                    snr_sym=snr.expand(rows, tx_time.shape[1]))
+        if cfg.qbits is not None:
+            out.update(qllrs=decode_llrs, q_time=strip(q_time))
     return out

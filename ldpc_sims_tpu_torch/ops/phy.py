@@ -5,9 +5,9 @@ Shapes and conventions are the JAX package's: bits and LLR streams are
 complex64. QPSK Gray map (b0, b1) → ((1−2 b0) + j(1−2 b1))/√2; 16-QAM
 Gray map per axis (s, m) → (1−2s)(3−2m)/√10; AWGN with per-complex-component
 σ² = 1/(2·snr), snr the linear symbol SNR; exact per-bit Gaussian LLRs in
-the log(Pr1/Pr0) convention; unitary DFTs. Randomness comes from an
-explicit ``torch.Generator`` and lands on its device. The quantizer and
-the AGCs are not ported yet (ROADMAP A5).
+the log(Pr1/Pr0) convention; unitary DFTs; the reference's uniform ADC
+quantizer and its two AGCs. Randomness comes from an explicit
+``torch.Generator`` and lands on its device.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ __all__ = [
     "awgn",
     "add_cyclic_prefix",
     "remove_cyclic_prefix",
+    "quantize_complex",
+    "agc_global",
+    "agc_per_symbol",
 ]
 
 _INV_SQRT2 = 0.7071067811865476
@@ -154,3 +157,52 @@ def awgn(gen: torch.Generator, samples: torch.Tensor, snr) -> torch.Tensor:
     re = torch.randn(shape, generator=gen, device=samples.device)
     im = torch.randn(shape, generator=gen, device=samples.device)
     return samples + sigma * torch.complex(re, im)
+
+
+# --- quantizer / AGC -----------------------------------------------------
+
+
+def _f32(v, device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``device``: dividing a CUDA tensor by a
+    Python scalar multiplies by its reciprocal, by a tensor it divides."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def quantize_complex(x: torch.Tensor, num_bits: int, clip_value,
+                     legacy_clip: bool = True) -> torch.Tensor:
+    """Uniform mid-rise ADC quantizer on I and Q independently.
+
+    step = 2·clip/(2^b − 1), value = floor(x/step + 0.5)·step (halves go
+    up). ``legacy_clip=True`` keeps the reference's clip bound
+    ±((2^{b−1})·step − 1), the "− 1" outside the product; False clips to
+    ±(2^{b−1} − 1)·step, a symmetric quantizer with 2^b − 1 levels.
+    """
+    levels = 2**num_bits
+    clip = _f32(clip_value, x.device)
+    step = 2.0 * clip / _f32(levels - 1, x.device)
+    re = torch.floor(x.real / step + 0.5) * step
+    im = torch.floor(x.imag / step + 0.5) * step
+    if legacy_clip:
+        hi = (levels / 2) * step - 1.0
+        lo = -(levels / 2) * step + 1.0
+    else:
+        hi = (levels / 2 - 1) * step
+        lo = -hi
+    return torch.complex(torch.clamp(re, lo, hi), torch.clamp(im, lo, hi))
+
+
+def agc_global(rx: torch.Tensor) -> torch.Tensor:
+    """Batch-global AGC statistic: the std of the complex stream,
+    √E[|x − E[x]|²] (NumPy's complex std, as the reference takes it)."""
+    mu = rx.mean()
+    return torch.sqrt(((rx - mu).abs() ** 2).mean())
+
+
+def agc_per_symbol(snr: torch.Tensor, agc_clip: float = 10.0,
+                   clip_ratio: float = 1.0) -> torch.Tensor:
+    """Per-OFDM-symbol AGC factor: σ_rx = 0.5·(1 + 1/snr), factor =
+    agc_clip/σ_rx·clip_ratio. The caller scales by it, quantizes with the
+    fixed ``agc_clip`` and scales back."""
+    snr = torch.as_tensor(snr, dtype=torch.float32)
+    sigma_rx = 0.5 * (1.0 + 1.0 / snr)  # 1/x: a reciprocal, exact as JAX's
+    return _f32(agc_clip, snr.device) / sigma_rx * clip_ratio

@@ -186,8 +186,29 @@ def test_link_step_arrays_and_grouping():
         link_step(gen, 3.0, code, cfg, 12)
 
 
+@pytest.mark.parametrize("agc, snrdb", [("global", 8.0),
+                                         ("per-symbol", 4.5)])
+def test_link_step_quantized_adc_decodes(agc, snrdb):
+    """The quantized-ADC branch, which raised until it was ported: a 3-bit
+    ADC costs frame errors against the ideal one on the same noise, the
+    uncoded count stays the ideal ADC's, and the decode still corrects
+    (the comparison with JAX is in tests/test_torch_quant.py)."""
+    code = get_code("wifi648")
+    ideal = LinkConfig(bp_iterations=6, bp_method="min-sum", clamp=None)
+    outs = []
+    for cfg in (ideal, dataclasses.replace(ideal, qbits=3, agc=agc)):
+        gen = torch.Generator()
+        gen.manual_seed(6)
+        outs.append(link_step(gen, snrdb, code, cfg, 64))
+    assert torch.equal(outs[0]["uncoded_bit_errors"],
+                       outs[1]["uncoded_bit_errors"])
+    assert int(outs[1]["coded_bit_errors"]) >= int(
+        outs[0]["coded_bit_errors"])
+    assert int(outs[1]["coded_bit_errors"]) < int(
+        outs[1]["uncoded_bit_errors"])
+
+
 @pytest.mark.parametrize("over, match", [
-    (dict(qbits=3), "ROADMAP A5"),
     (dict(snr_per_symbol=True), "ROADMAP A5"),
 ])
 def test_link_step_unported_raise(over, match):
@@ -393,10 +414,86 @@ def test_cli_preset_ofdm_qam16(tmp_path, monkeypatch):
     assert rec["coded_ber"][0] < rec["uncoded_ber"][0]
 
 
+def cut_sweeps(monkeypatch, snrdb):
+    """Make the CLI's run_sweep run one point of 32 codewords, recording
+    each call's (code name, link, sweep)."""
+    import ldpc_sims_tpu_torch.parallel as par
+
+    calls = []
+    real = par.run_sweep
+
+    def short(code, link, sweep, **kw):
+        calls.append((code.name, link, sweep))
+        return real(code, link, dataclasses.replace(
+            sweep, snrdb=(snrdb,), batch_cw=32, steps_per_sync=1,
+            max_info_bits=1, min_info_bits=0), **kw)
+
+    monkeypatch.setattr(par, "run_sweep", short)
+    return calls
+
+
+def test_cli_preset_wifi648_sweep(tmp_path, monkeypatch):
+    """--preset wifi648-sweep, which raised until sum-product was ported:
+    layered-20 sum-product with es_mode='auto' (cut to one point)."""
+    calls = cut_sweeps(monkeypatch, 3.0)
+    cli_main(["sweep", "--preset", "wifi648-sweep", "--device", "cpu",
+              "--out", str(tmp_path)])
+    (name, link, sweep), = calls
+    p = PRESETS["wifi648-sweep"]
+    assert name == "wifi648_r12" and link == LinkConfig(**p["link"])
+    assert sweep == SweepConfig(**p["sweep"])
+    assert link.bp_method == "sum-product" and link.es_mode == "auto"
+    curves = [f for f in os.listdir(tmp_path) if f.endswith("_curves.json")]
+    with open(tmp_path / curves[0]) as f:
+        rec = json.load(f)
+    assert rec["preset"] == "wifi648-sweep" and rec["snrdb"] == [3.0]
+    assert rec["coded_ber"][0] < rec["uncoded_ber"][0]
+
+
+def test_cli_preset_quantized_minsum(tmp_path, monkeypatch):
+    """--preset quantized-minsum, which raised until message quantization
+    was ported: one sweep per width of msg_qbits_grid, each with its own
+    manifest and curves file tagged _msgq{b}, as the JAX CLI writes them;
+    a given --manifest is tagged per width too."""
+    calls = cut_sweeps(monkeypatch, 3.0)
+    manifest = str(tmp_path / "m.json")
+    cli_main(["sweep", "--preset", "quantized-minsum", "--device", "cpu",
+              "--out", str(tmp_path), "--manifest", manifest])
+    assert [c[1].msg_qbits for c in calls] == [3, 4, 5]
+    p = PRESETS["quantized-minsum"]
+    assert all(c[1] == dataclasses.replace(LinkConfig(**p["link"]),
+                                           msg_qbits=b)
+               for c, b in zip(calls, (3, 4, 5)))
+    files = sorted(os.listdir(tmp_path))
+    for b in (3, 4, 5):
+        assert f"m_msgq{b}.json" in files
+        curves, = [f for f in files if f.endswith(f"_curves_msgq{b}.json")]
+        with open(tmp_path / curves) as f:
+            assert json.load(f)["link"]["msg_qbits"] == b
+
+
+def test_cli_quantization_flags(tmp_path, monkeypatch):
+    """The message and ADC quantization flags reach the link (the sweep is
+    cut to one point of 32 codewords)."""
+    calls = cut_sweeps(monkeypatch, 6.0)
+    cli_main(["sweep", "--code", "wifi648", "--iters", "4",
+              "--snr", "6.0", "--device", "cpu",
+              "--out", str(tmp_path), "--method", "sum-product",
+              "--msg-qbits", "4", "--qbits", "3", "--clipdb", "3",
+              "--agc", "per-symbol"])
+    curves, = [f for f in os.listdir(tmp_path)
+               if f.endswith("_curves_msgq4.json")]
+    with open(tmp_path / curves) as f:
+        link = json.load(f)["link"]
+    assert link["bp_method"] == "sum-product" and link["msg_qbits"] == 4
+    assert link["qbits"] == 3 and link["agc"] == "per-symbol"
+    assert link["clip_ratio"] == 10 ** 0.3
+    (_, cfg, _), = calls
+    assert dataclasses.asdict(cfg) == link
+
+
 @pytest.mark.parametrize("preset, match", [
     ("small-cpu", "ROADMAP A4"),
-    ("wifi648-sweep", "ROADMAP A4 and B5"),
-    ("quantized-minsum", "ROADMAP B8"),
     ("reference", "ROADMAP A4"),
 ])
 def test_cli_unported_presets_raise(tmp_path, preset, match):

@@ -5,7 +5,14 @@ loops transliterated to NumPy over that plan.
 The CUDA kernels run only on the card (tests/test_torch_gpu.py); what
 they compute is checked here by running the loops of
 csrc/minsum_qc.cu line for line in NumPy on the plan table the wrapper
-hands them, fixed and early-stop forms, against the plain version.
+hands them, fixed and early-stop forms, min-sum and sum-product, with and
+without message quantization, against the plain version. Min-sum, with
+or without quantization, agrees exactly. Sum-product agrees within 1e-5
+(absolute and relative): NumPy's float32 exp/expm1/log1p/log round
+differently from PyTorch's on the CPU, and PyTorch's own CPU log1p
+differs in the last bit between vector lanes and scalar tails; on the
+card both sides call the same libdevice functions (tests/test_torch_gpu.py
+asks for equality of bits there).
 """
 
 import os
@@ -59,7 +66,8 @@ def unpack_plan(qc):
 
 
 def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
-                   early_stop=False, check_every=1):
+                   early_stop=False, check_every=1, method="min-sum",
+                   msg_qbits=None, msg_qclip=20.0):
     """The kernels' decode for a (B, n) LLR batch; returns the posterior
     in the log(Pr1/Pr0) convention and the (B,) iterations each codeword
     ran (``iterations`` for the fixed forms). Each codeword is one CTA:
@@ -70,6 +78,16 @@ def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
     ab = mq._ab_table(alpha, beta, iterations)
     z, mb, nb = qc.z, qc.mb, qc.nb
     clamp = f32(np.inf if clamp is None else clamp)
+    if msg_qbits is not None:
+        qstep = f32(2.0 * msg_qclip / (2**msg_qbits - 1))
+        qclip = f32(msg_qclip)
+
+    def sp_lt(v):
+        a = np.maximum(np.abs(v), f32(1e-12))
+        return np.log(-np.expm1(-a)) - np.log1p(np.exp(-a))
+
+    def sp_mag(s):
+        return np.log1p(np.exp(s)) - np.log(-np.expm1(s))
 
     def check_update(msg, post, i, r, a, b):
         B = msg.shape[2]
@@ -78,11 +96,16 @@ def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
         min2 = np.full(B, 1e30, f32)
         idx = np.full(B, -1)
         nneg = np.zeros(B, np.int64)
+        lts, total = [], np.zeros(B, f32)
         for p in range(p0, p1):
             q = (r + shift[p]) % z
             v = post[col[p] * z + q] - msg[p, r]
-            av = np.abs(v)
             nneg += v < 0
+            if method == "sum-product":
+                lts.append(sp_lt(v))
+                total = total + lts[-1]
+                continue
+            av = np.abs(v)
             lt1 = av < min1
             lt2 = ~lt1 & (av < min2)
             min2 = np.where(lt1, min1, np.where(lt2, av, min2))
@@ -95,9 +118,16 @@ def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
             v = post[vi] - old
             exneg = (nneg - (v < 0)) & 1
             sgn = np.where(exneg == 1, f32(-1), f32(1))
-            exmin = np.where(idx == p, min2, min1)
-            y = (sgn * np.maximum(exmin - f32(b), f32(0))) * f32(a)
+            if method == "sum-product":
+                s = np.minimum(total - lts[p - p0], f32(-1e-12))
+                y = sgn * sp_mag(s)
+            else:
+                exmin = np.where(idx == p, min2, min1)
+                y = (sgn * np.maximum(exmin - f32(b), f32(0))) * f32(a)
             y = np.minimum(np.maximum(y, -clamp), clamp).astype(f32)
+            if msg_qbits is not None:
+                y = np.rint(y / qstep) * qstep
+                y = np.minimum(np.maximum(y, -qclip), qclip).astype(f32)
             msg[p, r] = y
             if layered:
                 post[vi] = post[vi] + (y - old)
@@ -192,7 +222,12 @@ def test_smem_bytes_wifi1944():
     dict(iterations=3, layered=False, alpha=0.75, beta=0.1, clamp=2.0),
     dict(iterations=3, layered=True, alpha=A8[:3], beta=B8[:3],
          clamp=None),
-], ids=["flooding", "flooding-a-b-clamp", "layered-tabled"])
+    dict(iterations=3, layered=False, alpha=1.0, beta=0.0, clamp=None,
+         msg_qbits=4),
+    dict(iterations=3, layered=True, alpha=0.8, beta=0.0, clamp=6.0,
+         msg_qbits=3, msg_qclip=5.0),
+], ids=["flooding", "flooding-a-b-clamp", "layered-tabled", "flooding-msgq4",
+        "layered-msgq3-clip5"])
 def test_kernel_loops_match_plain_version(kw):
     qc = get_code("wifi648").qc
     llr = noisy_llrs(648, 4, seed=3)
@@ -204,6 +239,31 @@ def test_kernel_loops_match_plain_version(kw):
     np.testing.assert_array_equal(ours, ref)
 
 
+@pytest.mark.parametrize("layered, qbits", [(False, None), (True, None),
+                                            (True, 5)],
+                         ids=["flooding", "layered", "layered-msgq5"])
+def test_sumproduct_kernel_loops_match_plain_version(layered, qbits):
+    """The sum-product update (the row's lt values summed left to right,
+    then each exclusive sum) within 1e-5, hard bits equal. A codeword
+    saturated at |LLR| = 60 with random signs stays finite on both sides;
+    its values are not compared: there Σlt − lt cancels to a few ulps of
+    one large lt, so the last-bit differences of the two libraries' lt
+    move a message by up to its bound of 28.3."""
+    qc = get_code("wifi648").qc
+    rng = np.random.default_rng(4)
+    llr = rng.normal(0, 1.5, (4, 648)).astype(np.float32)
+    llr[0] = np.where(llr[0] > 0, 60.0, -60.0)
+    kw = dict(iterations=2, alpha=1.0, beta=0.0, clamp=None,
+              method="sum-product", msg_qbits=qbits)
+    ours, _ = emulate_kernel(llr, qc, layered=layered, **kw)
+    ref = decode_roll(torch.from_numpy(llr), qc, output="posterior",
+                      schedule="layered" if layered else "flooding",
+                      **kw).numpy()
+    assert np.isfinite(ours).all() and np.isfinite(ref).all()
+    np.testing.assert_allclose(ours[1:], ref[1:], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ours[1:] > 0, ref[1:] > 0)
+
+
 def bpsk_llrs(snrdb, seed):
     """One BPSK all-zero codeword of wifi648 over AWGN: log(Pr1/Pr0)."""
     rng = np.random.default_rng(seed)
@@ -212,9 +272,11 @@ def bpsk_llrs(snrdb, seed):
     return (-2.0 * r / (sigma * sigma)).astype(np.float32)
 
 
-@pytest.mark.parametrize("layered, K", [(False, 1), (True, 1), (True, 2)],
-                         ids=["flooding-K1", "layered-K1", "layered-K2"])
-def test_early_stop_kernel_loop_matches_plain_version(layered, K):
+@pytest.mark.parametrize("layered, K, extra", [
+    (False, 1, {}), (True, 1, {}), (True, 2, {}),
+    (False, 1, dict(msg_qbits=4)),
+], ids=["flooding-K1", "layered-K1", "layered-K2", "flooding-K1-msgq4"])
+def test_early_stop_kernel_loop_matches_plain_version(layered, K, extra):
     """The ES kernels' loop (entry vote, K iterations, vote, leave) in
     NumPy against the plain version: posteriors and counts exactly."""
     qc = get_code("wifi648").qc
@@ -225,9 +287,10 @@ def test_early_stop_kernel_loop_matches_plain_version(layered, K):
                     rng.normal(0, 3, 648).astype(np.float32)])
     ours, iters = emulate_kernel(llr, qc, iterations=6, alpha=0.8,
                                  beta=0.05, clamp=None, layered=layered,
-                                 early_stop=True, check_every=K)
+                                 early_stop=True, check_every=K, **extra)
     kw = dict(iterations=6, alpha=0.8, beta=0.05, early_stop=True,
-              es_check_every=K, schedule="layered" if layered else "flooding")
+              es_check_every=K, schedule="layered" if layered else "flooding",
+              **extra)
     ref = decode_roll(torch.from_numpy(llr), qc, output="posterior", **kw)
     _, ref_iters = decode_roll(torch.from_numpy(llr), qc,
                                output="hard_iters", **kw)
@@ -248,9 +311,13 @@ def test_wrapper_rejects_bad_arguments(kw, match):
 
 
 def test_launch_counters_start_and_reset():
-    names = {"minsum_qc_flooding", "minsum_qc_layered",
-             "minsum_qc_flooding_es", "minsum_qc_layered_es"}
-    assert set(mq.LAUNCHES) == names
+    names = {f"{rule}_qc_{sched}{es}{q}"
+             for rule in ("minsum", "sumproduct")
+             for sched in ("flooding", "layered")
+             for es in ("", "_es") for q in ("", "_msgq")}
+    assert len(names) == 16 and set(mq.LAUNCHES) == names
+    assert mq.KERNELS["sum-product", "layered", True, False] == \
+        "sumproduct_qc_layered_es"
     mq.LAUNCHES["minsum_qc_layered"] += 3
     mq.reset_launch_counts()
     assert mq.LAUNCHES == {name: 0 for name in names}
@@ -258,5 +325,6 @@ def test_launch_counters_start_and_reset():
     qc, z = get_code("wifi648").qc, torch.zeros((2, 648))
     mq.bp_qc_cuda(z, qc, iterations=2)
     mq.bp_qc_cuda(z, qc, iterations=2, early_stop=True)
-    mq.bp_qc_probe_requeue(z, qc, iterations=2, probe_iters=1)
+    mq.bp_qc_probe_requeue(z, qc, iterations=2, probe_iters=1,
+                           method="sum-product", msg_qbits=4)
     assert sum(mq.LAUNCHES.values()) == 0
