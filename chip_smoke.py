@@ -24,7 +24,16 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    wifi648 at 1.5 dB with 64 rows saturated at |LLR| = 60: posteriors
    within the tolerance and finite, and bits, unsatisfied-check counts,
    early-stop bits and iterations, the ``done_in`` skip and both drivers
-   exactly equal to the plain version;
+   exactly equal to the plain version. Then (2d) the eight weighted forms
+   (both rules, both schedules, with and without 4-bit messages) with
+   random per-edge weights in [0.7, 1.3] on wifi1944 and wifi648 at 1.5
+   dB, and the committed K6 decoder (its ms arrays as the α/β table):
+   posteriors within the tolerance, bits and counts equal; the
+   group-serial layered schedule at G = 2, 3, 12 for min-sum and
+   sum-product (posteriors within the tolerance, bits equal) and with
+   early stop at G = 3 (bits and iterations equal); G = 1 equal bit for
+   bit to the serial-C kernel and plain version; G = mb within 1e-4 of
+   flooding for all but at most one codeword in a thousand;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -49,6 +58,17 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    2.0 dB for message widths 3, 4 and 5, each BLER held within 4σ of its
    committed curve; one wifi648 point behind a 3-bit ADC with the global
    AGC at 8 dB, coded BER below uncoded;
+3d. the configuration ``sweep --code wifi1944 --schedule layered --iters 6
+   --clamp 0 --weights-ckpt docs/artifacts/edge_layered_1944_K6.npz``
+   builds, at 1.5 and 2.0 dB beside plain layered-6 on the same seeds (its
+   coded BER below plain layered-6's at both), a profile of its step, and
+   the K6 decoder on the artifact's own BPSK channel at 1.75 and 2.25 dB,
+   8 × 32768 all-zero codewords each: BER within 4/√(frames in error)
+   relative of the artifact's 2.604e-3 and 9.04e-5 and at 1.75 dB at
+   least 5× below plain layered-6; flooding-12 with random per-edge
+   weights at 1.5 dB; ``sweep --schedule layered --iters 20
+   --layered-group 4`` beside layered-20 at 1.5 and 2.0 dB, with phase
+   3's flooding-20 on the same seeds;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -58,7 +78,11 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    sum-product kernels and ``minsum_qc_flooding@msgq4`` (the quantized
    form, with the quantized-minsum run's launches), bound by the f32 and
    special-function-unit instructions counted in the SASS of their edge
-   sequence; then the times of both drivers.
+   sequence; ``minsum_qc_layered_w`` (the K6 decoder),
+   ``minsum_qc_flooding_w`` (flooding-12, random weights) and
+   ``minsum_qc_layered@g4`` (layered-20, G = 4), each with the launches of
+   its phase 3d run; layered-20 at each group size G = 1, 2, 3, 4, 6, 12;
+   then the times of both drivers.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -126,6 +150,14 @@ extern "C" __global__ void probe_msgq(const float* v, float* y, float step,
   y[i] = quantize(v[i], step, clip);
 }
 """
+# the kernels line's row for minsum_qc_layered's launches on the
+# --layered-group 4 path (layered-20, G = 4)
+G4_ROW = "minsum_qc_layered@g4"
+# the committed per-edge layered-6 decoder for wifi1944 and its measured
+# coded BER on its own BPSK-AWGN channel (all n bits counted)
+K6_NPZ = os.path.join(ROOT, "docs", "artifacts", "edge_layered_1944_K6.npz")
+K6_BER = {1.75: 0.002604267439898561, 2.25: 9.040017218509392e-05}
+K6_PLAIN_BER = {1.75: 0.02259009181622346, 2.25: 0.0006125619904257206}
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
 
@@ -273,6 +305,54 @@ def edge_ops(schedule: str, iterations: int, alpha=1.0, beta=0.0,
     return sum(per + (a != 1.0) + 2 * (b != 0.0) for a, b in zip(al, be))
 
 
+def weighted_ops(schedule: str, iterations: int, E: int, n: int,
+                 alpha=1.0, beta=0.0) -> int:
+    """f32 operations of one weighted decode: the unweighted count, plus
+    per edge and iteration the weight's multiply in the v2c and in the
+    posterior (flooding) or in the v2c, the message change and the
+    re-base's multiply and add (layered), plus per variable the LLR
+    weight's multiply in each posterior build. The first build is over
+    zero messages, so it needs only those LLR multiplies."""
+    extra = 2 if schedule == "flooding" else 4
+    return (E * (edge_ops(schedule, iterations, alpha, beta)
+                 + extra * iterations) + n * (iterations + 1))
+
+
+def random_edge_weights(code, iterations: int, seed: int) -> dict:
+    """Edge-flavor weights drawn uniformly from [0.7, 1.3] (NumPy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = code.graph
+    shapes = {"w_msg": (iterations, g.n_vars, g.dv),
+              "w_llr": (iterations, g.n_vars),
+              "w_msg_final": (g.n_vars, g.dv), "w_llr_final": (g.n_vars,)}
+    return {k: rng.uniform(0.7, 1.3, s).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def artifact_ber(code, snrdb: float, batches: int, batch: int, seed: int,
+                 **kw):
+    """Coded BER and frames in error on the K6 artifact's own channel
+    (examples/train_edge_layered_1944.py:175-179): all-zero codewords,
+    BPSK r = 1 + σ·n with σ = snr^-½, llr = −2r/σ², every bit counted."""
+    import torch
+
+    from ldpc_sims_tpu_torch.ops import bp_decode
+
+    sigma = (10.0 ** (snrdb / 10.0)) ** -0.5
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    errs = frames = 0
+    for _ in range(batches):
+        r = 1.0 + sigma * torch.randn((batch, code.n), generator=gen,
+                                      device="cuda")
+        bits = bp_decode(-2.0 * r / sigma**2, code, **kw)
+        errs += int(bits.sum(dtype=torch.int64))
+        frames += int(bits.any(dim=1).sum())
+    return errs / (batches * batch * code.n), frames
+
+
 def uncoded_ber(modulation: str, snrdb: float) -> float:
     """Uncoded BER of Gray QPSK or 16-QAM at symbol SNR ``snrdb``."""
     q = lambda x: 0.5 * math.erfc(x / math.sqrt(2))  # noqa: E731
@@ -352,7 +432,8 @@ class Events:
             self.auto.append(fields)
 
 
-def drive(label, code, cfg, sweep, need, card, coded_below=True):
+def drive(label, code, cfg, sweep, need, card, coded_below=True,
+          weights=None):
     """One main-path run: counters to 0, run_sweep, counters read.
 
     Fails unless every kernel in ``need`` was launched; checks the rates
@@ -364,7 +445,8 @@ def drive(label, code, cfg, sweep, need, card, coded_below=True):
 
     ev = Events()
     mq.reset_launch_counts()
-    res = run_sweep(code, cfg, sweep, log=None, metrics=ev, device="cuda")
+    res = run_sweep(code, cfg, sweep, weights=weights, log=None, metrics=ev,
+                    device="cuda")
     counts = dict(mq.LAUNCHES)
     n_steps = ev.mc_steps = len(ev.steps) * sweep.steps_per_sync
     for name in need:
@@ -419,13 +501,19 @@ def main() -> None:
             os.path.abspath(ldpc_sims_tpu_torch.__file__))) != ROOT:
         fail(f"imported {ldpc_sims_tpu_torch.__file__}, not this checkout's")
 
-    from ldpc_sims_tpu_torch.cli.main import PRESETS
+    from ldpc_sims_tpu_torch.cli.main import (
+        PRESETS,
+        build_parser,
+        sweep_configs,
+    )
     from ldpc_sims_tpu_torch.codes import get_code
     from ldpc_sims_tpu_torch.convert import load_trained_schedule
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
     from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, qc_plan
+    from ldpc_sims_tpu_torch.ops import bp_decode, pack_decoder_weights
     from ldpc_sims_tpu_torch.ops.chain import LinkConfig
     from ldpc_sims_tpu_torch.parallel import SweepConfig, mc_step
+    from ldpc_sims_tpu_torch.utils import load_decoder_weights
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -461,7 +549,8 @@ def main() -> None:
         ("minsum_qc_flooding", w648, dict(
             iterations=20, schedule="flooding"), "wifi648 flooding-20"),
     ]
-    max_err = {name: 0.0 for name in (*mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW)}
+    max_err = {name: 0.0 for name in (*mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW,
+                                      G4_ROW)}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
         k_post = mq.bp_qc_cuda(llr, code.qc, output="posterior", **kw)
@@ -634,6 +723,85 @@ def main() -> None:
         print(f"  {code.name} sum-product drivers: requeue and probe equal",
               flush=True)
 
+    print("== phase 2d: weighted and group-serial forms vs plain versions "
+          "(batch 4096)", flush=True)
+    for code in (w1944, w648):
+        qc = code.qc
+        llr = channel_llrs(code, B, 1.5, seed=31)
+        w = random_edge_weights(code, 6, seed=32)
+        for method, qb in (("min-sum", None), *rules):
+            for sched in ("flooding", "layered"):
+                at = f"{code.name} {sched}-6 {method} msg_qbits={qb} weighted"
+                kw = dict(iterations=6, schedule=sched, method=method,
+                          msg_qbits=qb, weights=w)
+                name = mq.KERNELS_W[method, sched, qb is not None]
+                kp = mq.bp_qc_cuda(llr, qc, output="posterior", **kw)
+                pp = decode_roll(llr, qc, output="posterior", **kw)
+                torch.cuda.synchronize()
+                max_err[name] = max(max_err[name], compare(kp, pp, at))
+                kb, ku = mq.bp_qc_cuda(llr, qc, output="hard_unsat", **kw)
+                pb, pu = decode_roll(llr, qc, output="hard_unsat", **kw)
+                exact([(kb, pb), (ku, pu), (kb, (kp > 0).to(torch.int8))],
+                      f"{at} hard_unsat")
+        # group-serial layered: min-sum and sum-product, and min-sum's
+        # early-stop form, against the plain version
+        for method in ("min-sum", "sum-product"):
+            for G in (2, 3, 12):
+                at = f"{code.name} layered-6 {method} G={G}"
+                kw = dict(iterations=6, schedule="layered", method=method,
+                          layered_group=G)
+                name = mq.KERNELS[method, "layered", False, False]
+                kp = mq.bp_qc_cuda(llr, qc, output="posterior", **kw)
+                pp = decode_roll(llr, qc, output="posterior", **kw)
+                torch.cuda.synchronize()
+                max_err[name] = max(max_err[name], compare(kp, pp, at))
+                exact([(mq.bp_qc_cuda(llr, qc, **kw), (pp > 0).to(
+                    torch.int8))], f"{at} bits")
+        kw = dict(iterations=20, schedule="layered", layered_group=3,
+                  early_stop=True, output="hard_iters")
+        kb, ki = mq.bp_qc_cuda(llr, qc, **kw)
+        pb, pi = decode_roll(llr, qc, **kw)
+        exact([(kb, pb), (ki, pi)], f"{code.name} layered-20 G=3 early stop")
+        print(f"  {code.name} layered-20 G=3 early stop: bits and iterations "
+              f"equal, mean iterations {float(ki.float().mean()):.3f}",
+              flush=True)
+        # the ends of the family: G = 1 is the serial-C kernel bit for bit,
+        # G = mb is flooding up to the order of the sums
+        kw = dict(iterations=6, output="posterior")
+        g1 = mq.bp_qc_cuda(llr, qc, schedule="layered", layered_group=1, **kw)
+        if not (torch.equal(g1, mq.bp_qc_cuda(llr, qc, schedule="layered",
+                                              **kw))
+                and torch.equal(g1, decode_roll(llr, qc, schedule="layered",
+                                                **kw))):
+            fail(f"{code.name}: G = 1 is not the serial-C decode bit for bit")
+        gmb = mq.bp_qc_cuda(llr, qc, schedule="layered",
+                            layered_group=qc.mb, iterations=4,
+                            output="posterior")
+        flood = mq.bp_qc_cuda(llr, qc, iterations=4, output="posterior")
+        diff = (gmb - flood).abs()
+        off = (diff > TOL + TOL * flood.abs()).any(dim=1)
+        print(f"  {code.name} G=1: equal to the serial-C kernel and plain "
+              f"version; G=mb 4 iterations against flooding-4: max |diff| "
+              f"{float(diff.max()):.3e}, {int(off.sum())} of {B} codewords "
+              f"beyond {TOL:g}", flush=True)
+        # a v2c within an ulp of 0 can flip a check's sign parity, which
+        # the other order of the sums may decide the other way: allow a
+        # rare codeword
+        if int(off.sum()) > B // 1000:
+            fail(f"{code.name}: G = mb is not flooding within {TOL:g}")
+    # the committed K6 decoder: its ms arrays as the kernel's α/β table
+    k6 = load_decoder_weights(K6_NPZ)
+    k6_edge = {k: v for k, v in k6.items() if k.startswith("w_")}
+    a6 = tuple(float(x) for x in k6["ms_alpha"])
+    b6 = tuple(float(x) for x in k6["ms_beta"])
+    llr = channel_llrs(w1944, B, 1.5, seed=33)
+    kw = dict(iterations=6, schedule="layered", output="posterior")
+    kp = bp_decode(llr, w1944, weights=k6, **kw)
+    pp = decode_roll(llr, w1944.qc, alpha=a6, beta=b6, weights=k6_edge, **kw)
+    torch.cuda.synchronize()
+    max_err["minsum_qc_layered_w"] = max(max_err["minsum_qc_layered_w"],
+                                         compare(kp, pp, "wifi1944 K6 npz"))
+
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
           flush=True)
@@ -650,9 +818,10 @@ def main() -> None:
             bp_iterations=8, bp_method="min-sum", clamp=None,
             bp_schedule="layered", alpha=a8, beta=b8), "minsum_qc_layered"),
     }
-    launches, per_step = {}, {}
+    launches, per_step, main_res = {}, {}, {}
     for label, (cfg, kname) in configs.items():
-        res, counts, ev, _ = drive(label, w1944, cfg, sweep, [kname], card)
+        res, counts, ev, rate = drive(label, w1944, cfg, sweep, [kname], card)
+        main_res[label] = (res, rate)
         launches[kname] = counts[kname]
         per_step[kname] = counts[kname] / ev.mc_steps
         if not res.coded_bler[1] < res.coded_bler[0]:
@@ -797,6 +966,89 @@ def main() -> None:
     drive("wifi648 3-bit ADC, global AGC", q_code, adc,
           dataclasses.replace(q_sweep, snrdb=(8.0,)),
           ["minsum_qc_flooding"], card)
+
+    # -- phase 3d: the weights and layered-group paths ---------------------
+    print("== phase 3d: --weights-ckpt and --layered-group at wifi1944, QPSK, "
+          "OFDM-32, batch 32768", flush=True)
+    # the configuration `sweep --code wifi1944 --schedule layered --iters 6
+    # --clamp 0 --weights-ckpt docs/artifacts/edge_layered_1944_K6.npz`
+    # builds (the artifact decoded without a clamp; JAX's default is 20)
+    args = build_parser().parse_args([
+        "sweep", "--code", "wifi1944", "--schedule", "layered", "--iters",
+        "6", "--clamp", "0", "--weights-ckpt", K6_NPZ])
+    _, k6_cfg, _, _, k6_cli = sweep_configs(args)
+    res_w, counts, ev, rate_w = drive("K6 per-edge layered-6", w1944, k6_cfg,
+                                      sweep, ["minsum_qc_layered_w"], card,
+                                      weights=k6_cli)
+    launches["minsum_qc_layered_w"] = counts["minsum_qc_layered_w"]
+    per_step["minsum_qc_layered_w"] = (counts["minsum_qc_layered_w"]
+                                       / ev.mc_steps)
+    res_p, _, _, rate_p = drive("plain layered-6", w1944, k6_cfg, sweep,
+                                ["minsum_qc_layered"], card)
+    for snr, bw, bp in zip(res_w.snrdb, res_w.coded_ber, res_p.coded_ber):
+        print(f"  @ {snr:g} dB: coded BER K6 per-edge {bw!r} against plain "
+              f"layered-6 {bp!r} ({bp / max(bw, 1e-300):.2f}x) [{card}]",
+              flush=True)
+        if not bw < bp:
+            fail(f"K6 per-edge layered-6 @ {snr:g} dB: coded BER {bw} not "
+                 f"below plain layered-6's {bp}")
+    profile_step(mc_step(w1944, k6_cfg, batch, weights=k6_cli,
+                         device="cuda"), "K6 per-edge layered-6", card)
+    # the artifact's own channel, 8 x 32768 codewords per point
+    k6_packed = pack_decoder_weights(k6, w1944, 6, "cuda")
+    lay6 = dict(iterations=6, schedule="layered")
+    for snrdb, ref in K6_BER.items():
+        ber_w, fe = artifact_ber(w1944, snrdb, 8, batch, seed=41,
+                                 weights=k6_packed, **lay6)
+        ber_p, fe_p = artifact_ber(w1944, snrdb, 8, batch, seed=41, **lay6)
+        bound_rel = 4 / math.sqrt(max(fe, 1))
+        rel = abs(ber_w - ref) / ref
+        print(f"  artifact channel @ {snrdb:g} dB: K6 per-edge BER {ber_w!r} "
+              f"({fe} frames in error; artifact {ref!r}, relative difference "
+              f"{rel:.4f} against 4/sqrt(frames) {bound_rel:.4f}); plain "
+              f"layered-6 {ber_p!r} ({fe_p} frames; artifact "
+              f"{K6_PLAIN_BER[snrdb]!r}); ratio {ber_p / ber_w:.2f} [{card}]",
+              flush=True)
+        if rel > bound_rel:
+            fail(f"K6 per-edge @ {snrdb:g} dB: BER {ber_w} is not within "
+                 f"{bound_rel:.4f} relative of the artifact's {ref}")
+        if snrdb == 1.75 and not ber_p >= 5 * ber_w:
+            fail(f"K6 per-edge @ 1.75 dB: BER {ber_w} is not 5x below plain "
+                 f"layered-6's {ber_p}")
+    # flooding-12 with per-edge weights (random, as no flooding decoder is
+    # committed), one point
+    w12 = random_edge_weights(w1944, 12, seed=42)
+    _, counts, ev, _ = drive(
+        "flooding-12 per-edge (random weights)", w1944,
+        LinkConfig(bp_iterations=12, bp_method="min-sum", clamp=None),
+        dataclasses.replace(sweep, snrdb=(1.5,)), ["minsum_qc_flooding_w"],
+        card, weights=w12)
+    launches["minsum_qc_flooding_w"] = counts["minsum_qc_flooding_w"]
+    per_step["minsum_qc_flooding_w"] = (counts["minsum_qc_flooding_w"]
+                                        / ev.mc_steps)
+    # `sweep --schedule layered --iters 20 --layered-group 4`, beside
+    # layered-20 and phase 3's flooding-20 on the same seeds
+    args = build_parser().parse_args([
+        "sweep", "--code", "wifi1944", "--schedule", "layered", "--iters",
+        "20", "--layered-group", "4"])
+    _, g4_cfg, _, _, _ = sweep_configs(args)
+    res_g4, counts, ev, rate_g4 = drive("layered-20 G=4", w1944, g4_cfg,
+                                        sweep, ["minsum_qc_layered"], card)
+    launches[G4_ROW] = counts["minsum_qc_layered"]
+    per_step[G4_ROW] = counts["minsum_qc_layered"] / ev.mc_steps
+    res_l20, _, _, rate_l20 = drive(
+        "layered-20", w1944, dataclasses.replace(g4_cfg, bp_layered_group=1),
+        sweep, ["minsum_qc_layered"], card)
+    res_f20, rate_f20 = main_res["flooding-20"]
+    for i, snr in enumerate(res_g4.snrdb):
+        print(f"  @ {snr:g} dB coded BER / BLER: layered-20 "
+              f"{res_l20.coded_ber[i]!r} / {res_l20.coded_bler[i]!r}, G=4 "
+              f"{res_g4.coded_ber[i]!r} / {res_g4.coded_bler[i]!r}, "
+              f"flooding-20 {res_f20.coded_ber[i]!r} / "
+              f"{res_f20.coded_bler[i]!r} [{card}]", flush=True)
+    print(f"  decoded info bits/s: layered-20 {rate_l20!r}, G=4 {rate_g4!r}, "
+          f"flooding-20 {rate_f20!r}; K6 per-edge layered-6 {rate_w!r}, "
+          f"plain layered-6 {rate_p!r} [{card}]", flush=True)
 
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
@@ -965,6 +1217,36 @@ def main() -> None:
     kernels.append(row(MSGQ_ROW, ms, plain_ms, bound(
         batch * n * 5, batch * E * (edge_ops("flooding", 20) + 20 * q_f32),
         batch * E * 20 * q_mufu)))
+    # the weighted kernels and the group-serial layered kernel at 1.5 dB:
+    # the K6 per-edge layered-6 decoder (its ms arrays as the α/β table),
+    # flooding-12 with random per-edge weights, layered-20 with G = 4; the
+    # weight tables' bytes count once
+    w12_tables = pack_decoder_weights(w12, w1944, 12, "cuda")["tables"]
+    for name, kw, nbytes, ops in (
+            ("minsum_qc_layered_w",
+             dict(iterations=6, schedule="layered", alpha=a6, beta=b6,
+                  weights=k6_packed["tables"]),
+             io_bytes + 4 * 7 * (E + n),
+             batch * weighted_ops("layered", 6, E, n, a6, b6)),
+            ("minsum_qc_flooding_w",
+             dict(iterations=12, schedule="flooding", weights=w12_tables),
+             io_bytes + 4 * 13 * (E + n),
+             batch * weighted_ops("flooding", 12, E, n)),
+            (G4_ROW, dict(iterations=20, schedule="layered",
+                          layered_group=4),
+             io_bytes, batch * E * edge_ops("layered", 20))):
+        max_err[name] = max(max_err[name], compare(
+            mq.bp_qc_cuda(llr, qc, output="posterior", **kw),
+            decode_roll(llr, qc, output="posterior", **kw),
+            f"{name} at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 20)
+        plain_ms = cuda_time_ms(lambda: decode_roll(llr, qc, **kw), 3, 1)
+        kernels.append(row(name, ms, plain_ms, bound(nbytes, ops)))
+    # the group-serial family: layered-20 at each group size
+    for G in (1, 2, 3, 4, 6, 12):
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(
+            llr, qc, iterations=20, schedule="layered", layered_group=G), 20)
+        print(f"  layered-20 G={G} at 1.5 dB: {ms!r} ms [{card}]", flush=True)
     # the drivers against plain compositions of their passes, at 2.5 dB
     # (where the probe overflows) and 3.0 dB (its compact path), each
     # bound by the iterations and checks its passes ran

@@ -12,9 +12,10 @@ Subpackages
 codes      LDPC code library (NumPy copies of the JAX package's).
 ops        BP decode dispatch and its plain PyTorch version, encoder,
            PHY chain, link step.
-kernels    CUDA min-sum decode kernels (flooding, layered).
+kernels    CUDA BP decode kernels (flooding, layered, group-serial;
+           min-sum, sum-product; weighted; early stop).
 parallel   The Monte-Carlo sweep engine on one device.
-utils      Phase timers, device selection.
+utils      Phase timers, device selection, decoder-weight loading.
 cli        ``python -m ldpc_sims_tpu_torch sweep ...``.
 """
 

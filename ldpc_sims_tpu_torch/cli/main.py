@@ -7,8 +7,12 @@
     python -m ldpc_sims_tpu_torch sweep --schedule layered --early-stop \\
         --es-mode auto --snr 2.5,3.5
     python -m ldpc_sims_tpu_torch sweep --preset wifi648-sweep
-    python -m ldpc_sims_tpu_torch sweep --code wifi648 --method sum-product \
+    python -m ldpc_sims_tpu_torch sweep --code wifi648 --method sum-product \\
         --msg-qbits 4 --qbits 3 --clipdb 0 --agc global
+    python -m ldpc_sims_tpu_torch sweep --schedule layered --iters 6 \\
+        --weights-ckpt docs/artifacts/edge_layered_1944_K6.npz
+    python -m ldpc_sims_tpu_torch sweep --schedule layered --iters 20 \\
+        --layered-group 4
 
 Defaults are the main path: (1944,972), QPSK over OFDM-32, flooding-20
 min-sum, on the card. ``--device cpu`` runs the plain version. The
@@ -16,7 +20,16 @@ min-sum, on the card. ``--device cpu`` runs the plain version. The
 ``quantized-minsum`` (one sweep, manifest and curves file per message
 width, tagged ``_msgq{b}``) and ``ofdm-qam16`` run, and ``small-cpu`` and
 ``reference`` raise ``NotImplementedError`` naming ROADMAP A4 (non-QC
-decoding). The other subcommands are not ported yet (ROADMAP A12).
+decoding). ``--weights-ckpt`` and ``--schedule-ckpt`` read ``.npz``
+files (``utils.load_decoder_weights``) and apply to a preset too, as in
+the JAX CLI. The other subcommands are not ported yet (ROADMAP A12).
+
+Six flags that both CLIs share take other defaults here than in the JAX
+CLI, whose defaults select ref6432 and ``sum-product-ref`` (ROADMAP A4):
+``--code`` wifi1944 (JAX ref6432), ``--iters`` 20 (3), ``--method``
+min-sum (sum-product-ref), ``--clamp`` 0, none (20), ``--snr`` 1.5,2.0
+(0:10:11) and ``--batch`` 32768 (4096). Pass them explicitly to match a
+JAX command (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -29,7 +42,7 @@ import time
 
 import numpy as np
 
-__all__ = ["PRESETS", "build_parser", "main"]
+__all__ = ["PRESETS", "build_parser", "main", "sweep_configs"]
 
 # The five benchmark configurations of the JAX package's CLI
 # (ldpc_sims_tpu/cli/main.py PRESETS, BASELINE.json "configs").
@@ -113,10 +126,42 @@ def _parse_ab(spec: str) -> float | tuple[float, ...]:
     return vals[0] if len(vals) == 1 else tuple(vals)
 
 
-def cmd_sweep(args) -> None:
+def _decoder_weights_from_args(args):
+    """--weights-ckpt: a trained decoder-weight npz."""
+    if not args.weights_ckpt:
+        return None
+    from ldpc_sims_tpu_torch.utils import load_decoder_weights
+
+    return load_decoder_weights(args.weights_ckpt)
+
+
+def _apply_schedule_ckpt(args, link):
+    """--schedule-ckpt: freeze a trained (ms_alpha, ms_beta) checkpoint
+    into the link's static per-iteration alpha/beta tuples."""
+    path = args.schedule_ckpt
+    if not path:
+        return link
+    from ldpc_sims_tpu_torch.utils import load_decoder_weights
+
+    ms = load_decoder_weights(path)
+    if not {"ms_alpha", "ms_beta"} <= set(ms):
+        raise SystemExit(
+            f"--schedule-ckpt {path} holds {sorted(ms)}; expected a "
+            "train-minsum checkpoint with ms_alpha/ms_beta (per-edge "
+            "weight pytrees go to --weights-ckpt)"
+        )
+    from ldpc_sims_tpu_torch.ops.bp import freeze_minsum_weights
+
+    alpha, beta = freeze_minsum_weights(ms)
+    return dataclasses.replace(link, alpha=alpha, beta=beta)
+
+
+def sweep_configs(args):
+    """What ``sweep`` runs for parsed ``args``: (code, LinkConfig,
+    SweepConfig, the msg_qbits grid, the decoder weights or None)."""
     from ldpc_sims_tpu_torch.codes import get_code
     from ldpc_sims_tpu_torch.ops.chain import LinkConfig
-    from ldpc_sims_tpu_torch.parallel import SweepConfig, run_sweep
+    from ldpc_sims_tpu_torch.parallel import SweepConfig
 
     if args.preset:
         p = PRESETS[args.preset]
@@ -146,6 +191,7 @@ def cmd_sweep(args) -> None:
                             if args.es_probe_alpha else None),
             es_probe_beta=(_parse_ab(args.es_probe_beta)
                            if args.es_probe_beta else None),
+            bp_layered_group=args.layered_group,
         )
         sweep = SweepConfig(
             snrdb=_parse_snr(args.snr), batch_cw=args.batch,
@@ -154,6 +200,14 @@ def cmd_sweep(args) -> None:
             seed=args.seed,
         )
         grids = (args.msg_qbits if args.msg_qbits > 0 else None,)
+    link = _apply_schedule_ckpt(args, link)
+    return code, link, sweep, grids, _decoder_weights_from_args(args)
+
+
+def cmd_sweep(args) -> None:
+    from ldpc_sims_tpu_torch.parallel import run_sweep
+
+    code, link, sweep, grids, weights = sweep_configs(args)
     os.makedirs(args.out, exist_ok=True)
     stamp = time.strftime("%Y%m%d-%H%M%S")
     for qb in grids:
@@ -166,8 +220,8 @@ def cmd_sweep(args) -> None:
             manifest = root + (tag if len(grids) > 1 else "") + ext
         else:
             manifest = os.path.join(args.out, f"{stamp}_sweep{tag}.json")
-        result = run_sweep(code, link_q, sweep, manifest_path=manifest,
-                           device=args.device)
+        result = run_sweep(code, link_q, sweep, weights=weights,
+                           manifest_path=manifest, device=args.device)
         out = {
             "code": code.name,
             "preset": args.preset,
@@ -238,6 +292,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "(comma list; empty = --bp-alpha)")
     sp.add_argument("--es-probe-beta", default="", type=str,
                     help="probe-pass beta schedule (see --es-probe-alpha)")
+    sp.add_argument("--layered-group", type=int, default=1,
+                    help="rows per serial group of the layered schedule "
+                         "(1 = serial-C; cuda only)")
+    sp.add_argument("--weights-ckpt", default="",
+                    help="trained decoder-weight pytree (.npz); the sweep "
+                         "decodes with exactly these weights (per-edge "
+                         "neural BP, ms pytrees)")
+    sp.add_argument("--schedule-ckpt", default="",
+                    help="train-minsum checkpoint (.npz) whose (ms_alpha, "
+                         "ms_beta) freeze into static per-iteration "
+                         "--bp-alpha/--bp-beta")
     sp.add_argument("--snr", default="1.5,2.0",
                     help="symbol SNR grid in dB: 'lo:hi:n' or 'a,b,c'")
     sp.add_argument("--batch", type=int, default=32768)

@@ -9,14 +9,26 @@ from __future__ import annotations
 import json
 
 import numpy as np
+import torch
 
 from ldpc_sims_tpu_torch.codes.library import LdpcCode, QcStructure
 
 __all__ = [
     "code_from_numpy",
+    "decoder_weights_from_numpy",
     "load_trained_schedule",
     "minsum_schedule_from_numpy",
 ]
+
+
+def decoder_weights_from_numpy(tree: dict, device) -> dict:
+    """A decoder-weight dict of the JAX package (NumPy or JAX arrays, as
+    ``load_decoder_weights`` returns them) → the same keys as float32
+    tensors on ``device``; tensors already there pass through."""
+    return {k: torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v), dtype=torch.float32,
+                               device=device)
+            for k, v in tree.items()}
 
 
 def code_from_numpy(name: str, H, z: int | None = None,

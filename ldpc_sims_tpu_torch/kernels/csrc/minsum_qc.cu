@@ -14,7 +14,14 @@
 //     `_log1mexp` series (Mosaic has no expm1; CUDA has);
 //   * the clamp and message quantization postlude (`msg_qbits`/`msg_qclip`,
 //     :345-350), a compile-time flag, so the unquantized forms compile as
-//     they did before it existed.
+//     they did before it existed;
+//   * per-edge neural-BP weights under both schedules (`write_posterior_w`
+//     :259-275, the weighted update :356-367 and sweep :392-397,
+//     :408-410, :434-436, the re-base :442-457, :463-467), a compile-time
+//     flag too (the _w forms; no early stop, as on the TPU);
+//   * the group-serial layered sweep, layered_group > 1 (:398-440), a
+//     runtime argument of the layered forms whose group = 1 path is the
+//     serial-C code as before.
 // Every form takes scalar alpha/beta as a table with one repeated row (min-sum
 // only; sum-product ignores it), an optional clamp, and emits hard bits
 // (int8) or the posterior (f32, log(Pr1/Pr0)). Every form takes two optional
@@ -37,7 +44,33 @@
 // it simply leaves the loop.
 //
 // Entry points, named {minsum,sumproduct}_qc_{flooding,layered}[_es][_msgq]
-// (_msgq: with message quantization), 16 in all.
+// (_msgq: with message quantization) and
+// {minsum,sumproduct}_qc_{flooding,layered}_w[_msgq] (weighted), 24 in all.
+//
+// Weights. The tables (iterations+1 rows of P*z check-oriented edge
+// weights and of n LLR weights, the last row the final marginalization's;
+// 195 KB + 54 KB for a 6-iteration wifi1944 decoder) are shared by all
+// codewords and too large to sit in shared memory beside a CTA's 36 KB of
+// state, so each thread reads its edges' weights through the read-only
+// path (__ldg, served from L1/L2) and occupancy stays as it was. The order
+// is the plain version's: w multiplies the message before the v2c
+// subtraction, the posterior is rebuilt as wl*LLR + sum of w*c2v in
+// check-sorted order (at start with row 0, after every iteration with the
+// next row; for layered this is the re-base between sweeps), and a layered
+// message change folds in as w*(new - old).
+//
+// Group-serial layered. The checks of a group of G block rows read the
+// posterior as it stood before the group, so they cannot fold their
+// changes at once as serial-C does: two rows of a group can meet in a
+// column block. Each check writes its changes into a shared-memory scratch
+// that holds the group's planes (at most min(P, G*row_deg) planes of z
+// floats, so a G > 1 launch takes that much more shared memory); after a
+// barrier each thread folds them into its variables, adding a variable's
+// changes in row order (its column's planes are listed by block row) as
+// the plain version does, deterministic and without atomics. So a group
+// costs two barriers. The threads (G*z rounded to warps, as many as the
+// kernel's registers allow) stride over the group's checks, then over the
+// variables.
 //
 // Design. One CTA decodes one codeword. Its c2v messages (P planes of z
 // floats, 27,864 B at wifi1944) and its posterior (n floats, 7,776 B) stay
@@ -128,9 +161,12 @@ __host__ __device__ inline int plan_ints_padded(int mb, int nb, int P) {
   return (plan_ints(mb, nb, P) + 3) & ~3;
 }
 
-// Bytes of dynamic shared memory one CTA needs: plan, c2v planes, posterior.
-inline int smem_bytes(int z, int mb, int nb, int P) {
-  return 4 * (plan_ints_padded(mb, nb, P) + P * z + nb * z);
+// Bytes of dynamic shared memory one CTA needs: plan, c2v planes, posterior
+// and, for a group of G > 1 block rows, the scratch of the group's planes.
+inline int smem_bytes(int z, int mb, int nb, int P, int group, int row_deg) {
+  const int planes = group * row_deg < P ? group * row_deg : P;
+  const int scratch = group > 1 ? planes * z : 0;
+  return 4 * (plan_ints_padded(mb, nb, P) + P * z + nb * z + scratch);
 }
 
 // log tanh(a/2) of a v2c message, a = max(|v|, 1e-12): in [-28.3, 0]
@@ -158,13 +194,23 @@ __device__ __forceinline__ float postlude(float y, const Rule& u) {
   return y;
 }
 
-// Exclusive check update of check (i, r). Reads v2c = post - c2v for each
-// of its edges, writes the new c2v messages and, for the layered schedule,
-// folds each message change into the posterior.
-template <int kMethod, bool kLayered, bool kQuant>
+// What a check update does with its message changes.
+constexpr int kFoldNone = 0;   // flooding: nothing (the posterior is rebuilt)
+constexpr int kFoldPost = 1;   // serial-C: fold into the posterior at once
+constexpr int kFoldDelta = 2;  // group-serial: keep in `delta` for later
+
+// Exclusive check update of check (i, r). Reads v2c = post - c2v (with
+// weights, post - w*c2v) for each of its edges, writes the new c2v
+// messages and, for the layered schedules, the message change (with
+// weights, w*(new - old)) as kFold says (kFoldDelta: slot k of the row
+// into delta[k*z + r]). w: this iteration's weights of the check-oriented
+// edges (P*z), read through the read-only cache.
+template <int kMethod, int kFold, bool kQuant, bool kW>
 __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
-                                             float* post, int z, int i,
-                                             int r, const Rule& u) {
+                                             float* post, float* delta,
+                                             const float* __restrict__ w,
+                                             int z, int i, int r,
+                                             const Rule& u) {
   const int p0 = pl.row_ptr[i], p1 = pl.row_ptr[i + 1];
   float min1 = kBig, min2 = kBig;  // min-sum
   int idx = -1, nneg = 0;
@@ -173,7 +219,9 @@ __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
   for (int p = p0; p < p1; ++p) {
     int q = r + pl.plane_shift[p];
     if (q >= z) q -= z;
-    const float v = post[pl.plane_col[p] * z + q] - msg[p * z + r];
+    float m = msg[p * z + r];
+    if constexpr (kW) m = __ldg(w + p * z + r) * m;
+    const float v = post[pl.plane_col[p] * z + q] - m;
     nneg += (v < 0.f) ? 1 : 0;
     if constexpr (kMethod == kMinSum) {
       const float a = fabsf(v);
@@ -195,7 +243,8 @@ __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
     if (q >= z) q -= z;
     const int vi = pl.plane_col[p] * z + q;
     const float old = msg[p * z + r];
-    const float v = post[vi] - old;
+    const float wp = kW ? __ldg(w + p * z + r) : 1.f;
+    const float v = kW ? post[vi] - wp * old : post[vi] - old;
     const int exneg = (nneg - ((v < 0.f) ? 1 : 0)) & 1;
     const float sgn = exneg ? -1.f : 1.f;
     float y;
@@ -207,39 +256,114 @@ __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
     }
     y = postlude<kQuant>(y, u);
     msg[p * z + r] = y;
-    if (kLayered) post[vi] = post[vi] + (y - old);
+    const float d = kW ? wp * (y - old) : y - old;
+    if constexpr (kFold == kFoldPost) post[vi] = post[vi] + d;
+    if constexpr (kFold == kFoldDelta) delta[(p - p0) * z + r] = d;
   }
 }
 
-// One iteration: the serial-C sweep over the mb block rows (layered), or
-// all checks from the posterior and then the posterior rebuilt (flooding).
-// Ends with __syncthreads(), so the posterior is complete on return.
-template <int kMethod, bool kLayered, bool kQuant>
+// The posterior rebuilt from the messages: (wl*) LLR + the sum of the
+// (w*) c2v messages of each variable in check-sorted order (the order of
+// the plain version), one thread per variable, no atomics. w, wl: one row
+// of the weight tables (kW only).
+template <bool kW>
+__device__ __forceinline__ void rebuild(const Plan& pl, const float* msg,
+                                        float* post, const float* l,
+                                        const float* __restrict__ w,
+                                        const float* __restrict__ wl, int z,
+                                        int n) {
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    const int j = v / z, q = v % z;
+    float acc = -l[v];
+    if constexpr (kW) acc = __ldg(wl + v) * acc;
+    for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
+      const int p = pl.col_planes[e];
+      int r = q - pl.plane_shift[p];
+      if (r < 0) r += z;
+      acc = acc + (kW ? __ldg(w + p * z + r) * msg[p * z + r]
+                      : msg[p * z + r]);
+    }
+    post[v] = acc;
+  }
+}
+
+// The per-iteration arguments of `iterate`: the (alpha, beta) rule and,
+// for the weighted forms, the weight rows of this iteration (w) and of the
+// next (w_next, wl_next: the final rows after the last iteration).
+struct Step {
+  Rule u;
+  const float* w;
+  const float* w_next;
+  const float* wl_next;
+};
+
+// One iteration: the serial-C sweep over the mb block rows (layered,
+// group = 1), the group-serial sweep (layered, group > 1), or all checks
+// from the posterior and then the posterior rebuilt (flooding). The
+// weighted layered forms then rebuild the posterior with the next
+// iteration's weights. Ends with __syncthreads(), so the posterior is
+// complete on return. delta: the group's scratch (group > 1 only).
+template <int kMethod, bool kLayered, bool kQuant, bool kW>
 __device__ __forceinline__ void iterate(const Plan& pl, float* msg,
-                                        float* post, const float* l, int z,
-                                        int mb, int n, const Rule& u) {
+                                        float* post, float* delta,
+                                        const float* l, int z, int mb, int n,
+                                        int group, const Step& st) {
   if (kLayered) {
-    for (int i = 0; i < mb; ++i) {
-      for (int r = threadIdx.x; r < z; r += blockDim.x)
-        check_update<kMethod, true, kQuant>(pl, msg, post, z, i, r, u);
+    if (group == 1) {
+      for (int i = 0; i < mb; ++i) {
+        for (int r = threadIdx.x; r < z; r += blockDim.x)
+          check_update<kMethod, kFoldPost, kQuant, kW>(pl, msg, post,
+                                                       nullptr, st.w, z, i,
+                                                       r, st.u);
+        __syncthreads();
+      }
+    } else {
+      // The checks of a group read the posterior as it stood before the
+      // group, so their changes wait in `delta` (plane p at scratch row
+      // p - P0); then each variable adds its column's changes from the
+      // group in block-row order. A thread folds variables tid + k*blockDim
+      // (column block j, offset q), stepping (j, q) without a division.
+      const int nb = n / z, dj = blockDim.x / z, dq = blockDim.x % z;
+      for (int g0 = 0; g0 < mb; g0 += group) {
+        const int g1 = min(g0 + group, mb);
+        const int P0 = pl.row_ptr[g0], P1 = pl.row_ptr[g1];
+        for (int c = threadIdx.x; c < (g1 - g0) * z; c += blockDim.x) {
+          const int i = g0 + c / z;
+          check_update<kMethod, kFoldDelta, kQuant, kW>(
+              pl, msg, post, delta + (pl.row_ptr[i] - P0) * z, st.w, z, i,
+              c % z, st.u);
+        }
+        __syncthreads();
+        for (int j = threadIdx.x / z, q = threadIdx.x % z; j < nb;
+             j += dj + (q + dq >= z), q += dq - (q + dq >= z ? z : 0)) {
+          float acc = post[j * z + q];
+          bool hit = false;
+          // a column's planes are listed by block row, so by plane id
+          for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
+            const int p = pl.col_planes[e];
+            if (p < P0) continue;
+            if (p >= P1) break;
+            int r = q - pl.plane_shift[p];
+            if (r < 0) r += z;
+            acc = acc + delta[(p - P0) * z + r];
+            hit = true;
+          }
+          if (hit) post[j * z + q] = acc;
+        }
+        __syncthreads();
+      }
+    }
+    if constexpr (kW) {
+      rebuild<true>(pl, msg, post, l, st.w_next, st.wl_next, z, n);
       __syncthreads();
     }
   } else {
     for (int c = threadIdx.x; c < mb * z; c += blockDim.x)
-      check_update<kMethod, false, kQuant>(pl, msg, post, z, c / z, c % z,
-                                           u);
+      check_update<kMethod, kFoldNone, kQuant, kW>(pl, msg, post, nullptr,
+                                                   st.w, z, c / z, c % z,
+                                                   st.u);
     __syncthreads();
-    for (int v = threadIdx.x; v < n; v += blockDim.x) {
-      const int j = v / z, q = v % z;
-      float acc = -l[v];
-      for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
-        const int p = pl.col_planes[e];
-        int r = q - pl.plane_shift[p];
-        if (r < 0) r += z;
-        acc = acc + msg[p * z + r];
-      }
-      post[v] = acc;
-    }
+    rebuild<kW>(pl, msg, post, l, st.w_next, st.wl_next, z, n);
     __syncthreads();
   }
 }
@@ -263,14 +387,17 @@ __device__ __forceinline__ int local_unsat(const Plan& pl, const float* post,
 }
 
 // aux_out: the iterations run (kEarlyStop), else the unsatisfied-check
-// count when not null. done_in: codewords to skip, when not null.
-template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant>
+// count when not null. done_in: codewords to skip, when not null. wm, wl:
+// the weight tables (kW: iterations+1 rows of P*z and of n floats).
+// group: block rows per group of the layered schedule.
+template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW>
 __device__ __forceinline__ void decode(
     const float* __restrict__ llr, float* __restrict__ post_out,
     int8_t* __restrict__ bits_out, const int* __restrict__ done_in,
     int* __restrict__ aux_out, const int* __restrict__ plan_g,
-    const float* __restrict__ ab, int z, int mb, int nb, int P,
-    int iterations, int check_every, float clamp, float qstep,
+    const float* __restrict__ ab, const float* __restrict__ wm,
+    const float* __restrict__ wl, int z, int mb, int nb, int P,
+    int iterations, int check_every, int group, float clamp, float qstep,
     float qclip) {
   // the flag is the same for the whole CTA, so the return is uniform
   if (done_in != nullptr && done_in[blockIdx.x] != 0) return;
@@ -280,6 +407,7 @@ __device__ __forceinline__ void decode(
   float* msg = reinterpret_cast<float*>(smem_f4) + plan_ints_padded(mb, nb, P);
   const int n = nb * z;
   float* post = msg + P * z;
+  float* delta = post + n;  // group > 1 only
   const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
   const float* l = llr + base;
 
@@ -287,12 +415,24 @@ __device__ __forceinline__ void decode(
   for (int t = threadIdx.x; t < n_plan; t += blockDim.x) plan[t] = plan_g[t];
   for (int t = threadIdx.x; t < P * z; t += blockDim.x) msg[t] = 0.f;
   // internal convention log(Pr0/Pr1): the negated API LLR
-  for (int t = threadIdx.x; t < n; t += blockDim.x) post[t] = -l[t];
+  if constexpr (!kW)
+    for (int t = threadIdx.x; t < n; t += blockDim.x) post[t] = -l[t];
   __syncthreads();
   const Plan pl{plan, plan + (mb + 1), plan + (mb + 1) + P,
                 plan + (mb + 1) + 2 * P, plan + (mb + 1) + 2 * P + (nb + 1)};
-  auto rule = [&](int it) {
-    return Rule{ab[2 * it], ab[2 * it + 1], clamp, qstep, qclip};
+  if constexpr (kW) {
+    // the posterior of the zero messages under the first weight row
+    rebuild<true>(pl, msg, post, l, wm, wl, z, n);
+    __syncthreads();
+  }
+  auto step = [&](int it) {
+    const Rule u{ab[2 * it], ab[2 * it + 1], clamp, qstep, qclip};
+    if constexpr (kW) {
+      const int64_t e = static_cast<int64_t>(P) * z;
+      return Step{u, wm + it * e, wm + (it + 1) * e, wl + (it + 1) * n};
+    } else {
+      return Step{u, nullptr, nullptr, nullptr};
+    }
   };
 
   if (kEarlyStop) {
@@ -304,8 +444,9 @@ __device__ __forceinline__ void decode(
     const int rounds = iterations / check_every;
     for (int r = 0; r < rounds && !done; ++r) {
       for (int k = 0; k < check_every; ++k)
-        iterate<kMethod, kLayered, kQuant>(pl, msg, post, l, z, mb, n,
-                                           rule(r * check_every + k));
+        iterate<kMethod, kLayered, kQuant, kW>(pl, msg, post, delta, l, z,
+                                               mb, n, group,
+                                               step(r * check_every + k));
       if (!__syncthreads_or(local_unsat(pl, post, z, mb) != 0)) {
         done = true;
         ran = (r + 1) * check_every;
@@ -314,8 +455,8 @@ __device__ __forceinline__ void decode(
     if (threadIdx.x == 0) aux_out[blockIdx.x] = ran;
   } else {
     for (int it = 0; it < iterations; ++it)
-      iterate<kMethod, kLayered, kQuant>(pl, msg, post, l, z, mb, n,
-                                         rule(it));
+      iterate<kMethod, kLayered, kQuant, kW>(pl, msg, post, delta, l, z, mb,
+                                             n, group, step(it));
     if (aux_out != nullptr) {
       const int mine = local_unsat(pl, post, z, mb);
       if (threadIdx.x == 0) unsat_sum = 0;
@@ -337,33 +478,45 @@ __device__ __forceinline__ void decode(
 
 }  // namespace
 
-#define QC_KERNEL(name, method, layered, early_stop, quant)                  \
-  __global__ void name(const float* llr, float* post_out, int8_t* bits_out, \
-                       const int* done_in, int* aux_out, const int* plan,   \
-                       const float* ab, int z, int mb, int nb, int P,       \
-                       int iterations, int check_every, float clamp,        \
-                       float qstep, float qclip) {                          \
-    decode<method, layered, early_stop, quant>(                             \
-        llr, post_out, bits_out, done_in, aux_out, plan, ab, z, mb, nb, P,  \
-        iterations, check_every, clamp, qstep, qclip);                      \
+#define QC_KERNEL(name, method, layered, early_stop, quant, weighted)         \
+  __global__ void name(const float* llr, float* post_out, int8_t* bits_out,  \
+                       const int* done_in, int* aux_out, const int* plan,    \
+                       const float* ab, const float* wm, const float* wl,    \
+                       int z, int mb, int nb, int P, int iterations,         \
+                       int check_every, int group, float clamp, float qstep, \
+                       float qclip) {                                        \
+    decode<method, layered, early_stop, quant, weighted>(                    \
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,  \
+        nb, P, iterations, check_every, group, clamp, qstep, qclip);         \
   }
 
-QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false)
-QC_KERNEL(minsum_qc_layered, kMinSum, true, false, false)
-QC_KERNEL(minsum_qc_flooding_es, kMinSum, false, true, false)
-QC_KERNEL(minsum_qc_layered_es, kMinSum, true, true, false)
-QC_KERNEL(minsum_qc_flooding_msgq, kMinSum, false, false, true)
-QC_KERNEL(minsum_qc_layered_msgq, kMinSum, true, false, true)
-QC_KERNEL(minsum_qc_flooding_es_msgq, kMinSum, false, true, true)
-QC_KERNEL(minsum_qc_layered_es_msgq, kMinSum, true, true, true)
-QC_KERNEL(sumproduct_qc_flooding, kSumProduct, false, false, false)
-QC_KERNEL(sumproduct_qc_layered, kSumProduct, true, false, false)
-QC_KERNEL(sumproduct_qc_flooding_es, kSumProduct, false, true, false)
-QC_KERNEL(sumproduct_qc_layered_es, kSumProduct, true, true, false)
-QC_KERNEL(sumproduct_qc_flooding_msgq, kSumProduct, false, false, true)
-QC_KERNEL(sumproduct_qc_layered_msgq, kSumProduct, true, false, true)
-QC_KERNEL(sumproduct_qc_flooding_es_msgq, kSumProduct, false, true, true)
-QC_KERNEL(sumproduct_qc_layered_es_msgq, kSumProduct, true, true, true)
+QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false, false)
+QC_KERNEL(minsum_qc_layered, kMinSum, true, false, false, false)
+QC_KERNEL(minsum_qc_flooding_es, kMinSum, false, true, false, false)
+QC_KERNEL(minsum_qc_layered_es, kMinSum, true, true, false, false)
+QC_KERNEL(minsum_qc_flooding_msgq, kMinSum, false, false, true, false)
+QC_KERNEL(minsum_qc_layered_msgq, kMinSum, true, false, true, false)
+QC_KERNEL(minsum_qc_flooding_es_msgq, kMinSum, false, true, true, false)
+QC_KERNEL(minsum_qc_layered_es_msgq, kMinSum, true, true, true, false)
+QC_KERNEL(sumproduct_qc_flooding, kSumProduct, false, false, false, false)
+QC_KERNEL(sumproduct_qc_layered, kSumProduct, true, false, false, false)
+QC_KERNEL(sumproduct_qc_flooding_es, kSumProduct, false, true, false, false)
+QC_KERNEL(sumproduct_qc_layered_es, kSumProduct, true, true, false, false)
+QC_KERNEL(sumproduct_qc_flooding_msgq, kSumProduct, false, false, true, false)
+QC_KERNEL(sumproduct_qc_layered_msgq, kSumProduct, true, false, true, false)
+QC_KERNEL(sumproduct_qc_flooding_es_msgq, kSumProduct, false, true, true,
+          false)
+QC_KERNEL(sumproduct_qc_layered_es_msgq, kSumProduct, true, true, true, false)
+// the weighted forms (no early stop, as in the TPU kernel)
+QC_KERNEL(minsum_qc_flooding_w, kMinSum, false, false, false, true)
+QC_KERNEL(minsum_qc_layered_w, kMinSum, true, false, false, true)
+QC_KERNEL(minsum_qc_flooding_w_msgq, kMinSum, false, false, true, true)
+QC_KERNEL(minsum_qc_layered_w_msgq, kMinSum, true, false, true, true)
+QC_KERNEL(sumproduct_qc_flooding_w, kSumProduct, false, false, false, true)
+QC_KERNEL(sumproduct_qc_layered_w, kSumProduct, true, false, false, true)
+QC_KERNEL(sumproduct_qc_flooding_w_msgq, kSumProduct, false, false, true,
+          true)
+QC_KERNEL(sumproduct_qc_layered_w_msgq, kSumProduct, true, false, true, true)
 
 extern "C" {
 
@@ -376,17 +529,23 @@ extern "C" {
 // null. aux_out: (batch,) int32, the iterations run when early_stop != 0
 // (then required), else the unsatisfied-check counts, or null. check_every
 // must divide iterations; a sum-product code's rows have at most
-// kMaxRowDeg slots. Returns the CUDA error code of the launch (0 on
-// success).
+// kMaxRowDeg slots (row_deg: the code's largest row degree). wm, wl: the
+// weight tables ((iterations+1) rows of P*z check-oriented edge weights and
+// of nb*z LLR weights), or both null; weights take no early stop. group:
+// block rows per group of the layered schedule (1 = serial-C; above 1 a
+// CTA takes min(P, group*row_deg)*z floats more of shared memory). Returns
+// the CUDA error code of the launch (0 on success).
 int bp_qc_decode(int method, int layered, int early_stop, int quant,
                  const float* llr, void* out, int out_hard,
                  const int* done_in, int* aux_out, const int* plan,
-                 const float* ab, int batch, int z, int mb, int nb, int P,
-                 int iterations, int check_every, float clamp, float qstep,
-                 float qclip, cudaStream_t stream) {
+                 const float* ab, const float* wm, const float* wl,
+                 int batch, int z, int mb, int nb, int P, int row_deg,
+                 int iterations, int check_every, int group, float clamp,
+                 float qstep, float qclip, cudaStream_t stream) {
   using Kernel = void (*)(const float*, float*, int8_t*, const int*, int*,
-                          const int*, const float*, int, int, int, int, int,
-                          int, float, float, float);
+                          const int*, const float*, const float*,
+                          const float*, int, int, int, int, int, int, int,
+                          float, float, float);
   // [method][layered][early_stop][quant]
   static const Kernel kKernels[2][2][2][2] = {
       {{{minsum_qc_flooding, minsum_qc_flooding_msgq},
@@ -397,23 +556,42 @@ int bp_qc_decode(int method, int layered, int early_stop, int quant,
         {sumproduct_qc_flooding_es, sumproduct_qc_flooding_es_msgq}},
        {{sumproduct_qc_layered, sumproduct_qc_layered_msgq},
         {sumproduct_qc_layered_es, sumproduct_qc_layered_es_msgq}}}};
-  const Kernel fn = kKernels[method != 0][layered != 0][early_stop != 0]
-                            [quant != 0];
-  const int smem = smem_bytes(z, mb, nb, P);
+  // [method][layered][quant]
+  static const Kernel kWeighted[2][2][2] = {
+      {{minsum_qc_flooding_w, minsum_qc_flooding_w_msgq},
+       {minsum_qc_layered_w, minsum_qc_layered_w_msgq}},
+      {{sumproduct_qc_flooding_w, sumproduct_qc_flooding_w_msgq},
+       {sumproduct_qc_layered_w, sumproduct_qc_layered_w_msgq}}};
+  const bool weighted = wm != nullptr;
+  if (weighted && (early_stop || wl == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (group < 1 || (group > 1 && !layered))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel fn =
+      weighted ? kWeighted[method != 0][layered != 0][quant != 0]
+               : kKernels[method != 0][layered != 0][early_stop != 0]
+                         [quant != 0];
+  if (group > mb) group = mb;
+  const int smem = smem_bytes(z, mb, nb, P, group, row_deg);
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(fn),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // layered: one thread per check of a block row; flooding: 256 threads
-  // stride over the checks, then over the variables
-  int threads = layered ? ((z + 31) / 32) * 32 : 256;
-  if (threads > 1024) threads = 1024;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(fn));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // layered: one thread per check of a group of block rows (as many as the
+  // kernel's registers allow); flooding: 256 threads stride over the
+  // checks, then over the variables
+  int threads = layered ? ((group * z + 31) / 32) * 32 : 256;
+  if (threads > attr.maxThreadsPerBlock)
+    threads = attr.maxThreadsPerBlock / 32 * 32;
   float* post_out = out_hard ? nullptr : static_cast<float*>(out);
   int8_t* bits_out = out_hard ? static_cast<int8_t*>(out) : nullptr;
   fn<<<batch, threads, smem, stream>>>(llr, post_out, bits_out, done_in,
-                                       aux_out, plan, ab, z, mb, nb, P,
-                                       iterations, check_every, clamp, qstep,
-                                       qclip);
+                                       aux_out, plan, ab, wm, wl, z, mb, nb,
+                                       P, iterations, check_every, group,
+                                       clamp, qstep, qclip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,14 +5,15 @@ The port of the Pallas kernel ``bp_qc_pallas``
 (``ldpc_sims_tpu/kernels/minsum_qc.py:603-810``) in its min-sum and
 sum-product forms, each with and without message quantization:
 ``{minsum,sumproduct}_qc_flooding`` and ``_layered`` (fixed iterations,
-with the optional ``done_in`` skip and ``hard_unsat`` count) and their
-``_es`` forms (per-codeword early stop), and the ``_msgq`` form of each,
-all in ``csrc/minsum_qc.cu`` (its header says how they work and what
-bounds them on the H100). The source is compiled with ``nvcc`` for
-``sm_90a`` into ``build/kernels/`` of the checkout on first use and
-loaded with ctypes. The drivers :func:`bp_qc_requeue` and
-:func:`bp_qc_probe_requeue` port the JAX functions of the same names
-(``:820-901``, ``:912-1053``).
+with the optional ``done_in`` skip and ``hard_unsat`` count; the layered
+forms also group-serial, ``layered_group > 1``), their ``_es`` forms
+(per-codeword early stop) and ``_w`` forms (per-edge neural-BP weights),
+and the ``_msgq`` form of each, all in ``csrc/minsum_qc.cu`` (its header
+says how they work and what bounds them on the H100). The source is
+compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` of the
+checkout on first use and loaded with ctypes. The drivers
+:func:`bp_qc_requeue` and :func:`bp_qc_probe_requeue` port the JAX
+functions of the same names (``:820-901``, ``:912-1053``).
 
 :func:`bp_qc_cuda` launches a kernel for a CUDA tensor and runs the
 plain version (:func:`..ops.bp_roll.decode_roll`) for a CPU tensor, and
@@ -35,11 +36,18 @@ import numpy as np
 import torch
 
 from ldpc_sims_tpu_torch.codes.library import QcStructure
-from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, msg_qstep, qc_plan
+from ldpc_sims_tpu_torch.ops.bp_roll import (
+    EdgeTables,
+    decode_roll,
+    msg_qstep,
+    pack_edge_weights,
+    qc_plan,
+)
 
 __all__ = [
     "LAUNCHES",
     "KERNELS",
+    "KERNELS_W",
     "SOURCE",
     "bp_qc_cuda",
     "bp_qc_probe_requeue",
@@ -67,8 +75,14 @@ KERNELS = {
     for m in METHODS for s in ("flooding", "layered")
     for es in (False, True) for q in (False, True)
 }
+# the weighted entry points per (method, schedule, quantized):
+# minsum_qc_flooding_w, ..., sumproduct_qc_layered_w_msgq
+KERNELS_W = {
+    (m, s, q): f"{m.replace('-', '')}_qc_{s}_w" + ("_msgq" if q else "")
+    for m in METHODS for s in ("flooding", "layered") for q in (False, True)
+}
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {name: 0 for name in KERNELS.values()}
+LAUNCHES = {name: 0 for name in (*KERNELS.values(), *KERNELS_W.values())}
 # dynamic shared memory one H100 CTA may use
 _SMEM_LIMIT = 232_448
 # the JAX pallas backend pads the batch to 128 lanes (ldpc_sims_tpu/ops/
@@ -122,8 +136,8 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     f32 = ctypes.c_float
     lib.bp_qc_decode.argtypes = [
-        i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32,
-        i32, i32, i32, f32, f32, f32, vp,
+        i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32,
+        i32, i32, i32, i32, i32, i32, i32, f32, f32, f32, vp,
     ]
     lib.bp_qc_decode.restype = i32
     lib.bp_qc_max_row_degree.argtypes = []
@@ -147,11 +161,17 @@ def _plan_array(qc: QcStructure) -> np.ndarray:
     ]).astype(np.int32)
 
 
-def smem_bytes(qc: QcStructure) -> int:
-    """Dynamic shared memory of one CTA: plan, c2v planes, posterior."""
-    P = len(qc_plan(qc)[0])
+def smem_bytes(qc: QcStructure, layered_group: int = 1) -> int:
+    """Dynamic shared memory of one CTA: plan, c2v planes, posterior, and
+    for a group-serial launch the message changes of a group's planes
+    (at most ``min(P, G·row degree)`` planes of z floats)."""
+    planes, group_c, _ = qc_plan(qc)
+    P = len(planes)
     plan = (qc.mb + 1 + 3 * P + qc.nb + 1 + 3) // 4 * 4
-    return 4 * (plan + P * qc.z + qc.nb * qc.z)
+    G = min(layered_group, qc.mb)
+    degree = max(len(ps) for ps in group_c)
+    scratch = min(P, G * degree) * qc.z if G > 1 else 0
+    return 4 * (plan + P * qc.z + qc.nb * qc.z + scratch)
 
 
 def _ab_table(alpha, beta, iterations: int) -> np.ndarray:
@@ -178,6 +198,22 @@ def _device_tables(qc: QcStructure, alpha, beta, iterations: int,
     return plan, ab
 
 
+def _check_weights(weights, early_stop: bool, done_in) -> None:
+    """JAX's early-stop check of kernel weights (the packer checks their
+    flavor), and the port's: the kernels carry no gradient, so weights
+    that need one raise rather than lose it."""
+    if weights is None:
+        return
+    if early_stop or done_in is not None:
+        raise ValueError("neural-BP weights with early stop is unsupported")
+    tensors = weights if isinstance(weights, EdgeTables) else weights.values()
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the decode kernels carry no gradient: decoder weights that "
+            "need one decode with backend='roll' (training through the "
+            "kernels is not ported, ROADMAP A10)")
+
+
 def bp_qc_cuda(
     llr: torch.Tensor,
     qc: QcStructure,
@@ -194,16 +230,23 @@ def bp_qc_cuda(
     method: str = "min-sum",
     msg_qbits: int | None = None,
     msg_qclip: float = 20.0,
+    weights=None,
+    layered_group: int = 1,
 ):
     """(batch, n) f32 channel LLRs (log Pr1/Pr0) → hard bits or posterior.
 
     ``method``: 'min-sum' with ``alpha``/``beta`` scalars or
     length-``iterations`` tuples (a frozen per-iteration schedule), or
     'sum-product' (stable log domain; scalar α/β are ignored, tuples
-    raise). ``clamp`` bounds each c2v message; ``msg_qbits`` then
-    quantizes it to ``2**msg_qbits − 1`` levels over ±``msg_qclip``.
-    ``schedule`` 'flooding' or 'layered' (serial-C). ``output``: 'hard'
-    (int8 bits), 'posterior' (f32, log(Pr1/Pr0)), 'hard_unsat' ((bits,
+    raise). ``clamp`` bounds each c2v message;
+    ``msg_qbits`` then quantizes it to ``2**msg_qbits − 1`` levels over
+    ±``msg_qclip``. ``weights``: edge-flavor neural-BP weights (JAX's
+    dict, packed here, or :class:`EdgeTables` packed once by the caller)
+    for the ``_w`` entry points; not with early stop or ``done_in``, and
+    not with tensors that need a gradient (the kernels carry none).
+    ``schedule`` 'flooding' or 'layered'; ``layered_group``: block rows
+    per serial group of the layered schedule (1 = serial-C). ``output``:
+    'hard' (int8 bits), 'posterior' (f32, log(Pr1/Pr0)), 'hard_unsat' ((bits,
     (batch,) int32 unsatisfied-check counts) after a fixed decode) or,
     with ``early_stop``, 'hard_iters' ((bits, (batch,) int32 iterations
     run)). ``early_stop``: each codeword stops at its first
@@ -237,9 +280,15 @@ def bp_qc_cuda(
         beta = tuple(beta)
     if method not in METHODS:
         raise ValueError(f"unsupported kernel method {method!r}")
+    if isinstance(alpha, torch.Tensor) or isinstance(beta, torch.Tensor):
+        raise TypeError("per-iteration alpha/beta must be tuples of floats "
+                        "(ops.bp.freeze_minsum_weights)")
     if method != "min-sum" and (isinstance(alpha, tuple)
                                 or isinstance(beta, tuple)):
         raise ValueError("per-iteration alpha/beta require min-sum")
+    if layered_group < 1 or (layered_group > 1 and schedule != "layered"):
+        raise ValueError("layered_group needs schedule='layered'")
+    _check_weights(weights, early_stop, done_in)
     qstep = msg_qstep(msg_qbits, msg_qclip)
     _ab_table(alpha, beta, iterations)  # validates tuple lengths
     B = llr.shape[0]
@@ -260,7 +309,8 @@ def bp_qc_cuda(
                           schedule=schedule, early_stop=early_stop,
                           es_check_every=es_check_every, done_in=done_in,
                           method=method, msg_qbits=msg_qbits,
-                          msg_qclip=msg_qclip)
+                          msg_qclip=msg_qclip, weights=weights,
+                          layered_group=layered_group)
         if out is None:
             return res
         main = res[0] if isinstance(res, tuple) else res
@@ -277,7 +327,7 @@ def bp_qc_cuda(
         raise ValueError("empty batch")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
-    smem = smem_bytes(qc)
+    smem = smem_bytes(qc, layered_group)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"code needs {smem} B of shared memory per codeword, more than "
@@ -295,6 +345,12 @@ def bp_qc_cuda(
             f"most {cap}"
         )
     plan, ab = _device_tables(qc, alpha, beta, iterations, str(llr.device))
+    wm = wl = None
+    if weights is not None:
+        wt = pack_edge_weights(weights, qc, iterations, llr.device)
+        if wt.msg.device != llr.device or wt.llr.device != llr.device:
+            raise ValueError(f"edge tables must lie on {llr.device}")
+        wm, wl = wt.msg.contiguous(), wt.llr.contiguous()
     if out is None:
         out = torch.empty(llr.shape, dtype=out_dtype, device=llr.device)
     flags = None
@@ -312,13 +368,17 @@ def bp_qc_cuda(
         out.data_ptr(), int(hard),
         None if flags is None else flags.data_ptr(),
         None if aux is None else aux.data_ptr(),
-        plan.data_ptr(), ab.data_ptr(), B, qc.z, qc.mb, qc.nb, len(planes),
-        iterations, es_check_every,
-        math.inf if clamp is None else float(clamp),
+        plan.data_ptr(), ab.data_ptr(),
+        None if wm is None else wm.data_ptr(),
+        None if wl is None else wl.data_ptr(),
+        B, qc.z, qc.mb, qc.nb, len(planes), degree, iterations,
+        es_check_every,
+        layered_group, math.inf if clamp is None else float(clamp),
         qstep if quant else 1.0, float(msg_qclip) if quant else math.inf,
         stream,
     )
-    name = KERNELS[method, schedule, bool(early_stop), quant]
+    name = (KERNELS_W[method, schedule, quant] if wm is not None
+            else KERNELS[method, schedule, bool(early_stop), quant])
     if err != 0:
         msg = lib.bp_qc_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg}")
@@ -347,6 +407,7 @@ def bp_qc_requeue(
     method: str = "min-sum",
     msg_qbits: int | None = None,
     msg_qclip: float = 20.0,
+    layered_group: int = 1,
 ):
     """Early-stop decode as an early-stop probe, then a full-budget
     early-stop pass over the codewords the probe did not finish.
@@ -354,8 +415,9 @@ def bp_qc_requeue(
     The JAX function's results: ``done = iters1 < probe_iters``; bits are
     the probe's where done, else the second pass's; iterations are
     ``iters1`` where done, else ``probe_iters + iters2``. A frozen
-    per-iteration schedule runs its prefix in the probe; ``method`` and
-    the message quantization apply to both passes. The TPU sorts the
+    per-iteration schedule runs its prefix in the probe; ``method``, the
+    message quantization and ``layered_group`` apply to both passes. The
+    TPU sorts the
     converged lanes to the front so that whole tiles skip; a CTA decodes
     one codeword, so the second pass is one launch over the whole batch
     with ``done_in = done``, writing straight into the probe's bits.
@@ -366,7 +428,8 @@ def bp_qc_requeue(
     b_probe = beta[:probe_iters] if isinstance(beta, tuple) else beta
     kw = dict(clamp=clamp, schedule=schedule, output="hard_iters",
               early_stop=True, es_check_every=es_check_every, method=method,
-              msg_qbits=msg_qbits, msg_qclip=msg_qclip)
+              msg_qbits=msg_qbits, msg_qclip=msg_qclip,
+              layered_group=layered_group)
     bits, iters1 = bp_qc_cuda(llr, qc, probe_iters, alpha=a_probe,
                               beta=b_probe, **kw)
     # converged := finished under budget at a checked state; a codeword
@@ -403,6 +466,7 @@ def bp_qc_probe_requeue(
     method: str = "min-sum",
     msg_qbits: int | None = None,
     msg_qclip: float = 20.0,
+    layered_group: int = 1,
 ):
     """Adaptive decode: a fixed ``probe_iters`` probe with the fused
     unsatisfied-check count, then a fixed full-budget pass over the
@@ -418,8 +482,8 @@ def bp_qc_probe_requeue(
     the device from the host. The probe's (α, β) is ``probe_alpha``/
     ``probe_beta`` or else the full schedule; a tuple of another length
     than ``probe_iters`` is cut to its first ``probe_iters`` entries, as
-    the JAX function does (silently). ``method`` and the message
-    quantization apply to both passes.
+    the JAX function does (silently). ``method``, the message
+    quantization and ``layered_group`` apply to both passes.
     """
     if output not in ("hard", "hard_iters"):
         raise ValueError("bp_qc_probe_requeue outputs hard bits only")
@@ -435,7 +499,8 @@ def bp_qc_probe_requeue(
     if isinstance(pb, tuple):
         pb = pb[:probe_iters]
     kw = dict(clamp=clamp, schedule=schedule, method=method,
-              msg_qbits=msg_qbits, msg_qclip=msg_qclip)
+              msg_qbits=msg_qbits, msg_qclip=msg_qclip,
+              layered_group=layered_group)
     bits, unsat = bp_qc_cuda(llr, qc, probe_iters, alpha=pa, beta=pb,
                              output="hard_unsat", **kw)
     done = unsat == 0

@@ -2,19 +2,23 @@
 
 The port decodes quasi-cyclic codes with min-sum (scalar or
 per-iteration α/β) or the stable log-domain sum-product under the
-flooding and the layered (serial-C) schedule, with an optional clamp,
-message quantization (``msg_qbits``/``msg_qclip``) and per-codeword early
-stop in the JAX package's three modes (freeze, requeue, probe). Backends:
+flooding, the layered (serial-C) and the group-serial layered schedule,
+with an optional clamp, message quantization (``msg_qbits``/
+``msg_qclip``), edge-flavor neural-BP weights and per-codeword early
+stop in the JAX package's three modes (freeze, requeue, probe).
+Backends:
 
 * ``'cuda'``: the hand-written kernels of
   :mod:`ldpc_sims_tpu_torch.kernels.minsum_qc` and their drivers (on a
   CPU tensor the wrapper runs the plain version);
 * ``'roll'``: the plain PyTorch version (:mod:`.bp_roll`) on any device;
   of early stop it takes ``es_mode='freeze'`` with a check every
-  iteration, as the JAX roll backend does;
-* ``'auto'``: ``'cuda'`` for a CUDA tensor, and for the early-stop forms
-  only the kernels' module implements (requeue, probe, a check stride
-  above 1); else ``'roll'`` for a CPU tensor.
+  iteration, as the JAX roll backend does, and it takes no
+  ``layered_group > 1``, as the JAX roll backend does not; gradients flow
+  through it;
+* ``'auto'``: ``'cuda'`` for a CUDA tensor, and for the forms only the
+  kernels' module implements (requeue, probe, a check stride above 1,
+  ``layered_group > 1``); else ``'roll'`` for a CPU tensor.
 
 What the JAX function does beyond that raises ``NotImplementedError``
 naming its ROADMAP item; nothing falls back silently.
@@ -26,21 +30,88 @@ import numpy as np
 import torch
 
 from ldpc_sims_tpu_torch.codes.library import LdpcCode
-from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll
+from ldpc_sims_tpu_torch.convert import decoder_weights_from_numpy
+from ldpc_sims_tpu_torch.ops.bp_roll import (
+    EDGE_KEYS,
+    decode_roll,
+    pack_edge_weights,
+)
 
-__all__ = ["bp_decode", "freeze_minsum_weights"]
+__all__ = [
+    "bp_decode",
+    "freeze_minsum_weights",
+    "init_minsum_weights",
+    "init_neural_bp_weights",
+    "pack_decoder_weights",
+]
+
+
+def init_neural_bp_weights(code: LdpcCode, iterations: int,
+                           flavor: str = "edge") -> dict[str, torch.Tensor]:
+    """All-ones edge-flavor neural-BP weights (= plain BP), in JAX's
+    layout: ``w_msg`` (iterations, n, dv) with check-sorted variable
+    slots, ``w_llr`` (iterations, n), ``w_msg_final`` (n, dv) and
+    ``w_llr_final`` (n,). The pair flavor needs the gather backend
+    (ROADMAP A4)."""
+    if flavor == "pair":
+        raise NotImplementedError(
+            "pair-flavor neural-BP weights need the gather backend, not "
+            "ported yet (ROADMAP A4)")
+    if flavor != "edge":
+        raise ValueError(f"unknown flavor {flavor!r}")
+    g = code.graph
+    return {
+        "w_llr": torch.ones((iterations, g.n_vars)),
+        "w_msg_final": torch.ones((g.n_vars, g.dv)),
+        "w_llr_final": torch.ones((g.n_vars,)),
+        "w_msg": torch.ones((iterations, g.n_vars, g.dv)),
+    }
+
+
+def init_minsum_weights(iterations: int) -> dict[str, torch.Tensor]:
+    """Identity weighted-min-sum weights: per-iteration ``ms_alpha``
+    (ones) and ``ms_beta`` (zeros)."""
+    return {"ms_alpha": torch.ones((iterations,)),
+            "ms_beta": torch.zeros((iterations,))}
+
+
+def _floats(v) -> tuple:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return tuple(float(x) for x in np.asarray(v))
 
 
 def freeze_minsum_weights(weights: dict) -> tuple[tuple, tuple]:
     """Trained ms weights ``{'ms_alpha', 'ms_beta'}`` (arrays or tensors)
     → static ``(alpha, beta)`` tuples for ``bp_decode(alpha=, beta=)``."""
+    return _floats(weights["ms_alpha"]), _floats(weights["ms_beta"])
 
-    def floats(v):
-        if isinstance(v, torch.Tensor):
-            v = v.detach().cpu().numpy()
-        return tuple(float(x) for x in np.asarray(v))
 
-    return floats(weights["ms_alpha"]), floats(weights["ms_beta"])
+def pack_decoder_weights(weights: dict | None, code: LdpcCode,
+                         iterations: int, device) -> dict | None:
+    """Decoder weights made ready once for many decodes on ``device``.
+
+    ``ms_alpha``/``ms_beta`` are frozen to tuples of floats on the host
+    (:func:`freeze_minsum_weights`), the kernels' cached α/β table. Every
+    other array becomes a float32 tensor there
+    (:func:`..convert.decoder_weights_from_numpy`), and a complete
+    edge-flavor set is packed into the kernels' tables, which
+    :func:`bp_decode` takes under the key ``'tables'`` in place of the
+    four arrays. The sweep engine calls it once per sweep, so no step
+    converts or packs the 163k weights of a 6-iteration wifi1944 decoder
+    again.
+    """
+    if weights is None:
+        return None
+    weights = dict(weights)
+    ms = {k: weights.pop(k) for k in ("ms_alpha", "ms_beta")
+          if k in weights}
+    out = decoder_weights_from_numpy(weights, device)
+    out.update({k: _floats(v) for k, v in ms.items()})
+    if EDGE_KEYS <= set(out) and code.qc is not None:
+        edge = {k: out.pop(k) for k in EDGE_KEYS}
+        out["tables"] = pack_edge_weights(edge, code.qc, iterations, device)
+    return out
 
 
 def bp_decode(
@@ -96,11 +167,30 @@ def bp_decode(
         f32 posterior log(Pr1/Pr0); 'soft' → Pr(bit=1) as the sigmoid of
         half the posterior; 'hard_iters' → (bits, (batch,) int32
         iterations run, constant ``iterations`` without early stop).
+      weights: optional decoder weights, JAX's dict (NumPy arrays or
+        tensors; :func:`init_neural_bp_weights`,
+        :func:`init_minsum_weights`, :func:`..utils.load_decoder_weights`)
+        or :func:`pack_decoder_weights`'s. Edge-flavor arrays (``w_msg``,
+        ``w_llr``, ``w_msg_final``, ``w_llr_final``) weight each edge per
+        iteration, under either schedule, not with early stop; the
+        ``cuda`` backend runs them in the ``_w`` kernels. ``ms_alpha``/
+        ``ms_beta`` are a per-iteration α/β (min-sum; not with tuple
+        α/β). JAX sends a dict holding ``ms_*`` to its roll backend,
+        because traced arrays cannot be baked into its Pallas kernel; the
+        port's kernels read α/β from a table at run time, so here such a
+        dict runs the kernels on the card, with the ms arrays frozen to
+        that table. Weights that need a gradient decode with
+        ``backend='roll'``: the kernels carry none, and the ``cuda``
+        path raises rather than drop it. The pair flavor (``w_pair``)
+        needs the gather backend (ROADMAP A4).
       backend: 'auto' | 'cuda' | 'roll' (module docs).
       schedule: 'flooding' | 'layered'.
+      layered_group: block rows per serial group of the layered schedule
+        (1 = serial-C; ``mb`` = one flooding iteration up to the order of
+        the sums); above 1 the kernels' module only, as in JAX.
 
-    ``weights``, ``layered_group > 1``, ``method='sum-product-ref'``,
-    other dtypes and non-QC codes are not ported yet.
+    ``method='sum-product-ref'``, other dtypes and non-QC codes are not
+    ported yet.
     """
     if method not in ("min-sum", "sum-product", "sum-product-ref"):
         raise ValueError(f"unknown method {method!r}")
@@ -126,19 +216,46 @@ def bp_decode(
         es_probe_alpha = tuple(es_probe_alpha)
     if isinstance(es_probe_beta, list):
         es_probe_beta = tuple(es_probe_beta)
-    if (isinstance(alpha, tuple) or isinstance(beta, tuple)) and (
-        method != "min-sum"
-    ):
+    # per-iteration α/β: static tuples, or the ms_alpha/ms_beta arrays of
+    # a weight dict (JAX's ms pytree keys)
+    ms_w = None
+    if weights is not None and ("ms_alpha" in weights
+                                or "ms_beta" in weights):
+        weights = dict(weights)
+        ms_w = {
+            "alpha": weights.pop("ms_alpha", np.ones(iterations, np.float32)),
+            "beta": weights.pop("ms_beta", np.zeros(iterations, np.float32)),
+        }
+        for nm in ("alpha", "beta"):
+            shape = np.shape(ms_w[nm])
+            if shape != (iterations,):
+                raise ValueError(
+                    f"ms_{nm} must have shape ({iterations},) to match "
+                    f"iterations={iterations}, got {shape}"
+                )
+        if not weights:
+            weights = None
+        if isinstance(alpha, tuple) or isinstance(beta, tuple):
+            raise ValueError(
+                "pass tuple alpha/beta OR ms_alpha/ms_beta weights, not both"
+            )
+    if (
+        isinstance(alpha, tuple) or isinstance(beta, tuple)
+        or ms_w is not None
+    ) and method != "min-sum":
         raise ValueError("per-iteration alpha/beta require method='min-sum'")
     for v, nm in ((alpha, "alpha"), (beta, "beta")):
         if isinstance(v, tuple) and len(v) != iterations:
             raise ValueError(
                 f"per-iteration {nm} needs length {iterations}, got {len(v)}"
             )
-    if layered_group != 1:
-        raise NotImplementedError(
-            "layered_group > 1 is not ported yet (ROADMAP B9)"
-        )
+    if weights is not None:
+        if "w_pair" in weights:
+            raise NotImplementedError(
+                "pair-flavor neural-BP weights (w_pair) need the gather "
+                "backend, not ported yet (ROADMAP A4)"
+            )
+        weights = weights.get("tables", weights)
     if not (isinstance(code, LdpcCode) and code.qc is not None):
         raise NotImplementedError(
             "non-QC codes need the dense/gather decode, not ported yet "
@@ -148,14 +265,20 @@ def bp_decode(
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet (ROADMAP A4)"
         )
-    # the early-stop forms only the kernels' module implements
-    needs_cuda = early_stop and (es_mode != "freeze" or es_check_every != 1)
+    # the forms only the kernels' module implements
+    needs_cuda = layered_group != 1 or (
+        early_stop and (es_mode != "freeze" or es_check_every != 1))
     if backend == "auto":
         backend = ("cuda" if llr.device.type == "cuda" or needs_cuda
                    else "roll")
     if backend not in ("cuda", "roll"):
         raise ValueError(f"unknown backend {backend!r}")
-    if needs_cuda:
+    if layered_group != 1 and backend != "cuda":
+        raise ValueError(
+            "layered_group is cuda-only; pass backend='cuda' (on a CPU "
+            "tensor it runs the plain version)"
+        )
+    if early_stop and (es_mode != "freeze" or es_check_every != 1):
         if backend != "cuda":
             raise ValueError(
                 "es_mode='requeue'/'probe' and es_check_every>1 are "
@@ -181,29 +304,35 @@ def bp_decode(
             "method='sum-product-ref' (the reference's tanh-product rule) "
             "is not ported yet (ROADMAP A4)"
         )
-    if weights is not None:
-        raise NotImplementedError(
-            "decoder weights are not ported yet (ROADMAP A10 and B7)"
-        )
     if dtype != torch.float32:
         raise NotImplementedError(
             f"message storage dtype {dtype} is not ported yet (ROADMAP B10)"
         )
     llr = llr.to(torch.float32).contiguous()
-    kw = dict(iterations=iterations, alpha=alpha, beta=beta, clamp=clamp,
-              schedule=schedule, method=method, msg_qbits=msg_qbits,
-              msg_qclip=msg_qclip)
-    if output == "hard_iters" and not early_stop:
-        bits = bp_decode(llr, code, backend=backend, **kw)
-        return bits, torch.full((llr.shape[0],), iterations,
-                                dtype=torch.int32, device=llr.device)
-    kw["output"] = "posterior" if output == "soft" else output
+    kw = dict(iterations=iterations, clamp=clamp, schedule=schedule,
+              method=method, msg_qbits=msg_qbits, msg_qclip=msg_qclip,
+              layered_group=layered_group)
+    # without early stop the iteration count is the fixed budget
+    fixed_iters = output == "hard_iters" and not early_stop
+    kw["output"] = ("posterior" if output == "soft" else
+                    "hard" if fixed_iters else output)
     if backend == "roll":
-        out = decode_roll(llr, code.qc, early_stop=early_stop, **kw)
+        out = decode_roll(llr, code.qc, alpha=alpha, beta=beta,
+                          early_stop=early_stop, weights=weights,
+                          ms_weights=ms_w, **kw)
     else:
         # imported here: the kernels' module imports this package's bp_roll
         from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 
+        if ms_w is not None:  # the kernels' α/β table
+            if any(isinstance(v, torch.Tensor) and v.requires_grad
+                   for v in ms_w.values()):
+                raise NotImplementedError(
+                    "the decode kernels carry no gradient: ms_alpha/ms_beta "
+                    "that need one decode with backend='roll' (training "
+                    "through the kernels is not ported, ROADMAP A10)")
+            alpha, beta = _floats(ms_w["alpha"]), _floats(ms_w["beta"])
+        kw.update(alpha=alpha, beta=beta)
         if early_stop and es_mode == "probe":
             out = mq.bp_qc_probe_requeue(
                 llr, code.qc, probe_iters=es_probe_iters,
@@ -214,7 +343,12 @@ def bp_decode(
                 es_check_every=es_check_every, **kw)
         else:
             out = mq.bp_qc_cuda(llr, code.qc, early_stop=early_stop,
-                                es_check_every=es_check_every, **kw)
+                                es_check_every=es_check_every,
+                                weights=weights, **kw)
     if output == "soft":
         return torch.sigmoid(0.5 * out)
+    if fixed_iters:
+        return out, torch.full((llr.shape[0],), iterations,
+                               dtype=torch.int32, device=llr.device)
     return out
+

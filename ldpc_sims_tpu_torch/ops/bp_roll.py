@@ -17,11 +17,13 @@ variable ``j·z + (r + s) mod z``. Variable orientation is
 ``roll(plane, s)`` (column q ↔ variable j·z+q); the inverse is
 ``roll(·, −s)``. ``torch.roll`` and ``jnp.roll`` shift the same way.
 
-Scope: min-sum with scalar or per-iteration (tuple) α/β and the stable
-log-domain sum-product, optional clamp and message quantization
-(``msg_qbits``), flooding and layered (serial-C) schedules, per-codeword
-early stop with a check stride, a mask of codewords to skip, and the
-outputs ``hard``, ``posterior``, ``hard_iters`` and ``hard_unsat``.
+Scope: min-sum with scalar or per-iteration α/β (tuples, or the
+``ms_weights`` tensors gradients flow through) and the stable log-domain
+sum-product, optional clamp and message quantization (``msg_qbits``),
+per-edge neural-BP weights, flooding, layered (serial-C) and
+group-serial layered schedules, per-codeword early stop with a check
+stride, a mask of codewords to skip, and the outputs ``hard``,
+``posterior``, ``hard_iters`` and ``hard_unsat``.
 :func:`..ops.bp.bp_decode` rejects what the JAX function takes beyond
 that, naming its ROADMAP item.
 
@@ -35,13 +37,27 @@ last bit with the position of a codeword in the batch.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ldpc_sims_tpu_torch.codes.library import QcStructure
 
-__all__ = ["decode_roll", "msg_qstep", "qc_plan", "unsat_checks"]
+__all__ = [
+    "EDGE_KEYS",
+    "EdgeTables",
+    "decode_roll",
+    "msg_qstep",
+    "pack_edge_weights",
+    "qc_plan",
+    "unsat_checks",
+]
 
 _BIG = 1e30
+# the arrays of an edge-flavor neural-BP weight set
+EDGE_KEYS = frozenset({"w_msg", "w_llr", "w_msg_final", "w_llr_final"})
 
 
 def qc_plan(qc: QcStructure):
@@ -75,6 +91,95 @@ def msg_qstep(msg_qbits: int | None, msg_qclip: float) -> float | None:
         raise ValueError(f"msg_qbits={msg_qbits!r} must be a positive "
                          f"integer and msg_qclip={msg_qclip!r} positive")
     return 2.0 * msg_qclip / (2**int(msg_qbits) - 1)
+
+
+class EdgeTables(NamedTuple):
+    """Edge-flavor neural-BP weights in the decode kernels' layout.
+
+    ``msg``: (iterations+1, P, z) float32, plane p's weight on the edge of
+    check ``i·z + r`` at ``[t, p, r]``, that is the variable-space weight
+    pre-rolled to check orientation (``roll(w ⊙ roll(m, s), −s) ==
+    roll(w, −s) ⊙ m``); ``llr``: (iterations+1, nb, z) float32. Row
+    ``iterations`` of each holds the final-marginalization weights.
+    """
+
+    msg: torch.Tensor
+    llr: torch.Tensor
+
+
+@functools.lru_cache(maxsize=32)
+def _edge_index(qc: QcStructure, dv: int) -> np.ndarray:
+    """(P·z,) flat index into a (n·dv) variable-space weight row of the
+    weight of plane p's edge at check offset r (the slot of plane p among
+    its variable block's check-sorted planes)."""
+    planes, _, group_v = qc_plan(qc)
+    z = qc.z
+    idx = np.empty((len(planes), z), np.int64)
+    r = np.arange(z)
+    for j, ps in enumerate(group_v):
+        for kv, p in enumerate(ps):
+            if kv >= dv:
+                raise ValueError(f"w_msg has {dv} slots per variable; "
+                                 f"column block {j} has degree {len(ps)}")
+            s = planes[p][2]
+            idx[p] = (j * z + (r + s) % z) * dv + kv
+    return idx.reshape(-1)
+
+
+def pack_edge_weights(weights, qc: QcStructure, iterations: int,
+                      device=None) -> EdgeTables:
+    """Edge-flavor weights (JAX's layout) → :class:`EdgeTables`.
+
+    The counterpart of ``_pack_edge_weights``
+    (``ldpc_sims_tpu/kernels/minsum_qc.py:533-593``), with its shape
+    checks and messages: ``w_msg`` (iterations, n, dv) in variable space
+    with check-sorted slots, ``w_llr`` (iterations, n), and the
+    ``*_final`` marginalization weights. Arrays may be NumPy or tensors;
+    made of torch operations, so a gradient flows through it. An
+    :class:`EdgeTables` passes through after its shapes are checked; a
+    dict that is not the edge flavor raises, as in JAX.
+    """
+    planes = qc_plan(qc)[0]
+    nb, z = qc.nb, qc.z
+    n = nb * z
+    if isinstance(weights, EdgeTables):
+        want = ((iterations + 1, len(planes), z), (iterations + 1, nb, z))
+        got = (tuple(weights.msg.shape), tuple(weights.llr.shape))
+        if got != want:
+            raise ValueError(f"edge tables of shapes {got} != {want}")
+        return weights
+
+    missing = set(EDGE_KEYS) - set(weights)
+    if missing or "w_pair" in weights:
+        raise ValueError("kernel weights must be the edge flavor "
+                         f"(missing {missing or 'nothing'}; w_pair "
+                         "unsupported)")
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    wm = f32(weights["w_msg"])
+    dv = wm.shape[-1] if wm.dim() else 0
+    if tuple(wm.shape) != (iterations, n, dv):
+        raise ValueError(
+            f"w_msg shape {tuple(wm.shape)} != ({iterations}, {n}, dv)")
+    dev = wm.device
+    wmf = f32(weights["w_msg_final"]).to(dev)
+    if tuple(wmf.shape) != (n, dv):
+        raise ValueError(f"w_msg_final shape {tuple(wmf.shape)} != ({n}, "
+                         f"{dv})")
+    wl = f32(weights["w_llr"]).to(dev)
+    if tuple(wl.shape) != (iterations, n):
+        raise ValueError(f"w_llr shape {tuple(wl.shape)} != ({iterations}, "
+                         f"{n})")
+    wlf = f32(weights["w_llr_final"]).to(dev).reshape(1, n)
+    idx = torch.from_numpy(_edge_index(qc, dv)).to(dev)
+    w_all = torch.cat([wm, wmf[None]]).reshape(iterations + 1, n * dv)
+    return EdgeTables(
+        msg=w_all.index_select(1, idx).reshape(iterations + 1, len(planes),
+                                               z),
+        llr=torch.cat([wl, wlf]).reshape(iterations + 1, nb, z),
+    )
 
 
 def _exclusive_sign(x: torch.Tensor) -> torch.Tensor:
@@ -146,23 +251,45 @@ def decode_roll(
     method: str = "min-sum",
     msg_qbits: int | None = None,
     msg_qclip: float = 20.0,
+    weights=None,
+    ms_weights: dict | None = None,
+    layered_group: int = 1,
 ):
     """QC-LDPC BP decode; the contract of :func:`..ops.bp.bp_decode` for
-    QC codes, and of the Pallas kernel's early-stop forms.
+    QC codes, and of the Pallas kernel's early-stop, weighted and
+    group-serial forms.
 
     llr: (batch, n) channel LLRs, log(Pr1/Pr0) convention, on any device.
     ``method``: 'min-sum' or 'sum-product'. Min-sum's ``alpha``/``beta``
-    may be length-``iterations`` tuples (a frozen per-iteration
-    normalization/offset schedule); sum-product ignores scalar α/β and
-    rejects tuples. Each c2v message is clamped to ±``clamp``, then with
-    ``msg_qbits`` rounded to the step ``2·msg_qclip/(2**msg_qbits − 1)``
-    (half to even, after a true division) and clipped to ±``msg_qclip``.
+    may be length-``iterations`` tuples or 1-D tensors (a per-iteration
+    normalization/offset schedule); ``ms_weights`` ``{'alpha', 'beta'}``
+    is JAX's differentiable form of it, exclusive with tuples.
+    Sum-product ignores scalar α/β and rejects per-iteration ones. Each
+    c2v message is clamped to ±``clamp``, then with ``msg_qbits`` rounded
+    to the step ``2·msg_qclip/(2**msg_qbits − 1)`` (half to even, after a
+    true division) and clipped to ±``msg_qclip``.
 
     ``schedule='flooding'``: each iteration rebuilds the posterior as
     LLR + Σ c2v in check-sorted order, forms v2c = roll(post, −s) − c2v
     and updates every check. ``schedule='layered'``: serial-C over the mb
     block rows, each row reading the current posterior and folding its
-    message change back into it.
+    message change back into it. ``layered_group=G > 1`` (the kernels'
+    group-serial form, which JAX has in its Pallas kernel only): groups
+    of G consecutive block rows, the last one possibly shorter, are
+    serial; the rows of a group form their v2c from the posterior as it
+    stood before the group, then fold their message changes into it in
+    row order, then slot order. G = mb is one flooding iteration up to
+    the order of the sums.
+
+    ``weights``: edge-flavor neural-BP weights, JAX's dict
+    (:func:`pack_edge_weights`) or :class:`EdgeTables`; iteration t uses
+    row t. Flooding: v2c = roll(post_w, −s) − w ⊙ c2v against the
+    posterior post_w = wl ⊙ LLR + Σ w ⊙ c2v of row t, and the output is
+    the posterior of the final row. Layered: the running posterior
+    carries row t's weights, each message change folds in as
+    w ⊙ (new − old), and after each sweep the posterior is rebuilt from
+    the messages with the next row (the final one after the last
+    sweep). Not with early stop.
 
     ``early_stop``: each codeword freezes at its first syndrome-satisfying
     state, checked on the channel decisions at entry and after every
@@ -201,14 +328,31 @@ def decode_roll(
     if n != nb * z:
         raise ValueError("llr width does not match the QC code")
     dev = llr.device
+    if layered_group < 1 or (layered_group > 1 and schedule != "layered"):
+        raise ValueError("layered_group needs schedule='layered'")
+    if weights is not None and early_stop:
+        raise ValueError("early_stop with neural-BP weights is unsupported")
 
-    ms_a = ms_b = None
-    if isinstance(alpha, (tuple, list)):
-        ms_a = torch.tensor(alpha, dtype=torch.float32, device=dev)
-    if isinstance(beta, (tuple, list)):
-        ms_b = torch.tensor(beta, dtype=torch.float32, device=dev)
+    def per_iteration(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=torch.float32)
+        if isinstance(v, (tuple, list, np.ndarray)):
+            return torch.tensor(np.asarray(v, np.float32), device=dev)
+        return None
+
+    if ms_weights is not None:
+        if isinstance(alpha, (tuple, list)) or isinstance(beta,
+                                                          (tuple, list)):
+            raise ValueError("pass tuple alpha/beta OR ms_weights, not both")
+        if method != "min-sum":
+            raise ValueError("ms_weights require method='min-sum'")
+        alpha, beta = ms_weights["alpha"], ms_weights["beta"]
+    ms_a, ms_b = per_iteration(alpha), per_iteration(beta)
     if (ms_a is not None or ms_b is not None) and method != "min-sum":
         raise ValueError("per-iteration alpha/beta require min-sum")
+    wt = None
+    if weights is not None:
+        wt = pack_edge_weights(weights, qc, iterations, dev)
     for arr, name in ((ms_a, "alpha"), (ms_b, "beta")):
         if arr is not None and arr.shape != (iterations,):
             raise ValueError(
@@ -235,43 +379,64 @@ def decode_roll(
                             msg_qclip)
         return y
 
+    def wmsg(row, p, m):
+        """Message m of plane p times its weight in table row ``row``."""
+        return m if wt is None else wt.msg[row, p] * m
+
     # The state of the codewords still being decoded: L (nb planes of
     # (b, z), variable orientation) and c2v (P planes, check orientation).
     # Layered keeps the running posterior in L; flooding keeps the channel
     # LLRs there and rebuilds the posterior from c2v. Every operation is
     # per codeword, so decoding a subset of the rows changes no row.
+    def rebuild(Lc: list, c2v: list, row: int) -> list:
+        """Posterior planes (wl ⊙) LLR + Σ (w ⊙) c2v in check-sorted
+        order, with weight-table row ``row``."""
+        out = []
+        for j in range(nb):
+            acc = Lc[j] if wt is None else wt.llr[row, j] * Lc[j]
+            for p in group_v[j]:
+                acc = acc + torch.roll(wmsg(row, p, c2v[p]), planes[p][2],
+                                       -1)
+            out.append(acc)
+        return out
+
     def posterior(L: list, c2v: list) -> torch.Tensor:
         if schedule == "layered":
             return torch.stack(L, 1)
-        rows = []
-        for j in range(nb):
-            acc = L[j]
-            for p in group_v[j]:
-                acc = acc + torch.roll(c2v[p], planes[p][2], -1)
-            rows.append(acc)
-        return torch.stack(rows, 1)  # (b, nb, z)
+        return torch.stack(rebuild(L, c2v, iterations), 1)  # (b, nb, z)
+
+    def layer_group(L: list, c2v: list, rows: range, it: int) -> None:
+        """The rows' check updates from the posterior L as it stands, then
+        their message changes folded into L in row, then slot, order."""
+        ys = []
+        for i in rows:
+            ys.append(excl_update(torch.stack([
+                torch.roll(L[planes[p][1]], -planes[p][2], -1)
+                - wmsg(it, p, c2v[p])
+                for p in group_c[i]
+            ]), it))
+        for i, y in zip(rows, ys):
+            for k, p in enumerate(group_c[i]):
+                _, j, s = planes[p]
+                L[j] = L[j] + torch.roll(wmsg(it, p, y[k] - c2v[p]), s, -1)
+                c2v[p] = y[k]
 
     def iterate(L: list, c2v: list, it: int) -> tuple[list, list]:
         if schedule == "layered":
             L, c2v = list(L), list(c2v)
-            for i in range(mb):
-                ps = group_c[i]
-                xs = torch.stack([
-                    torch.roll(L[planes[p][1]], -planes[p][2], -1) - c2v[p]
-                    for p in ps
-                ])
-                y = excl_update(xs, it)
-                for k, p in enumerate(ps):
-                    _, j, s = planes[p]
-                    L[j] = L[j] + torch.roll(y[k] - c2v[p], s, -1)
-                    c2v[p] = y[k]
+            for g0 in range(0, mb, layered_group):
+                layer_group(L, c2v, range(g0, min(g0 + layered_group, mb)),
+                            it)
+            if wt is not None:  # re-base onto the next row of weights
+                L = rebuild(Lc, c2v, it + 1)
             return L, c2v
-        post = posterior(L, c2v)
+        post = torch.stack(rebuild(L, c2v, it), 1)
         new: list = [None] * P
         for i in range(mb):
             ps = group_c[i]
             xs = torch.stack([
-                torch.roll(post[:, planes[p][1]], -planes[p][2], -1) - c2v[p]
+                torch.roll(post[:, planes[p][1]], -planes[p][2], -1)
+                - wmsg(it, p, c2v[p])
                 for p in ps
             ])
             y = excl_update(xs, it)
@@ -285,9 +450,12 @@ def decode_roll(
     if done_in is not None:
         done_in = done_in.to(device=dev, dtype=torch.bool).reshape(B)
         idx = idx[~done_in]
-    L = [Lv[idx, j] for j in range(nb)]
+    Lc = [Lv[idx, j] for j in range(nb)]  # the channel's planes
     c2v = [torch.zeros((idx.numel(), z), dtype=torch.float32,
                        device=dev)] * P
+    # layered with weights starts from the posterior of the zero messages
+    L = rebuild(Lc, c2v, 0) if wt is not None and schedule == "layered" \
+        else Lc
     post = torch.zeros((B, nb, z), dtype=torch.float32, device=dev)
     iters = torch.full((B,), iterations, dtype=torch.int32, device=dev)
 

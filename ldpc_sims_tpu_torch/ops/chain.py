@@ -69,7 +69,7 @@ class LinkConfig:
         return n // BITS_PER_SYMBOL[self.modulation]
 
 
-def _check_ported(cfg: LinkConfig, weights) -> None:
+def _check_ported(cfg: LinkConfig) -> None:
     if cfg.modulation not in BITS_PER_SYMBOL:
         raise ValueError(f"unknown modulation {cfg.modulation!r}")
     if cfg.qbits is not None and cfg.agc not in ("global", "per-symbol"):
@@ -77,10 +77,6 @@ def _check_ported(cfg: LinkConfig, weights) -> None:
     if cfg.snr_per_symbol:
         raise NotImplementedError(
             "snr_per_symbol is not ported yet (ROADMAP A5)"
-        )
-    if weights is not None:
-        raise NotImplementedError(
-            "decoder weights are not ported yet (ROADMAP A10 and B7)"
         )
 
 
@@ -102,11 +98,13 @@ def link_step(
     the receiver's ADC quantizes the time samples (CP included) after the
     ``cfg.agc`` gain control and the decoder takes the LLRs of the
     quantized samples; the uncoded BER still counts the ideal ADC's LLRs,
-    as in the JAX package. With ``return_arrays=True`` also returns the
+    as in the JAX package. ``weights``: decoder weights for ``bp_decode``
+    (JAX's dict, or :func:`..ops.bp.pack_decoder_weights`'s, which the
+    sweep engine makes once). With ``return_arrays=True`` also returns the
     LLRs, coded bits and time samples (and the quantized LLRs and samples
     with ``qbits``).
     """
-    _check_ported(cfg, weights)
+    _check_ported(cfg)
     n, k = code.n, code.k
     bps = BITS_PER_SYMBOL[cfg.modulation]
     sym_per_cw = n // bps
@@ -173,6 +171,7 @@ def link_step(
         layered_group=cfg.bp_layered_group,
         msg_qbits=cfg.msg_qbits,
         msg_qclip=cfg.msg_qclip,
+        weights=weights,
         output="hard",
         schedule=cfg.bp_schedule,
     )

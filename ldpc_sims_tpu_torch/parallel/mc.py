@@ -29,6 +29,7 @@ from typing import Any, Callable
 import torch
 
 from ldpc_sims_tpu_torch.codes.library import LdpcCode
+from ldpc_sims_tpu_torch.ops.bp import pack_decoder_weights
 from ldpc_sims_tpu_torch.ops.chain import LinkConfig, link_step
 from ldpc_sims_tpu_torch.utils.device import resolve_device
 from ldpc_sims_tpu_torch.utils.metrics import PhaseTimer
@@ -106,7 +107,9 @@ def mc_step(
 
     One call seeds a ``torch.Generator`` on ``device`` with ``seed`` and
     runs ``steps_per_sync`` link steps of ``batch_cw`` codewords from it,
-    summing the counts on the device (0-d int32 tensors).
+    summing the counts on the device (0-d int32 tensors). ``weights``:
+    decoder weights (JAX's dict), moved to ``device`` and packed into the
+    kernels' tables here, once, not in every step.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -123,6 +126,8 @@ def mc_step(
             "steps_per_sync x batch_cw x n overflows int32 counts; "
             "lower steps_per_sync or batch_cw"
         )
+
+    weights = pack_decoder_weights(weights, code, cfg.bp_iterations, dev)
 
     def run(seed: int, snrdb: float) -> dict[str, torch.Tensor]:
         gen = torch.Generator(device=dev)
@@ -158,7 +163,8 @@ def run_sweep(
     ``log(event, **fields)`` receiving one event per step, per finished
     point and per ``es_mode='auto'`` choice (``es-auto``, with each
     mode's calibration time in seconds). ``device``: where the steps run
-    (``'cuda'`` by default). With ``early_stop`` and ``es_mode='auto'``,
+    (``'cuda'`` by default). ``weights``: decoder weights for every
+    decode (JAX's dict; each ``mc_step`` packs them once). With ``early_stop`` and ``es_mode='auto'``,
     each point times the fixed decode against ``es_mode='probe'`` on its
     first chunks and keeps the faster (``es_auto_mode`` in the manifest;
     a resumed point reuses it).

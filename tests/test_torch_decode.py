@@ -24,7 +24,12 @@ from ldpc_sims_tpu.ops.bp import bp_decode as jax_bp_decode
 from ldpc_sims_tpu_torch.codes import get_code
 from ldpc_sims_tpu_torch.convert import load_trained_schedule
 from ldpc_sims_tpu_torch.kernels import bp_qc_cuda, minsum_qc_cuda
-from ldpc_sims_tpu_torch.ops import bp_decode, freeze_minsum_weights
+from ldpc_sims_tpu_torch.ops import (
+    bp_decode,
+    freeze_minsum_weights,
+    init_minsum_weights,
+    init_neural_bp_weights,
+)
 
 SCHEDULES = os.path.join(os.path.dirname(__file__), "..", "docs",
                          "artifacts", "minsum_trained_schedules.json")
@@ -123,8 +128,10 @@ def test_freeze_minsum_weights():
 
 @pytest.mark.parametrize("kw, match", [
     (dict(method="sum-product-ref"), "ROADMAP A4"),
-    (dict(weights={"ms_alpha": np.ones(4)}), "ROADMAP A10"),
-    (dict(layered_group=2, schedule="layered"), "ROADMAP B9"),
+    # the kernels carry no gradient: training through them is A10
+    (dict(weights={"ms_alpha": torch.ones(4, requires_grad=True)},
+          backend="cuda"), "ROADMAP A10"),
+    (dict(weights={"w_pair": np.ones(4)}), "ROADMAP A4"),
     (dict(dtype=torch.bfloat16), "ROADMAP B10"),
     (dict(backend="dense"), "ROADMAP A4"),
 ])
@@ -151,6 +158,32 @@ def test_sumproduct_and_msg_qbits_decode(kw):
                       backend=b, output="posterior", **kw)
             for b in ("auto", "roll", "cuda")]
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    np.testing.assert_array_equal((outs[0] > 0).numpy(), cw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(weights="edge", schedule="layered"),
+    dict(weights="ms"),
+    dict(layered_group=3, schedule="layered"),
+], ids=["edge-weights", "ms-weights", "layered_group"])
+def test_weights_and_layered_group_decode(kw):
+    """Decoder weights and the group-serial schedule, which raised until
+    they were ported: a noisy codeword decodes, on the backends that take
+    them alike; the comparisons with JAX are in tests/test_torch_weights.py
+    and tests/test_torch_layered_group.py."""
+    code = get_code("wifi648")
+    llr, cw = channel_llrs(code, 4, 5.0, seed=2)
+    assert ((llr > 0) != cw).any()
+    kw = dict(kw)
+    if "weights" in kw:
+        kw["weights"] = (init_minsum_weights(6) if kw["weights"] == "ms"
+                         else init_neural_bp_weights(code, 6))
+    backends = ("auto", "roll", "cuda") if "weights" in kw else ("auto",
+                                                                  "cuda")
+    outs = [bp_decode(torch.from_numpy(llr), code, iterations=6,
+                      backend=b, output="posterior", **kw)
+            for b in backends]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
     np.testing.assert_array_equal((outs[0] > 0).numpy(), cw)
 
 

@@ -336,3 +336,126 @@ def test_new_rules_count_launches_and_guard_degree(cuda):
     with pytest.raises(ValueError, match="at most 32"):
         mq.bp_qc_cuda(torch.zeros((2, 132), device=cuda), wide, 2,
                       method="sum-product")
+
+
+def random_edge_weights(code, iterations, seed=0):
+    """Edge-flavor weights drawn uniformly from [0.7, 1.3]."""
+    rng = np.random.default_rng(seed)
+    g = code.graph
+    shapes = {"w_msg": (iterations, g.n_vars, g.dv),
+              "w_llr": (iterations, g.n_vars),
+              "w_msg_final": (g.n_vars, g.dv), "w_llr_final": (g.n_vars,)}
+    return {k: rng.uniform(0.7, 1.3, s).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("qbits", [None, 4])
+@pytest.mark.parametrize("method", ["min-sum", "sum-product"])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944"])
+def test_weighted_kernels_match_plain_version(cuda, name, schedule, method,
+                                              qbits):
+    """The eight _w entry points: posteriors within 1e-4 (equal in
+    practice), bits and counts equal, one launch each."""
+    code = get_code(name)
+    x = mixed_llrs(code, 37, cuda, seed=10)
+    w = random_edge_weights(code, 5, seed=11)
+    kw = dict(iterations=5, schedule=schedule, method=method,
+              msg_qbits=qbits, weights=w)
+    mq.reset_launch_counts()
+    post = mq.bp_qc_cuda(x, code.qc, output="posterior", **kw)
+    bits, unsat = mq.bp_qc_cuda(x, code.qc, output="hard_unsat", **kw)
+    assert mq.LAUNCHES[mq.KERNELS_W[method, schedule,
+                                    qbits is not None]] == 2
+    ref = decode_roll(x, code.qc, output="posterior", **kw)
+    ref_bits, ref_unsat = decode_roll(x, code.qc, output="hard_unsat", **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(post, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(bits, ref_bits) and torch.equal(unsat, ref_unsat)
+
+
+def test_weighted_kernel_with_trained_k6_and_ms_table(cuda):
+    """The committed K6 decoder through bp_decode: its ms arrays become
+    the kernel's α/β table, equal to the same arrays frozen to tuples."""
+    from ldpc_sims_tpu_torch.ops import pack_decoder_weights
+    from ldpc_sims_tpu_torch.utils import load_decoder_weights
+
+    code = get_code("wifi1944")
+    w = load_decoder_weights(os.path.join(os.path.dirname(SCHEDULES),
+                                          "edge_layered_1944_K6.npz"))
+    x, cw = llrs(code, 64, cuda, mu=2.0, seed=12)
+    kw = dict(iterations=6, schedule="layered", output="posterior")
+    mq.reset_launch_counts()
+    got = bp_decode(x, code, weights=w, **kw)
+    packed = bp_decode(x, code, weights=pack_decoder_weights(
+        w, code, 6, cuda), **kw)
+    assert mq.LAUNCHES["minsum_qc_layered_w"] == 2
+    edge = {k: v for k, v in w.items() if k.startswith("w_")}
+    a = tuple(float(v) for v in w["ms_alpha"])
+    b = tuple(float(v) for v in w["ms_beta"])
+    ref = decode_roll(x, code.qc, alpha=a, beta=b, weights=edge, **kw)
+    assert torch.equal(got, packed)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    grad = {k: torch.as_tensor(v, device=cuda).requires_grad_()
+            for k, v in edge.items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        bp_decode(x, code, weights=grad, **kw)
+
+
+@pytest.mark.parametrize("group", [2, 3, 12])
+@pytest.mark.parametrize("method", ["min-sum", "sum-product"])
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944"])
+def test_group_serial_matches_plain_version(cuda, name, method, group):
+    code = get_code(name)
+    x = mixed_llrs(code, 37, cuda, seed=13)
+    kw = dict(iterations=6, schedule="layered", method=method,
+              layered_group=group)
+    mq.reset_launch_counts()
+    post = mq.bp_qc_cuda(x, code.qc, output="posterior", **kw)
+    bits, iters = mq.bp_qc_cuda(x, code.qc, early_stop=True,
+                                output="hard_iters", **kw)
+    assert mq.LAUNCHES[mq.KERNELS[method, "layered", False, False]] == 1
+    assert mq.LAUNCHES[mq.KERNELS[method, "layered", True, False]] == 1
+    ref = decode_roll(x, code.qc, output="posterior", **kw)
+    ref_bits, ref_iters = decode_roll(x, code.qc, early_stop=True,
+                                      output="hard_iters", **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(post, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(bits, ref_bits) and torch.equal(iters, ref_iters)
+    w = random_edge_weights(code, 6, seed=14)
+    wpost = mq.bp_qc_cuda(x, code.qc, output="posterior", weights=w, **kw)
+    wref = decode_roll(x, code.qc, output="posterior", weights=w, **kw)
+    torch.testing.assert_close(wpost, wref, rtol=1e-4, atol=1e-4)
+
+
+def test_group_serial_endpoints_on_card(cuda):
+    """G = 1 is the serial-C kernel bit for bit; G = mb is flooding
+    within 1e-4."""
+    code = get_code("wifi1944")
+    x = mixed_llrs(code, 37, cuda, seed=15)
+    kw = dict(iterations=6, output="posterior")
+    g1 = mq.bp_qc_cuda(x, code.qc, schedule="layered", layered_group=1, **kw)
+    lay = mq.bp_qc_cuda(x, code.qc, schedule="layered", **kw)
+    assert torch.equal(g1, lay)
+    gmb = mq.bp_qc_cuda(x, code.qc, schedule="layered",
+                        layered_group=code.qc.mb, **kw)
+    flood = mq.bp_qc_cuda(x, code.qc, **kw)
+    torch.testing.assert_close(gmb, flood, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("group", [2, 4])
+def test_group_serial_on_the_largest_code(cuda, group):
+    """qc12288 (z = 512, 171 KB of state a CTA): a group's scratch holds
+    only its own planes, so G = 4 still fits (224 KB); G = 5 would not,
+    and the wrapper says so before the launch."""
+    code = get_code("qc12288_r12")
+    gen = torch.Generator().manual_seed(16)
+    x = (2.0 + 2.0 * torch.randn((8, code.n), generator=gen)).to(cuda)
+    kw = dict(iterations=4, schedule="layered", layered_group=group,
+              output="posterior")
+    post = mq.bp_qc_cuda(x, code.qc, **kw)
+    ref = decode_roll(x, code.qc, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(post, ref, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="shared memory"):
+        mq.bp_qc_cuda(x, code.qc, **dict(kw, layered_group=5))

@@ -27,6 +27,7 @@ from ldpc_sims_tpu.kernels.minsum_qc import bp_qc_pallas
 from ldpc_sims_tpu_torch.codes import get_code, list_codes
 from ldpc_sims_tpu_torch.convert import load_trained_schedule
 from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+from ldpc_sims_tpu_torch.ops import init_neural_bp_weights
 from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, qc_plan
 
 SCHEDULES = os.path.join(os.path.dirname(__file__), "..", "docs",
@@ -314,17 +315,22 @@ def test_launch_counters_start_and_reset():
     names = {f"{rule}_qc_{sched}{es}{q}"
              for rule in ("minsum", "sumproduct")
              for sched in ("flooding", "layered")
-             for es in ("", "_es") for q in ("", "_msgq")}
-    assert len(names) == 16 and set(mq.LAUNCHES) == names
+             for es in ("", "_es", "_w") for q in ("", "_msgq")}
+    assert len(names) == 24 and set(mq.LAUNCHES) == names
     assert mq.KERNELS["sum-product", "layered", True, False] == \
         "sumproduct_qc_layered_es"
+    assert mq.KERNELS_W["min-sum", "layered", True] == \
+        "minsum_qc_layered_w_msgq"
     mq.LAUNCHES["minsum_qc_layered"] += 3
     mq.reset_launch_counts()
     assert mq.LAUNCHES == {name: 0 for name in names}
     # the plain version on the CPU is no launch, whatever the form
-    qc, z = get_code("wifi648").qc, torch.zeros((2, 648))
+    code = get_code("wifi648")
+    qc, z = code.qc, torch.zeros((2, 648))
     mq.bp_qc_cuda(z, qc, iterations=2)
     mq.bp_qc_cuda(z, qc, iterations=2, early_stop=True)
+    mq.bp_qc_cuda(z, qc, iterations=2, schedule="layered", layered_group=3,
+                  weights=init_neural_bp_weights(code, 2))
     mq.bp_qc_probe_requeue(z, qc, iterations=2, probe_iters=1,
                            method="sum-product", msg_qbits=4)
     assert sum(mq.LAUNCHES.values()) == 0
