@@ -33,7 +33,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    sum-product (posteriors within the tolerance, bits equal) and with
    early stop at G = 3 (bits and iterations equal); G = 1 equal bit for
    bit to the serial-C kernel and plain version; G = mb within 1e-4 of
-   flooding for all but at most one codeword in a thousand;
+   flooding for all but at most one codeword in a thousand. Then (2e)
+   every form at bf16 and int8 message storage on wifi1944 and wifi648 at
+   1.5 dB with 64 rows saturated at |LLR| = 60 (both rules, both
+   schedules, with and without 4-bit messages: posteriors, bits and
+   counts, early stop, ``done_in``; the weighted forms, G = 3 and both
+   drivers), every comparison exactly equal, then qc12288_r12 layered-10
+   at all three storage types, batch 256;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -69,6 +75,16 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    weights at 1.5 dB; ``sweep --schedule layered --iters 20
    --layered-group 4`` beside layered-20 at 1.5 and 2.0 dB, with phase
    3's flooding-20 on the same seeds;
+3e. the bigcode scale run (``ldpc_sims_tpu_torch.examples.bigcode``) at
+   full width on qc8448_r12 and qc12288_r12, batch 16384, its pipe cut
+   from 16 to 4 decodes: the rates of flooding-20 f32 and layered-10 at
+   f32, bf16 and int8, and its paired-noise BER at 1.75 and 2.25 dB (8 ×
+   16384 all-zero codewords): the f32 flooding-20 and layered-10 BER
+   within 4σ of the JAX package's artifact, σ = √2 × the standard error
+   from the per-frame error counts, and the bf16 and int8 layered-10 BER
+   at most 1.2 × the f32 layered-10 BER plus 4σ of their paired
+   per-frame difference; a profile of one qc12288 layered-10 step at each
+   storage type;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -82,7 +98,14 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    ``minsum_qc_flooding_w`` (flooding-12, random weights) and
    ``minsum_qc_layered@g4`` (layered-20, G = 4), each with the launches of
    its phase 3d run; layered-20 at each group size G = 1, 2, 3, 4, 6, 12;
-   then the times of both drivers.
+   then the times of both drivers; then the storage rows with the launches
+   of phase 3e: ``minsum_qc_layered@bf16`` and ``@int8`` (trained
+   layered-8 on wifi1944, beside ``minsum_qc_layered``), and at batch
+   16384 on qc12288 ``minsum_qc_layered@qc12288`` at f32, bf16 and int8
+   and ``minsum_qc_flooding@qc12288`` (flooding-20 f32), the storage rows
+   bound with the conversion instructions counted in the SASS of probes of
+   the source's load and store helpers; and one short sweep of the launch
+   tuner (``kernels/tune.py``).
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -149,6 +172,28 @@ extern "C" __global__ void probe_msgq(const float* v, float* y, float step,
   const int i = threadIdx.x;
   y[i] = quantize(v[i], step, clip);
 }
+extern "C" __global__ void probe_copy(const float* x, float* y, float s) {
+  const int i = threadIdx.x;
+  y[i] = x[i];
+}
+extern "C" __global__ void probe_ld_bf16(const __nv_bfloat16* x, float* y,
+                                         float s) {
+  const int i = threadIdx.x;
+  y[i] = lift(x[i], s);
+}
+extern "C" __global__ void probe_ld_i8(const int8_t* x, float* y, float s) {
+  const int i = threadIdx.x;
+  y[i] = lift(x[i], s);
+}
+extern "C" __global__ void probe_st_bf16(const float* x, __nv_bfloat16* y,
+                                         float s) {
+  const int i = threadIdx.x;
+  y[i] = store<__nv_bfloat16>(x[i], s);
+}
+extern "C" __global__ void probe_st_i8(const float* x, int8_t* y, float s) {
+  const int i = threadIdx.x;
+  y[i] = store<int8_t>(x[i], s);
+}
 """
 # the kernels line's row for minsum_qc_layered's launches on the
 # --layered-group 4 path (layered-20, G = 4)
@@ -158,6 +203,14 @@ G4_ROW = "minsum_qc_layered@g4"
 K6_NPZ = os.path.join(ROOT, "docs", "artifacts", "edge_layered_1944_K6.npz")
 K6_BER = {1.75: 0.002604267439898561, 2.25: 9.040017218509392e-05}
 K6_PLAIN_BER = {1.75: 0.02259009181622346, 2.25: 0.0006125619904257206}
+# the bigcode artifact's BER (docs/artifacts/20260821-121129_bigcode.json:
+# 8 x 16384 all-zero codewords per point, every bit counted)
+BIGCODE_BER = {
+    ("qc8448_r12", 1.75): (0.0162928303082784, 0.017248438163237137),
+    ("qc8448_r12", 2.25): (0.00015566475463635993, 0.0002448685241468025),
+    ("qc12288_r12", 1.75): (0.00286795881887277, 0.0032545017699400582),
+    ("qc12288_r12", 2.25): (8.999680479367575e-06, 1.0357548793156942e-05),
+}
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
 
@@ -240,11 +293,13 @@ def bler_within_4sigma(label: str, bler: float, frames: float, ref) -> None:
 
 
 def edge_instruction_counts() -> dict:
-    """f32 and MUFU instructions of the sum-product edge sequence (lt, the
-    exclusive sum, the magnitude) and of the message quantization,
-    from the SASS of probe kernels built from the decode source with its
-    flags; each function is counted up to its first EXIT, so the rare
-    slow paths (the division's) are left out."""
+    """f32, MUFU and all instructions of the sum-product edge sequence
+    (lt, the exclusive sum, the magnitude), of the message quantization
+    and of the storage helpers' loads and stores (against ``probe_copy``,
+    the same load and store with no conversion), from the SASS of probe
+    kernels built from the decode source with its flags (the f32
+    translation unit); each function is counted up to its first EXIT, so
+    the rare slow paths (the division's) are left out."""
     import re
     import shutil
 
@@ -255,9 +310,10 @@ def edge_instruction_counts() -> dict:
     cubin = mq.BUILD_DIR / "edge_probe.cubin"
     src.write_text(f'#include "{mq.SOURCE}"\n' + EDGE_PROBE)
     flags = [f for f in mq.NVCC_FLAGS if f not in (
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")]
-    subprocess.run([mq._nvcc(), *flags, "-cubin", "-o", str(cubin),
-                    str(src)], check=True, capture_output=True, timeout=300)
+        "-Xptxas", "-v", "-Xcompiler", "-fPIC")]
+    subprocess.run([mq._nvcc(), *flags, "-DQC_STORAGE=0", "-cubin", "-o",
+                    str(cubin), str(src)], check=True, capture_output=True,
+                   timeout=300)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
                           capture_output=True, text=True,
@@ -267,7 +323,7 @@ def edge_instruction_counts() -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"f32": 0, "mufu": 0, "open": True}
+            counts[fn] = {"f32": 0, "mufu": 0, "all": 0, "open": True}
             continue
         m = op.search(line)
         if fn is None or m is None or not counts[fn]["open"]:
@@ -275,11 +331,13 @@ def edge_instruction_counts() -> dict:
         base = m.group(1).split(".")[0]
         if base == "EXIT":
             counts[fn]["open"] = False
-        elif base == "MUFU":
+            continue
+        counts[fn]["all"] += 1
+        if base == "MUFU":
             counts[fn]["mufu"] += 1
         elif base.startswith("F") and base != "FLO":
             counts[fn]["f32"] += 1
-    return {k: (v["f32"], v["mufu"]) for k, v in counts.items()}
+    return {k: (v["f32"], v["mufu"], v["all"]) for k, v in counts.items()}
 
 
 def external_unsat(bits, code):
@@ -380,8 +438,12 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def profile_step(step, label: str, card: str, snrdb: float = 1.5) -> None:
-    """Device time by kernel over one steady mc_step (torch.profiler)."""
+def profile_step(step, label: str, card: str, snrdb: float = 1.5,
+                 what: str | None = None) -> float:
+    """Device time by kernel over one steady ``step(seed, snrdb)``, an
+    mc_step unless ``what`` names another (torch.profiler); returns the
+    step's wall in µs."""
+    what = what or f"mc_step at {snrdb:g} dB"
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -408,14 +470,15 @@ def profile_step(step, label: str, card: str, snrdb: float = 1.5) -> None:
     if busy == 0:
         print(f"  {label} profile: device time not measured by "
               "torch.profiler", flush=True)
-        return
+        return wall_us
     rows.sort(reverse=True)
-    print(f"  {label} profile of one mc_step at {snrdb:g} dB [{card}]: wall "
+    print(f"  {label} profile of one {what} [{card}]: wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1 - busy / wall_us:.3f}", flush=True)
     for us, key, n in rows[:8]:
         print(f"    {us / 1e3:9.3f} ms {us / busy:6.1%}  x{n}  {key[:70]}",
               flush=True)
+    return wall_us
 
 
 class Events:
@@ -515,6 +578,8 @@ def main() -> None:
     from ldpc_sims_tpu_torch.parallel import SweepConfig, mc_step
     from ldpc_sims_tpu_torch.utils import load_decoder_weights
 
+    # the message storage types beside f32 and their row suffixes
+    storage_rows = {torch.bfloat16: "bf16", torch.int8: "int8"}
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -802,6 +867,111 @@ def main() -> None:
     max_err["minsum_qc_layered_w"] = max(max_err["minsum_qc_layered_w"],
                                          compare(kp, pp, "wifi1944 K6 npz"))
 
+    print("== phase 2e: bf16 and int8 message storage vs plain versions "
+          "(batch 4096)", flush=True)
+    for code in (w1944, w648):
+        qc = code.qc
+        llr = channel_llrs(code, B, 1.5, seed=51)
+        llr[:64] = torch.where(llr[:64] > 0, 60.0, -60.0)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(52)
+        mask = torch.rand(B, generator=gen, device="cuda") < 0.5
+        w = random_edge_weights(code, 6, seed=53)
+        for dt, sfx in storage_rows.items():
+            # int8 on the bigcode run's grid (±24); the 4-bit forms take
+            # ±20 for both grids, as the quantized-minsum preset
+            st = dict(dtype=dt, msg_qclip=24.0)
+            for method, qb in (("min-sum", None), *rules):
+                for sched in ("flooding", "layered"):
+                    at = f"{code.name} {sched} {method} msg_qbits={qb} {sfx}"
+                    kw = dict(schedule=sched, method=method, msg_qbits=qb,
+                              **st)
+                    if qb is not None:
+                        kw["msg_qclip"] = 20.0
+                    fixed = dict(iterations=10, **kw)
+                    name = mq.kernel_name(method, sched, False,
+                                          qb is not None, dtype=dt)
+                    kp = mq.bp_qc_cuda(llr, qc, output="posterior", **fixed)
+                    pp = decode_roll(llr, qc, output="posterior", **fixed)
+                    kb, ku = mq.bp_qc_cuda(llr, qc, output="hard_unsat",
+                                           **fixed)
+                    pb, pu = decode_roll(llr, qc, output="hard_unsat",
+                                         **fixed)
+                    max_err[name] = max(max_err[name], exact(
+                        [(kp, pp), (kb, pb), (ku, pu),
+                         (kb, (kp > 0).to(torch.int8))], f"{at} fixed"))
+                    es = dict(iterations=20, early_stop=True,
+                              es_check_every=2, output="hard_iters", **kw)
+                    kb, ki = mq.bp_qc_cuda(llr, qc, **es)
+                    pb, pi = decode_roll(llr, qc, **es)
+                    es_name = mq.kernel_name(method, sched, True,
+                                             qb is not None, dtype=dt)
+                    max_err[es_name] = max(max_err[es_name], exact(
+                        [(kb, pb), (ki, pi)], f"{at} early stop"))
+                    sentinel = torch.full(llr.shape, 7, dtype=torch.int8,
+                                          device="cuda")
+                    mq.bp_qc_cuda(llr, qc, done_in=mask, out=sentinel,
+                                  **fixed)
+                    pb = decode_roll(llr, qc, done_in=mask, **fixed)
+                    exact([(sentinel[~mask], pb[~mask])], f"{at} done_in")
+                    if not bool((sentinel[mask] == 7).all()):
+                        fail(f"{at}: done_in rows were written")
+                    kw6 = dict(kw, iterations=6, weights=w,
+                               output="posterior")
+                    w_name = mq.kernel_name(method, sched, False,
+                                            qb is not None, True, dt)
+                    max_err[w_name] = max(max_err[w_name], exact(
+                        [(mq.bp_qc_cuda(llr, qc, **kw6),
+                          decode_roll(llr, qc, **kw6))], f"{at} weighted"))
+                    if sched == "layered":
+                        g3 = dict(fixed, layered_group=3,
+                                  output="posterior")
+                        max_err[name] = max(max_err[name], exact(
+                            [(mq.bp_qc_cuda(llr, qc, **g3),
+                              decode_roll(llr, qc, **g3))], f"{at} G=3"))
+                    print(f"  {at}: posterior, bits, counts, early stop "
+                          f"(mean {float(ki.float().mean()):.3f} "
+                          "iterations), done_in, weighted"
+                          + (", G=3" if sched == "layered" else "")
+                          + " equal", flush=True)
+            # both drivers
+            es = dict(schedule="layered", early_stop=True, es_check_every=2,
+                      output="hard_iters", **st)
+            rb, ri = mq.bp_qc_requeue(llr, qc, 20, probe_iters=4,
+                                      es_check_every=2, output="hard_iters",
+                                      schedule="layered", **st)
+            b1, i1 = decode_roll(llr, qc, iterations=4, **es)
+            b2, i2 = decode_roll(llr, qc, iterations=20, **es)
+            done = i1 < 4
+            exact([(rb, torch.where(done[:, None], b1, b2)),
+                   (ri, torch.where(done, i1, 4 + i2))],
+                  f"{code.name} {sfx} bp_qc_requeue")
+            pb_, pi_ = mq.bp_qc_probe_requeue(llr, qc, 20, probe_iters=4,
+                                              output="hard_iters", **st)
+            b1, u1 = decode_roll(llr, qc, iterations=4, schedule="layered",
+                                 output="hard_unsat", **st)
+            b2 = decode_roll(llr, qc, iterations=20, schedule="layered",
+                             **st)
+            keep = (u1 == 0) & (B - int((u1 == 0).sum())
+                                <= mq.probe_capacity(B))
+            exact([(pb_, torch.where(keep[:, None], b1, b2)),
+                   (pi_, torch.where(keep, 4, 24).to(torch.int32))],
+                  f"{code.name} {sfx} bp_qc_probe_requeue")
+            print(f"  {code.name} {sfx} drivers: requeue and probe equal",
+                  flush=True)
+    big = get_code("qc12288_r12")
+    llr = channel_llrs(big, 256, 1.75, seed=54)
+    for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
+        kw = dict(iterations=10, schedule="layered", output="posterior",
+                  dtype=dt, msg_qclip=24.0)
+        name = mq.kernel_name("min-sum", "layered", dtype=dt)
+        max_err[name] = max(max_err[name], exact(
+            [(mq.bp_qc_cuda(llr, big.qc, **kw),
+              decode_roll(llr, big.qc, **kw))], f"qc12288 layered-10 {sfx}"))
+        print(f"  qc12288_r12 layered-10 {sfx} (batch 256, "
+              f"{mq.smem_bytes(big.qc, 1, dt)} B of shared memory a "
+              "codeword): posterior equal", flush=True)
+
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
           flush=True)
@@ -1050,6 +1220,95 @@ def main() -> None:
           f"flooding-20 {rate_f20!r}; K6 per-edge layered-6 {rate_w!r}, "
           f"plain layered-6 {rate_p!r} [{card}]", flush=True)
 
+    # -- phase 3e: the bigcode scale run ----------------------------------
+    print("== phase 3e: the bigcode run at full width (qc8448_r12, "
+          "qc12288_r12, batch 16384, pipe cut from 16 to 4)", flush=True)
+    from ldpc_sims_tpu_torch.examples import bigcode
+
+    big_batch, big_pipe = 16384, 4
+    # one qc12288 layered-10 step at each storage type: torch.profiler,
+    # and CUDA events around its parts (late in this script's run the
+    # profiler has missed a step's first kernels, so the events also give
+    # the breakdown)
+    big = get_code("qc12288_r12")
+    for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
+        marks = []
+
+        def big_step(seed, _snrdb, dt=dt, marks=marks):
+            marks[:] = [torch.cuda.Event(enable_timing=True)
+                        for _ in range(4)]
+            marks[0].record()
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            x = torch.randn((big_batch, big.n), generator=gen,
+                            device="cuda") * 2.0 - 4.0
+            marks[1].record()
+            bits = bp_decode(x, big, iterations=10, schedule="layered",
+                             dtype=dt, msg_qclip=24.0)
+            marks[2].record()
+            ones = bits.sum(dtype=torch.int64)
+            marks[3].record()
+            return {"ones": ones}
+        wall_us = profile_step(big_step, f"qc12288 layered-10 {sfx}", card,
+                               what="bigcode step (batch 16384, random "
+                               "LLRs)")
+        parts = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
+        busy = sum(parts)
+        print(f"    by CUDA events: LLRs {parts[0]!r} ms, decode "
+              f"{parts[1]!r} ms, bit count {parts[2]!r} ms; their spans "
+              f"{busy!r} ms of the wall {wall_us / 1e3!r} ms, idle share "
+              f"at most {1 - busy * 1e3 / wall_us!r} [{card}]", flush=True)
+
+    big_need = [mq.kernel_name("min-sum", "flooding")] + [
+        mq.kernel_name("min-sum", "layered", dtype=dt)
+        for dt in (torch.float32, *storage_rows)]
+    big_launch = {}
+    for name in ("qc8448_r12", "qc12288_r12"):
+        n_big = get_code(name).n
+        mq.reset_launch_counts()
+        rec, frame_errs = bigcode.run([name], big_batch, big_pipe,
+                                      (1.75, 2.25))
+        counts = dict(mq.LAUNCHES)
+        for k in big_need:
+            if counts[k] == 0:
+                fail(f"bigcode {name}: the main path never launched {k}")
+        big_launch[name] = {k: counts[k] for k in big_need}
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"  bigcode {name}: launches {launched} (one a decode) "
+              f"[{card}]", flush=True)
+        ent = rec["codes"][name]
+        for label in bigcode.CONFIGS:
+            r = ent[label]
+            print(f"  bigcode {name} {label}: {r['ms_per_step']!r} ms a "
+                  f"decode, {r['info_bits_per_s']!r} decoded info bits/s "
+                  f"(pipe {big_pipe}, median of 3) [{card}]", flush=True)
+        for snr in (1.75, 2.25):
+            errs = frame_errs[name][snr]
+            for label, ref in zip(("flooding-20 f32", "layered-10 f32"),
+                                  BIGCODE_BER[name, snr]):
+                sm = bigcode.summarize(errs[label], n_big)
+                sig = math.sqrt(2) * sm["se"]
+                print(f"  bigcode {name} @ {snr:g} dB {label}: BER "
+                      f"{sm['ber']!r} ({sm['frames_in_error']} of "
+                      f"{sm['frames']} frames in error) against the "
+                      f"artifact's {ref!r}, 4σ = {4 * sig!r} [{card}]",
+                      flush=True)
+                if not abs(sm["ber"] - ref) <= 4 * sig:
+                    fail(f"bigcode {name} @ {snr:g} dB {label}: BER "
+                         f"{sm['ber']} not within 4σ of {ref}")
+            base = errs["layered-10 f32"]
+            ber_f = bigcode.summarize(base, n_big)["ber"]
+            for label in ("layered-10 bf16", "layered-10 int8"):
+                d = (errs[label] - base).double()
+                sig = float(d.std()) / (d.numel() ** 0.5 * n_big)
+                ber_x = bigcode.summarize(errs[label], n_big)["ber"]
+                print(f"  bigcode {name} @ {snr:g} dB {label}: BER "
+                      f"{ber_x!r} against f32 layered-10 {ber_f!r} (limit "
+                      f"1.2x + 4σ of the paired difference = "
+                      f"{1.2 * ber_f + 4 * sig!r}) [{card}]", flush=True)
+                if not ber_x <= 1.2 * ber_f + 4 * sig:
+                    fail(f"bigcode {name} @ {snr:g} dB: {label} BER {ber_x} "
+                         f"above 1.2 x f32's {ber_f} + 4σ")
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
@@ -1170,8 +1429,8 @@ def main() -> None:
     # the 4-bit quantized flooding kernel at 1.5 dB, bound by the f32 and
     # MUFU instructions of their edge sequence in the SASS
     ins = edge_instruction_counts()
-    sp_f32, sp_mufu = ins["probe_sp_edge"]
-    q_f32, q_mufu = ins["probe_msgq"]
+    sp_f32, sp_mufu, _ = ins["probe_sp_edge"]
+    q_f32, q_mufu, _ = ins["probe_msgq"]
     print(f"  SASS per edge: sum-product sequence {sp_f32} f32 + {sp_mufu} "
           f"MUFU instructions; quantization {q_f32} f32 + "
           f"{q_mufu} MUFU", flush=True)
@@ -1302,6 +1561,74 @@ def main() -> None:
         print(f"  bp_qc_probe_requeue {at}, {redo} of {batch} re-decoded: "
               f"{ms!r} ms (plain {plain_ms!r} ms, bound {b_ms!r} ms, "
               f"{b_by})", flush=True)
+
+    # the storage rows: trained layered-8 on wifi1944 at bf16 and int8,
+    # beside minsum_qc_layered, then the bigcode shapes on qc12288 at
+    # batch 16384; launches from phase 3e (one a decode). The bound adds
+    # the conversions a layered edge needs per iteration: bf16 lifts the
+    # message and the posterior and stores both; int8 lifts the old and
+    # the stored new message and stores one (its posterior is f32)
+    cv = {k: ins[f"probe_{k}"][2] - ins["probe_copy"][2]
+          for k in ("ld_bf16", "st_bf16", "ld_i8", "st_i8")}
+    print(f"  SASS conversion instructions per load/store (beyond a plain "
+          f"f32 copy): {cv}", flush=True)
+    conv_ops = {torch.float32: 0,
+                torch.bfloat16: 2 * cv["ld_bf16"] + 2 * cv["st_bf16"],
+                torch.int8: 2 * cv["ld_i8"] + cv["st_i8"]}
+    kw8 = dict(iterations=8, schedule="layered", alpha=a8, beta=b8)
+    for dt, sfx in storage_rows.items():
+        name = f"minsum_qc_layered@{sfx}"
+        kname = mq.kernel_name("min-sum", "layered", dtype=dt)
+        kw = dict(kw8, dtype=dt, msg_qclip=24.0)
+        max_err[name] = max(max_err[kname], exact(
+            [(mq.bp_qc_cuda(llr, qc, output="posterior", **kw),
+              decode_roll(llr, qc, output="posterior", **kw))],
+            f"{name} at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 20)
+        plain_ms = cuda_time_ms(lambda: decode_roll(llr, qc, **kw), 3, 1)
+        launches[name] = sum(c[kname] for c in big_launch.values())
+        per_step[name] = 1.0
+        kernels.append(row(name, ms, plain_ms, bound(
+            io_bytes, batch * E * (edge_ops(**kw8) + 8 * conv_ops[dt]))))
+    bqc = big.qc
+    E_big = len(qc_plan(bqc)[0]) * bqc.z
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(61)
+    xb = torch.randn((big_batch, big.n), generator=gen,
+                     device="cuda") * 2.0 - 4.0
+    for name, kname, kw in (
+            ("minsum_qc_flooding@qc12288",
+             mq.kernel_name("min-sum", "flooding"),
+             dict(iterations=20, schedule="flooding")),
+            *(("minsum_qc_layered@qc12288" + ("" if sfx == "f32" else
+                                               f"-{sfx}"),
+               mq.kernel_name("min-sum", "layered", dtype=dt),
+               dict(iterations=10, schedule="layered", dtype=dt,
+                    msg_qclip=24.0))
+              for dt, sfx in {torch.float32: "f32",
+                              **storage_rows}.items())):
+        max_err[name] = exact(
+            [(mq.bp_qc_cuda(xb, bqc, output="posterior", **kw),
+              decode_roll(xb, bqc, output="posterior", **kw))],
+            f"{name} at batch {big_batch}")
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xb, bqc, **kw), 10)
+        plain_ms = cuda_time_ms(lambda: decode_roll(xb, bqc, **kw), 1, 1)
+        launches[name] = big_launch["qc12288_r12"][kname]
+        per_step[name] = 1.0
+        it = kw["iterations"]
+        ops = edge_ops(kw["schedule"], it) + it * conv_ops[
+            kw.get("dtype", torch.float32)]
+        kernels.append(row(name, ms, plain_ms, bound(
+            big_batch * big.n * 5, big_batch * E_big * ops)))
+    # one short sweep of the launch tuner
+    from ldpc_sims_tpu_torch.kernels import tune
+
+    for sched, ths in (("flooding", (128, 256, 512)), ("layered", (None,))):
+        for th in ths:
+            for dt in ("float32", "bfloat16", "int8"):
+                r = tune.time_config(w1944, 8192, 10, th, dt, steps=3,
+                                     schedule=sched)
+                print(f"  tune {json.dumps(r)}", flush=True)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -13,10 +13,12 @@ codes      LDPC code library (NumPy copies of the JAX package's).
 ops        BP decode dispatch and its plain PyTorch version, encoder,
            PHY chain, link step.
 kernels    CUDA BP decode kernels (flooding, layered, group-serial;
-           min-sum, sum-product; weighted; early stop).
+           min-sum, sum-product; weighted; early stop; f32, bf16 and
+           int8 message storage) and their launch tuner (``tune``).
 parallel   The Monte-Carlo sweep engine on one device.
 utils      Phase timers, device selection, decoder-weight loading.
 cli        ``python -m ldpc_sims_tpu_torch sweep ...``.
+examples   ``bigcode``: the 5G-class codes at full width on the card.
 """
 
 __version__ = "0.1.0"

@@ -21,7 +21,9 @@
 //     flag too (the _w forms; no early stop, as on the TPU);
 //   * the group-serial layered sweep, layered_group > 1 (:398-440), a
 //     runtime argument of the layered forms whose group = 1 path is the
-//     serial-C code as before.
+//     serial-C code as before;
+//   * bf16 and int8 message storage (`dtype`, :130-134, `ld`/`st`
+//     :216-228, the folds :420-439), a template parameter of every form.
 // Every form takes scalar alpha/beta as a table with one repeated row (min-sum
 // only; sum-product ignores it), an optional clamp, and emits hard bits
 // (int8) or the posterior (f32, log(Pr1/Pr0)). Every form takes two optional
@@ -45,7 +47,32 @@
 //
 // Entry points, named {minsum,sumproduct}_qc_{flooding,layered}[_es][_msgq]
 // (_msgq: with message quantization) and
-// {minsum,sumproduct}_qc_{flooding,layered}_w[_msgq] (weighted), 24 in all.
+// {minsum,sumproduct}_qc_{flooding,layered}_w[_msgq] (weighted), 24 forms,
+// each for three storage types: f32 (no suffix), _bf16 and _i8, 72 in all.
+//
+// Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
+// or 2; the three objects are built in parallel and linked into one
+// library), and that translation unit's 24 entry points store:
+//   * f32: everything in f32, as before;
+//   * bf16: the messages, the posterior and the channel LLRs (rounded on
+//     entry) as __nv_bfloat16, rounded to nearest even (XLA's convert);
+//   * int8: the messages as q in [-127, 127] on the grid q*qstep, qstep =
+//     2*msg_qclip/255, stored as clip(rint(v * (1/qstep)), -127, 127): the
+//     product with the f32 reciprocal, rounded half to even; the posterior
+//     and the LLRs stay f32.
+// Every load lifts to f32 (int8: f32(q) * qstep) and all arithmetic is f32.
+// Flooding computes each v2c on the fly but passes it through the storage
+// before the check rule reads it, as the TPU kernel stores and reloads it;
+// a posterior rebuild sums in f32 and rounds once per variable. A layered
+// fold adds, for int8, what the stored message changes by, lift(st(new)) -
+// old, and for bf16 the unrounded new - old while the message is stored
+// rounded (so the posterior drifts from LLR + the messages, as on the
+// TPU), and re-rounds the posterior after each fold; the group-serial
+// scratch stays f32 and its fold rounds after each addition. The regions
+// of shared memory are carved by their types, each on a 16-byte boundary
+// (an int8 region of odd length is followed by an f32 posterior). The TPU
+// kernel's pad slots (`stamp_pads`, `unpad`) have no counterpart: every
+// loop runs over a check's true degree.
 //
 // Weights. The tables (iterations+1 rows of P*z check-oriented edge
 // weights and of n LLR weights, the last row the final marginalization's;
@@ -105,7 +132,9 @@
 // plain PyTorch version (ops/bp_roll.py) bit for bit.
 //
 // What bounds the kernels on the H100: the shared-memory residency of
-// ~36 KB per codeword caps a SM at 6 resident codewords, and the per-edge
+// ~36 KB per codeword caps a SM at 6 resident codewords (bf16 19 KB, 11;
+// int8 16 KB, 13; the 5G-class codes' 121-175 KB at f32 one, bf16 and
+// int8 two to four), and the per-edge
 // f32 work is issued by few warps, so the min-sum forms are latency bound
 // well above both the byte bound and the f32 op bound (PERF.md). The
 // sum-product forms add eight libdevice transcendentals per edge, about
@@ -118,12 +147,73 @@
 // finishes early frees its SM slot for the next codeword, so the grid's
 // time follows the mean of the iterations, not their maximum.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#ifndef QC_STORAGE
+#error "compile once per storage type: -DQC_STORAGE=0 (f32), 1 (bf16), 2 (int8)"
+#endif
+
 namespace {
+
+// message storage types: the dtype code of bp_qc_decode
+constexpr int kF32 = 0;
+constexpr int kBf16 = 1;
+constexpr int kInt8 = 2;
+
+// The types one storage code keeps its messages and its posterior in.
+template <int kT>
+struct Storage;
+template <>
+struct Storage<kF32> {
+  using Msg = float;
+  using Post = float;
+};
+template <>
+struct Storage<kBf16> {
+  using Msg = __nv_bfloat16;
+  using Post = __nv_bfloat16;
+};
+template <>
+struct Storage<kInt8> {
+  using Msg = int8_t;
+  using Post = float;
+};
+
+// A stored value lifted to f32 (`ld`); step: the int8 grid's step.
+__device__ __forceinline__ float lift(float x, float) { return x; }
+__device__ __forceinline__ float lift(__nv_bfloat16 x, float) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float lift(int8_t x, float step) {
+  return static_cast<float>(x) * step;
+}
+
+// An f32 value stored (`st`); inv: the reciprocal of the int8 grid's step.
+template <typename T>
+__device__ __forceinline__ T store(float v, float inv);
+template <>
+__device__ __forceinline__ float store<float>(float v, float) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float v,
+                                                              float) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ int8_t store<int8_t>(float v, float inv) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v * inv), -127.f), 127.f));
+}
+
+// A posterior (or LLR) value as its storage holds it.
+template <typename T>
+__device__ __forceinline__ float round_post(float v) {
+  return lift(store<T>(v, 1.f), 1.f);
+}
 
 constexpr float kBig = 1e30f;
 constexpr int kMinSum = 0;
@@ -151,6 +241,7 @@ struct Rule {
   float alpha, beta;   // min-sum normalization and offset
   float clamp;         // +inf for no clamp
   float qstep, qclip;  // quantization step and clip (the _msgq forms)
+  float sstep, sinv;   // the int8 storage grid's step and its reciprocal
 };
 
 __host__ __device__ inline int plan_ints(int mb, int nb, int P) {
@@ -161,12 +252,22 @@ __host__ __device__ inline int plan_ints_padded(int mb, int nb, int P) {
   return (plan_ints(mb, nb, P) + 3) & ~3;
 }
 
-// Bytes of dynamic shared memory one CTA needs: plan, c2v planes, posterior
-// and, for a group of G > 1 block rows, the scratch of the group's planes.
+__host__ __device__ inline int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// Bytes of dynamic shared memory one CTA needs: plan, c2v planes (Msg),
+// posterior (Post) and, for a group of G > 1 block rows, the f32 scratch of
+// the group's planes; each region starts on a 16-byte boundary.
+template <int kT>
 inline int smem_bytes(int z, int mb, int nb, int P, int group, int row_deg) {
+  using S = Storage<kT>;
   const int planes = group * row_deg < P ? group * row_deg : P;
   const int scratch = group > 1 ? planes * z : 0;
-  return 4 * (plan_ints_padded(mb, nb, P) + P * z + nb * z + scratch);
+  return 4 * plan_ints_padded(mb, nb, P) +
+         align16(P * z * static_cast<int>(sizeof(typename S::Msg))) +
+         align16(nb * z * static_cast<int>(sizeof(typename S::Post))) +
+         4 * scratch;
 }
 
 // log tanh(a/2) of a v2c message, a = max(|v|, 1e-12): in [-28.3, 0]
@@ -200,17 +301,24 @@ constexpr int kFoldPost = 1;   // serial-C: fold into the posterior at once
 constexpr int kFoldDelta = 2;  // group-serial: keep in `delta` for later
 
 // Exclusive check update of check (i, r). Reads v2c = post - c2v (with
-// weights, post - w*c2v) for each of its edges, writes the new c2v
-// messages and, for the layered schedules, the message change (with
-// weights, w*(new - old)) as kFold says (kFoldDelta: slot k of the row
-// into delta[k*z + r]). w: this iteration's weights of the check-oriented
-// edges (P*z), read through the read-only cache.
-template <int kMethod, int kFold, bool kQuant, bool kW>
-__device__ __forceinline__ void check_update(const Plan& pl, float* msg,
-                                             float* post, float* delta,
-                                             const float* __restrict__ w,
-                                             int z, int i, int r,
-                                             const Rule& u) {
+// weights, post - w*c2v) for each of its edges (flooding: as the message
+// storage holds it), writes the new c2v messages and, for the layered
+// schedules, the message change (with weights, w*(new - old); int8: of the
+// stored message) as kFold says (kFoldDelta: slot k of the row into
+// delta[k*z + r]). w: this iteration's weights of the check-oriented edges
+// (P*z), read through the read-only cache.
+template <int kMethod, int kFold, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void check_update(
+    const Plan& pl, typename Storage<kT>::Msg* msg,
+    typename Storage<kT>::Post* post, float* delta,
+    const float* __restrict__ w, int z, int i, int r, const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
+  using Post = typename Storage<kT>::Post;
+  // the v2c of an edge; flooding passes it through the message storage
+  auto v2c = [&](float pv, float m) {
+    const float v = pv - m;
+    return kFold == kFoldNone ? lift(store<Msg>(v, u.sinv), u.sstep) : v;
+  };
   const int p0 = pl.row_ptr[i], p1 = pl.row_ptr[i + 1];
   float min1 = kBig, min2 = kBig;  // min-sum
   int idx = -1, nneg = 0;
@@ -219,9 +327,9 @@ __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
   for (int p = p0; p < p1; ++p) {
     int q = r + pl.plane_shift[p];
     if (q >= z) q -= z;
-    float m = msg[p * z + r];
+    float m = lift(msg[p * z + r], u.sstep);
     if constexpr (kW) m = __ldg(w + p * z + r) * m;
-    const float v = post[pl.plane_col[p] * z + q] - m;
+    const float v = v2c(lift(post[pl.plane_col[p] * z + q], 1.f), m);
     nneg += (v < 0.f) ? 1 : 0;
     if constexpr (kMethod == kMinSum) {
       const float a = fabsf(v);
@@ -242,9 +350,10 @@ __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
     int q = r + pl.plane_shift[p];
     if (q >= z) q -= z;
     const int vi = pl.plane_col[p] * z + q;
-    const float old = msg[p * z + r];
+    const float old = lift(msg[p * z + r], u.sstep);
     const float wp = kW ? __ldg(w + p * z + r) : 1.f;
-    const float v = kW ? post[vi] - wp * old : post[vi] - old;
+    const float pv = lift(post[vi], 1.f);
+    const float v = kW ? v2c(pv, wp * old) : v2c(pv, old);
     const int exneg = (nneg - ((v < 0.f) ? 1 : 0)) & 1;
     const float sgn = exneg ? -1.f : 1.f;
     float y;
@@ -255,35 +364,43 @@ __device__ __forceinline__ void check_update(const Plan& pl, float* msg,
       y = sgn * sp_mag(fminf(total - lts[p - p0], -1e-12f));
     }
     y = postlude<kQuant>(y, u);
-    msg[p * z + r] = y;
+    const Msg stored = store<Msg>(y, u.sinv);
+    msg[p * z + r] = stored;
+    // int8 folds what the stored message changes by; bf16 the unrounded
+    // change, as the TPU kernel does
+    if constexpr (kT == kInt8) y = lift(stored, u.sstep);
     const float d = kW ? wp * (y - old) : y - old;
-    if constexpr (kFold == kFoldPost) post[vi] = post[vi] + d;
+    if constexpr (kFold == kFoldPost) post[vi] = store<Post>(pv + d, 1.f);
     if constexpr (kFold == kFoldDelta) delta[(p - p0) * z + r] = d;
   }
 }
 
 // The posterior rebuilt from the messages: (wl*) LLR + the sum of the
 // (w*) c2v messages of each variable in check-sorted order (the order of
-// the plain version), one thread per variable, no atomics. w, wl: one row
-// of the weight tables (kW only).
-template <bool kW>
-__device__ __forceinline__ void rebuild(const Plan& pl, const float* msg,
-                                        float* post, const float* l,
+// the plain version), in f32 and stored once, one thread per variable, no
+// atomics. The LLR is taken as the posterior's storage holds it. w, wl: one
+// row of the weight tables (kW only).
+template <bool kW, int kT>
+__device__ __forceinline__ void rebuild(const Plan& pl,
+                                        const typename Storage<kT>::Msg* msg,
+                                        typename Storage<kT>::Post* post,
+                                        const float* l,
                                         const float* __restrict__ w,
                                         const float* __restrict__ wl, int z,
-                                        int n) {
+                                        int n, float sstep) {
+  using Post = typename Storage<kT>::Post;
   for (int v = threadIdx.x; v < n; v += blockDim.x) {
     const int j = v / z, q = v % z;
-    float acc = -l[v];
+    float acc = round_post<Post>(-l[v]);
     if constexpr (kW) acc = __ldg(wl + v) * acc;
     for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
       const int p = pl.col_planes[e];
       int r = q - pl.plane_shift[p];
       if (r < 0) r += z;
-      acc = acc + (kW ? __ldg(w + p * z + r) * msg[p * z + r]
-                      : msg[p * z + r]);
+      const float m = lift(msg[p * z + r], sstep);
+      acc = acc + (kW ? __ldg(w + p * z + r) * m : m);
     }
-    post[v] = acc;
+    post[v] = store<Post>(acc, 1.f);
   }
 }
 
@@ -303,40 +420,43 @@ struct Step {
 // weighted layered forms then rebuild the posterior with the next
 // iteration's weights. Ends with __syncthreads(), so the posterior is
 // complete on return. delta: the group's scratch (group > 1 only).
-template <int kMethod, bool kLayered, bool kQuant, bool kW>
-__device__ __forceinline__ void iterate(const Plan& pl, float* msg,
-                                        float* post, float* delta,
-                                        const float* l, int z, int mb, int n,
-                                        int group, const Step& st) {
+template <int kMethod, bool kLayered, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void iterate(const Plan& pl,
+                                        typename Storage<kT>::Msg* msg,
+                                        typename Storage<kT>::Post* post,
+                                        float* delta, const float* l, int z,
+                                        int mb, int n, int group,
+                                        const Step& st) {
+  using Post = typename Storage<kT>::Post;
   if (kLayered) {
     if (group == 1) {
       for (int i = 0; i < mb; ++i) {
         for (int r = threadIdx.x; r < z; r += blockDim.x)
-          check_update<kMethod, kFoldPost, kQuant, kW>(pl, msg, post,
-                                                       nullptr, st.w, z, i,
-                                                       r, st.u);
+          check_update<kMethod, kFoldPost, kQuant, kW, kT>(
+              pl, msg, post, nullptr, st.w, z, i, r, st.u);
         __syncthreads();
       }
     } else {
       // The checks of a group read the posterior as it stood before the
       // group, so their changes wait in `delta` (plane p at scratch row
       // p - P0); then each variable adds its column's changes from the
-      // group in block-row order. A thread folds variables tid + k*blockDim
-      // (column block j, offset q), stepping (j, q) without a division.
+      // group in block-row order, re-rounding to its storage after each.
+      // A thread folds variables tid + k*blockDim (column block j, offset
+      // q), stepping (j, q) without a division.
       const int nb = n / z, dj = blockDim.x / z, dq = blockDim.x % z;
       for (int g0 = 0; g0 < mb; g0 += group) {
         const int g1 = min(g0 + group, mb);
         const int P0 = pl.row_ptr[g0], P1 = pl.row_ptr[g1];
         for (int c = threadIdx.x; c < (g1 - g0) * z; c += blockDim.x) {
           const int i = g0 + c / z;
-          check_update<kMethod, kFoldDelta, kQuant, kW>(
+          check_update<kMethod, kFoldDelta, kQuant, kW, kT>(
               pl, msg, post, delta + (pl.row_ptr[i] - P0) * z, st.w, z, i,
               c % z, st.u);
         }
         __syncthreads();
         for (int j = threadIdx.x / z, q = threadIdx.x % z; j < nb;
              j += dj + (q + dq >= z), q += dq - (q + dq >= z ? z : 0)) {
-          float acc = post[j * z + q];
+          float acc = lift(post[j * z + q], 1.f);
           bool hit = false;
           // a column's planes are listed by block row, so by plane id
           for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
@@ -345,32 +465,34 @@ __device__ __forceinline__ void iterate(const Plan& pl, float* msg,
             if (p >= P1) break;
             int r = q - pl.plane_shift[p];
             if (r < 0) r += z;
-            acc = acc + delta[(p - P0) * z + r];
+            acc = round_post<Post>(acc + delta[(p - P0) * z + r]);
             hit = true;
           }
-          if (hit) post[j * z + q] = acc;
+          if (hit) post[j * z + q] = store<Post>(acc, 1.f);
         }
         __syncthreads();
       }
     }
     if constexpr (kW) {
-      rebuild<true>(pl, msg, post, l, st.w_next, st.wl_next, z, n);
+      rebuild<true, kT>(pl, msg, post, l, st.w_next, st.wl_next, z, n,
+                        st.u.sstep);
       __syncthreads();
     }
   } else {
     for (int c = threadIdx.x; c < mb * z; c += blockDim.x)
-      check_update<kMethod, kFoldNone, kQuant, kW>(pl, msg, post, nullptr,
-                                                   st.w, z, c / z, c % z,
-                                                   st.u);
+      check_update<kMethod, kFoldNone, kQuant, kW, kT>(
+          pl, msg, post, nullptr, st.w, z, c / z, c % z, st.u);
     __syncthreads();
-    rebuild<kW>(pl, msg, post, l, st.w_next, st.wl_next, z, n);
+    rebuild<kW, kT>(pl, msg, post, l, st.w_next, st.wl_next, z, n,
+                    st.u.sstep);
     __syncthreads();
   }
 }
 
 // This thread's count of unsatisfied checks (its checks c = tid + k*blockDim)
 // for the hard decisions of the posterior (bit 1 where post < 0).
-__device__ __forceinline__ int local_unsat(const Plan& pl, const float* post,
+template <typename Post>
+__device__ __forceinline__ int local_unsat(const Plan& pl, const Post* post,
                                            int z, int mb) {
   int count = 0;
   for (int c = threadIdx.x; c < mb * z; c += blockDim.x) {
@@ -379,7 +501,7 @@ __device__ __forceinline__ int local_unsat(const Plan& pl, const float* post,
     for (int p = pl.row_ptr[i]; p < pl.row_ptr[i + 1]; ++p) {
       int q = r + pl.plane_shift[p];
       if (q >= z) q -= z;
-      parity ^= post[pl.plane_col[p] * z + q] < 0.f ? 1 : 0;
+      parity ^= lift(post[pl.plane_col[p] * z + q], 1.f) < 0.f ? 1 : 0;
     }
     count += parity;
   }
@@ -389,8 +511,10 @@ __device__ __forceinline__ int local_unsat(const Plan& pl, const float* post,
 // aux_out: the iterations run (kEarlyStop), else the unsatisfied-check
 // count when not null. done_in: codewords to skip, when not null. wm, wl:
 // the weight tables (kW: iterations+1 rows of P*z and of n floats).
-// group: block rows per group of the layered schedule.
-template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW>
+// group: block rows per group of the layered schedule. sstep, sinv: the
+// int8 storage grid's step and its reciprocal (kT = kInt8).
+template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
+          int kT>
 __device__ __forceinline__ void decode(
     const float* __restrict__ llr, float* __restrict__ post_out,
     int8_t* __restrict__ bits_out, const int* __restrict__ done_in,
@@ -398,35 +522,45 @@ __device__ __forceinline__ void decode(
     const float* __restrict__ ab, const float* __restrict__ wm,
     const float* __restrict__ wl, int z, int mb, int nb, int P,
     int iterations, int check_every, int group, float clamp, float qstep,
-    float qclip) {
+    float qclip, float sstep, float sinv) {
+  using Msg = typename Storage<kT>::Msg;
+  using Post = typename Storage<kT>::Post;
   // the flag is the same for the whole CTA, so the return is uniform
   if (done_in != nullptr && done_in[blockIdx.x] != 0) return;
   extern __shared__ float4 smem_f4[];
   __shared__ int unsat_sum;
-  int* plan = reinterpret_cast<int*>(smem_f4);
-  float* msg = reinterpret_cast<float*>(smem_f4) + plan_ints_padded(mb, nb, P);
+  // regions on 16-byte boundaries, each of its own type (smem_bytes)
+  char* smem = reinterpret_cast<char*>(smem_f4);
   const int n = nb * z;
-  float* post = msg + P * z;
-  float* delta = post + n;  // group > 1 only
+  int* plan = reinterpret_cast<int*>(smem);
+  int off = 4 * plan_ints_padded(mb, nb, P);
+  Msg* msg = reinterpret_cast<Msg*>(smem + off);
+  off += align16(P * z * static_cast<int>(sizeof(Msg)));
+  Post* post = reinterpret_cast<Post*>(smem + off);
+  off += align16(n * static_cast<int>(sizeof(Post)));
+  float* delta = reinterpret_cast<float*>(smem + off);  // group > 1 only
   const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
   const float* l = llr + base;
 
   const int n_plan = plan_ints(mb, nb, P);
   for (int t = threadIdx.x; t < n_plan; t += blockDim.x) plan[t] = plan_g[t];
-  for (int t = threadIdx.x; t < P * z; t += blockDim.x) msg[t] = 0.f;
+  for (int t = threadIdx.x; t < P * z; t += blockDim.x)
+    msg[t] = store<Msg>(0.f, sinv);
   // internal convention log(Pr0/Pr1): the negated API LLR
   if constexpr (!kW)
-    for (int t = threadIdx.x; t < n; t += blockDim.x) post[t] = -l[t];
+    for (int t = threadIdx.x; t < n; t += blockDim.x)
+      post[t] = store<Post>(-l[t], 1.f);
   __syncthreads();
   const Plan pl{plan, plan + (mb + 1), plan + (mb + 1) + P,
                 plan + (mb + 1) + 2 * P, plan + (mb + 1) + 2 * P + (nb + 1)};
   if constexpr (kW) {
     // the posterior of the zero messages under the first weight row
-    rebuild<true>(pl, msg, post, l, wm, wl, z, n);
+    rebuild<true, kT>(pl, msg, post, l, wm, wl, z, n, sstep);
     __syncthreads();
   }
   auto step = [&](int it) {
-    const Rule u{ab[2 * it], ab[2 * it + 1], clamp, qstep, qclip};
+    const Rule u{ab[2 * it], ab[2 * it + 1], clamp, qstep, qclip, sstep,
+                 sinv};
     if constexpr (kW) {
       const int64_t e = static_cast<int64_t>(P) * z;
       return Step{u, wm + it * e, wm + (it + 1) * e, wl + (it + 1) * n};
@@ -444,9 +578,9 @@ __device__ __forceinline__ void decode(
     const int rounds = iterations / check_every;
     for (int r = 0; r < rounds && !done; ++r) {
       for (int k = 0; k < check_every; ++k)
-        iterate<kMethod, kLayered, kQuant, kW>(pl, msg, post, delta, l, z,
-                                               mb, n, group,
-                                               step(r * check_every + k));
+        iterate<kMethod, kLayered, kQuant, kW, kT>(
+            pl, msg, post, delta, l, z, mb, n, group,
+            step(r * check_every + k));
       if (!__syncthreads_or(local_unsat(pl, post, z, mb) != 0)) {
         done = true;
         ran = (r + 1) * check_every;
@@ -455,8 +589,8 @@ __device__ __forceinline__ void decode(
     if (threadIdx.x == 0) aux_out[blockIdx.x] = ran;
   } else {
     for (int it = 0; it < iterations; ++it)
-      iterate<kMethod, kLayered, kQuant, kW>(pl, msg, post, delta, l, z, mb,
-                                             n, group, step(it));
+      iterate<kMethod, kLayered, kQuant, kW, kT>(pl, msg, post, delta, l, z,
+                                                 mb, n, group, step(it));
     if (aux_out != nullptr) {
       const int mine = local_unsat(pl, post, z, mb);
       if (threadIdx.x == 0) unsat_sum = 0;
@@ -469,25 +603,42 @@ __device__ __forceinline__ void decode(
 
   if (bits_out != nullptr) {
     for (int t = threadIdx.x; t < n; t += blockDim.x)
-      bits_out[base + t] = post[t] < 0.f ? 1 : 0;
+      bits_out[base + t] = lift(post[t], 1.f) < 0.f ? 1 : 0;
   } else {
     for (int t = threadIdx.x; t < n; t += blockDim.x)
-      post_out[base + t] = -post[t];
+      post_out[base + t] = -lift(post[t], 1.f);
   }
 }
 
+// This translation unit's storage type and the suffix of its entry points.
+#if QC_STORAGE == 0
+constexpr int kStorage = kF32;
+#define QC_SUFFIX
+#elif QC_STORAGE == 1
+constexpr int kStorage = kBf16;
+#define QC_SUFFIX _bf16
+#elif QC_STORAGE == 2
+constexpr int kStorage = kInt8;
+#define QC_SUFFIX _i8
+#else
+#error "QC_STORAGE must be 0, 1 or 2"
+#endif
+
 }  // namespace
 
-#define QC_KERNEL(name, method, layered, early_stop, quant, weighted)         \
-  __global__ void name(const float* llr, float* post_out, int8_t* bits_out,  \
-                       const int* done_in, int* aux_out, const int* plan,    \
-                       const float* ab, const float* wm, const float* wl,    \
-                       int z, int mb, int nb, int P, int iterations,         \
-                       int check_every, int group, float clamp, float qstep, \
-                       float qclip) {                                        \
-    decode<method, layered, early_stop, quant, weighted>(                    \
-        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,  \
-        nb, P, iterations, check_every, group, clamp, qstep, qclip);         \
+#define QC_CAT2(a, b) a##b
+#define QC_CAT(a, b) QC_CAT2(a, b)
+#define QC_KERNEL(name, method, layered, early_stop, quant, weighted)        \
+  __global__ void QC_CAT(name, QC_SUFFIX)(                                  \
+      const float* llr, float* post_out, int8_t* bits_out,                  \
+      const int* done_in, int* aux_out, const int* plan, const float* ab,   \
+      const float* wm, const float* wl, int z, int mb, int nb, int P,       \
+      int iterations, int check_every, int group, float clamp, float qstep, \
+      float qclip, float sstep, float sinv) {                               \
+    decode<method, layered, early_stop, quant, weighted, kStorage>(         \
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
+        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
+        sinv);                                                              \
   }
 
 QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false, false)
@@ -518,61 +669,50 @@ QC_KERNEL(sumproduct_qc_flooding_w_msgq, kSumProduct, false, false, true,
           true)
 QC_KERNEL(sumproduct_qc_layered_w_msgq, kSumProduct, true, false, true, true)
 
-extern "C" {
+#define QC_K(name) QC_CAT(name, QC_SUFFIX)
 
-// Launches one decode on `stream`: grid = batch CTAs, one codeword each.
-// method: 0 min-sum, 1 sum-product. quant != 0 selects the _msgq form with
-// step qstep and clip qclip. `out` is int8 hard bits when out_hard != 0,
-// else the f32 posterior in the log(Pr1/Pr0) convention; both (batch, nb*z)
-// row-major. `ab` holds `iterations` rows of (alpha, beta). clamp = +inf
-// for no clamp. done_in: (batch,) int32 flags of codewords to skip, or
-// null. aux_out: (batch,) int32, the iterations run when early_stop != 0
-// (then required), else the unsatisfied-check counts, or null. check_every
-// must divide iterations; a sum-product code's rows have at most
-// kMaxRowDeg slots (row_deg: the code's largest row degree). wm, wl: the
-// weight tables ((iterations+1) rows of P*z check-oriented edge weights and
-// of nb*z LLR weights), or both null; weights take no early stop. group:
-// block rows per group of the layered schedule (1 = serial-C; above 1 a
-// CTA takes min(P, group*row_deg)*z floats more of shared memory). Returns
-// the CUDA error code of the launch (0 on success).
-int bp_qc_decode(int method, int layered, int early_stop, int quant,
-                 const float* llr, void* out, int out_hard,
-                 const int* done_in, int* aux_out, const int* plan,
-                 const float* ab, const float* wm, const float* wl,
-                 int batch, int z, int mb, int nb, int P, int row_deg,
-                 int iterations, int check_every, int group, float clamp,
-                 float qstep, float qclip, cudaStream_t stream) {
+// The launch of one decode with this translation unit's storage type (the
+// arguments of bp_qc_decode, below).
+extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
+    int method, int layered, int early_stop, int quant, const float* llr,
+    void* out, int out_hard, const int* done_in, int* aux_out,
+    const int* plan, const float* ab, const float* wm, const float* wl,
+    int batch, int z, int mb, int nb, int P, int row_deg, int iterations,
+    int check_every, int group, float clamp, float qstep, float qclip,
+    float sstep, float sinv, int threads, cudaStream_t stream) {
   using Kernel = void (*)(const float*, float*, int8_t*, const int*, int*,
                           const int*, const float*, const float*,
                           const float*, int, int, int, int, int, int, int,
-                          float, float, float);
+                          float, float, float, float, float);
   // [method][layered][early_stop][quant]
   static const Kernel kKernels[2][2][2][2] = {
-      {{{minsum_qc_flooding, minsum_qc_flooding_msgq},
-        {minsum_qc_flooding_es, minsum_qc_flooding_es_msgq}},
-       {{minsum_qc_layered, minsum_qc_layered_msgq},
-        {minsum_qc_layered_es, minsum_qc_layered_es_msgq}}},
-      {{{sumproduct_qc_flooding, sumproduct_qc_flooding_msgq},
-        {sumproduct_qc_flooding_es, sumproduct_qc_flooding_es_msgq}},
-       {{sumproduct_qc_layered, sumproduct_qc_layered_msgq},
-        {sumproduct_qc_layered_es, sumproduct_qc_layered_es_msgq}}}};
+      {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
+        {QC_K(minsum_qc_flooding_es), QC_K(minsum_qc_flooding_es_msgq)}},
+       {{QC_K(minsum_qc_layered), QC_K(minsum_qc_layered_msgq)},
+        {QC_K(minsum_qc_layered_es), QC_K(minsum_qc_layered_es_msgq)}}},
+      {{{QC_K(sumproduct_qc_flooding), QC_K(sumproduct_qc_flooding_msgq)},
+        {QC_K(sumproduct_qc_flooding_es), QC_K(sumproduct_qc_flooding_es_msgq)}},
+       {{QC_K(sumproduct_qc_layered), QC_K(sumproduct_qc_layered_msgq)},
+        {QC_K(sumproduct_qc_layered_es), QC_K(sumproduct_qc_layered_es_msgq)}}}};
   // [method][layered][quant]
   static const Kernel kWeighted[2][2][2] = {
-      {{minsum_qc_flooding_w, minsum_qc_flooding_w_msgq},
-       {minsum_qc_layered_w, minsum_qc_layered_w_msgq}},
-      {{sumproduct_qc_flooding_w, sumproduct_qc_flooding_w_msgq},
-       {sumproduct_qc_layered_w, sumproduct_qc_layered_w_msgq}}};
+      {{QC_K(minsum_qc_flooding_w), QC_K(minsum_qc_flooding_w_msgq)},
+       {QC_K(minsum_qc_layered_w), QC_K(minsum_qc_layered_w_msgq)}},
+      {{QC_K(sumproduct_qc_flooding_w), QC_K(sumproduct_qc_flooding_w_msgq)},
+       {QC_K(sumproduct_qc_layered_w), QC_K(sumproduct_qc_layered_w_msgq)}}};
   const bool weighted = wm != nullptr;
   if (weighted && (early_stop || wl == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (group < 1 || (group > 1 && !layered))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Kernel fn =
       weighted ? kWeighted[method != 0][layered != 0][quant != 0]
                : kKernels[method != 0][layered != 0][early_stop != 0]
                          [quant != 0];
   if (group > mb) group = mb;
-  const int smem = smem_bytes(z, mb, nb, P, group, row_deg);
+  const int smem = smem_bytes<kStorage>(z, mb, nb, P, group, row_deg);
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(fn),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -581,18 +721,69 @@ int bp_qc_decode(int method, int layered, int early_stop, int quant,
   err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(fn));
   if (err != cudaSuccess) return static_cast<int>(err);
   // layered: one thread per check of a group of block rows (as many as the
-  // kernel's registers allow); flooding: 256 threads stride over the
-  // checks, then over the variables
-  int threads = layered ? ((group * z + 31) / 32) * 32 : 256;
+  // kernel's registers allow); flooding: `threads` stride over the checks,
+  // then over the variables
+  if (layered) threads = ((group * z + 31) / 32) * 32;
   if (threads > attr.maxThreadsPerBlock)
     threads = attr.maxThreadsPerBlock / 32 * 32;
   float* post_out = out_hard ? nullptr : static_cast<float*>(out);
   int8_t* bits_out = out_hard ? static_cast<int8_t*>(out) : nullptr;
-  fn<<<batch, threads, smem, stream>>>(llr, post_out, bits_out, done_in,
-                                       aux_out, plan, ab, wm, wl, z, mb, nb,
-                                       P, iterations, check_every, group,
-                                       clamp, qstep, qclip);
+  fn<<<batch, threads, smem, stream>>>(
+      llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, nb,
+      P, iterations, check_every, group, clamp, qstep, qclip, sstep, sinv);
   return static_cast<int>(cudaGetLastError());
+}
+
+#if QC_STORAGE == 0
+extern "C" {
+
+int bp_qc_launch_bf16(int, int, int, int, const float*, void*, int,
+                      const int*, int*, const int*, const float*,
+                      const float*, const float*, int, int, int, int, int,
+                      int, int, int, int, float, float, float, float, float,
+                      int, cudaStream_t);
+int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
+                    int*, const int*, const float*, const float*,
+                    const float*, int, int, int, int, int, int, int, int,
+                    int, float, float, float, float, float, int,
+                    cudaStream_t);
+
+// Launches one decode on `stream`: grid = batch CTAs, one codeword each.
+// dtype: the message storage, 0 f32, 1 bf16, 2 int8 (its grid's step sstep
+// and the reciprocal sinv, both f32). method: 0 min-sum, 1 sum-product.
+// quant != 0 selects the _msgq form with step qstep and clip qclip. `out`
+// is int8 hard bits when out_hard != 0, else the f32 posterior in the
+// log(Pr1/Pr0) convention; both (batch, nb*z) row-major. `ab` holds
+// `iterations` rows of (alpha, beta). clamp = +inf for no clamp. done_in:
+// (batch,) int32 flags of codewords to skip, or null. aux_out: (batch,)
+// int32, the iterations run when early_stop != 0 (then required), else the
+// unsatisfied-check counts, or null. check_every must divide iterations; a
+// sum-product code's rows have at most kMaxRowDeg slots (row_deg: the
+// code's largest row degree). wm, wl: the weight tables ((iterations+1)
+// rows of P*z check-oriented edge weights and of nb*z LLR weights), or both
+// null; weights take no early stop. group: block rows per group of the
+// layered schedule (1 = serial-C; above 1 a CTA takes min(P,
+// group*row_deg)*z floats more of shared memory). threads: the flooding
+// forms' CTA size, a multiple of 32 in [32, 1024] (a layered CTA has
+// group*z threads rounded up to warps). Returns the CUDA error code of the
+// launch (0 on success).
+int bp_qc_decode(int dtype, int method, int layered, int early_stop,
+                 int quant, const float* llr, void* out, int out_hard,
+                 const int* done_in, int* aux_out, const int* plan,
+                 const float* ab, const float* wm, const float* wl, int batch,
+                 int z, int mb, int nb, int P, int row_deg, int iterations,
+                 int check_every, int group, float clamp, float qstep,
+                 float qclip, float sstep, float sinv, int threads,
+                 cudaStream_t stream) {
+  auto* launch = dtype == kF32    ? bp_qc_launch
+                 : dtype == kBf16 ? bp_qc_launch_bf16
+                 : dtype == kInt8 ? bp_qc_launch_i8
+                                  : nullptr;
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(method, layered, early_stop, quant, llr, out, out_hard,
+                done_in, aux_out, plan, ab, wm, wl, batch, z, mb, nb, P,
+                row_deg, iterations, check_every, group, clamp, qstep, qclip,
+                sstep, sinv, threads, stream);
 }
 
 // The largest row degree the sum-product forms take.
@@ -603,3 +794,4 @@ const char* bp_qc_error_string(int err) {
 }
 
 }  // extern "C"
+#endif

@@ -8,12 +8,17 @@ sum-product forms, each with and without message quantization:
 with the optional ``done_in`` skip and ``hard_unsat`` count; the layered
 forms also group-serial, ``layered_group > 1``), their ``_es`` forms
 (per-codeword early stop) and ``_w`` forms (per-edge neural-BP weights),
-and the ``_msgq`` form of each, all in ``csrc/minsum_qc.cu`` (its header
-says how they work and what bounds them on the H100). The source is
-compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` of the
-checkout on first use and loaded with ctypes. The drivers
-:func:`bp_qc_requeue` and :func:`bp_qc_probe_requeue` port the JAX
-functions of the same names (``:820-901``, ``:912-1053``).
+and the ``_msgq`` form of each, each with f32, bf16 (``_bf16``) and int8
+(``_i8``) message storage, all in ``csrc/minsum_qc.cu`` (its header says
+how they work and what bounds them on the H100). The source is compiled
+with ``nvcc`` for ``sm_90a``, once per storage type in parallel, into
+``build/kernels/`` of the checkout on first use, linked into one library
+and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
+:func:`bp_qc_probe_requeue` port the JAX functions of the same names
+(``:820-901``, ``:912-1053``). :func:`default_threads` and
+``_LAUNCH_TABLE`` are the counterparts of JAX's ``default_tile`` and
+``_TILE_TABLE`` (``:86-96``), filled from H100 sweeps of
+:mod:`.tune`.
 
 :func:`bp_qc_cuda` launches a kernel for a CUDA tensor and runs the
 plain version (:func:`..ops.bp_roll.decode_roll`) for a CPU tensor, and
@@ -42,6 +47,7 @@ from ldpc_sims_tpu_torch.ops.bp_roll import (
     msg_qstep,
     pack_edge_weights,
     qc_plan,
+    storage_dtype,
 )
 
 __all__ = [
@@ -53,6 +59,8 @@ __all__ = [
     "bp_qc_probe_requeue",
     "bp_qc_requeue",
     "build",
+    "default_threads",
+    "kernel_name",
     "probe_capacity",
     "minsum_qc_cuda",
     "reset_launch_counts",
@@ -64,9 +72,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no fused multiply-add: keeps the arithmetic equal to the plain version
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 METHODS = ("min-sum", "sum-product")
+# the source's storage code (-DQC_STORAGE, bp_qc_decode's dtype) and the
+# suffix of its entry points, per message storage type
+STORAGE = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16"),
+           torch.int8: (2, "_i8")}
 # entry point of csrc/minsum_qc.cu per (method, schedule, early_stop,
 # quantized): minsum_qc_flooding, ..., sumproduct_qc_layered_es_msgq
 KERNELS = {
@@ -81,10 +93,46 @@ KERNELS_W = {
     (m, s, q): f"{m.replace('-', '')}_qc_{s}_w" + ("_msgq" if q else "")
     for m in METHODS for s in ("flooding", "layered") for q in (False, True)
 }
-# launches per kernel since the last reset_launch_counts()
-LAUNCHES = {name: 0 for name in (*KERNELS.values(), *KERNELS_W.values())}
+# launches per kernel (kernel_name) since the last reset_launch_counts()
+LAUNCHES = {name + sfx: 0 for _, sfx in STORAGE.values()
+            for name in (*KERNELS.values(), *KERNELS_W.values())}
 # dynamic shared memory one H100 CTA may use
 _SMEM_LIMIT = 232_448
+# the flooding forms' CTA size where an H100 sweep (kernels/tune.py) found
+# one faster than 256, keyed by (n, dtype name, schedule); the layered
+# forms' CTA has G·z threads by design. From the sweep of threads 128,
+# 256, 512, 1024 × the three types, flooding-20 at batch 16384 (PERF.md
+# §6, row 14; NVIDIA H100 80GB HBM3, 700 W): a 5G-class codeword fills
+# an SM's shared memory at f32 (one to four CTAs an SM), so more threads
+# a CTA are more warps an SM; wifi1944 (six to eight CTAs) keeps 256.
+_LAUNCH_TABLE: dict[tuple[int, str, str], int] = {
+    (8448, "float32", "flooding"): 1024,
+    (8448, "bfloat16", "flooding"): 1024,
+    (8448, "int8", "flooding"): 512,
+    (12288, "float32", "flooding"): 1024,
+    (12288, "bfloat16", "flooding"): 1024,
+    (12288, "int8", "flooding"): 1024,
+}
+
+
+def default_threads(qc: QcStructure, dtype=torch.float32,
+                    schedule: str = "flooding") -> int:
+    """The measured-best flooding CTA size for this (code, dtype,
+    schedule): ``_LAUNCH_TABLE``'s entry, else 256."""
+    name = str(storage_dtype(dtype)).removeprefix("torch.")
+    return _LAUNCH_TABLE.get((qc.nb * qc.z, name, schedule), 256)
+
+
+def kernel_name(method: str, schedule: str, early_stop: bool = False,
+                quantized: bool = False, weighted: bool = False,
+                dtype=torch.float32) -> str:
+    """The entry point of csrc/minsum_qc.cu for a form: ``KERNELS`` or
+    ``KERNELS_W``'s name plus the storage suffix (``_bf16``, ``_i8``)."""
+    base = (KERNELS_W[method, schedule, quantized] if weighted
+            else KERNELS[method, schedule, early_stop, quantized])
+    return base + STORAGE[storage_dtype(dtype)][1]
+
+
 # the JAX pallas backend pads the batch to 128 lanes (ldpc_sims_tpu/ops/
 # bp.py:608-615); the probe driver's overflow rule depends on it
 _JAX_TILE = 128
@@ -106,7 +154,8 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernels once per source content.
+    """Compile the kernels once per source content: one ``nvcc`` per
+    storage type, all started together, then one link.
 
     Returns the shared library's path and ptxas's register and
     shared-memory report from the build that made it.
@@ -117,15 +166,31 @@ def build() -> tuple[Path, str]:
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        objs = [lib.with_name(f"{lib.stem}.{code}.{os.getpid()}.o")
+                for code, _ in STORAGE.values()]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, f"-DQC_STORAGE={code}", "-c", "-o",
+             str(obj), str(SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for (code, _), obj in zip(STORAGE.values(), objs)]
+        logs = []
+        for proc in procs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {proc.returncode}:\n{err}")
         res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
             capture_output=True, text=True,
         )
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed with code {res.returncode}:\n{res.stderr}"
-            )
-        report.write_text(res.stderr)
+                f"nvcc link failed with code {res.returncode}:\n"
+                f"{res.stderr}")
+        for obj in objs:
+            obj.unlink()
+        report.write_text("".join(logs))
         os.replace(tmp, lib)  # atomic: concurrent builds agree
     return lib, report.read_text() if report.exists() else ""
 
@@ -136,8 +201,9 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     f32 = ctypes.c_float
     lib.bp_qc_decode.argtypes = [
-        i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32,
-        i32, i32, i32, i32, i32, i32, i32, f32, f32, f32, vp,
+        i32, i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32,
+        i32, i32, i32, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
+        i32, vp,
     ]
     lib.bp_qc_decode.restype = i32
     lib.bp_qc_max_row_degree.argtypes = []
@@ -161,17 +227,27 @@ def _plan_array(qc: QcStructure) -> np.ndarray:
     ]).astype(np.int32)
 
 
-def smem_bytes(qc: QcStructure, layered_group: int = 1) -> int:
-    """Dynamic shared memory of one CTA: plan, c2v planes, posterior, and
-    for a group-serial launch the message changes of a group's planes
-    (at most ``min(P, G·row degree)`` planes of z floats)."""
+def smem_bytes(qc: QcStructure, layered_group: int = 1,
+               dtype=torch.float32) -> int:
+    """Dynamic shared memory of one CTA: the int32 plan, the c2v planes
+    (4, 2 or 1 B a message for f32, bf16, int8), the posterior (2 B a
+    variable for bf16, else 4), and for a group-serial launch the f32
+    message changes of a group's planes (at most ``min(P, G·row
+    degree)`` planes of z floats); each region on a 16-byte boundary."""
     planes, group_c, _ = qc_plan(qc)
     P = len(planes)
-    plan = (qc.mb + 1 + 3 * P + qc.nb + 1 + 3) // 4 * 4
+
+    def a16(nbytes: int) -> int:
+        return -(-nbytes // 16) * 16
+
+    dtype = storage_dtype(dtype)
+    msg = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    post = 2 if dtype == torch.bfloat16 else 4
     G = min(layered_group, qc.mb)
     degree = max(len(ps) for ps in group_c)
     scratch = min(P, G * degree) * qc.z if G > 1 else 0
-    return 4 * (plan + P * qc.z + qc.nb * qc.z + scratch)
+    return (a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1)) + a16(msg * P * qc.z)
+            + a16(post * qc.nb * qc.z) + 4 * scratch)
 
 
 def _ab_table(alpha, beta, iterations: int) -> np.ndarray:
@@ -232,6 +308,8 @@ def bp_qc_cuda(
     msg_qclip: float = 20.0,
     weights=None,
     layered_group: int = 1,
+    dtype=torch.float32,
+    threads: int | None = None,
 ):
     """(batch, n) f32 channel LLRs (log Pr1/Pr0) → hard bits or posterior.
 
@@ -256,6 +334,14 @@ def bp_qc_cuda(
     the output are not written (unspecified in a fresh output) and, under
     early stop, their iteration count is 0. ``out``: an optional (batch,
     n) output buffer to write into. Any batch size ≥ 1 works.
+    ``dtype``: the message storage, torch.float32, torch.bfloat16
+    (messages, posterior and LLRs) or torch.int8 (messages on the
+    255-level grid over ±``msg_qclip``), with the Pallas kernel's
+    semantics (:func:`..ops.bp_roll.decode_roll`); the posterior output
+    is f32 either way. ``threads``: the flooding forms' CTA size, a
+    multiple of 32 in [32, 1024] (JAX's ``tile``); None takes
+    :func:`default_threads`. A layered CTA has G·z threads, so a layered
+    decode takes no ``threads``.
     """
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
@@ -289,6 +375,18 @@ def bp_qc_cuda(
     if layered_group < 1 or (layered_group > 1 and schedule != "layered"):
         raise ValueError("layered_group needs schedule='layered'")
     _check_weights(weights, early_stop, done_in)
+    dtype = storage_dtype(dtype)
+    if threads is not None and schedule == "layered":
+        raise ValueError("threads sets the flooding forms' CTA size; a "
+                         "layered CTA has layered_group·z threads")
+    if threads is None:
+        threads = default_threads(qc, dtype, schedule)
+    if not (32 <= threads <= 1024 and threads % 32 == 0):
+        raise ValueError(f"threads={threads!r} must be a multiple of 32 "
+                         "in [32, 1024]")
+    if dtype == torch.int8 and not msg_qclip > 0:
+        raise ValueError(f"int8 storage needs msg_qclip > 0, got "
+                         f"{msg_qclip!r}")
     qstep = msg_qstep(msg_qbits, msg_qclip)
     _ab_table(alpha, beta, iterations)  # validates tuple lengths
     B = llr.shape[0]
@@ -310,7 +408,7 @@ def bp_qc_cuda(
                           es_check_every=es_check_every, done_in=done_in,
                           method=method, msg_qbits=msg_qbits,
                           msg_qclip=msg_qclip, weights=weights,
-                          layered_group=layered_group)
+                          layered_group=layered_group, dtype=dtype)
         if out is None:
             return res
         main = res[0] if isinstance(res, tuple) else res
@@ -327,11 +425,11 @@ def bp_qc_cuda(
         raise ValueError("empty batch")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
-    smem = smem_bytes(qc, layered_group)
+    smem = smem_bytes(qc, layered_group, dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"code needs {smem} B of shared memory per codeword, more than "
-            f"the {_SMEM_LIMIT} B a CTA can have"
+            f"code needs {smem} B of shared memory per codeword with "
+            f"{dtype} storage, more than the {_SMEM_LIMIT} B a CTA can have"
         )
     lib = _library()
     planes, group_c, _ = qc_plan(qc)
@@ -362,7 +460,10 @@ def bp_qc_cuda(
         aux = torch.zeros(B, dtype=torch.int32, device=llr.device)
     stream = torch.cuda.current_stream(llr.device).cuda_stream
     quant = qstep is not None
+    # the int8 grid's step and reciprocal, taken in double (decode_roll)
+    sstep = 2.0 * msg_qclip / 255.0 if dtype == torch.int8 else 1.0
     err = lib.bp_qc_decode(
+        STORAGE[dtype][0],
         int(method == "sum-product"), int(schedule == "layered"),
         int(early_stop), int(quant), llr.data_ptr(),
         out.data_ptr(), int(hard),
@@ -375,10 +476,10 @@ def bp_qc_cuda(
         es_check_every,
         layered_group, math.inf if clamp is None else float(clamp),
         qstep if quant else 1.0, float(msg_qclip) if quant else math.inf,
-        stream,
+        sstep, 1.0 / sstep, threads, stream,
     )
-    name = (KERNELS_W[method, schedule, quant] if wm is not None
-            else KERNELS[method, schedule, bool(early_stop), quant])
+    name = kernel_name(method, schedule, bool(early_stop), quant,
+                       wm is not None, dtype)
     if err != 0:
         msg = lib.bp_qc_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg}")
@@ -408,6 +509,8 @@ def bp_qc_requeue(
     msg_qbits: int | None = None,
     msg_qclip: float = 20.0,
     layered_group: int = 1,
+    dtype=torch.float32,
+    threads: int | None = None,
 ):
     """Early-stop decode as an early-stop probe, then a full-budget
     early-stop pass over the codewords the probe did not finish.
@@ -416,8 +519,9 @@ def bp_qc_requeue(
     the probe's where done, else the second pass's; iterations are
     ``iters1`` where done, else ``probe_iters + iters2``. A frozen
     per-iteration schedule runs its prefix in the probe; ``method``, the
-    message quantization and ``layered_group`` apply to both passes. The
-    TPU sorts the
+    message quantization, ``layered_group``, the storage ``dtype`` and
+    ``threads`` apply to both passes, which read the same f32 LLRs (JAX's
+    compact pass gathers them in their own type). The TPU sorts the
     converged lanes to the front so that whole tiles skip; a CTA decodes
     one codeword, so the second pass is one launch over the whole batch
     with ``done_in = done``, writing straight into the probe's bits.
@@ -429,7 +533,7 @@ def bp_qc_requeue(
     kw = dict(clamp=clamp, schedule=schedule, output="hard_iters",
               early_stop=True, es_check_every=es_check_every, method=method,
               msg_qbits=msg_qbits, msg_qclip=msg_qclip,
-              layered_group=layered_group)
+              layered_group=layered_group, dtype=dtype, threads=threads)
     bits, iters1 = bp_qc_cuda(llr, qc, probe_iters, alpha=a_probe,
                               beta=b_probe, **kw)
     # converged := finished under budget at a checked state; a codeword
@@ -467,6 +571,8 @@ def bp_qc_probe_requeue(
     msg_qbits: int | None = None,
     msg_qclip: float = 20.0,
     layered_group: int = 1,
+    dtype=torch.float32,
+    threads: int | None = None,
 ):
     """Adaptive decode: a fixed ``probe_iters`` probe with the fused
     unsatisfied-check count, then a fixed full-budget pass over the
@@ -483,7 +589,8 @@ def bp_qc_probe_requeue(
     ``probe_beta`` or else the full schedule; a tuple of another length
     than ``probe_iters`` is cut to its first ``probe_iters`` entries, as
     the JAX function does (silently). ``method``, the message
-    quantization and ``layered_group`` apply to both passes.
+    quantization, ``layered_group``, the storage ``dtype`` and
+    ``threads`` apply to both passes.
     """
     if output not in ("hard", "hard_iters"):
         raise ValueError("bp_qc_probe_requeue outputs hard bits only")
@@ -500,7 +607,7 @@ def bp_qc_probe_requeue(
         pb = pb[:probe_iters]
     kw = dict(clamp=clamp, schedule=schedule, method=method,
               msg_qbits=msg_qbits, msg_qclip=msg_qclip,
-              layered_group=layered_group)
+              layered_group=layered_group, dtype=dtype, threads=threads)
     bits, unsat = bp_qc_cuda(llr, qc, probe_iters, alpha=pa, beta=pb,
                              output="hard_unsat", **kw)
     done = unsat == 0

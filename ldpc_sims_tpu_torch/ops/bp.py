@@ -14,11 +14,15 @@ Backends:
 * ``'roll'``: the plain PyTorch version (:mod:`.bp_roll`) on any device;
   of early stop it takes ``es_mode='freeze'`` with a check every
   iteration, as the JAX roll backend does, and it takes no
-  ``layered_group > 1``, as the JAX roll backend does not; gradients flow
-  through it;
+  ``layered_group > 1``, as the JAX roll backend does not, and no
+  message storage narrower than f32 (JAX's roll backend computes bf16 in
+  bf16 arithmetic, another function, ROADMAP A4; int8 is kernel-only,
+  as in JAX); gradients flow through it;
 * ``'auto'``: ``'cuda'`` for a CUDA tensor, and for the forms only the
   kernels' module implements (requeue, probe, a check stride above 1,
-  ``layered_group > 1``); else ``'roll'`` for a CPU tensor.
+  ``layered_group > 1``, bf16 or int8 storage); else ``'roll'`` for a
+  CPU tensor. JAX's ``auto`` on the CPU sends bf16 to its roll backend
+  and raises for int8 (ROADMAP §C).
 
 What the JAX function does beyond that raises ``NotImplementedError``
 naming its ROADMAP item; nothing falls back silently.
@@ -35,6 +39,7 @@ from ldpc_sims_tpu_torch.ops.bp_roll import (
     EDGE_KEYS,
     decode_roll,
     pack_edge_weights,
+    storage_dtype,
 )
 
 __all__ = [
@@ -137,6 +142,7 @@ def bp_decode(
     schedule: str = "flooding",
     layered_group: int = 1,
     dtype=torch.float32,
+    threads: int | None = None,
 ) -> torch.Tensor:
     """Decode a batch of codewords with BP.
 
@@ -188,9 +194,18 @@ def bp_decode(
       layered_group: block rows per serial group of the layered schedule
         (1 = serial-C; ``mb`` = one flooding iteration up to the order of
         the sums); above 1 the kernels' module only, as in JAX.
+      dtype: message storage, ``torch.float32``, ``torch.bfloat16``
+        (messages, posterior and channel LLRs in bf16) or ``torch.int8``
+        (messages on the 255-level grid over ±``msg_qclip``), or their
+        names; the Pallas kernel's semantics
+        (:func:`.bp_roll.decode_roll`), so bf16 and int8 take the
+        kernels' module (``auto`` resolves to ``cuda``).
+      threads: the flooding kernels' CTA size (JAX's ``tile``), a
+        multiple of 32 in [32, 1024]; None takes the measured default
+        (:func:`..kernels.minsum_qc.default_threads`). The ``roll``
+        backend ignores it, as JAX's ignores ``tile``.
 
-    ``method='sum-product-ref'``, other dtypes and non-QC codes are not
-    ported yet.
+    ``method='sum-product-ref'`` and non-QC codes are not ported yet.
     """
     if method not in ("min-sum", "sum-product", "sum-product-ref"):
         raise ValueError(f"unknown method {method!r}")
@@ -265,8 +280,9 @@ def bp_decode(
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet (ROADMAP A4)"
         )
+    dtype = storage_dtype(dtype)
     # the forms only the kernels' module implements
-    needs_cuda = layered_group != 1 or (
+    needs_cuda = layered_group != 1 or dtype != torch.float32 or (
         early_stop and (es_mode != "freeze" or es_check_every != 1))
     if backend == "auto":
         backend = ("cuda" if llr.device.type == "cuda" or needs_cuda
@@ -277,6 +293,18 @@ def bp_decode(
         raise ValueError(
             "layered_group is cuda-only; pass backend='cuda' (on a CPU "
             "tensor it runs the plain version)"
+        )
+    if dtype == torch.int8 and backend != "cuda":
+        raise ValueError(
+            "int8 message storage is a kernel feature (messages live on a "
+            "255-level grid over ±msg_qclip in shared memory); pass "
+            "backend='cuda' (on a CPU tensor it runs the plain version)"
+        )
+    if dtype == torch.bfloat16 and backend == "roll":
+        raise NotImplementedError(
+            "bf16 on the roll backend is JAX's bf16-arithmetic decode, not "
+            "ported yet (ROADMAP A4); backend='cuda' stores bf16 with the "
+            "kernels' f32 arithmetic"
         )
     if early_stop and (es_mode != "freeze" or es_check_every != 1):
         if backend != "cuda":
@@ -304,14 +332,10 @@ def bp_decode(
             "method='sum-product-ref' (the reference's tanh-product rule) "
             "is not ported yet (ROADMAP A4)"
         )
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"message storage dtype {dtype} is not ported yet (ROADMAP B10)"
-        )
     llr = llr.to(torch.float32).contiguous()
     kw = dict(iterations=iterations, clamp=clamp, schedule=schedule,
               method=method, msg_qbits=msg_qbits, msg_qclip=msg_qclip,
-              layered_group=layered_group)
+              layered_group=layered_group, dtype=dtype)
     # without early stop the iteration count is the fixed budget
     fixed_iters = output == "hard_iters" and not early_stop
     kw["output"] = ("posterior" if output == "soft" else
@@ -332,7 +356,7 @@ def bp_decode(
                     "that need one decode with backend='roll' (training "
                     "through the kernels is not ported, ROADMAP A10)")
             alpha, beta = _floats(ms_w["alpha"]), _floats(ms_w["beta"])
-        kw.update(alpha=alpha, beta=beta)
+        kw.update(alpha=alpha, beta=beta, threads=threads)
         if early_stop and es_mode == "probe":
             out = mq.bp_qc_probe_requeue(
                 llr, code.qc, probe_iters=es_probe_iters,

@@ -22,8 +22,9 @@ Scope: min-sum with scalar or per-iteration α/β (tuples, or the
 sum-product, optional clamp and message quantization (``msg_qbits``),
 per-edge neural-BP weights, flooding, layered (serial-C) and
 group-serial layered schedules, per-codeword early stop with a check
-stride, a mask of codewords to skip, and the outputs ``hard``,
-``posterior``, ``hard_iters`` and ``hard_unsat``.
+stride, a mask of codewords to skip, the outputs ``hard``,
+``posterior``, ``hard_iters`` and ``hard_unsat``, and the Pallas
+kernel's bf16 and int8 message storage (``dtype``).
 :func:`..ops.bp.bp_decode` rejects what the JAX function takes beyond
 that, naming its ROADMAP item.
 
@@ -47,11 +48,14 @@ from ldpc_sims_tpu_torch.codes.library import QcStructure
 
 __all__ = [
     "EDGE_KEYS",
+    "STORAGE_DTYPES",
     "EdgeTables",
     "decode_roll",
+    "message_storage",
     "msg_qstep",
     "pack_edge_weights",
     "qc_plan",
+    "storage_dtype",
     "unsat_checks",
 ]
 
@@ -80,6 +84,57 @@ def qc_plan(qc: QcStructure):
     # planes are (i, j)-sorted so group_c entries are j-sorted and
     # group_v entries are i-sorted already
     return planes, group_c, group_v
+
+
+# the message storage types of the kernels, by name
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.int8}
+
+
+def storage_dtype(dtype) -> torch.dtype:
+    """A message storage type (a torch dtype or its name) → the torch
+    dtype; raises ValueError for any other."""
+    if isinstance(dtype, str):
+        dtype = STORAGE_DTYPES.get(dtype, dtype)
+    if dtype not in STORAGE_DTYPES.values():
+        raise ValueError(f"message storage dtype must be one of "
+                         f"{sorted(STORAGE_DTYPES)}, got {dtype!r}")
+    return dtype
+
+
+def message_storage(dtype, msg_qclip: float, device=None):
+    """``(st_msg, st_post)``: f32 tensor → the f32 values that the storage
+    of type ``dtype`` holds for messages and for the posterior (and
+    channel LLRs), the Pallas kernel's ``ld(st(v))``. bf16 rounds both to
+    nearest even; int8 maps a message to ``clip(round(v·(1/qstep)), −127,
+    127)·qstep``, ``qstep = 2·msg_qclip/255``, and leaves the posterior
+    f32; float32 leaves both."""
+    dtype = storage_dtype(dtype)
+
+    def bf16(v: torch.Tensor) -> torch.Tensor:
+        return v.to(torch.bfloat16).to(torch.float32)
+
+    def same(v: torch.Tensor) -> torch.Tensor:
+        return v
+
+    if dtype == torch.bfloat16:
+        return bf16, bf16
+    if dtype == torch.float32:
+        return same, same
+    if not msg_qclip > 0:
+        raise ValueError(f"int8 storage needs msg_qclip > 0, got "
+                         f"{msg_qclip!r}")
+    # the grid's step and the reciprocal that stores onto it, both taken
+    # in double and rounded once to f32 tensor constants (a Python scalar
+    # would not be the f32 operand the kernels use on a CUDA tensor)
+    step = 2.0 * msg_qclip / 255.0
+    s_step = torch.tensor(step, dtype=torch.float32, device=device)
+    s_inv = torch.tensor(1.0 / step, dtype=torch.float32, device=device)
+
+    def int8(v: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(torch.round(v * s_inv), -127.0, 127.0) * s_step
+
+    return int8, same
 
 
 def msg_qstep(msg_qbits: int | None, msg_qclip: float) -> float | None:
@@ -254,6 +309,7 @@ def decode_roll(
     weights=None,
     ms_weights: dict | None = None,
     layered_group: int = 1,
+    dtype=torch.float32,
 ):
     """QC-LDPC BP decode; the contract of :func:`..ops.bp.bp_decode` for
     QC codes, and of the Pallas kernel's early-stop, weighted and
@@ -299,6 +355,21 @@ def decode_roll(
     mask of codewords that are not decoded at all; their output is
     unspecified (zeros here) and, under early stop, their count is 0,
     and the others skip the entry check.
+
+    ``dtype``: the message storage type of the Pallas kernel
+    (``_build_kernel``, ldpc_sims_tpu/kernels/minsum_qc.py:130-134,
+    :216-228), computed in f32 tensors that hold only the stored values.
+    torch.float32 stores nothing narrower. torch.bfloat16 rounds (to
+    nearest even) the messages, the posterior and the channel LLRs, these
+    on entry. torch.int8 keeps the messages on the grid ``q·qstep``,
+    ``qstep = 2·msg_qclip/255``, stored as ``clip(round(v·(1/qstep)),
+    −127, 127)`` (half to even, times the f32 reciprocal); the LLRs and
+    the posterior stay f32. Flooding stores each v2c before the check
+    update reads it back, then stores the check's output; a posterior
+    rebuild sums in f32 and rounds once. A layered fold adds
+    ``ld(st(new)) − old`` for int8 but the unrounded ``new − old`` for
+    bf16, while the message is stored rounded, and re-rounds the
+    posterior after each fold.
 
     Outputs: 'hard' (int8 bits), 'posterior' (f32), 'hard_iters'
     ((bits, iters), iters constant without early stop) and 'hard_unsat'
@@ -364,6 +435,8 @@ def decode_roll(
         # a tensor on the device: dividing a CUDA tensor by a Python
         # scalar multiplies by its reciprocal instead
         qstep = torch.tensor(qstep, dtype=torch.float32, device=dev)
+    dtype = storage_dtype(dtype)
+    st_msg, st_post = message_storage(dtype, msg_qclip, dev)
 
     def excl_update(x: torch.Tensor, it: int) -> torch.Tensor:
         if method == "min-sum":
@@ -390,14 +463,15 @@ def decode_roll(
     # per codeword, so decoding a subset of the rows changes no row.
     def rebuild(Lc: list, c2v: list, row: int) -> list:
         """Posterior planes (wl ⊙) LLR + Σ (w ⊙) c2v in check-sorted
-        order, with weight-table row ``row``."""
+        order, with weight-table row ``row``, each rounded once to the
+        posterior's storage."""
         out = []
         for j in range(nb):
             acc = Lc[j] if wt is None else wt.llr[row, j] * Lc[j]
             for p in group_v[j]:
                 acc = acc + torch.roll(wmsg(row, p, c2v[p]), planes[p][2],
                                        -1)
-            out.append(acc)
+            out.append(st_post(acc))
         return out
 
     def posterior(L: list, c2v: list) -> torch.Tensor:
@@ -418,8 +492,12 @@ def decode_roll(
         for i, y in zip(rows, ys):
             for k, p in enumerate(group_c[i]):
                 _, j, s = planes[p]
-                L[j] = L[j] + torch.roll(wmsg(it, p, y[k] - c2v[p]), s, -1)
-                c2v[p] = y[k]
+                new = st_msg(y[k])
+                # int8 folds what the stored message changes by, bf16
+                # (and f32) the unrounded change
+                d = (new if dtype == torch.int8 else y[k]) - c2v[p]
+                L[j] = st_post(L[j] + torch.roll(wmsg(it, p, d), s, -1))
+                c2v[p] = new
 
     def iterate(L: list, c2v: list, it: int) -> tuple[list, list]:
         if schedule == "layered":
@@ -434,18 +512,19 @@ def decode_roll(
         new: list = [None] * P
         for i in range(mb):
             ps = group_c[i]
+            # flooding passes each v2c through the message storage
             xs = torch.stack([
-                torch.roll(post[:, planes[p][1]], -planes[p][2], -1)
-                - wmsg(it, p, c2v[p])
+                st_msg(torch.roll(post[:, planes[p][1]], -planes[p][2], -1)
+                       - wmsg(it, p, c2v[p]))
                 for p in ps
             ])
-            y = excl_update(xs, it)
+            y = st_msg(excl_update(xs, it))
             for k, p in enumerate(ps):
                 new[p] = y[k]
         return L, new
 
     # internal convention log(Pr0/Pr1), variable-block layout (B, nb, z)
-    Lv = (-llr).to(torch.float32).reshape(B, nb, z)
+    Lv = st_post((-llr).to(torch.float32)).reshape(B, nb, z)
     idx = torch.arange(B, device=dev)
     if done_in is not None:
         done_in = done_in.to(device=dev, dtype=torch.bool).reshape(B)

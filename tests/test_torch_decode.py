@@ -132,7 +132,9 @@ def test_freeze_minsum_weights():
     (dict(weights={"ms_alpha": torch.ones(4, requires_grad=True)},
           backend="cuda"), "ROADMAP A10"),
     (dict(weights={"w_pair": np.ones(4)}), "ROADMAP A4"),
-    (dict(dtype=torch.bfloat16), "ROADMAP B10"),
+    # JAX's roll backend computes bf16 in bf16 arithmetic (the kernels'
+    # bf16 storage is ported: tests/test_torch_msg_dtype.py)
+    (dict(dtype=torch.bfloat16, backend="roll"), "ROADMAP A4"),
     (dict(backend="dense"), "ROADMAP A4"),
 ])
 def test_unported_features_raise(kw, match):

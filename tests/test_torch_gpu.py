@@ -459,3 +459,139 @@ def test_group_serial_on_the_largest_code(cuda, group):
     torch.testing.assert_close(post, ref, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="shared memory"):
         mq.bp_qc_cuda(x, code.qc, **dict(kw, layered_group=5))
+
+
+STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
+@pytest.mark.parametrize("method, qbits", [("min-sum", None), *RULES])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("dtype", STORAGE)
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944"])
+def test_storage_forms_match_plain_version(cuda, name, dtype, schedule,
+                                           method, qbits):
+    """Every form at bf16 and int8 storage, exactly equal to the plain
+    version: posterior, bits and counts, early stop, done_in, the weighted
+    form and, layered, G = 3; the saturated row included."""
+    code, qc = get_code(name), get_code(name).qc
+    x = saturated(mixed_llrs(code, 37, cuda, seed=11))
+    st = dict(schedule=schedule, method=method, msg_qbits=qbits,
+              dtype=STORAGE[dtype], msg_qclip=24.0 if qbits is None else 20.)
+    mq.reset_launch_counts()
+    for kw in (dict(iterations=6, output="posterior"),
+               dict(iterations=6, output="hard_unsat"),
+               dict(iterations=12, early_stop=True, es_check_every=2,
+                    output="hard_iters"),
+               dict(iterations=4, output="posterior",
+                    weights=random_edge_weights(code, 4, seed=12)),
+               *([dict(iterations=6, output="posterior", layered_group=3)]
+                 if schedule == "layered" else [])):
+        got = mq.bp_qc_cuda(x, qc, **st, **kw)
+        want = decode_roll(x, qc, **st, **kw)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        assert all(torch.equal(a, b) for a, b in pairs), kw
+    name_ = mq.kernel_name(method, schedule, False, qbits is not None,
+                           dtype=STORAGE[dtype])
+    assert name_.endswith("_bf16" if dtype == "bf16" else "_i8")
+    assert mq.LAUNCHES[name_] == 2 + (schedule == "layered")
+    done = torch.arange(37, device=cuda) % 3 == 0
+    out = torch.full(x.shape, 7, dtype=torch.int8, device=cuda)
+    mq.bp_qc_cuda(x, qc, iterations=6, done_in=done, out=out, **st)
+    want = decode_roll(x, qc, iterations=6, done_in=done, **st)
+    assert torch.equal(out[~done], want[~done]) and (out[done] == 7).all()
+
+
+@pytest.mark.parametrize("dtype", STORAGE)
+def test_storage_drivers_match_plain_passes(cuda, dtype):
+    code, qc = get_code("wifi1944"), get_code("wifi1944").qc
+    x = mixed_llrs(code, 64, cuda, seed=13)
+    st = dict(schedule="layered", dtype=STORAGE[dtype], msg_qclip=24.0)
+    bits, iters = mq.bp_qc_requeue(x, qc, 12, probe_iters=4,
+                                   es_check_every=2, output="hard_iters",
+                                   **st)
+    es = dict(early_stop=True, es_check_every=2, output="hard_iters", **st)
+    b1, i1 = decode_roll(x, qc, iterations=4, **es)
+    b2, i2 = decode_roll(x, qc, iterations=12, **es)
+    done = i1 < 4
+    assert torch.equal(iters, torch.where(done, i1, 4 + i2))
+    assert torch.equal(bits, torch.where(done[:, None], b1, b2))
+    bits = mq.bp_qc_probe_requeue(x, qc, 12, probe_iters=3, **st)
+    b1, u = decode_roll(x, qc, iterations=3, output="hard_unsat", **st)
+    b2 = decode_roll(x, qc, iterations=12, **st)
+    keep = (u == 0) & (64 - int((u == 0).sum()) <= mq.probe_capacity(64))
+    assert torch.equal(bits, torch.where(keep[:, None], b1, b2))
+
+
+@pytest.mark.parametrize("dtype", ["f32", *STORAGE])
+def test_storage_on_the_largest_code(cuda, dtype):
+    """qc12288 layered at each storage type (175, 88 and 81 KB a
+    codeword), exactly the plain version, and bf16 and int8 decode as
+    well as f32 on easy LLRs."""
+    code = get_code("qc12288_r12")
+    x, cw = llrs(code, 8, cuda, mu=4.0, seed=14)
+    dt = STORAGE.get(dtype, torch.float32)
+    kw = dict(iterations=10, schedule="layered", dtype=dt, msg_qclip=24.0)
+    post = mq.bp_qc_cuda(x, code.qc, output="posterior", **kw)
+    assert torch.equal(post, decode_roll(x, code.qc, output="posterior",
+                                         **kw))
+    np.testing.assert_array_equal((post > 0).to(torch.int8).cpu().numpy(),
+                                  cw)
+
+
+def test_storage_shared_memory_limit(cuda):
+    """qc12288 at G = 5: 236 KB at f32 raises before the launch, bf16's
+    149 KB launches and equals the plain version."""
+    code = get_code("qc12288_r12")
+    x, _ = llrs(code, 4, cuda, seed=15)
+    kw = dict(iterations=2, schedule="layered", layered_group=5,
+              output="posterior")
+    with pytest.raises(ValueError, match="shared memory"):
+        mq.bp_qc_cuda(x, code.qc, **kw)
+    post = mq.bp_qc_cuda(x, code.qc, dtype=torch.bfloat16, **kw)
+    assert torch.equal(post, decode_roll(x, code.qc, dtype=torch.bfloat16,
+                                         **kw))
+
+
+def test_threads_on_card(cuda):
+    """The flooding CTA size changes nothing but the time; bad sizes raise
+    before the launch."""
+    code = get_code("wifi1944")
+    x, _ = llrs(code, 16, cuda, seed=16)
+    ref = mq.bp_qc_cuda(x, code.qc, iterations=6, output="posterior")
+    for th in (32, 128, 512, 1024):
+        assert torch.equal(mq.bp_qc_cuda(x, code.qc, iterations=6,
+                                         output="posterior", threads=th),
+                           ref)
+    for bad in (0, 48, 1056):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            mq.bp_qc_cuda(x, code.qc, iterations=6, threads=bad)
+
+
+def test_bigcode_and_tuner_end_to_end(cuda, tmp_path):
+    """``python -m ldpc_sims_tpu_torch.examples.bigcode`` and ``python -m
+    ldpc_sims_tpu_torch.kernels.tune`` at a small batch."""
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = tmp_path / "big.json"
+    env = dict(os.environ, BIG_CODES="qc8448_r12", BIG_BATCH="256",
+               BIG_PIPE="2", BIG_SNRS="2.25", BIG_OUT=str(out),
+               TUNE_CODE="wifi648", TUNE_BATCH="512", TUNE_ITERS="4",
+               TUNE_THREADS="128,256", TUNE_SCHEDULES="flooding,layered")
+    subprocess.run([sys.executable, "-m",
+                    "ldpc_sims_tpu_torch.examples.bigcode"], cwd=root,
+                   env=env, check=True, timeout=600)
+    rec = json.loads(out.read_text())
+    ent = rec["codes"]["qc8448_r12"]
+    for label in ("flooding-20 f32", "layered-10 f32", "layered-10 bf16",
+                  "layered-10 int8"):
+        assert ent[label]["info_bits_per_s"] > 0
+        assert 0 <= ent["ber"]["2.25"][label]["ber"] < 0.05
+    res = subprocess.run([sys.executable, "-m",
+                          "ldpc_sims_tpu_torch.kernels.tune"], cwd=root,
+                         env=env, check=True, timeout=600,
+                         capture_output=True, text=True)
+    lines = [json.loads(v) for v in res.stdout.splitlines()]
+    assert len(lines) == 2 * 3 + 3  # flooding × 2 sizes, layered, × 3
+    assert all("ms_per_step" in v for v in lines), lines

@@ -213,9 +213,10 @@ def test_plan_table_rebuilds_H(name):
 
 
 def test_smem_bytes_wifi1944():
-    # plan 13 + 3·86 + 25 = 296 ints, 86·81 message and 1944 posterior f32
-    assert mq.smem_bytes(get_code("wifi1944").qc) == 4 * (296 + 86 * 81
-                                                          + 1944)
+    # plan 13 + 3·86 + 25 = 296 ints, 86·81 message and 1944 posterior f32,
+    # each region on a 16-byte boundary (the messages' 27,864 B take 27,872)
+    assert mq.smem_bytes(get_code("wifi1944").qc) == 4 * 296 + 27_872 + \
+        4 * 1944
 
 
 @pytest.mark.parametrize("kw", [
@@ -312,11 +313,12 @@ def test_wrapper_rejects_bad_arguments(kw, match):
 
 
 def test_launch_counters_start_and_reset():
-    names = {f"{rule}_qc_{sched}{es}{q}"
+    names = {f"{rule}_qc_{sched}{es}{q}{dt}"
              for rule in ("minsum", "sumproduct")
              for sched in ("flooding", "layered")
-             for es in ("", "_es", "_w") for q in ("", "_msgq")}
-    assert len(names) == 24 and set(mq.LAUNCHES) == names
+             for es in ("", "_es", "_w") for q in ("", "_msgq")
+             for dt in ("", "_bf16", "_i8")}
+    assert len(names) == 72 and set(mq.LAUNCHES) == names
     assert mq.KERNELS["sum-product", "layered", True, False] == \
         "sumproduct_qc_layered_es"
     assert mq.KERNELS_W["min-sum", "layered", True] == \
