@@ -39,7 +39,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    schedules, with and without 4-bit messages: posteriors, bits and
    counts, early stop, ``done_in``; the weighted forms, G = 3 and both
    drivers), every comparison exactly equal, then qc12288_r12 layered-10
-   at all three storage types, batch 256;
+   at all three storage types, batch 256. Then (2f) every min-sum
+   layered form (fixed with its unsatisfied-check count, early stop at
+   K = 1 and 2, ``done_in``, weighted; with and without 3-bit messages)
+   and both drivers at f32, bf16 and int8 and G = 1 and 4 on integer
+   LLRs in {-3, ..., 3} (tied minima, zero magnitudes, an offset above
+   the minimum: the inputs a compressed check state could get wrong) on
+   wifi1944, wifi648 and qc1944_r23, each exactly equal;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -85,6 +91,11 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    at most 1.2 × the f32 layered-10 BER plus 4σ of their paired
    per-frame difference; a profile of one qc12288 layered-10 step at each
    storage type;
+3f. ``sweep`` with no flags (the JAX CLI's defaults: ref6432, QPSK/OFDM-32,
+   sum-product-ref-3, clamp 20, batch 4096, on the gather backend) at 0,
+   3 and 6 dB, 8 steps a point, each coded BER within 4σ + 10% of
+   ``BASELINE.md`` table A; the ``small-cpu`` preset at 2 dB and the
+   ``reference`` preset at 6 dB;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -104,8 +115,11 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    16384 on qc12288 ``minsum_qc_layered@qc12288`` at f32, bf16 and int8
    and ``minsum_qc_flooding@qc12288`` (flooding-20 f32), the storage rows
    bound with the conversion instructions counted in the SASS of probes of
-   the source's load and store helpers; and one short sweep of the launch
-   tuner (``kernels/tune.py``).
+   the source's load and store helpers; the min-sum layered rows print
+   the full-message design's recorded times beside theirs, and the SASS
+   loops of both
+   serial-C min-sum designs give their shared-memory instructions an
+   edge; and one short sweep of the launch tuner (``kernels/tune.py``).
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -210,6 +224,22 @@ BIGCODE_BER = {
     ("qc8448_r12", 2.25): (0.00015566475463635993, 0.0002448685241468025),
     ("qc12288_r12", 1.75): (0.00286795881887277, 0.0032545017699400582),
     ("qc12288_r12", 2.25): (8.999680479367575e-06, 1.0357548793156942e-05),
+}
+# BASELINE.md table A (the reference's stored run of ref6432, QPSK/OFDM-32,
+# sum-product-ref-3, clamp 20): coded BER at the points the no-flag sweep
+# runs
+TABLE_A = {0.0: 7.271e-2, 3.0: 1.142e-2, 6.0: 3.419e-4}
+# the times of the min-sum layered kernel's rows with full messages, the
+# design before the compressed check state (PERF.md §6, this script on an
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's; `python -m
+# ldpc_sims_tpu_torch.kernels.compare` times both designs in one call
+FULL_MESSAGE_MS = {
+    "minsum_qc_layered": 5.989, "minsum_qc_layered@es_auto": 3.743,
+    "minsum_qc_layered@qc12288": 17.039, "minsum_qc_layered_es": 4.995,
+    "minsum_qc_layered_w": 11.864, "minsum_qc_layered@g4": 25.215,
+    "minsum_qc_layered@bf16": 5.505, "minsum_qc_layered@int8": 5.851,
+    "minsum_qc_layered@qc12288-bf16": 13.834,
+    "minsum_qc_layered@qc12288-int8": 15.277,
 }
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
@@ -340,6 +370,140 @@ def edge_instruction_counts() -> dict:
     return {k: (v["f32"], v["mufu"], v["all"]) for k, v in counts.items()}
 
 
+def smem_instructions(lib) -> dict:
+    """The shared-memory instructions of the f32 serial-C min-sum kernels
+    in the built library's SASS: for the full-message design
+    (``minsum_qc_layered``, which the codes beyond the compressed state's
+    limits keep) and the compressed one (``minsum_qc_layered_cs``), each
+    innermost loop (a backward branch that holds no other) as
+    (instructions, LDS, STS)."""
+    import re
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        key = {"_Z17minsum_qc_layeredPKf": "full-message",
+               "_Z20minsum_qc_layered_csPKf": "compressed"}.get(
+                   name[:name.index("PKf") + 3] if "PKf" in name else "")
+        if key is None:
+            continue
+        ins = []
+        for line in block.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2).split(".")[0],
+                            m.group(3)))
+        loops = []
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = [lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        found[key] = sorted(
+            (sum(1 for a, _, _ in ins if lo <= a <= hi),
+             sum(1 for a, op, _ in ins if lo <= a <= hi and op == "LDS"),
+             sum(1 for a, op, _ in ins if lo <= a <= hi and op == "STS"))
+            for lo, hi in inner)
+    return found
+
+
+def adversarial(codes, storage_rows, max_err) -> None:
+    """Integer LLRs in {-3, ..., 3}: tied minima, zero magnitudes and an
+    offset above the minimum are common, the cases a compressed check state
+    could get wrong. Every min-sum layered form (fixed with the
+    unsatisfied-check count, early stop at K = 1 and 2, ``done_in``,
+    weighted; with and without 3-bit messages) at each storage type and
+    G = 1 and 4, and both drivers, each exactly equal to the plain version
+    (equal values: an int8 message that rounds to zero is +0 in the kernels
+    and may be -0 in the plain version, which no comparison or sum can
+    tell apart)."""
+    import torch
+
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll
+
+    B = 1024
+    for code in codes:
+        qc = code.qc
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(71)
+        llr = torch.randint(-3, 4, (B, code.n), generator=gen,
+                            device="cuda").float()
+        skip = torch.arange(B, device="cuda") % 3 == 0
+        w = random_edge_weights(code, 4, seed=72)
+        for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
+            for G in (1, 4):
+                st = dict(schedule="layered", dtype=dt, msg_qclip=4.0,
+                          layered_group=G)
+                for qb in (None, 3):
+                    at = f"{code.name} {sfx} G={G} msg_qbits={qb}"
+                    kw = dict(st, msg_qbits=qb, iterations=4,
+                              alpha=(1.0, 0.75, 0.5, 1.0),
+                              beta=(0.0, 1.0, 2.5, 0.5), clamp=2.0)
+                    pairs = []
+                    for out in ("posterior", "hard_unsat"):
+                        k = mq.bp_qc_cuda(llr, qc, output=out, **kw)
+                        p = decode_roll(llr, qc, output=out, **kw)
+                        pairs += (list(zip(k, p)) if isinstance(k, tuple)
+                                  else [(k, p)])
+                    name = mq.kernel_name("min-sum", "layered", False,
+                                          qb is not None, dtype=dt)
+                    max_err[name] = max(max_err[name],
+                                        exact(pairs, f"{at} fixed"))
+                    for K in (1, 2):
+                        es = dict(kw, early_stop=True, es_check_every=K,
+                                  output="hard_iters")
+                        name = mq.kernel_name("min-sum", "layered", True,
+                                              qb is not None, dtype=dt)
+                        max_err[name] = max(max_err[name], exact(
+                            list(zip(mq.bp_qc_cuda(llr, qc, **es),
+                                     decode_roll(llr, qc, **es))),
+                            f"{at} early stop K={K}"))
+                    k = mq.bp_qc_cuda(llr, qc, output="posterior",
+                                      done_in=skip, **kw)
+                    p = decode_roll(llr, qc, output="posterior",
+                                    done_in=skip, **kw)
+                    exact([(k[~skip], p[~skip])], f"{at} done_in")
+                    kw_w = dict(kw, weights=w, output="posterior")
+                    name = mq.kernel_name("min-sum", "layered", False,
+                                          qb is not None, True, dt)
+                    max_err[name] = max(max_err[name], exact(
+                        [(mq.bp_qc_cuda(llr, qc, **kw_w),
+                          decode_roll(llr, qc, **kw_w))], f"{at} weighted"))
+                # both drivers, against plain compositions of their passes
+                rb, ri = mq.bp_qc_requeue(llr, qc, 6, probe_iters=2,
+                                          es_check_every=1,
+                                          output="hard_iters", **st)
+                es = dict(st, early_stop=True, output="hard_iters")
+                b1, i1 = decode_roll(llr, qc, iterations=2, **es)
+                b2, i2 = decode_roll(llr, qc, iterations=6, **es)
+                done = i1 < 2
+                exact([(rb, torch.where(done[:, None], b1, b2)),
+                       (ri, torch.where(done, i1, 2 + i2))],
+                      f"{code.name} {sfx} G={G} bp_qc_requeue")
+                pb_, pi_ = mq.bp_qc_probe_requeue(
+                    llr, qc, 6, probe_iters=2, output="hard_iters", **st)
+                b1, u1 = decode_roll(llr, qc, iterations=2,
+                                     output="hard_unsat", **st)
+                b2 = decode_roll(llr, qc, iterations=6, **st)
+                keep = (u1 == 0) & (B - int((u1 == 0).sum())
+                                    <= mq.probe_capacity(B))
+                exact([(pb_, torch.where(keep[:, None], b1, b2)),
+                       (pi_, torch.where(keep, 2, 8).to(torch.int32))],
+                      f"{code.name} {sfx} G={G} bp_qc_probe_requeue")
+                print(f"  {code.name} {sfx} G={G}: fixed, unsatisfied "
+                      "counts, early stop, done_in, weighted (each with "
+                      "and without 3-bit messages) and both drivers equal",
+                      flush=True)
+
+
 def external_unsat(bits, code):
     """Unsatisfied checks per row as bits·Hᵀ mod 2, summed."""
     import numpy as np
@@ -412,9 +576,11 @@ def artifact_ber(code, snrdb: float, batches: int, batch: int, seed: int,
 
 
 def uncoded_ber(modulation: str, snrdb: float) -> float:
-    """Uncoded BER of Gray QPSK or 16-QAM at symbol SNR ``snrdb``."""
+    """Uncoded BER of BPSK, Gray QPSK or 16-QAM at symbol SNR ``snrdb``."""
     q = lambda x: 0.5 * math.erfc(x / math.sqrt(2))  # noqa: E731
     snr = 10 ** (snrdb / 10)
+    if modulation == "bpsk":  # amplitude 1, sigma^2 = 1/(2 snr)
+        return q(math.sqrt(2 * snr))
     if modulation == "qpsk":  # amplitude 1/sqrt2, sigma^2 = 1/(2 snr)
         return q(math.sqrt(snr))
     # 16-QAM, per axis levels ±1, ±3 over sqrt10: x = d / sigma
@@ -969,8 +1135,14 @@ def main() -> None:
             [(mq.bp_qc_cuda(llr, big.qc, **kw),
               decode_roll(llr, big.qc, **kw))], f"qc12288 layered-10 {sfx}"))
         print(f"  qc12288_r12 layered-10 {sfx} (batch 256, "
-              f"{mq.smem_bytes(big.qc, 1, dt)} B of shared memory a "
-              "codeword): posterior equal", flush=True)
+              f"{mq.smem_bytes(big.qc, 1, dt, 'min-sum', 'layered')} B of "
+              "shared memory a codeword): posterior equal", flush=True)
+
+    # -- phase 2f: adversarial input for the compressed check state ------
+    print("== phase 2f: every serial-C and group-serial min-sum form on "
+          "integer LLRs vs plain versions", flush=True)
+    adversarial((w1944, w648, get_code("qc1944_r23")), storage_rows,
+                max_err)
 
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
@@ -1140,12 +1312,14 @@ def main() -> None:
     # -- phase 3d: the weights and layered-group paths ---------------------
     print("== phase 3d: --weights-ckpt and --layered-group at wifi1944, QPSK, "
           "OFDM-32, batch 32768", flush=True)
-    # the configuration `sweep --code wifi1944 --schedule layered --iters 6
-    # --clamp 0 --weights-ckpt docs/artifacts/edge_layered_1944_K6.npz`
-    # builds (the artifact decoded without a clamp; JAX's default is 20)
+    # the configuration `sweep --code wifi1944 --method min-sum --schedule
+    # layered --iters 6 --clamp 0 --weights-ckpt
+    # docs/artifacts/edge_layered_1944_K6.npz` builds (the artifact decoded
+    # without a clamp; the default is 20)
     args = build_parser().parse_args([
-        "sweep", "--code", "wifi1944", "--schedule", "layered", "--iters",
-        "6", "--clamp", "0", "--weights-ckpt", K6_NPZ])
+        "sweep", "--code", "wifi1944", "--method", "min-sum", "--schedule",
+        "layered", "--iters", "6", "--clamp", "0", "--weights-ckpt",
+        K6_NPZ])
     _, k6_cfg, _, _, k6_cli = sweep_configs(args)
     res_w, counts, ev, rate_w = drive("K6 per-edge layered-6", w1944, k6_cfg,
                                       sweep, ["minsum_qc_layered_w"], card,
@@ -1196,11 +1370,12 @@ def main() -> None:
     launches["minsum_qc_flooding_w"] = counts["minsum_qc_flooding_w"]
     per_step["minsum_qc_flooding_w"] = (counts["minsum_qc_flooding_w"]
                                         / ev.mc_steps)
-    # `sweep --schedule layered --iters 20 --layered-group 4`, beside
+    # `sweep --code wifi1944 --method min-sum --schedule layered --iters 20
+    # --clamp 0 --layered-group 4`, beside
     # layered-20 and phase 3's flooding-20 on the same seeds
     args = build_parser().parse_args([
-        "sweep", "--code", "wifi1944", "--schedule", "layered", "--iters",
-        "20", "--layered-group", "4"])
+        "sweep", "--code", "wifi1944", "--method", "min-sum", "--schedule",
+        "layered", "--iters", "20", "--clamp", "0", "--layered-group", "4"])
     _, g4_cfg, _, _, _ = sweep_configs(args)
     res_g4, counts, ev, rate_g4 = drive("layered-20 G=4", w1944, g4_cfg,
                                         sweep, ["minsum_qc_layered"], card)
@@ -1309,6 +1484,32 @@ def main() -> None:
                 if not ber_x <= 1.2 * ber_f + 4 * sig:
                     fail(f"bigcode {name} @ {snr:g} dB: {label} BER {ber_x} "
                          f"above 1.2 x f32's {ber_f} + 4σ")
+    # -- phase 3f: the JAX CLI's defaults and the small-cpu preset --------
+    print("== phase 3f: sweep with no flags (ref6432, sum-product-ref-3, "
+          "clamp 20, batch 4096) and the small-cpu and reference presets",
+          flush=True)
+    args = build_parser().parse_args(["sweep"])
+    ref_code, ref_cfg, ref_sweep, _, _ = sweep_configs(args)
+    ref_sweep = dataclasses.replace(
+        ref_sweep, snrdb=tuple(TABLE_A), target_frame_errors=10**12,
+        max_info_bits=8 * ref_sweep.batch_cw * ref_code.k)
+    res, _, _, _ = drive("sweep with no flags", ref_code, ref_cfg,
+                         ref_sweep, [], card)
+    for snr, ber, bits in zip(res.snrdb, res.coded_ber, res.info_bits):
+        exp = TABLE_A[snr]
+        tol = 4 * math.sqrt(exp * (1 - exp) / bits) + 0.1 * exp
+        print(f"  @ {snr:g} dB: coded BER {ber!r} against table A's {exp!r} "
+              f"(4σ + 10% = {tol!r}) [{card}]", flush=True)
+        if abs(ber - exp) > tol:
+            fail(f"sweep with no flags @ {snr:g} dB: coded BER {ber} is not "
+                 f"within 4σ + 10% of {exp}")
+    for preset, snr in (("small-cpu", 2.0), ("reference", 6.0)):
+        p = PRESETS[preset]
+        drive(f"preset {preset}", get_code(p["code"]),
+              LinkConfig(**p["link"]),
+              dataclasses.replace(SweepConfig(**p["sweep"]), snrdb=(snr,)),
+              [], card)
+
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
@@ -1326,8 +1527,10 @@ def main() -> None:
                                      else "operations")
 
     def row(name, ms, plain_ms, bnd):
+        full = (f", full messages: {FULL_MESSAGE_MS[name]!r} ms"
+                if name in FULL_MESSAGE_MS else "")
         print(f"  {name}: {ms!r} ms (plain {plain_ms!r} ms, bound "
-              f"{bnd[0]!r} ms, {bnd[1]}) [{card}]", flush=True)
+              f"{bnd[0]!r} ms, {bnd[1]}{full}) [{card}]", flush=True)
         return {
             "name": name,
             "route": "cuda",
@@ -1620,6 +1823,23 @@ def main() -> None:
             kw.get("dtype", torch.float32)]
         kernels.append(row(name, ms, plain_ms, bound(
             big_batch * big.n * 5, big_batch * E_big * ops)))
+    # the shared-memory instructions of serial-C min-sum, both designs:
+    # the full-message edge loops are unrolled by 4 (a pass-1 loop of 4
+    # loads an edge, a pass-2 loop of 4 loads and 2 stores an edge) beside
+    # 2 row_ptr loads a check; the compressed check body is unrolled over
+    # its 8 slots, d + 2 loads and d + 2 stores at degree d
+    d_bar = len(qc_plan(w1944.qc)[0]) / w1944.qc.mb
+    for design, loops in smem_instructions(lib).items():
+        print(f"  SASS innermost loops of the f32 serial-C min-sum kernel, "
+              f"{design} design (instructions, LDS, STS): {loops}",
+              flush=True)
+    cs_deg = mq.COMPRESSED_LIMITS[0]
+    print(f"  shared-memory instructions an edge at wifi1944's mean row "
+          f"degree {d_bar:.3f}: full messages {4 + 6 + 2 / d_bar:.3f}, "
+          f"compressed {2 + 4 / d_bar:.3f} (from loops of 4 x (4 + 0) and "
+          f"4 x (4 + 2), and of {cs_deg + 2} + {cs_deg + 2} for {cs_deg} "
+          "slots)",
+          flush=True)
     # one short sweep of the launch tuner
     from ldpc_sims_tpu_torch.kernels import tune
 

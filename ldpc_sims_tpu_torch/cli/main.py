@@ -1,35 +1,35 @@
 """Command-line interface: the ``sweep`` subcommand of the JAX package's CLI.
 
-    python -m ldpc_sims_tpu_torch sweep --code wifi1944 --iters 20 \\
-        --snr 1.5,2.0 --batch 32768 --max-bits 1e9
-    python -m ldpc_sims_tpu_torch sweep --schedule layered --iters 8 \\
+    python -m ldpc_sims_tpu_torch sweep --preset reference
+    python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
+        --iters 20 --clamp 0 --snr 1.5,2.0 --batch 32768 --max-bits 1e9
+    python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
+        --schedule layered --iters 8 --clamp 0 --batch 32768 \\
         --bp-alpha 0.86,0.86,... --bp-beta 0.12,0.14,...
-    python -m ldpc_sims_tpu_torch sweep --schedule layered --early-stop \\
-        --es-mode auto --snr 2.5,3.5
+    python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
+        --schedule layered --iters 20 --clamp 0 --batch 32768 \\
+        --early-stop --es-mode auto --snr 2.5,3.5
     python -m ldpc_sims_tpu_torch sweep --preset wifi648-sweep
     python -m ldpc_sims_tpu_torch sweep --code wifi648 --method sum-product \\
-        --msg-qbits 4 --qbits 3 --clipdb 0 --agc global
-    python -m ldpc_sims_tpu_torch sweep --schedule layered --iters 6 \\
+        --iters 20 --clamp 0 --msg-qbits 4 --qbits 3 --clipdb 0 --agc global
+    python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
+        --schedule layered --iters 6 --clamp 0 --batch 32768 \\
         --weights-ckpt docs/artifacts/edge_layered_1944_K6.npz
-    python -m ldpc_sims_tpu_torch sweep --schedule layered --iters 20 \\
+    python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
+        --schedule layered --iters 20 --clamp 0 --batch 32768 \\
         --layered-group 4
 
-Defaults are the main path: (1944,972), QPSK over OFDM-32, flooding-20
-min-sum, on the card. ``--device cpu`` runs the plain version. The
-``PRESETS`` table is the JAX package's; ``wifi648-sweep``,
+The defaults are the JAX CLI's (``ldpc_sims_tpu/cli/main.py:656-672,
+723-724``): the reference chain, ref6432 over QPSK/OFDM-32 with 3
+iterations of ``sum-product-ref`` and clamp 20, 0-10 dB in 11 points,
+batch 4096, on the card; non-QC codes decode on the gather backend.
+``--device cpu`` runs the plain version. The ``PRESETS`` table is the JAX
+package's and every preset runs: ``small-cpu``, ``wifi648-sweep``,
 ``quantized-minsum`` (one sweep, manifest and curves file per message
-width, tagged ``_msgq{b}``) and ``ofdm-qam16`` run, and ``small-cpu`` and
-``reference`` raise ``NotImplementedError`` naming ROADMAP A4 (non-QC
-decoding). ``--weights-ckpt`` and ``--schedule-ckpt`` read ``.npz``
-files (``utils.load_decoder_weights``) and apply to a preset too, as in
-the JAX CLI. The other subcommands are not ported yet (ROADMAP A12).
-
-Six flags that both CLIs share take other defaults here than in the JAX
-CLI, whose defaults select ref6432 and ``sum-product-ref`` (ROADMAP A4):
-``--code`` wifi1944 (JAX ref6432), ``--iters`` 20 (3), ``--method``
-min-sum (sum-product-ref), ``--clamp`` 0, none (20), ``--snr`` 1.5,2.0
-(0:10:11) and ``--batch`` 32768 (4096). Pass them explicitly to match a
-JAX command (ROADMAP §C).
+width, tagged ``_msgq{b}``), ``ofdm-qam16`` and ``reference``.
+``--weights-ckpt`` and ``--schedule-ckpt`` read ``.npz`` files
+(``utils.load_decoder_weights``) and apply to a preset too, as in the JAX
+CLI. The other subcommands are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -238,7 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ldpc_sims_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("sweep", help="Monte-Carlo BER/BLER sweep")
-    sp.add_argument("--code", default="wifi1944")
+    sp.add_argument("--code", default="ref6432")
     sp.add_argument("--preset", choices=sorted(PRESETS),
                     help="a whole configuration of the JAX package's "
                          "table (the code, link and sweep flags are then "
@@ -246,11 +246,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--modulation", default="qpsk",
                     choices=["bpsk", "qpsk", "qam16"])
     sp.add_argument("--ofdm-size", type=int, default=32)
-    sp.add_argument("--iters", type=int, default=20)
-    sp.add_argument("--method", default="min-sum",
+    sp.add_argument("--iters", type=int, default=3)
+    sp.add_argument("--method", default="sum-product-ref",
                     choices=["min-sum", "sum-product", "sum-product-ref"],
-                    help="check rule (sum-product-ref, the reference's "
-                         "tanh-product rule, is not ported yet)")
+                    help="check rule (sum-product-ref: the reference's "
+                         "tanh-product rule)")
     sp.add_argument("--schedule", default="flooding",
                     choices=["flooding", "layered"])
     sp.add_argument("--bp-alpha", default="1.0", type=_parse_ab,
@@ -258,8 +258,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "comma-separated per-iteration list")
     sp.add_argument("--bp-beta", default="0.0", type=_parse_ab,
                     help="min-sum offset: a float or a per-iteration list")
-    sp.add_argument("--clamp", type=float, default=0.0,
-                    help="c2v message clamp (0 = none)")
+    sp.add_argument("--clamp", type=float, default=20.0,
+                    help="c2v message clamp (<=0 disables clamping)")
     sp.add_argument("--msg-qbits", type=int, default=0,
                     help="quantize each c2v message to 2^b - 1 levels over "
                          "+-20 (0 = none)")
@@ -303,9 +303,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="train-minsum checkpoint (.npz) whose (ms_alpha, "
                          "ms_beta) freeze into static per-iteration "
                          "--bp-alpha/--bp-beta")
-    sp.add_argument("--snr", default="1.5,2.0",
+    sp.add_argument("--snr", default="0:10:11",
                     help="symbol SNR grid in dB: 'lo:hi:n' or 'a,b,c'")
-    sp.add_argument("--batch", type=int, default=32768)
+    sp.add_argument("--batch", type=int, default=4096)
     sp.add_argument("--target-errors", type=int, default=100)
     sp.add_argument("--max-bits", type=float, default=1e8)
     sp.add_argument("--steps-per-sync", type=int, default=1,

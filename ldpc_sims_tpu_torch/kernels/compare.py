@@ -1,0 +1,243 @@
+"""Time the decode kernels of two checkouts of this package on one card.
+
+    python -m ldpc_sims_tpu_torch.kernels.compare OLD_CHECKOUT NEW_CHECKOUT
+
+Runs four turns in the order old, new, new, old. A turn is one process
+that imports ``ldpc_sims_tpu_torch`` from one checkout (its root first on
+``PYTHONPATH``), builds that checkout's kernels into its own ``build/``
+and times each row below with CUDA events on inputs made from fixed
+seeds: the same inputs for both checkouts. A row's time is the mean of
+its two turns of a checkout. Each turn also hashes every row's output,
+and the run fails unless both checkouts give the same bytes for every
+row. Prints the card, one JSON line per turn and a last JSON line
+``{"rows": {name: {"old_ms", "new_ms", "ratio"}}, ...}``; exits 1 without
+a card.
+
+The rows are the kernels' shapes on the main path and the bigcode run:
+wifi1944 (QPSK/OFDM-32 channel LLRs) at batch 32768, qc12288_r12 at
+batch 16384 (LLRs ``N(0,1)·2 − 4``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+__all__ = ["main", "time_rows"]
+
+SNRS = (1.5, 2.5, 3.0, 3.5)
+
+
+def _channel_llrs(code, batch: int, snrdb: float, seed: int):
+    import torch
+
+    from ldpc_sims_tpu_torch.ops import phy
+    from ldpc_sims_tpu_torch.ops.encode import encode
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    coded = encode(phy.random_bits(gen, (batch, code.k)), code)
+    tx = phy.ofdm_modulate(phy.modulate_qpsk(coded).reshape(batch // 8, -1),
+                           32)
+    snr = 10.0 ** (snrdb / 10.0)
+    rx = phy.awgn(gen, tx, snr)
+    sym = phy.ofdm_demodulate(rx)
+    return phy.demodulate_qpsk_llr(sym, snr).reshape(batch, code.n)
+
+
+def _ms(fn, reps: int) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _digest(out) -> str:
+    parts = out if isinstance(out, tuple) else (out,)
+    h = hashlib.sha256()
+    for t in parts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_rows(root: str) -> dict:
+    """{row: (ms, digest)} for the package under ``root``."""
+    import numpy as np
+    import torch
+
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.convert import load_trained_schedule
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.ops import pack_decoder_weights
+    from ldpc_sims_tpu_torch.utils import load_decoder_weights
+
+    w1944 = get_code("wifi1944")
+    qc = w1944.qc
+    batch = 32768
+    llr = {s: _channel_llrs(w1944, batch, s, seed=7 + int(10 * s))
+           for s in SNRS}
+    art = os.path.join(root, "docs", "artifacts")
+    a8, b8 = load_trained_schedule(
+        os.path.join(art, "minsum_trained_schedules.json"), "wifi1944", 8)
+    k6 = load_decoder_weights(os.path.join(art, "edge_layered_1944_K6.npz"))
+    k6p = pack_decoder_weights(k6, w1944, 6, "cuda")
+    rng = np.random.default_rng(42)
+    g = w1944.graph
+    w12 = {k: rng.uniform(0.7, 1.3, s).astype(np.float32) for k, s in (
+        ("w_msg", (12, g.n_vars, g.dv)), ("w_llr", (12, g.n_vars)),
+        ("w_msg_final", (g.n_vars, g.dv)), ("w_llr_final", (g.n_vars,)))}
+    w12p = pack_decoder_weights(w12, w1944, 12, "cuda")["tables"]
+    big = get_code("qc12288_r12")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(61)
+    xb = torch.randn((16384, big.n), generator=gen, device="cuda") * 2 - 4
+
+    lay8 = dict(iterations=8, schedule="layered", alpha=a8, beta=b8)
+    lay20 = dict(iterations=20, schedule="layered")
+    cuda = mq.bp_qc_cuda
+
+    def probe_chunk():
+        bits, unsat = cuda(llr[3.5], qc, iterations=4, schedule="layered",
+                           output="hard_unsat")
+        cuda(llr[3.5], qc, done_in=unsat == 0, out=bits, **lay20)
+        return bits
+
+    rows = {
+        # the min-sum layered kernel's forms
+        "minsum_qc_layered": lambda: cuda(llr[1.5], qc, **lay8),
+        "minsum_qc_layered@bf16": lambda: cuda(
+            llr[1.5], qc, dtype=torch.bfloat16, msg_qclip=24.0, **lay8),
+        "minsum_qc_layered@int8": lambda: cuda(
+            llr[1.5], qc, dtype=torch.int8, msg_qclip=24.0, **lay8),
+        "minsum_qc_layered@es_auto": probe_chunk,
+        "minsum_qc_layered@hard_unsat": lambda: cuda(
+            llr[3.5], qc, iterations=4, schedule="layered",
+            output="hard_unsat"),
+        "minsum_qc_layered_es": lambda: cuda(
+            llr[2.5], qc, early_stop=True, output="hard_iters", **lay20),
+        "minsum_qc_layered_w": lambda: cuda(
+            llr[1.5], qc, iterations=6, schedule="layered",
+            weights=k6p["tables"], alpha=k6p["ms_alpha"],
+            beta=k6p["ms_beta"]),
+        "minsum_qc_layered@g4": lambda: cuda(llr[1.5], qc, layered_group=4,
+                                             **lay20),
+        **{f"minsum_qc_layered@qc12288{sfx}": (lambda dt=dt: cuda(
+            xb, big.qc, iterations=10, schedule="layered", dtype=dt,
+            msg_qclip=24.0))
+           for sfx, dt in (("", torch.float32), ("-bf16", torch.bfloat16),
+                           ("-int8", torch.int8))},
+        # the two drivers over the layered kernel
+        **{f"bp_qc_requeue@{s:g}": (lambda s=s: mq.bp_qc_requeue(
+            llr[s], qc, 20, probe_iters=4, es_check_every=1,
+            schedule="layered", output="hard_iters")) for s in (2.5, 3.0)},
+        **{f"bp_qc_probe_requeue@{s:g}": (lambda s=s: mq.bp_qc_probe_requeue(
+            llr[s], qc, 20, probe_iters=4, output="hard_iters"))
+           for s in (2.5, 3.0)},
+        # the forms this comparison holds unchanged
+        "minsum_qc_flooding": lambda: cuda(llr[1.5], qc, iterations=20),
+        "minsum_qc_flooding_es": lambda: cuda(
+            llr[2.5], qc, iterations=20, early_stop=True,
+            output="hard_iters"),
+        "minsum_qc_flooding@msgq4": lambda: cuda(llr[1.5], qc, iterations=20,
+                                                 msg_qbits=4),
+        "minsum_qc_flooding_w": lambda: cuda(llr[1.5], qc, iterations=12,
+                                             weights=w12p),
+        "minsum_qc_flooding@qc12288": lambda: cuda(xb, big.qc,
+                                                   iterations=20),
+        "sumproduct_qc_flooding": lambda: cuda(
+            llr[1.5], qc, iterations=20, method="sum-product"),
+        "sumproduct_qc_layered": lambda: cuda(
+            llr[1.5], qc, method="sum-product", **lay20),
+        "sumproduct_qc_flooding_es": lambda: cuda(
+            llr[2.5], qc, iterations=20, method="sum-product",
+            early_stop=True, output="hard_iters"),
+        "sumproduct_qc_layered_es": lambda: cuda(
+            llr[2.5], qc, method="sum-product", early_stop=True,
+            output="hard_iters", **lay20),
+    }
+    out = {}
+    for name, fn in rows.items():
+        digest = _digest(fn())
+        reps = 10 if ("qc12288" in name or "sumproduct" in name
+                      or "flooding" in name) else 20
+        out[name] = (_ms(fn, reps), digest)
+    return out
+
+
+def _turn() -> None:
+    import torch
+
+    import ldpc_sims_tpu_torch
+
+    root = os.environ["COMPARE_ROOT"]
+    if not os.path.abspath(ldpc_sims_tpu_torch.__file__).startswith(
+            os.path.abspath(root) + os.sep):
+        raise SystemExit(f"imported {ldpc_sims_tpu_torch.__file__}, not "
+                         f"the package under {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    print(json.dumps({"root": root, "rows": time_rows(root)}), flush=True)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv == ["--turn"]:
+        _turn()
+        return 0
+    import torch
+
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("compare: no CUDA device", file=sys.stderr)
+        return 1
+    old, new = (os.path.abspath(a) for a in argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    turns = {old: [], new: []}
+    for root in (old, new, new, old):
+        env = dict(os.environ, COMPARE_ROOT=root, PYTHONPATH=root)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--turn"], cwd=root, env=env,
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        turns[root].append(json.loads(line)["rows"])
+    summary, differ = {}, []
+    for name in turns[new][0]:
+        o = [t[name][0] for t in turns[old]]
+        n = [t[name][0] for t in turns[new]]
+        digests = {t[name][1] for t in turns[old] + turns[new]}
+        if len(digests) != 1:
+            differ.append(name)
+        summary[name] = {"old_ms": statistics.mean(o),
+                         "new_ms": statistics.mean(n),
+                         "ratio": statistics.mean(o) / statistics.mean(n),
+                         "old_turns": o, "new_turns": n}
+    print(json.dumps({"card": card, "rows": summary,
+                      "outputs_differ": differ}), flush=True)
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -49,6 +49,10 @@
 // (_msgq: with message quantization) and
 // {minsum,sumproduct}_qc_{flooding,layered}_w[_msgq] (weighted), 24 forms,
 // each for three storage types: f32 (no suffix), _bf16 and _i8, 72 in all.
+// The six serial-C min-sum forms (minsum_qc_layered[_es][_msgq],
+// minsum_qc_layered_w[_msgq]) have a second kernel each, name_cs, on the
+// compressed check state below; the launcher takes it for group 1 on a
+// code within its limits, under the same form.
 //
 // Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
 // or 2; the three objects are built in parallel and linked into one
@@ -131,21 +135,65 @@
 // with --fmad=false and without fast math so the arithmetic matches the
 // plain PyTorch version (ops/bp_roll.py) bit for bit.
 //
-// What bounds the kernels on the H100: the shared-memory residency of
-// ~36 KB per codeword caps a SM at 6 resident codewords (bf16 19 KB, 11;
-// int8 16 KB, 13; the 5G-class codes' 121-175 KB at f32 one, bf16 and
-// int8 two to four), and the per-edge
-// f32 work is issued by few warps, so the min-sum forms are latency bound
-// well above both the byte bound and the f32 op bound (PERF.md). The
-// sum-product forms add eight libdevice transcendentals per edge, about
-// 150 f32 and 4 MUFU instructions in the SASS, so f32 issue bounds them,
-// not the special-function units. The plain design stays until a
-// faster one (compressed messages: two minima, index and sign bits per
-// check; several codewords per CTA) is measured against it. The early-stop
-// forms do the work of the iterations each codeword runs plus one syndrome
-// pass (about one iteration's reads, no writes) per check; a CTA that
-// finishes early frees its SM slot for the next codeword, so the grid's
-// time follows the mean of the iterations, not their maximum.
+// Serial-C min-sum on a compressed check state (the _cs kernels). A
+// min-sum check's message on slot e is sgn_e * T(exmin_e), exmin_e = min2
+// at the slot of the first minimum and min1 at the others, T the whole
+// chain that makes a message: (s * max(m - beta, 0)) * alpha, the clamp,
+// the message quantization, the storage. Every step of T is odd:
+// multiplying by +-1 is exact; the clamp and the +-qclip clip are
+// symmetric; rint rounds half to even; bf16's round to nearest even and
+// int8's rint(v * inv) with its +-127 clip are symmetric. So T(-m) = -T(m)
+// bit for bit, and a check keeps T(min1) and T(min2) as stored values and
+// a 16-bit word: the exclusive-sign bits of its slots (bits 0-7) and the
+// slot of its first minimum (bits 8-10). Each message is rebuilt from
+// them exactly: f32 and bf16 negate the lifted magnitude (a stored -0 stays
+// -0), int8 negates the code (a zero code lifts to +0, as the stored
+// message does). The folds are the full design's: int8 adds lift(st(new)) -
+// old, bf16 the unrounded new - old, old the rebuilt stored message; a
+// weighted form's rebuild reads the messages the same way (variable j*z+q
+// meets check q - shift[p] of plane p's block row at the plane's slot).
+// The state takes 2*sizeof(Msg) + 2 bytes a check instead of a message an
+// edge: a CTA of wifi1944 at f32 18,688 B against 36,832 (6 -> 11 CTAs an
+// SM by shared memory; its 48 registers a thread allow 14), qc12288 111,488
+// B against 174,976 (1 -> 2), qc8448 75,968 B against 121,024 (1 -> 3).
+// A thread keeps its check's posterior values and old messages in
+// registers (arrays of kCsMaxDeg = 8 slots, unrolled; no slot is indexed
+// at run time), so it reads each edge's posterior once and writes it once
+// as store(pv + (y - old)), and it reads the sweep's plan from the kernel
+// parameter (the constant bank; a plane's index is the same for the whole
+// warp). That leaves d + 2 shared-memory loads and d + 2 stores a check of
+// degree d: 2.56 an edge at wifi1944's mean degree 7.17, against 10.28 with
+// full messages (a plan, message and posterior load in the first pass, the
+// same three loads and two stores in the second, two row_ptr loads a
+// check), as the SASS of both kernels shows (chip_smoke.py phase 4). The
+// serial-C forms then run at 1.20-1.60x their full-message times, bit for
+// bit the same (PERF.md, kernels/compare.py on an NVIDIA H100 80GB HBM3 at
+// 700 W). The group-serial forms keep the full messages: on the compressed
+// state G = 4 measured 37.8 ms against 25.2, its warps mixing checks of two
+// block rows. Codes beyond the limits (row degree above 8, more than 64
+// block rows or 192 planes: the rate-2/3, 3/4 and 5/6 qc648 and qc1944
+// codes, row degree 9-18) keep the full messages too; every code the main
+// path and the bigcode run decode has rows of degree 5-8, and 8 slots
+// measured 1.05-1.30x faster than 12 (48 registers a thread against 60).
+//
+// What bounds the kernels on the H100. Serial-C min-sum on the compressed
+// state issues about 45 instructions a slot across its two passes (the
+// message rebuild, the index arithmetic, the two-minima update; the check
+// body's SASS), so instruction issue bounds it, not shared memory: at
+// wifi1944's 3 warps a block row (the third with 17 of 32 lanes busy) that
+// is about 3 ms of a 4.05 ms trained layered-8 at batch 32768. The
+// full-message forms hold ~36 KB a codeword at wifi1944 (6 resident
+// codewords an SM; bf16 19 KB, 11; int8 16 KB, 13; the 5G-class codes'
+// 121-175 KB at f32 one, bf16 and int8 two to four), and their per-edge
+// work, about 10 shared-memory instructions an edge, is issued by few
+// warps, so they are latency bound well above both the byte bound and the
+// f32 op bound (PERF.md). The sum-product forms add eight libdevice
+// transcendentals per edge, about 150 f32 and 4 MUFU instructions in the
+// SASS, so f32 issue bounds them, not the special-function units. The
+// early-stop forms do the work of the iterations each codeword runs plus
+// one syndrome pass (about one iteration's reads, no writes) per check; a
+// CTA that finishes early frees its SM slot for the next codeword, so the
+// grid's time follows the mean of the iterations, not their maximum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -256,16 +304,20 @@ __host__ __device__ inline int align16(int bytes) {
   return (bytes + 15) & ~15;
 }
 
-// Bytes of dynamic shared memory one CTA needs: plan, c2v planes (Msg),
-// posterior (Post) and, for a group of G > 1 block rows, the f32 scratch of
-// the group's planes; each region starts on a 16-byte boundary.
+// Bytes of dynamic shared memory one CTA needs: plan, c2v planes (Msg) or,
+// on the compressed state (cs), two Msg magnitudes and a 16-bit word per
+// check, posterior (Post) and, for a group of G > 1 block rows, the f32
+// scratch of the group's planes; each region starts on a 16-byte boundary.
 template <int kT>
-inline int smem_bytes(int z, int mb, int nb, int P, int group, int row_deg) {
+inline int smem_bytes(int z, int mb, int nb, int P, int group, int row_deg,
+                      bool cs) {
   using S = Storage<kT>;
   const int planes = group * row_deg < P ? group * row_deg : P;
   const int scratch = group > 1 ? planes * z : 0;
-  return 4 * plan_ints_padded(mb, nb, P) +
-         align16(P * z * static_cast<int>(sizeof(typename S::Msg))) +
+  const int msg = static_cast<int>(sizeof(typename S::Msg));
+  const int state = cs ? align16(mb * z * 2 * msg) + align16(mb * z * 2)
+                       : align16(P * z * msg);
+  return 4 * plan_ints_padded(mb, nb, P) + state +
          align16(nb * z * static_cast<int>(sizeof(typename S::Post))) +
          4 * scratch;
 }
@@ -404,6 +456,171 @@ __device__ __forceinline__ void rebuild(const Plan& pl,
   }
 }
 
+// ---- The compressed min-sum check state (the layered min-sum forms) ----
+//
+// A min-sum check's messages are sgn_e * T(exmin_e) with exmin_e = min2 at
+// the slot of the first minimum and min1 elsewhere, and every step of T
+// (the offset and normalization, the clamp, the quantization, the storage)
+// is odd, so a check keeps two stored magnitudes and one 16-bit word (the
+// exclusive-sign bits of its slots, and the slot of the first minimum) and
+// rebuilds each message exactly from them (the header says why).
+
+// slots a compressed check takes: bits 0-7 of its word are the signs,
+// bits 8-10 the slot of the first minimum
+constexpr int kCsMaxDeg = 8;
+constexpr int kCsIdxShift = kCsMaxDeg;
+constexpr unsigned kCsSignMask = (1u << kCsMaxDeg) - 1;
+// the largest plan the kernel parameter carries
+constexpr int kCsMaxRows = 64;
+constexpr int kCsMaxPlanes = 192;
+
+// The layered sweep's plan in the kernel's parameter space (the constant
+// bank): its index p is the same for every thread of a warp, so each read
+// is one uniform constant-cache load, not a shared-memory instruction.
+//   row_ptr[mb+1]  planes of block row i are [row_ptr[i], row_ptr[i+1])
+//   plane[p]       (col*z, shift, row*z, slot) of plane p: its variables'
+//                  offset, its circulant shift, its checks' offset and its
+//                  slot in its block row
+struct ParamPlan {
+  int row_ptr[kCsMaxRows + 1];
+  int4 plane[kCsMaxPlanes];
+};
+
+// The two stored magnitudes of a check: T(min1) and T(min2).
+template <typename Msg>
+struct alignas(2 * sizeof(Msg)) MagPair {
+  Msg m1, m2;
+};
+
+// A stored magnitude with the sign of its slot: the message as the full
+// state would store it. f32 and bf16 negate the lifted value (the sign of
+// a zero is kept, as the stored -0 would keep it); int8 negates the code,
+// so a zero code lifts to +0 either way, as it does when stored.
+template <typename Msg>
+__device__ __forceinline__ float signed_lift(Msg m, bool neg, float step) {
+  const float v = lift(m, step);
+  return neg ? -v : v;
+}
+__device__ __forceinline__ float signed_lift(int8_t m, bool neg, float step) {
+  return lift(static_cast<int8_t>(neg ? -m : m), step);
+}
+
+// The message of slot e of a check from its state.
+template <typename Msg>
+__device__ __forceinline__ float cs_message(const MagPair<Msg>& s,
+                                            unsigned word, int e,
+                                            float step) {
+  const bool second = e == static_cast<int>(word >> kCsIdxShift);
+  return signed_lift(second ? s.m2 : s.m1, (word >> e) & 1u, step);
+}
+
+// check_update's serial-C form (kFoldPost) for min-sum on the compressed
+// state: the same arithmetic in the same order, with each edge's posterior
+// read once. Pass 1 keeps each slot's
+// posterior value and old message in registers (arrays of kCsMaxDeg,
+// unrolled: no slot is indexed at run time), pass 2 writes the posterior
+// as store(pv + (y - old)) and the new state once per check.
+template <bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void check_update_cs(
+    const ParamPlan& pp, MagPair<typename Storage<kT>::Msg>* mag,
+    uint16_t* word, typename Storage<kT>::Post* post,
+    const float* __restrict__ w, int z, int i, int r, const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
+  using Post = typename Storage<kT>::Post;
+  const int p0 = pp.row_ptr[i], deg = pp.row_ptr[i + 1] - p0;
+  const int c = i * z + r;
+  const MagPair<Msg> os = mag[c];
+  const unsigned ow = word[c];
+  float pv[kCsMaxDeg], old[kCsMaxDeg], wv[kW ? kCsMaxDeg : 1];
+  float min1 = kBig, min2 = kBig;
+  int idx = -1;
+  unsigned negs = 0;  // bit e: the v2c of slot e is < 0
+#pragma unroll
+  for (int e = 0; e < kCsMaxDeg; ++e) {
+    if (e < deg) {
+      const int4 pl = pp.plane[p0 + e];
+      int q = r + pl.y;
+      if (q >= z) q -= z;
+      old[e] = cs_message(os, ow, e, u.sstep);
+      float m = old[e];
+      if constexpr (kW) {
+        wv[e] = __ldg(w + (p0 + e) * z + r);
+        m = wv[e] * m;
+      }
+      pv[e] = lift(post[pl.x + q], 1.f);
+      const float v = pv[e] - m;
+      negs |= (v < 0.f ? 1u : 0u) << e;
+      const float a = fabsf(v);
+      if (a < min1) {  // strict: idx is the first minimum, as argmin
+        min2 = min1;
+        min1 = a;
+        idx = e;
+      } else if (a < min2) {
+        min2 = a;
+      }
+    }
+  }
+  // T of both magnitudes: (1 * max(exmin - beta, 0)) * alpha is the
+  // message of a positive sign, then the clamp and quantization; with no
+  // minimum below kBig, min1 == min2 and slot 0 stands for the index
+  const float t1 = postlude<kQuant>(fmaxf(min1 - u.beta, 0.f) * u.alpha, u);
+  const float t2 = postlude<kQuant>(fmaxf(min2 - u.beta, 0.f) * u.alpha, u);
+  const MagPair<Msg> ns{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
+  // exclusive sign of slot e: the parity of the other slots' negatives
+  const unsigned signs =
+      (negs ^ ((__popc(negs) & 1) ? kCsSignMask : 0u)) & kCsSignMask;
+  const unsigned nw =
+      signs | (static_cast<unsigned>(idx < 0 ? 0 : idx) << kCsIdxShift);
+#pragma unroll
+  for (int e = 0; e < kCsMaxDeg; ++e) {
+    if (e < deg) {
+      // int8 folds what the stored message changes by; bf16 the unrounded
+      // change, as the TPU kernel does
+      float y;
+      if constexpr (kT == kInt8) {
+        y = cs_message(ns, nw, e, u.sstep);
+      } else {
+        const float t = e == static_cast<int>(nw >> kCsIdxShift) ? t2 : t1;
+        y = (nw >> e) & 1u ? -t : t;
+      }
+      float d = y - old[e];
+      if constexpr (kW) d = wv[e] * d;
+      const int4 pl = pp.plane[p0 + e];
+      int q = r + pl.y;
+      if (q >= z) q -= z;
+      post[pl.x + q] = store<Post>(pv[e] + d, 1.f);
+    }
+  }
+  mag[c] = ns;
+  word[c] = static_cast<uint16_t>(nw);
+}
+
+// rebuild on the compressed state: variable j*z+q meets check r = q -
+// shift[p] of plane p's block row at the plane's slot.
+template <int kT>
+__device__ __forceinline__ void rebuild_cs(
+    const Plan& pl, const ParamPlan& pp,
+    const MagPair<typename Storage<kT>::Msg>* mag, const uint16_t* word,
+    typename Storage<kT>::Post* post, const float* l,
+    const float* __restrict__ w, const float* __restrict__ wl, int z, int n,
+    float sstep) {
+  using Post = typename Storage<kT>::Post;
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    const int j = v / z, q = v % z;
+    float acc = __ldg(wl + v) * round_post<Post>(-l[v]);
+    for (int e = pl.col_ptr[j]; e < pl.col_ptr[j + 1]; ++e) {
+      const int p = pl.col_planes[e];
+      const int4 info = pp.plane[p];
+      int r = q - info.y;
+      if (r < 0) r += z;
+      const int c = info.z + r;
+      const float m = cs_message(mag[c], word[c], info.w, sstep);
+      acc = acc + __ldg(w + p * z + r) * m;
+    }
+    post[v] = store<Post>(acc, 1.f);
+  }
+}
+
 // The per-iteration arguments of `iterate`: the (alpha, beta) rule and,
 // for the weighted forms, the weight rows of this iteration (w) and of the
 // next (w_next, wl_next: the final rows after the last iteration).
@@ -489,6 +706,27 @@ __device__ __forceinline__ void iterate(const Plan& pl,
   }
 }
 
+// `iterate` for the serial-C min-sum forms on the compressed state: the
+// same sweep, folds and barriers.
+template <bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void iterate_cs(
+    const Plan& pl, const ParamPlan& pp,
+    MagPair<typename Storage<kT>::Msg>* mag, uint16_t* word,
+    typename Storage<kT>::Post* post, const float* l, int z, int mb, int n,
+    const Step& st) {
+  for (int i = 0; i < mb; ++i) {
+    for (int r = threadIdx.x; r < z; r += blockDim.x)
+      check_update_cs<kQuant, kW, kT>(pp, mag, word, post, st.w, z, i, r,
+                                      st.u);
+    __syncthreads();
+  }
+  if constexpr (kW) {
+    rebuild_cs<kT>(pl, pp, mag, word, post, l, st.w_next, st.wl_next, z, n,
+                   st.u.sstep);
+    __syncthreads();
+  }
+}
+
 // This thread's count of unsatisfied checks (its checks c = tid + k*blockDim)
 // for the hard decisions of the posterior (bit 1 where post < 0).
 template <typename Post>
@@ -513,8 +751,11 @@ __device__ __forceinline__ int local_unsat(const Plan& pl, const Post* post,
 // the weight tables (kW: iterations+1 rows of P*z and of n floats).
 // group: block rows per group of the layered schedule. sstep, sinv: the
 // int8 storage grid's step and its reciprocal (kT = kInt8).
+// kCs: the serial-C min-sum forms on the compressed check state, with the
+// sweep's plan read from pp (the kernel's parameter); else the full
+// messages, and pp is unused.
 template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
-          int kT>
+          int kT, bool kCs = false>
 __device__ __forceinline__ void decode(
     const float* __restrict__ llr, float* __restrict__ post_out,
     int8_t* __restrict__ bits_out, const int* __restrict__ done_in,
@@ -522,7 +763,9 @@ __device__ __forceinline__ void decode(
     const float* __restrict__ ab, const float* __restrict__ wm,
     const float* __restrict__ wl, int z, int mb, int nb, int P,
     int iterations, int check_every, int group, float clamp, float qstep,
-    float qclip, float sstep, float sinv) {
+    float qclip, float sstep, float sinv, const ParamPlan* pp) {
+  static_assert(!kCs || (kMethod == kMinSum && kLayered),
+                "the compressed state is the serial-C min-sum forms'");
   using Msg = typename Storage<kT>::Msg;
   using Post = typename Storage<kT>::Post;
   // the flag is the same for the whole CTA, so the return is uniform
@@ -534,8 +777,18 @@ __device__ __forceinline__ void decode(
   const int n = nb * z;
   int* plan = reinterpret_cast<int*>(smem);
   int off = 4 * plan_ints_padded(mb, nb, P);
+  // the full messages, or the compressed state: a magnitude pair and a
+  // word per check
   Msg* msg = reinterpret_cast<Msg*>(smem + off);
-  off += align16(P * z * static_cast<int>(sizeof(Msg)));
+  MagPair<Msg>* mag = reinterpret_cast<MagPair<Msg>*>(smem + off);
+  uint16_t* word = nullptr;
+  if constexpr (kCs) {
+    off += align16(mb * z * static_cast<int>(sizeof(MagPair<Msg>)));
+    word = reinterpret_cast<uint16_t*>(smem + off);
+    off += align16(mb * z * 2);
+  } else {
+    off += align16(P * z * static_cast<int>(sizeof(Msg)));
+  }
   Post* post = reinterpret_cast<Post*>(smem + off);
   off += align16(n * static_cast<int>(sizeof(Post)));
   float* delta = reinterpret_cast<float*>(smem + off);  // group > 1 only
@@ -544,8 +797,15 @@ __device__ __forceinline__ void decode(
 
   const int n_plan = plan_ints(mb, nb, P);
   for (int t = threadIdx.x; t < n_plan; t += blockDim.x) plan[t] = plan_g[t];
-  for (int t = threadIdx.x; t < P * z; t += blockDim.x)
-    msg[t] = store<Msg>(0.f, sinv);
+  if constexpr (kCs) {
+    for (int t = threadIdx.x; t < mb * z; t += blockDim.x) {
+      mag[t] = MagPair<Msg>{store<Msg>(0.f, sinv), store<Msg>(0.f, sinv)};
+      word[t] = 0;
+    }
+  } else {
+    for (int t = threadIdx.x; t < P * z; t += blockDim.x)
+      msg[t] = store<Msg>(0.f, sinv);
+  }
   // internal convention log(Pr0/Pr1): the negated API LLR
   if constexpr (!kW)
     for (int t = threadIdx.x; t < n; t += blockDim.x)
@@ -555,7 +815,10 @@ __device__ __forceinline__ void decode(
                 plan + (mb + 1) + 2 * P, plan + (mb + 1) + 2 * P + (nb + 1)};
   if constexpr (kW) {
     // the posterior of the zero messages under the first weight row
-    rebuild<true, kT>(pl, msg, post, l, wm, wl, z, n, sstep);
+    if constexpr (kCs)
+      rebuild_cs<kT>(pl, *pp, mag, word, post, l, wm, wl, z, n, sstep);
+    else
+      rebuild<true, kT>(pl, msg, post, l, wm, wl, z, n, sstep);
     __syncthreads();
   }
   auto step = [&](int it) {
@@ -569,6 +832,14 @@ __device__ __forceinline__ void decode(
     }
   };
 
+  auto one = [&](const Step& st) {
+    if constexpr (kCs)
+      iterate_cs<kQuant, kW, kT>(pl, *pp, mag, word, post, l, z, mb, n, st);
+    else
+      iterate<kMethod, kLayered, kQuant, kW, kT>(pl, msg, post, delta, l, z,
+                                                 mb, n, group, st);
+  };
+
   if (kEarlyStop) {
     int ran = iterations;
     // the vote returns the same value to every thread: `done` is uniform
@@ -578,9 +849,7 @@ __device__ __forceinline__ void decode(
     const int rounds = iterations / check_every;
     for (int r = 0; r < rounds && !done; ++r) {
       for (int k = 0; k < check_every; ++k)
-        iterate<kMethod, kLayered, kQuant, kW, kT>(
-            pl, msg, post, delta, l, z, mb, n, group,
-            step(r * check_every + k));
+        one(step(r * check_every + k));
       if (!__syncthreads_or(local_unsat(pl, post, z, mb) != 0)) {
         done = true;
         ran = (r + 1) * check_every;
@@ -588,9 +857,7 @@ __device__ __forceinline__ void decode(
     }
     if (threadIdx.x == 0) aux_out[blockIdx.x] = ran;
   } else {
-    for (int it = 0; it < iterations; ++it)
-      iterate<kMethod, kLayered, kQuant, kW, kT>(pl, msg, post, delta, l, z,
-                                                 mb, n, group, step(it));
+    for (int it = 0; it < iterations; ++it) one(step(it));
     if (aux_out != nullptr) {
       const int mine = local_unsat(pl, post, z, mb);
       if (threadIdx.x == 0) unsat_sum = 0;
@@ -638,7 +905,22 @@ constexpr int kStorage = kInt8;
     decode<method, layered, early_stop, quant, weighted, kStorage>(         \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
-        sinv);                                                              \
+        sinv, nullptr);                                                     \
+  }
+// The serial-C min-sum forms on the compressed state (entry point name_cs):
+// the same arguments and the sweep's plan as a parameter.
+#define QC_KERNEL_CS(name, early_stop, quant, weighted)                     \
+  __global__ void QC_CAT(QC_CAT(name, _cs), QC_SUFFIX)(                     \
+      const float* llr, float* post_out, int8_t* bits_out,                  \
+      const int* done_in, int* aux_out, const int* plan, const float* ab,   \
+      const float* wm, const float* wl, int z, int mb, int nb, int P,       \
+      int iterations, int check_every, int group, float clamp, float qstep, \
+      float qclip, float sstep, float sinv,                                 \
+      const __grid_constant__ ParamPlan pp) {                               \
+    decode<kMinSum, true, early_stop, quant, weighted, kStorage, true>(     \
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
+        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
+        sinv, &pp);                                                         \
   }
 
 QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false, false)
@@ -668,6 +950,12 @@ QC_KERNEL(sumproduct_qc_layered_w, kSumProduct, true, false, false, true)
 QC_KERNEL(sumproduct_qc_flooding_w_msgq, kSumProduct, false, false, true,
           true)
 QC_KERNEL(sumproduct_qc_layered_w_msgq, kSumProduct, true, false, true, true)
+QC_KERNEL_CS(minsum_qc_layered, false, false, false)
+QC_KERNEL_CS(minsum_qc_layered_es, true, false, false)
+QC_KERNEL_CS(minsum_qc_layered_msgq, false, true, false)
+QC_KERNEL_CS(minsum_qc_layered_es_msgq, true, true, false)
+QC_KERNEL_CS(minsum_qc_layered_w, false, false, true)
+QC_KERNEL_CS(minsum_qc_layered_w_msgq, false, true, true)
 
 #define QC_K(name) QC_CAT(name, QC_SUFFIX)
 
@@ -676,14 +964,25 @@ QC_KERNEL(sumproduct_qc_layered_w_msgq, kSumProduct, true, false, true, true)
 extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     int method, int layered, int early_stop, int quant, const float* llr,
     void* out, int out_hard, const int* done_in, int* aux_out,
-    const int* plan, const float* ab, const float* wm, const float* wl,
-    int batch, int z, int mb, int nb, int P, int row_deg, int iterations,
-    int check_every, int group, float clamp, float qstep, float qclip,
-    float sstep, float sinv, int threads, cudaStream_t stream) {
+    const int* plan, const int* plan_host, int compressed, const float* ab,
+    const float* wm, const float* wl, int batch, int z, int mb, int nb, int P,
+    int row_deg, int iterations, int check_every, int group, float clamp,
+    float qstep, float qclip, float sstep, float sinv, int threads,
+    cudaStream_t stream) {
   using Kernel = void (*)(const float*, float*, int8_t*, const int*, int*,
                           const int*, const float*, const float*,
                           const float*, int, int, int, int, int, int, int,
                           float, float, float, float, float);
+  using KernelCs = void (*)(const float*, float*, int8_t*, const int*, int*,
+                            const int*, const float*, const float*,
+                            const float*, int, int, int, int, int, int, int,
+                            float, float, float, float, float, ParamPlan);
+  // [early_stop][quant], and the weighted forms by [quant]
+  static const KernelCs kCompressed[2][2] = {
+      {QC_K(minsum_qc_layered_cs), QC_K(minsum_qc_layered_msgq_cs)},
+      {QC_K(minsum_qc_layered_es_cs), QC_K(minsum_qc_layered_es_msgq_cs)}};
+  static const KernelCs kCompressedW[2] = {QC_K(minsum_qc_layered_w_cs),
+                                           QC_K(minsum_qc_layered_w_msgq_cs)};
   // [method][layered][early_stop][quant]
   static const Kernel kKernels[2][2][2][2] = {
       {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
@@ -707,18 +1006,30 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads < 32 || threads > 1024 || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the compressed state: layered min-sum on a code whose rows, block rows
+  // and planes fit the state's word and the parameter's plan
+  if (group > mb) group = mb;
+  if (compressed &&
+      (method != 0 || !layered || group != 1 || plan_host == nullptr ||
+       row_deg > kCsMaxDeg || mb > kCsMaxRows || P > kCsMaxPlanes))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Kernel fn =
       weighted ? kWeighted[method != 0][layered != 0][quant != 0]
                : kKernels[method != 0][layered != 0][early_stop != 0]
                          [quant != 0];
-  if (group > mb) group = mb;
-  const int smem = smem_bytes<kStorage>(z, mb, nb, P, group, row_deg);
+  const KernelCs fn_cs =
+      !compressed ? nullptr
+      : weighted  ? kCompressedW[quant != 0]
+                  : kCompressed[early_stop != 0][quant != 0];
+  const void* entry = compressed ? reinterpret_cast<const void*>(fn_cs)
+                                 : reinterpret_cast<const void*>(fn);
+  const int smem =
+      smem_bytes<kStorage>(z, mb, nb, P, group, row_deg, compressed != 0);
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(fn),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(fn));
+  err = cudaFuncGetAttributes(&attr, entry);
   if (err != cudaSuccess) return static_cast<int>(err);
   // layered: one thread per check of a group of block rows (as many as the
   // kernel's registers allow); flooding: `threads` stride over the checks,
@@ -728,9 +1039,27 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     threads = attr.maxThreadsPerBlock / 32 * 32;
   float* post_out = out_hard ? nullptr : static_cast<float*>(out);
   int8_t* bits_out = out_hard ? static_cast<int8_t*>(out) : nullptr;
-  fn<<<batch, threads, smem, stream>>>(
-      llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, nb,
-      P, iterations, check_every, group, clamp, qstep, qclip, sstep, sinv);
+  if (compressed) {
+    // the host plan (the layout of `plan`) into the parameter: row_ptr,
+    // then per plane its variables' and checks' offsets, shift and slot
+    ParamPlan pp{};
+    const int* plane_col = plan_host + (mb + 1);
+    const int* plane_shift = plane_col + P;
+    for (int i = 0; i <= mb; ++i) pp.row_ptr[i] = plan_host[i];
+    for (int i = 0; i < mb; ++i)
+      for (int p = plan_host[i]; p < plan_host[i + 1]; ++p)
+        pp.plane[p] = make_int4(plane_col[p] * z, plane_shift[p], i * z,
+                                p - plan_host[i]);
+    fn_cs<<<batch, threads, smem, stream>>>(
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
+        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
+        sinv, pp);
+  } else {
+    fn<<<batch, threads, smem, stream>>>(
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
+        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
+        sinv);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -738,14 +1067,14 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
 extern "C" {
 
 int bp_qc_launch_bf16(int, int, int, int, const float*, void*, int,
-                      const int*, int*, const int*, const float*,
-                      const float*, const float*, int, int, int, int, int,
-                      int, int, int, int, float, float, float, float, float,
-                      int, cudaStream_t);
+                      const int*, int*, const int*, const int*, int,
+                      const float*, const float*, const float*, int, int, int,
+                      int, int, int, int, int, int, float, float, float,
+                      float, float, int, cudaStream_t);
 int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
-                    int*, const int*, const float*, const float*,
-                    const float*, int, int, int, int, int, int, int, int,
-                    int, float, float, float, float, float, int,
+                    int*, const int*, const int*, int, const float*,
+                    const float*, const float*, int, int, int, int, int, int,
+                    int, int, int, float, float, float, float, float, int,
                     cudaStream_t);
 
 // Launches one decode on `stream`: grid = batch CTAs, one codeword each.
@@ -754,7 +1083,11 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // quant != 0 selects the _msgq form with step qstep and clip qclip. `out`
 // is int8 hard bits when out_hard != 0, else the f32 posterior in the
 // log(Pr1/Pr0) convention; both (batch, nb*z) row-major. `ab` holds
-// `iterations` rows of (alpha, beta). clamp = +inf for no clamp. done_in:
+// `iterations` rows of (alpha, beta). plan: the device plan; plan_host: the
+// same ints on the host. compressed != 0 selects the compressed check state
+// of the serial-C min-sum forms, group 1 (the _cs kernels; its limits from
+// bp_qc_compressed_limits), which reads plan_host into the kernel's
+// parameter. clamp = +inf for no clamp. done_in:
 // (batch,) int32 flags of codewords to skip, or null. aux_out: (batch,)
 // int32, the iterations run when early_stop != 0 (then required), else the
 // unsatisfied-check counts, or null. check_every must divide iterations; a
@@ -770,20 +1103,28 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 int bp_qc_decode(int dtype, int method, int layered, int early_stop,
                  int quant, const float* llr, void* out, int out_hard,
                  const int* done_in, int* aux_out, const int* plan,
-                 const float* ab, const float* wm, const float* wl, int batch,
-                 int z, int mb, int nb, int P, int row_deg, int iterations,
-                 int check_every, int group, float clamp, float qstep,
-                 float qclip, float sstep, float sinv, int threads,
-                 cudaStream_t stream) {
+                 const int* plan_host, int compressed, const float* ab,
+                 const float* wm, const float* wl, int batch, int z, int mb,
+                 int nb, int P, int row_deg, int iterations, int check_every,
+                 int group, float clamp, float qstep, float qclip,
+                 float sstep, float sinv, int threads, cudaStream_t stream) {
   auto* launch = dtype == kF32    ? bp_qc_launch
                  : dtype == kBf16 ? bp_qc_launch_bf16
                  : dtype == kInt8 ? bp_qc_launch_i8
                                   : nullptr;
   if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(method, layered, early_stop, quant, llr, out, out_hard,
-                done_in, aux_out, plan, ab, wm, wl, batch, z, mb, nb, P,
-                row_deg, iterations, check_every, group, clamp, qstep, qclip,
-                sstep, sinv, threads, stream);
+                done_in, aux_out, plan, plan_host, compressed, ab, wm, wl,
+                batch, z, mb, nb, P, row_deg, iterations, check_every, group,
+                clamp, qstep, qclip, sstep, sinv, threads, stream);
+}
+
+// The compressed state's limits: row degree, block rows, planes.
+int bp_qc_compressed_limits(int* out) {
+  out[0] = kCsMaxDeg;
+  out[1] = kCsMaxRows;
+  out[2] = kCsMaxPlanes;
+  return 0;
 }
 
 // The largest row degree the sum-product forms take.

@@ -10,15 +10,19 @@ forms also group-serial, ``layered_group > 1``), their ``_es`` forms
 (per-codeword early stop) and ``_w`` forms (per-edge neural-BP weights),
 and the ``_msgq`` form of each, each with f32, bf16 (``_bf16``) and int8
 (``_i8``) message storage, all in ``csrc/minsum_qc.cu`` (its header says
-how they work and what bounds them on the H100). The source is compiled
-with ``nvcc`` for ``sm_90a``, once per storage type in parallel, into
-``build/kernels/`` of the checkout on first use, linked into one library
-and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
+how they work and what bounds them on the H100). The serial-C min-sum
+forms keep a compressed check state (two stored magnitudes and a word of
+signs and index a check, :func:`compressed_state`) and read each edge's
+posterior once; every other form keeps the full messages. The source is
+compiled with ``nvcc`` for ``sm_90a``, once per storage type in
+parallel, into ``build/kernels/`` of the checkout on first use, linked
+into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
 :func:`bp_qc_probe_requeue` port the JAX functions of the same names
 (``:820-901``, ``:912-1053``). :func:`default_threads` and
 ``_LAUNCH_TABLE`` are the counterparts of JAX's ``default_tile`` and
 ``_TILE_TABLE`` (``:86-96``), filled from H100 sweeps of
-:mod:`.tune`.
+:mod:`.tune`; :mod:`.compare` times the kernels of two checkouts on one
+card.
 
 :func:`bp_qc_cuda` launches a kernel for a CUDA tensor and runs the
 plain version (:func:`..ops.bp_roll.decode_roll`) for a CPU tensor, and
@@ -51,6 +55,7 @@ from ldpc_sims_tpu_torch.ops.bp_roll import (
 )
 
 __all__ = [
+    "COMPRESSED_LIMITS",
     "LAUNCHES",
     "KERNELS",
     "KERNELS_W",
@@ -59,6 +64,7 @@ __all__ = [
     "bp_qc_probe_requeue",
     "bp_qc_requeue",
     "build",
+    "compressed_state",
     "default_threads",
     "kernel_name",
     "probe_capacity",
@@ -98,6 +104,11 @@ LAUNCHES = {name + sfx: 0 for _, sfx in STORAGE.values()
             for name in (*KERNELS.values(), *KERNELS_W.values())}
 # dynamic shared memory one H100 CTA may use
 _SMEM_LIMIT = 232_448
+# the compressed check state's limits (csrc/minsum_qc.cu: kCsMaxDeg,
+# kCsMaxRows, kCsMaxPlanes): row degree (a thread's register arrays and
+# its word's 8 sign bits), block rows and planes (the kernel parameter's
+# plan)
+COMPRESSED_LIMITS = (8, 64, 192)
 # the flooding forms' CTA size where an H100 sweep (kernels/tune.py) found
 # one faster than 256, keyed by (n, dtype name, schedule); the layered
 # forms' CTA has G·z threads by design. From the sweep of threads 128,
@@ -201,13 +212,20 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     f32 = ctypes.c_float
     lib.bp_qc_decode.argtypes = [
-        i32, i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32,
-        i32, i32, i32, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
-        i32, vp,
+        i32, i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp,
+        vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, f32, f32, f32, f32,
+        f32, i32, vp,
     ]
     lib.bp_qc_decode.restype = i32
     lib.bp_qc_max_row_degree.argtypes = []
     lib.bp_qc_max_row_degree.restype = i32
+    lib.bp_qc_compressed_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.bp_qc_compressed_limits.restype = i32
+    limits = (ctypes.c_int * 3)()
+    lib.bp_qc_compressed_limits(limits)
+    if tuple(limits) != COMPRESSED_LIMITS:
+        raise RuntimeError(f"the library's compressed-state limits "
+                           f"{tuple(limits)} are not {COMPRESSED_LIMITS}")
     lib.bp_qc_error_string.argtypes = [i32]
     lib.bp_qc_error_string.restype = ctypes.c_char_p
     return lib
@@ -227,13 +245,34 @@ def _plan_array(qc: QcStructure) -> np.ndarray:
     ]).astype(np.int32)
 
 
+def compressed_state(qc: QcStructure, method: str = "min-sum",
+                     schedule: str = "layered",
+                     layered_group: int = 1) -> bool:
+    """Whether a decode keeps the compressed check state (csrc/minsum_qc.cu:
+    two stored magnitudes and a word of signs and index a check): the
+    serial-C min-sum forms (``layered_group`` 1), on a code within
+    ``COMPRESSED_LIMITS`` (row degree, block rows, planes). Every other
+    form keeps the full messages (the group-serial forms measured slower
+    on the compressed state, PERF.md)."""
+    planes, group_c, _ = qc_plan(qc)
+    degree = max(len(ps) for ps in group_c)
+    max_deg, max_rows, max_planes = COMPRESSED_LIMITS
+    return (method == "min-sum" and schedule == "layered"
+            and min(layered_group, qc.mb) == 1
+            and degree <= max_deg and qc.mb <= max_rows
+            and len(planes) <= max_planes)
+
+
 def smem_bytes(qc: QcStructure, layered_group: int = 1,
-               dtype=torch.float32) -> int:
-    """Dynamic shared memory of one CTA: the int32 plan, the c2v planes
-    (4, 2 or 1 B a message for f32, bf16, int8), the posterior (2 B a
-    variable for bf16, else 4), and for a group-serial launch the f32
-    message changes of a group's planes (at most ``min(P, G·row
-    degree)`` planes of z floats); each region on a 16-byte boundary."""
+               dtype=torch.float32, method: str = "min-sum",
+               schedule: str = "flooding") -> int:
+    """Dynamic shared memory of one CTA: the int32 plan; the c2v planes
+    (4, 2 or 1 B a message for f32, bf16, int8) or, on the compressed
+    state (:func:`compressed_state`), two stored magnitudes and a 2-byte
+    word a check; the posterior (2 B a variable for bf16, else 4); and for
+    a group-serial launch the f32 message changes of a group's planes (at
+    most ``min(P, G·row degree)`` planes of z floats); each region on a
+    16-byte boundary."""
     planes, group_c, _ = qc_plan(qc)
     P = len(planes)
 
@@ -246,7 +285,11 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     G = min(layered_group, qc.mb)
     degree = max(len(ps) for ps in group_c)
     scratch = min(P, G * degree) * qc.z if G > 1 else 0
-    return (a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1)) + a16(msg * P * qc.z)
+    checks = qc.mb * qc.z
+    state = (a16(2 * msg * checks) + a16(2 * checks)
+             if compressed_state(qc, method, schedule, layered_group)
+             else a16(msg * P * qc.z))
+    return (a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1)) + state
             + a16(post * qc.nb * qc.z) + 4 * scratch)
 
 
@@ -264,6 +307,13 @@ def _ab_table(alpha, beta, iterations: int) -> np.ndarray:
         else:
             cols.append(np.full(iterations, v, np.float32))
     return np.stack(cols, axis=1)
+
+
+@functools.lru_cache(maxsize=64)
+def _host_plan(qc: QcStructure) -> np.ndarray:
+    """The plan on the host, which the compressed forms read into their
+    kernel parameter (kept alive here for the pointer)."""
+    return np.ascontiguousarray(_plan_array(qc))
 
 
 @functools.lru_cache(maxsize=64)
@@ -425,7 +475,7 @@ def bp_qc_cuda(
         raise ValueError("empty batch")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
-    smem = smem_bytes(qc, layered_group, dtype)
+    smem = smem_bytes(qc, layered_group, dtype, method, schedule)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"code needs {smem} B of shared memory per codeword with "
@@ -469,7 +519,9 @@ def bp_qc_cuda(
         out.data_ptr(), int(hard),
         None if flags is None else flags.data_ptr(),
         None if aux is None else aux.data_ptr(),
-        plan.data_ptr(), ab.data_ptr(),
+        plan.data_ptr(), _host_plan(qc).ctypes.data,
+        int(compressed_state(qc, method, schedule, layered_group)),
+        ab.data_ptr(),
         None if wm is None else wm.data_ptr(),
         None if wl is None else wl.data_ptr(),
         B, qc.z, qc.mb, qc.nb, len(planes), degree, iterations,

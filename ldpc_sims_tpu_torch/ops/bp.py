@@ -1,31 +1,48 @@
 """Belief-propagation decode dispatch: the port of ``ops/bp.py:bp_decode``.
 
-The port decodes quasi-cyclic codes with min-sum (scalar or
-per-iteration α/β) or the stable log-domain sum-product under the
-flooding, the layered (serial-C) and the group-serial layered schedule,
-with an optional clamp, message quantization (``msg_qbits``/
-``msg_qclip``), edge-flavor neural-BP weights and per-codeword early
-stop in the JAX package's three modes (freeze, requeue, probe).
-Backends:
+The port decodes with min-sum (scalar or per-iteration α/β), the stable
+log-domain sum-product or the reference's tanh-product rule
+(``sum-product-ref``), with an optional clamp, message quantization
+(``msg_qbits``/``msg_qclip``), edge-flavor neural-BP weights and
+per-codeword early stop. Backends:
 
 * ``'cuda'``: the hand-written kernels of
-  :mod:`ldpc_sims_tpu_torch.kernels.minsum_qc` and their drivers (on a
-  CPU tensor the wrapper runs the plain version);
-* ``'roll'``: the plain PyTorch version (:mod:`.bp_roll`) on any device;
-  of early stop it takes ``es_mode='freeze'`` with a check every
-  iteration, as the JAX roll backend does, and it takes no
-  ``layered_group > 1``, as the JAX roll backend does not, and no
-  message storage narrower than f32 (JAX's roll backend computes bf16 in
-  bf16 arithmetic, another function, ROADMAP A4; int8 is kernel-only,
-  as in JAX); gradients flow through it;
-* ``'auto'``: ``'cuda'`` for a CUDA tensor, and for the forms only the
-  kernels' module implements (requeue, probe, a check stride above 1,
-  ``layered_group > 1``, bf16 or int8 storage); else ``'roll'`` for a
-  CPU tensor. JAX's ``auto`` on the CPU sends bf16 to its roll backend
-  and raises for int8 (ROADMAP §C).
+  :mod:`ldpc_sims_tpu_torch.kernels.minsum_qc` and their drivers for a
+  quasi-cyclic code (min-sum and sum-product; flooding, layered and
+  group-serial layered; early stop in the JAX package's three modes,
+  freeze, requeue and probe; f32, bf16 or int8 message storage with the
+  Pallas kernel's semantics). On a CPU tensor the wrapper runs the plain
+  version.
+* ``'roll'``: the plain PyTorch QC decode (:mod:`.bp_roll`) on any
+  device, the counterpart of JAX's roll backend: flooding and layered, of
+  early stop ``es_mode='freeze'`` with a check every iteration, no
+  ``layered_group > 1``, all three methods. ``dtype=torch.bfloat16``
+  computes in bf16 arithmetic, as JAX's roll backend does
+  (``ldpc_sims_tpu/ops/bp_roll.py:180``); int8 is kernel-only, as in JAX.
+  Gradients flow through it.
+* ``'gather'``: JAX's gather backend (``ldpc_sims_tpu/ops/bp.py:756-911``)
+  for any :class:`LdpcCode`: flooding BP on the Tanner graph's padded slot
+  layouts (``TannerGraph.to_var_space``/``to_check_space``/``c_mask``/
+  ``v_mask``) with the batch first, all three methods, edge-flavor and
+  ``ms_*`` weights, ``es_mode='freeze'``, f32 or bf16 arithmetic; no
+  layered schedule, as in JAX. Plain PyTorch on any device: JAX decodes
+  non-QC codes in plain XLA too, with no Pallas kernel.
+* ``'auto'``: every non-QC code goes to ``'gather'``, on the CPU and on
+  the card. JAX picks its dense backend up to m·dc ≤ 1024 padded edges
+  and routes around a TPU compiler crash beyond it
+  (``ldpc_sims_tpu/ops/bp.py:538-554``); neither reason holds on a GPU,
+  and dense and gather compute the same function up to the order of
+  their sums. A QC code goes to ``'cuda'`` for a CUDA tensor and for the
+  forms only the kernels' module implements (requeue, probe, a check
+  stride above 1, ``layered_group > 1``), else to ``'roll'``; so on a CPU
+  tensor bf16 decodes in bf16 arithmetic and int8 raises ``ValueError``,
+  as JAX's CPU ``auto`` does, while on a CUDA tensor bf16 and int8 take
+  the kernels' storage, as JAX's TPU ``auto`` takes the Pallas kernel's.
+  ``sum-product-ref`` has no kernel: a QC code decodes it on ``'roll'``.
 
 What the JAX function does beyond that raises ``NotImplementedError``
-naming its ROADMAP item; nothing falls back silently.
+naming its ROADMAP item (the dense backend, pair-flavor weights, a bare
+``TannerGraph``: A4); nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -37,6 +54,10 @@ from ldpc_sims_tpu_torch.codes.library import LdpcCode
 from ldpc_sims_tpu_torch.convert import decoder_weights_from_numpy
 from ldpc_sims_tpu_torch.ops.bp_roll import (
     EDGE_KEYS,
+    EdgeTables,
+    _exclusive_sign,
+    _exclusive_sum,
+    _ref_excl,
     decode_roll,
     pack_edge_weights,
     storage_dtype,
@@ -56,12 +77,11 @@ def init_neural_bp_weights(code: LdpcCode, iterations: int,
     """All-ones edge-flavor neural-BP weights (= plain BP), in JAX's
     layout: ``w_msg`` (iterations, n, dv) with check-sorted variable
     slots, ``w_llr`` (iterations, n), ``w_msg_final`` (n, dv) and
-    ``w_llr_final`` (n,). The pair flavor needs the gather backend
-    (ROADMAP A4)."""
+    ``w_llr_final`` (n,). The pair flavor (JAX's gather backend) is not
+    ported yet (ROADMAP A4)."""
     if flavor == "pair":
         raise NotImplementedError(
-            "pair-flavor neural-BP weights need the gather backend, not "
-            "ported yet (ROADMAP A4)")
+            "pair-flavor neural-BP weights are not ported yet (ROADMAP A4)")
     if flavor != "edge":
         raise ValueError(f"unknown flavor {flavor!r}")
     g = code.graph
@@ -119,6 +139,134 @@ def pack_decoder_weights(weights: dict | None, code: LdpcCode,
     return out
 
 
+_BIG = 1e30  # inert magnitude of a padding slot
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
+    """``x[..., idx]`` with the index one past the end giving ``fill``
+    (JAX's ``_take0`` with mode='fill')."""
+    pad = torch.full_like(x[..., :1], fill)
+    return torch.cat([x, pad], -1).index_select(-1, idx)
+
+
+def _decode_gather(llr: torch.Tensor, g, *, iterations: int, method: str,
+                   alpha, beta, ms_w, clamp, msg_qbits, msg_qclip, weights,
+                   early_stop: bool, output: str, dtype) -> torch.Tensor:
+    """JAX's ``backend='gather'`` (``ldpc_sims_tpu/ops/bp.py:756-911``):
+    flooding BP on the Tanner graph's slot layouts, messages (B, m, dc)
+    in check space, with the batch first. A variable update gathers the
+    messages into variable space (B, n, dv), sums them with the (weighted)
+    LLR and gathers the exclusive sums back; ``sum-product-ref`` takes
+    its exclusive sum from prefix and suffix sums. Every operation runs
+    in ``dtype`` (f32 or bf16), as in JAX. ``output``: 'hard',
+    'posterior' (log Pr1/Pr0), 'hard_iters'; early stop freezes each
+    codeword at its first syndrome-satisfying state."""
+    n, m, dc, dv = g.n_vars, g.n_checks, g.dc, g.dv
+    B = llr.shape[0]
+    dev = llr.device
+    to_var = torch.from_numpy(g.to_var_space.astype(np.int64)).to(dev)
+    to_check = torch.from_numpy(g.to_check_space.astype(np.int64)).to(dev)
+    v_mask = torch.from_numpy(np.asarray(g.v_mask, bool)).to(dev)
+    c_mask = torch.from_numpy(np.asarray(g.c_mask, bool)).to(dev)
+    Lv = (-llr).to(dtype)  # internal log(Pr0/Pr1)
+    ref_mode = method == "sum-product-ref"
+    if weights is not None:
+        weights = {k: torch.as_tensor(v, device=dev).to(dtype)
+                   for k, v in weights.items()}
+
+    def per_iteration(v):
+        if isinstance(v, torch.Tensor) or isinstance(v, (tuple, np.ndarray)):
+            return torch.as_tensor(v, device=dev).to(dtype)
+        return None
+
+    ms_a = per_iteration(alpha if ms_w is None else ms_w["alpha"])
+    ms_b = per_iteration(beta if ms_w is None else ms_w["beta"])
+    qstep = None
+    if msg_qbits is not None:
+        qstep = torch.tensor(2.0 * msg_qclip / (2**msg_qbits - 1),
+                             device=dev).to(dtype)
+
+    def to_var_space(c2v):
+        return _take(c2v.reshape(B, m * dc), to_var, 0.0).reshape(B, n, dv)
+
+    def var_to_check(c2v, it):
+        vm = to_var_space(c2v)
+        lv = Lv
+        if weights is not None:
+            vm = vm * weights["w_msg"][it]
+            lv = weights["w_llr"][it] * Lv
+        vm = torch.where(v_mask, vm, 0.0)
+        if ref_mode:
+            v2c_v = lv[..., None] + _exclusive_sum(vm, -1)
+        else:
+            v2c_v = (lv + vm.sum(-1))[..., None] - vm
+        return _take(v2c_v.reshape(B, n * dv), to_check,
+                     _BIG).reshape(B, m, dc)
+
+    def posterior(c2v):
+        vm = to_var_space(c2v)
+        lv = Lv
+        if weights is not None:
+            vm = vm * weights["w_msg_final"]
+            lv = weights["w_llr_final"] * Lv
+        return lv + torch.where(v_mask, vm, 0.0).sum(-1)
+
+    def check_update(v2c, it):
+        if method == "min-sum":
+            a = alpha if ms_a is None else ms_a[it]
+            b = beta if ms_b is None else ms_b[it]
+            mag = v2c.abs()
+            min1, idx = mag.min(-1, keepdim=True)  # the first minimum
+            first = torch.arange(dc, device=dev) == idx
+            min2 = torch.where(first, _BIG, mag).amin(-1, keepdim=True)
+            exmin = torch.where(first, min2, min1)
+            y = (_exclusive_sign(v2c, -1) * torch.clamp_min(exmin - b, 0.0)
+                 * a)
+        elif method == "sum-product":
+            mag = torch.clamp_min(v2c.abs(), 1e-12)
+            lt = torch.log(-torch.expm1(-mag)) - torch.log1p(torch.exp(-mag))
+            s = torch.clamp_max(_exclusive_sum(lt, -1), -1e-12)
+            y = _exclusive_sign(v2c, -1) * (torch.log1p(torch.exp(s))
+                                            - torch.log(-torch.expm1(s)))
+        else:  # padding slots take the product's identity
+            t = torch.where(c_mask, torch.tanh(v2c * 0.5), 1.0)
+            y = _ref_excl(t.movedim(-1, 0)).movedim(0, -1)
+        if clamp is not None:
+            y = torch.clamp(y, -clamp, clamp)
+        if qstep is not None:
+            y = torch.clamp(torch.round(y / qstep) * qstep, -msg_qclip,
+                            msg_qclip)
+        return y
+
+    def satisfied(c2v):
+        """(B,) bool: the hard decisions satisfy every check."""
+        bits = (posterior(c2v) < 0).to(torch.int32)
+        cs = _take(bits.repeat_interleave(dv, -1), to_check, 0)
+        return ((cs.reshape(B, m, dc).sum(-1) & 1) == 0).all(-1)
+
+    c2v = torch.zeros((B, m, dc), dtype=dtype, device=dev)
+    iters = torch.full((B,), iterations, dtype=torch.int32, device=dev)
+    if early_stop:
+        done = satisfied(c2v)
+        iters[done] = 0
+        for it in range(iterations):
+            if bool(done.all()):
+                break
+            new = check_update(var_to_check(c2v, it), it)
+            c2v = torch.where(done[:, None, None], c2v, new)
+            newly = satisfied(c2v) & ~done
+            iters[newly] = it + 1
+            done = done | newly
+    else:
+        for it in range(iterations):
+            c2v = check_update(var_to_check(c2v, it), it)
+    post = posterior(c2v)
+    if output == "posterior":
+        return -post
+    bits = (post < 0).to(torch.int8)
+    return (bits, iters) if output == "hard_iters" else bits
+
+
 def bp_decode(
     llr: torch.Tensor,
     code: LdpcCode,
@@ -150,8 +298,10 @@ def bp_decode(
       llr: (batch, n) channel LLRs, convention log(Pr1/Pr0).
       code: a quasi-cyclic :class:`LdpcCode`.
       iterations: BP iterations (fixed trip count).
-      method: 'min-sum' or 'sum-product' (stable log domain, the JAX
-        roll backend's expm1/log1p form).
+      method: 'min-sum', 'sum-product' (stable log domain, the JAX roll
+        backend's expm1/log1p form) or 'sum-product-ref' (the reference's
+        tanh-product rule with the ±(1 − 1e-7) product clip; roll and
+        gather backends).
       alpha, beta: normalization / offset for min-sum, scalars or
         length-``iterations`` tuples (a frozen per-iteration schedule,
         :func:`freeze_minsum_weights`).
@@ -187,25 +337,29 @@ def bp_decode(
         dict runs the kernels on the card, with the ms arrays frozen to
         that table. Weights that need a gradient decode with
         ``backend='roll'``: the kernels carry none, and the ``cuda``
-        path raises rather than drop it. The pair flavor (``w_pair``)
-        needs the gather backend (ROADMAP A4).
-      backend: 'auto' | 'cuda' | 'roll' (module docs).
-      schedule: 'flooding' | 'layered'.
+        path raises rather than drop it. The gather backend takes the
+        edge-flavor and ``ms_*`` arrays; the pair flavor (``w_pair``) is
+        not ported yet (ROADMAP A4).
+      backend: 'auto' | 'cuda' | 'roll' | 'gather' (module docs).
+      schedule: 'flooding' | 'layered' (QC codes, not the gather
+        backend).
       layered_group: block rows per serial group of the layered schedule
         (1 = serial-C; ``mb`` = one flooding iteration up to the order of
         the sums); above 1 the kernels' module only, as in JAX.
-      dtype: message storage, ``torch.float32``, ``torch.bfloat16``
-        (messages, posterior and channel LLRs in bf16) or ``torch.int8``
-        (messages on the 255-level grid over ±``msg_qclip``), or their
-        names; the Pallas kernel's semantics
-        (:func:`.bp_roll.decode_roll`), so bf16 and int8 take the
-        kernels' module (``auto`` resolves to ``cuda``).
+      dtype: ``torch.float32``, ``torch.bfloat16`` or ``torch.int8``, or
+        their names. On the ``cuda`` backend the message storage of the
+        Pallas kernel (:func:`.bp_roll.decode_roll`): bf16 messages,
+        posterior and channel LLRs, or int8 messages on the 255-level
+        grid over ±``msg_qclip``, with f32 arithmetic. On the ``roll`` and
+        ``gather`` backends the arithmetic, as in JAX: bf16 computes every
+        operation in bf16; int8 raises ``ValueError``.
       threads: the flooding kernels' CTA size (JAX's ``tile``), a
         multiple of 32 in [32, 1024]; None takes the measured default
         (:func:`..kernels.minsum_qc.default_threads`). The ``roll``
         backend ignores it, as JAX's ignores ``tile``.
 
-    ``method='sum-product-ref'`` and non-QC codes are not ported yet.
+    ``code`` is an :class:`LdpcCode`; a non-QC code decodes on the
+    gather backend (module docs).
     """
     if method not in ("min-sum", "sum-product", "sum-product-ref"):
         raise ValueError(f"unknown method {method!r}")
@@ -267,28 +421,42 @@ def bp_decode(
     if weights is not None:
         if "w_pair" in weights:
             raise NotImplementedError(
-                "pair-flavor neural-BP weights (w_pair) need the gather "
-                "backend, not ported yet (ROADMAP A4)"
+                "pair-flavor neural-BP weights (w_pair) are not ported yet "
+                "(ROADMAP A4)"
             )
         weights = weights.get("tables", weights)
-    if not (isinstance(code, LdpcCode) and code.qc is not None):
+    if not isinstance(code, LdpcCode):
         raise NotImplementedError(
-            "non-QC codes need the dense/gather decode, not ported yet "
-            "(ROADMAP A4)"
+            "bp_decode takes an LdpcCode; a bare TannerGraph is not ported "
+            "yet (ROADMAP A4)"
         )
-    if backend in ("dense", "gather"):
+    if backend == "dense":
         raise NotImplementedError(
-            f"backend={backend!r} is not ported yet (ROADMAP A4)"
+            "backend='dense' is not ported yet (ROADMAP A4); the gather "
+            "backend computes the same function up to the order of its sums"
+        )
+    if schedule == "layered" and (code.qc is None or backend == "gather"):
+        raise ValueError(
+            "layered schedule requires a quasi-cyclic LdpcCode (roll or "
+            "cuda backend)"
         )
     dtype = storage_dtype(dtype)
     # the forms only the kernels' module implements
-    needs_cuda = layered_group != 1 or dtype != torch.float32 or (
+    needs_cuda = layered_group != 1 or (
         early_stop and (es_mode != "freeze" or es_check_every != 1))
+    on_card = llr.device.type == "cuda"
     if backend == "auto":
-        backend = ("cuda" if llr.device.type == "cuda" or needs_cuda
-                   else "roll")
-    if backend not in ("cuda", "roll"):
+        if code.qc is None:
+            backend = "gather"
+        elif method == "sum-product-ref":
+            backend = "roll"  # no kernel has the reference's rule
+        else:
+            backend = ("cuda" if on_card or needs_cuda else "roll")
+    if backend not in ("cuda", "roll", "gather"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend in ("cuda", "roll") and code.qc is None:
+        raise ValueError(f"the {backend} backend requires a quasi-cyclic "
+                         "LdpcCode")
     if layered_group != 1 and backend != "cuda":
         raise ValueError(
             "layered_group is cuda-only; pass backend='cuda' (on a CPU "
@@ -300,11 +468,10 @@ def bp_decode(
             "255-level grid over ±msg_qclip in shared memory); pass "
             "backend='cuda' (on a CPU tensor it runs the plain version)"
         )
-    if dtype == torch.bfloat16 and backend == "roll":
-        raise NotImplementedError(
-            "bf16 on the roll backend is JAX's bf16-arithmetic decode, not "
-            "ported yet (ROADMAP A4); backend='cuda' stores bf16 with the "
-            "kernels' f32 arithmetic"
+    if method == "sum-product-ref" and backend == "cuda":
+        raise ValueError(
+            "method='sum-product-ref' has no kernel; it decodes on the roll "
+            "or gather backend"
         )
     if early_stop and (es_mode != "freeze" or es_check_every != 1):
         if backend != "cuda":
@@ -327,20 +494,26 @@ def bp_decode(
                 "at 1"
             )
 
-    if method == "sum-product-ref":
-        raise NotImplementedError(
-            "method='sum-product-ref' (the reference's tanh-product rule) "
-            "is not ported yet (ROADMAP A4)"
-        )
     llr = llr.to(torch.float32).contiguous()
-    kw = dict(iterations=iterations, clamp=clamp, schedule=schedule,
-              method=method, msg_qbits=msg_qbits, msg_qclip=msg_qclip,
-              layered_group=layered_group, dtype=dtype)
     # without early stop the iteration count is the fixed budget
     fixed_iters = output == "hard_iters" and not early_stop
-    kw["output"] = ("posterior" if output == "soft" else
-                    "hard" if fixed_iters else output)
-    if backend == "roll":
+    out_kind = ("posterior" if output == "soft" else
+                "hard" if fixed_iters else output)
+    kw = dict(iterations=iterations, clamp=clamp, schedule=schedule,
+              method=method, msg_qbits=msg_qbits, msg_qclip=msg_qclip,
+              layered_group=layered_group, dtype=dtype, output=out_kind)
+    if backend == "gather":
+        if isinstance(weights, EdgeTables):
+            raise ValueError("the gather backend takes JAX's weight dict, "
+                             "not the kernels' packed tables")
+        out = _decode_gather(
+            llr, code.graph, iterations=iterations, method=method,
+            alpha=alpha, beta=beta, ms_w=ms_w, clamp=clamp,
+            msg_qbits=msg_qbits, msg_qclip=msg_qclip, weights=weights,
+            early_stop=early_stop, output=out_kind, dtype=dtype)
+    elif backend == "roll":
+        # JAX's roll backend computes a bf16 decode in bf16 arithmetic
+        kw.update(dtype=torch.float32, arith=dtype)
         out = decode_roll(llr, code.qc, alpha=alpha, beta=beta,
                           early_stop=early_stop, weights=weights,
                           ms_weights=ms_w, **kw)

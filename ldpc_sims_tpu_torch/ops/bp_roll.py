@@ -18,13 +18,16 @@ variable ``j·z + (r + s) mod z``. Variable orientation is
 ``roll(·, −s)``. ``torch.roll`` and ``jnp.roll`` shift the same way.
 
 Scope: min-sum with scalar or per-iteration α/β (tuples, or the
-``ms_weights`` tensors gradients flow through) and the stable log-domain
-sum-product, optional clamp and message quantization (``msg_qbits``),
+``ms_weights`` tensors gradients flow through), the stable log-domain
+sum-product and the reference's tanh-product rule (``sum-product-ref``,
+which no kernel has), optional clamp and message quantization
+(``msg_qbits``),
 per-edge neural-BP weights, flooding, layered (serial-C) and
 group-serial layered schedules, per-codeword early stop with a check
 stride, a mask of codewords to skip, the outputs ``hard``,
-``posterior``, ``hard_iters`` and ``hard_unsat``, and the Pallas
-kernel's bf16 and int8 message storage (``dtype``).
+``posterior``, ``hard_iters`` and ``hard_unsat``, the Pallas
+kernel's bf16 and int8 message storage (``dtype``), and JAX's roll
+backend's bf16 arithmetic (``arith``).
 :func:`..ops.bp.bp_decode` rejects what the JAX function takes beyond
 that, naming its ROADMAP item.
 
@@ -60,6 +63,7 @@ __all__ = [
 ]
 
 _BIG = 1e30
+_REF_PROD_EPS = 1e-7  # the reference's product clamp (bp/bp_cv.py:44)
 # the arrays of an edge-flavor neural-BP weight set
 EDGE_KEYS = frozenset({"w_msg", "w_llr", "w_msg_final", "w_llr_final"})
 
@@ -237,14 +241,36 @@ def pack_edge_weights(weights, qc: QcStructure, iterations: int,
     )
 
 
-def _exclusive_sign(x: torch.Tensor) -> torch.Tensor:
-    """Exclusive sign product over dim 0 as a negative-count parity.
+def _exclusive_sign(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Exclusive sign product over ``dim`` as a negative-count parity.
 
     A strict ``x < 0`` test: −0.0 counts as positive, as in the kernels.
     """
     neg = (x < 0).to(x.dtype)
-    ex = neg.sum(0, keepdim=True) - neg
+    ex = neg.sum(dim, keepdim=True) - neg
     return 1.0 - 2.0 * torch.remainder(ex, 2.0)
+
+
+def _exclusive_prod(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Exclusive product over ``dim`` as prefix × suffix products (JAX's
+    ``_exclusive_prod``: never divides)."""
+    one = torch.ones_like(t.narrow(dim, 0, 1))
+    n = t.shape[dim]
+    left = torch.cat([one, torch.cumprod(t, dim).narrow(dim, 0, n - 1)],
+                     dim)
+    right = torch.flip(torch.cumprod(torch.flip(t, [dim]), dim), [dim])
+    return left * torch.cat([right.narrow(dim, 1, n - 1), one], dim)
+
+
+def _exclusive_sum(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Exclusive sum over ``dim`` as prefix + suffix sums (JAX's
+    ``_exclusive_sum``: no cancellation)."""
+    zero = torch.zeros_like(t.narrow(dim, 0, 1))
+    n = t.shape[dim]
+    left = torch.cat([zero, torch.cumsum(t, dim).narrow(dim, 0, n - 1)],
+                     dim)
+    right = torch.flip(torch.cumsum(torch.flip(t, [dim]), dim), [dim])
+    return left + torch.cat([right.narrow(dim, 1, n - 1), zero], dim)
 
 
 def _minsum_excl(x: torch.Tensor, alpha, beta) -> torch.Tensor:
@@ -259,21 +285,40 @@ def _minsum_excl(x: torch.Tensor, alpha, beta) -> torch.Tensor:
     return exsign * torch.clamp_min(exmin - beta, 0.0) * alpha
 
 
-def _sumproduct_excl(x: torch.Tensor) -> torch.Tensor:
+def _sumproduct_excl(x: torch.Tensor, serial: bool = True) -> torch.Tensor:
     """Stable exclusive sum-product over dim 0 of (d, B, z), the JAX roll
     backend's ``expm1``/``log1p`` form: ``a = max(|x|, 1e-12)``,
     ``lt = log(−expm1(−a)) − log1p(exp(−a))``, ``s = min(Σlt − lt,
     −1e-12)``, magnitude ``log1p(exp(s)) − log(−expm1(s))`` (at most
     28.3). The row sum runs left to right over the slots, as the kernels
-    take it."""
+    take it (``serial``), or as one reduction, as JAX's roll backend
+    takes it."""
     a = torch.clamp_min(x.abs(), 1e-12)
     lt = torch.log(-torch.expm1(-a)) - torch.log1p(torch.exp(-a))
-    total = torch.zeros_like(lt[0])
-    for k in range(lt.shape[0]):
-        total = total + lt[k]
+    if serial:
+        total = torch.zeros_like(lt[0])
+        for k in range(lt.shape[0]):
+            total = total + lt[k]
+    else:
+        total = lt.sum(0)
     s = torch.clamp_max(total - lt, -1e-12)
     mag = torch.log1p(torch.exp(s)) - torch.log(-torch.expm1(s))
     return _exclusive_sign(x) * mag
+
+
+def _as_bf16(v: float) -> float:
+    """A Python number rounded to bf16 (to nearest even)."""
+    return float(torch.tensor(float(v), dtype=torch.bfloat16))
+
+
+def _ref_excl(t: torch.Tensor) -> torch.Tensor:
+    """The reference's check rule on tanh of the half messages over dim 0
+    (JAX's ``_check_update_ref``/roll ``_ref_excl``, ``bp/bp_cv.py``):
+    their exclusive product, clipped to ±(1 − 1e-7), then
+    ``log((1 + p)/(1 − p))``."""
+    p = torch.clamp(_exclusive_prod(t), -(1 - _REF_PROD_EPS),
+                    1 - _REF_PROD_EPS)
+    return torch.log((1.0 + p) / (1.0 - p))
 
 
 def unsat_checks(post: torch.Tensor, qc: QcStructure) -> torch.Tensor:
@@ -310,6 +355,7 @@ def decode_roll(
     ms_weights: dict | None = None,
     layered_group: int = 1,
     dtype=torch.float32,
+    arith=torch.float32,
 ):
     """QC-LDPC BP decode; the contract of :func:`..ops.bp.bp_decode` for
     QC codes, and of the Pallas kernel's early-stop, weighted and
@@ -371,6 +417,18 @@ def decode_roll(
     bf16, while the message is stored rounded, and re-rounds the
     posterior after each fold.
 
+    ``arith``: the arithmetic of JAX's roll backend
+    (``ldpc_sims_tpu/ops/bp_roll.py:180``). torch.float32 is the kernels'
+    f32 arithmetic. torch.bfloat16 holds the LLRs, the messages, the
+    weights, α/β and every sum in bf16, each operation rounded, in JAX's
+    order: flooding forms each v2c as (LLR + Σ c2v) − c2v with the sum
+    taken as one reduction, sum-product its row sum likewise. It takes
+    f32 storage (``dtype``) only and no ``layered_group``; the posterior
+    output holds bf16 values.
+
+    ``method='sum-product-ref'`` is the reference's tanh-product rule
+    (JAX's roll ``_ref_excl``); the kernels do not have it.
+
     Outputs: 'hard' (int8 bits), 'posterior' (f32), 'hard_iters'
     ((bits, iters), iters constant without early stop) and 'hard_unsat'
     ((bits, unsat): the count of unsatisfied checks per codeword after a
@@ -378,8 +436,16 @@ def decode_roll(
     """
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if method not in ("min-sum", "sum-product"):
+    if method not in ("min-sum", "sum-product", "sum-product-ref"):
         raise ValueError(f"unknown method {method!r}")
+    arith = storage_dtype(arith)
+    if arith == torch.int8:
+        raise ValueError("arith must be float32 or bfloat16")
+    bf16 = arith == torch.bfloat16
+    if bf16 and (storage_dtype(dtype) != torch.float32
+                 or layered_group != 1):
+        raise ValueError("bf16 arithmetic takes f32 storage and "
+                         "layered_group=1")
     if output not in ("hard", "posterior", "hard_iters", "hard_unsat"):
         raise ValueError(f"unknown output {output!r}")
     if output == "hard_unsat" and early_stop:
@@ -406,9 +472,10 @@ def decode_roll(
 
     def per_iteration(v):
         if isinstance(v, torch.Tensor):
-            return v.to(device=dev, dtype=torch.float32)
+            return v.to(device=dev, dtype=torch.float32).to(arith)
         if isinstance(v, (tuple, list, np.ndarray)):
-            return torch.tensor(np.asarray(v, np.float32), device=dev)
+            return torch.tensor(np.asarray(v, np.float32),
+                                device=dev).to(arith)
         return None
 
     if ms_weights is not None:
@@ -419,11 +486,16 @@ def decode_roll(
             raise ValueError("ms_weights require method='min-sum'")
         alpha, beta = ms_weights["alpha"], ms_weights["beta"]
     ms_a, ms_b = per_iteration(alpha), per_iteration(beta)
+    if bf16:  # JAX casts a Python α/β to the decode's type
+        alpha = alpha if ms_a is not None else _as_bf16(alpha)
+        beta = beta if ms_b is not None else _as_bf16(beta)
     if (ms_a is not None or ms_b is not None) and method != "min-sum":
         raise ValueError("per-iteration alpha/beta require min-sum")
     wt = None
     if weights is not None:
         wt = pack_edge_weights(weights, qc, iterations, dev)
+        if bf16:
+            wt = EdgeTables(msg=wt.msg.to(arith), llr=wt.llr.to(arith))
     for arr, name in ((ms_a, "alpha"), (ms_b, "beta")):
         if arr is not None and arr.shape != (iterations,):
             raise ValueError(
@@ -434,7 +506,7 @@ def decode_roll(
     if qstep is not None:
         # a tensor on the device: dividing a CUDA tensor by a Python
         # scalar multiplies by its reciprocal instead
-        qstep = torch.tensor(qstep, dtype=torch.float32, device=dev)
+        qstep = torch.tensor(qstep, dtype=torch.float32, device=dev).to(arith)
     dtype = storage_dtype(dtype)
     st_msg, st_post = message_storage(dtype, msg_qclip, dev)
 
@@ -443,8 +515,10 @@ def decode_roll(
             a = alpha if ms_a is None else ms_a[it]
             b = beta if ms_b is None else ms_b[it]
             y = _minsum_excl(x, a, b)
+        elif method == "sum-product":
+            y = _sumproduct_excl(x, serial=not bf16)
         else:
-            y = _sumproduct_excl(x)
+            y = _ref_excl(torch.tanh(x * 0.5))
         if clamp is not None:
             y = torch.clamp(y, -clamp, clamp)
         if qstep is not None:
@@ -476,8 +550,9 @@ def decode_roll(
 
     def posterior(L: list, c2v: list) -> torch.Tensor:
         if schedule == "layered":
-            return torch.stack(L, 1)
-        return torch.stack(rebuild(L, c2v, iterations), 1)  # (b, nb, z)
+            return torch.stack(L, 1).float()
+        # (b, nb, z)
+        return torch.stack(rebuild(L, c2v, iterations), 1).float()
 
     def layer_group(L: list, c2v: list, rows: range, it: int) -> None:
         """The rows' check updates from the posterior L as it stands, then
@@ -508,6 +583,8 @@ def decode_roll(
             if wt is not None:  # re-base onto the next row of weights
                 L = rebuild(Lc, c2v, it + 1)
             return L, c2v
+        if bf16:
+            return L, jax_flooding(L, c2v, it)
         post = torch.stack(rebuild(L, c2v, it), 1)
         new: list = [None] * P
         for i in range(mb):
@@ -523,15 +600,35 @@ def decode_roll(
                 new[p] = y[k]
         return L, new
 
+    def jax_flooding(Lc: list, c2v: list, it: int) -> list:
+        """JAX's roll flooding iteration: per variable block the v2c are
+        total − x with total = (wl ⊙) LLR + Σ x, x the (weighted) c2v in
+        variable orientation, the sum one reduction."""
+        v2c: list = [None] * P
+        for j in range(nb):
+            ps = group_v[j]
+            x = torch.stack([torch.roll(wmsg(it, p, c2v[p]), planes[p][2],
+                                        -1) for p in ps])
+            lv = Lc[j] if wt is None else wt.llr[it, j] * Lc[j]
+            total = lv + x.sum(0)
+            for k, p in enumerate(ps):
+                v2c[p] = torch.roll(total - x[k], -planes[p][2], -1)
+        new: list = [None] * P
+        for i in range(mb):
+            ps = group_c[i]
+            y = excl_update(torch.stack([v2c[p] for p in ps]), it)
+            for k, p in enumerate(ps):
+                new[p] = y[k]
+        return new
+
     # internal convention log(Pr0/Pr1), variable-block layout (B, nb, z)
-    Lv = st_post((-llr).to(torch.float32)).reshape(B, nb, z)
+    Lv = st_post((-llr).to(torch.float32)).to(arith).reshape(B, nb, z)
     idx = torch.arange(B, device=dev)
     if done_in is not None:
         done_in = done_in.to(device=dev, dtype=torch.bool).reshape(B)
         idx = idx[~done_in]
     Lc = [Lv[idx, j] for j in range(nb)]  # the channel's planes
-    c2v = [torch.zeros((idx.numel(), z), dtype=torch.float32,
-                       device=dev)] * P
+    c2v = [torch.zeros((idx.numel(), z), dtype=arith, device=dev)] * P
     # layered with weights starts from the posterior of the zero messages
     L = rebuild(Lc, c2v, 0) if wt is not None and schedule == "layered" \
         else Lc

@@ -357,7 +357,8 @@ def test_cuda_request_without_card_raises():
 
 
 def test_cli_sweep_on_cpu(tmp_path, capsys):
-    cli_main(["sweep", "--code", "wifi648", "--iters", "3", "--batch", "16",
+    cli_main(["sweep", "--code", "wifi648", "--method", "min-sum",
+              "--clamp", "0", "--iters", "3", "--batch", "16",
               "--snr", "2.0", "--max-bits", "1000", "--device", "cpu",
               "--out", str(tmp_path), "--bp-alpha", "0.8,0.8,0.9"])
     printed = capsys.readouterr().out
@@ -476,7 +477,7 @@ def test_cli_quantization_flags(tmp_path, monkeypatch):
     """The message and ADC quantization flags reach the link (the sweep is
     cut to one point of 32 codewords)."""
     calls = cut_sweeps(monkeypatch, 6.0)
-    cli_main(["sweep", "--code", "wifi648", "--iters", "4",
+    cli_main(["sweep", "--code", "wifi648", "--iters", "4", "--clamp", "0",
               "--snr", "6.0", "--device", "cpu",
               "--out", str(tmp_path), "--method", "sum-product",
               "--msg-qbits", "4", "--qbits", "3", "--clipdb", "3",
@@ -493,17 +494,30 @@ def test_cli_quantization_flags(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("preset, match", [
-    ("small-cpu", "ROADMAP A4"),
-    ("reference", "ROADMAP A4"),
+    ("small-cpu", "peg128_64"),
+    ("reference", "ref6432"),
 ])
-def test_cli_unported_presets_raise(tmp_path, preset, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_main(["sweep", "--preset", preset, "--device", "cpu",
-                  "--out", str(tmp_path)])
+def test_cli_unported_presets_raise(tmp_path, monkeypatch, preset, match):
+    """The two presets of non-QC codes, which raised until the gather
+    backend was ported, run their configurations (cut to one point of 32
+    codewords) and decode below the uncoded BER."""
+    calls = cut_sweeps(monkeypatch, 6.0)
+    cli_main(["sweep", "--preset", preset, "--device", "cpu",
+              "--out", str(tmp_path)])
+    (name, link, sweep), = calls
+    p = PRESETS[preset]
+    assert name.startswith(match) and link == LinkConfig(**p["link"])
+    assert sweep == SweepConfig(**p["sweep"])
+    curves = [f for f in os.listdir(tmp_path) if f.endswith("_curves.json")]
+    with open(tmp_path / curves[0]) as f:
+        rec = json.load(f)
+    assert rec["preset"] == preset and rec["snrdb"] == [6.0]
+    assert rec["coded_ber"][0] < rec["uncoded_ber"][0]
 
 
 def test_cli_early_stop_flags(tmp_path):
-    cli_main(["sweep", "--code", "wifi648", "--iters", "4", "--batch", "32",
+    cli_main(["sweep", "--code", "wifi648", "--method", "min-sum",
+              "--clamp", "0", "--iters", "4", "--batch", "32",
               "--snr", "3.0", "--max-bits", "1000", "--device", "cpu",
               "--out", str(tmp_path), "--schedule", "layered",
               "--early-stop", "--es-mode", "probe", "--es-probe-iters", "2",

@@ -127,19 +127,21 @@ def test_freeze_minsum_weights():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(method="sum-product-ref"), "ROADMAP A4"),
+    # a bare TannerGraph (JAX takes one) is A4
+    (dict(graph=True), "ROADMAP A4"),
     # the kernels carry no gradient: training through them is A10
     (dict(weights={"ms_alpha": torch.ones(4, requires_grad=True)},
           backend="cuda"), "ROADMAP A10"),
     (dict(weights={"w_pair": np.ones(4)}), "ROADMAP A4"),
-    # JAX's roll backend computes bf16 in bf16 arithmetic (the kernels'
-    # bf16 storage is ported: tests/test_torch_msg_dtype.py)
-    (dict(dtype=torch.bfloat16, backend="roll"), "ROADMAP A4"),
+    # the pair flavor is the gather backend's in JAX, not yet the port's
+    (dict(weights={"w_pair": np.ones(4)}, backend="gather"), "ROADMAP A4"),
     (dict(backend="dense"), "ROADMAP A4"),
 ])
 def test_unported_features_raise(kw, match):
     code = get_code("wifi648")
     llr = torch.zeros((2, code.n))
+    if kw.pop("graph", False):
+        code = code.graph
     with pytest.raises(NotImplementedError, match=match):
         bp_decode(llr, code, iterations=4, **kw)
 
@@ -208,9 +210,16 @@ def test_early_stop_and_hard_iters_decode(kw):
 
 
 def test_non_qc_code_not_ported():
+    """A non-QC code decodes on the gather backend (tests/
+    test_torch_gather.py holds it to JAX); its bare TannerGraph is not
+    ported (ROADMAP A4), nor a layered schedule, which JAX refuses."""
     code = get_code("ref6432")
+    bits = bp_decode(torch.full((2, code.n), -4.0), code, iterations=3)
+    assert bits.dtype == torch.int8 and not bits.any()
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        bp_decode(torch.zeros((2, code.n)), code, iterations=3)
+        bp_decode(torch.zeros((2, code.n)), code.graph, iterations=3)
+    with pytest.raises(ValueError, match="quasi-cyclic"):
+        bp_decode(torch.zeros((2, code.n)), code, schedule="layered")
 
 
 @pytest.mark.parametrize("kw, match", [

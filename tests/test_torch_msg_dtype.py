@@ -54,8 +54,9 @@ def test_storage_matches_pallas_interpret(dtype, schedule):
     ref = np.array(bp_qc_pallas(
         jnp.asarray(llr), jax_get_code(NAME).qc, method="min-sum",
         dtype=JAX_DTYPES[dtype], interpret=True, output="posterior", **kw))
+    # the kernels' storage (their plain version on a CPU tensor)
     ours = bp_decode(torch.from_numpy(llr), get_code(NAME), dtype=dtype,
-                     output="posterior", **kw)
+                     output="posterior", backend="cuda", **kw)
     if dtype == torch.int8:
         np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(ours.numpy() > 0, ref > 0)
@@ -81,7 +82,7 @@ def test_bf16_early_stop_matches_pallas_interpret():
         jnp.asarray(llr), jax_get_code(NAME).qc, method="min-sum",
         dtype=jnp.bfloat16, interpret=True, **kw)
     bits, iters = bp_decode(torch.from_numpy(llr), get_code(NAME),
-                            dtype=torch.bfloat16, **kw)
+                            dtype=torch.bfloat16, backend="cuda", **kw)
     np.testing.assert_array_equal(iters.numpy(), np.array(jiters))
     assert 0 < int((iters < 4).sum()) < 128
     done = np.array(jiters) < 4
@@ -155,21 +156,28 @@ def test_float32_unchanged(kw):
 
 
 def test_dispatch_rules():
-    """bf16 and int8 take the kernels' module (auto resolves to cuda, the
-    plain version on a CPU tensor); roll raises for both: bf16 naming A4,
-    int8 with JAX's ValueError; other types raise."""
+    """bf16 and int8 take the kernels' module on a CUDA tensor and with
+    ``backend='cuda'`` (the plain version on a CPU tensor); on a CPU tensor
+    ``auto`` sends bf16 to the roll backend, which computes in bf16 as
+    JAX's does, and raises for int8 with JAX's ValueError; other types
+    raise."""
     code = get_code(NAME)
     llr = torch.from_numpy(channel_llrs(4, seed=6))
     for dt in (torch.bfloat16, torch.int8):
-        auto = bp_decode(llr, code, iterations=2, dtype=dt,
-                         output="posterior")
         cuda = bp_decode(llr, code, iterations=2, dtype=dt,
                          output="posterior", backend="cuda")
-        assert torch.equal(auto, cuda)
-        assert torch.equal(auto, decode_roll(llr, code.qc, iterations=2,
+        assert torch.equal(cuda, decode_roll(llr, code.qc, iterations=2,
                                              dtype=dt, output="posterior"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        bp_decode(llr, code, dtype=torch.bfloat16, backend="roll")
+    auto = bp_decode(llr, code, iterations=2, dtype=torch.bfloat16,
+                     output="posterior")
+    roll = bp_decode(llr, code, iterations=2, dtype=torch.bfloat16,
+                     output="posterior", backend="roll")
+    assert torch.equal(auto, roll)
+    assert torch.equal(auto, decode_roll(llr, code.qc, iterations=2,
+                                         arith=torch.bfloat16,
+                                         output="posterior"))
+    with pytest.raises(ValueError, match="int8 message storage"):
+        bp_decode(llr, code, dtype=torch.int8)
     with pytest.raises(ValueError, match="int8 message storage"):
         bp_decode(llr, code, dtype=torch.int8, backend="roll")
     with pytest.raises(ValueError, match="storage dtype"):
@@ -204,37 +212,61 @@ def test_threads_validation(threads, match):
 
 
 def test_auto_diverges_from_jax_cpu_auto():
-    """ROADMAP §C: JAX's CPU ``auto`` sends bf16 to its roll backend (bf16
-    arithmetic) and raises for int8; the port's sends both to the kernels'
-    module, whose plain version runs on the CPU."""
+    """JAX's CPU ``auto`` and the port's agree (ROADMAP §C, settled): bf16
+    goes to the roll backend in bf16 arithmetic on both, posteriors within
+    one bf16 ulp (equal on this input), and int8 raises ValueError on
+    both."""
     llr = channel_llrs(8, seed=7)
     jcode = jax_get_code(NAME)
     with pytest.raises(ValueError, match="int8"):
         jax_bp_decode(jnp.asarray(llr), jcode, iterations=2,
                       method="min-sum", dtype=jnp.int8)
+    with pytest.raises(ValueError, match="int8"):
+        bp_decode(torch.from_numpy(llr), get_code(NAME), iterations=2,
+                  dtype=torch.int8)
     jref = np.array(jax_bp_decode(jnp.asarray(llr), jcode, iterations=2,
                                   method="min-sum", dtype=jnp.bfloat16,
                                   output="posterior"), np.float32)
     ours = bp_decode(torch.from_numpy(llr), get_code(NAME), iterations=2,
                      dtype=torch.bfloat16, output="posterior").numpy()
-    assert not np.allclose(ours, jref, rtol=2.0**-7, atol=0)
-    bp_decode(torch.from_numpy(llr), get_code(NAME), iterations=2,
-              dtype=torch.int8)
+    np.testing.assert_allclose(ours, jref, rtol=2.0**-7, atol=0)
 
 
 def test_smem_bytes_per_storage_type():
     """Each region sized by its type on a 16-byte boundary; the 5G-class
-    codes' bf16 and int8 halve their f32 footprint or better."""
+    codes' bf16 and int8 halve their f32 footprint or better. Sum-product
+    (and flooding, and the group-serial forms) keep the full messages;
+    serial-C min-sum keeps the compressed check state: two stored
+    magnitudes and a 2-byte word a check."""
+    sp = dict(method="sum-product", schedule="layered")
+    ms = dict(method="min-sum", schedule="layered")
     qc = get_code("wifi1944").qc  # plan 296 ints, P·z = 6966, n = 1944
-    assert mq.smem_bytes(qc, 1, torch.bfloat16) == 1184 + 13936 + 3888
-    assert mq.smem_bytes(qc, 1, torch.int8) == 1184 + 6976 + 7776
+    assert mq.smem_bytes(qc, 1, torch.bfloat16, **sp) == 1184 + 13936 + 3888
+    assert mq.smem_bytes(qc, 1, torch.int8, **sp) == 1184 + 6976 + 7776
+    # 972 checks: magnitudes 8, 4 or 2 B, words 1944 B (1952 aligned)
+    assert mq.smem_bytes(qc, 1, **ms) == 1184 + 7776 + 1952 + 7776
+    assert mq.smem_bytes(qc, 1, torch.bfloat16, **ms) == (1184 + 3888
+                                                          + 1952 + 3888)
+    assert mq.smem_bytes(qc, 1, torch.int8, **ms) == (1184 + 1952 + 1952
+                                                      + 7776)
     big = get_code("qc12288_r12").qc
-    assert mq.smem_bytes(big) == 174_976
-    assert mq.smem_bytes(big, 1, torch.bfloat16) == 87_936
-    assert mq.smem_bytes(big, 1, torch.int8) == 81_280
+    assert mq.smem_bytes(big, **sp) == 174_976
+    assert mq.smem_bytes(big, 1, torch.bfloat16, **sp) == 87_936
+    assert mq.smem_bytes(big, 1, torch.int8, **sp) == 81_280
+    # two f32 CTAs an SM (115,712 B each with the 1 KB a CTA reserves)
+    assert mq.smem_bytes(big, **ms) == 111_488
+    assert mq.smem_bytes(big, 1, torch.bfloat16, **ms) == 62_336
+    assert mq.smem_bytes(big, 1, torch.int8, **ms) == 74_624
+    # qc8448: three f32 CTAs an SM (76,800 B each)
+    assert mq.smem_bytes(get_code("qc8448_r12").qc, **ms) == 75_968
     # G = 5 does not fit at f32 but does at bf16
-    assert mq.smem_bytes(big, 5) > mq._SMEM_LIMIT
-    assert mq.smem_bytes(big, 5, torch.bfloat16) <= mq._SMEM_LIMIT
+    assert mq.smem_bytes(big, 5, **ms) > mq._SMEM_LIMIT
+    assert mq.smem_bytes(big, 5, torch.bfloat16, **ms) <= mq._SMEM_LIMIT
+    # the compressed state's limits: rows of degree 8 take it, 9 not
+    assert mq.compressed_state(get_code("wifi648").qc)
+    assert not mq.compressed_state(get_code("qc1944_r23").qc)
+    assert mq.smem_bytes(get_code("qc1944_r23").qc, **ms) == mq.smem_bytes(
+        get_code("qc1944_r23").qc, **sp)
 
 
 def test_bigcode_and_tuner_need_a_card(monkeypatch, capsys):

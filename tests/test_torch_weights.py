@@ -313,7 +313,8 @@ def curves(tmp_path):
 
 def test_cli_weights_ckpt(tmp_path, monkeypatch):
     calls = cut_sweeps(monkeypatch)
-    cli_main(["sweep", "--schedule", "layered", "--iters", "6",
+    cli_main(["sweep", "--code", "wifi1944", "--method", "min-sum",
+              "--clamp", "0", "--schedule", "layered", "--iters", "6",
               "--weights-ckpt", K6, "--device", "cpu", "--out",
               str(tmp_path)])
     (link, weights), = calls
@@ -326,7 +327,8 @@ def test_cli_weights_ckpt(tmp_path, monkeypatch):
 
 def test_cli_schedule_ckpt_and_layered_group(tmp_path, monkeypatch):
     calls = cut_sweeps(monkeypatch)
-    cli_main(["sweep", "--schedule", "layered", "--iters", "5",
+    cli_main(["sweep", "--code", "wifi1944", "--method", "min-sum",
+              "--clamp", "0", "--schedule", "layered", "--iters", "5",
               "--schedule-ckpt", K5, "--layered-group", "4",
               "--device", "cpu", "--out", str(tmp_path)])
     (link, weights), = calls
@@ -349,15 +351,17 @@ def test_cli_schedule_ckpt_rejections(tmp_path, monkeypatch):
     # JAX's behaviour: the same ms arrays frozen and in the weights raise
     with pytest.raises(ValueError, match="pass tuple alpha/beta OR "
                                          "ms_alpha/ms_beta weights"):
-        cli_main(["sweep", "--schedule", "layered", "--iters", "5",
+        cli_main(["sweep", "--code", "wifi1944", "--method", "min-sum",
+                  "--clamp", "0", "--schedule", "layered", "--iters", "5",
                   "--schedule-ckpt", K5, "--weights-ckpt", K5,
                   "--device", "cpu", "--out", str(tmp_path)])
 
 
 def test_cli_defaults_diverge_from_jax_on_six_flags():
-    """The port's sweep defaults to the main path, the JAX CLI's to the
-    reference chain (ref6432, sum-product-ref, ROADMAP A4): exactly six
-    shared flags differ (ROADMAP §C). The new flags take JAX's defaults."""
+    """Every flag the two sweeps share defaults as the JAX CLI's does (the
+    six that differed until the gather backend and sum-product-ref were
+    ported, ROADMAP §C, included): the reference chain, ref6432 with
+    sum-product-ref-3 and clamp 20."""
     from ldpc_sims_tpu.cli.main import build_parser as jax_build_parser
     from ldpc_sims_tpu_torch.cli.main import build_parser
 
@@ -367,7 +371,8 @@ def test_cli_defaults_diverge_from_jax_on_six_flags():
     shared -= {"cmd"}
     differ = {"--" + k.replace("_", "-") for k in shared
               if ours[k] != theirs[k]}
-    assert differ == {"--code", "--iters", "--method", "--clamp", "--snr",
-                      "--batch"}
-    for k in ("weights_ckpt", "schedule_ckpt", "layered_group"):
+    assert differ == set()
+    for k in ("code", "iters", "method", "clamp", "snr", "batch",
+              "weights_ckpt", "schedule_ckpt", "layered_group"):
         assert k in shared and ours[k] == theirs[k]
+    assert (ours["code"], ours["method"]) == ("ref6432", "sum-product-ref")
