@@ -45,7 +45,10 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    and both drivers at f32, bf16 and int8 and G = 1 and 4 on integer
    LLRs in {-3, ..., 3} (tied minima, zero magnitudes, an offset above
    the minimum: the inputs a compressed check state could get wrong) on
-   wifi1944, wifi648 and qc1944_r23, each exactly equal;
+   wifi1944, wifi648 and qc1944_r23, and every min-sum flooding form
+   (the same forms, no drivers) at the three types on wifi1944, wifi648,
+   qc8448_r12 (the compressed state) and qc1944_r23 (full messages), each
+   exactly equal;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -53,7 +56,10 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    layered-20 with ``early_stop`` and ``es_mode='auto'`` at 2.5 and 3.5
    dB (the mode chosen per point and both calibration times, a profile of
    one step in each mode); ``es_mode='probe'`` and ``'requeue'`` alone at
-   3.5 dB; flooding-20 with ``es_mode='freeze'`` at 2.0 dB. Checks the
+   3.5 dB; flooding-20 with ``es_mode='freeze'`` at 2.0 dB; flooding-20 on
+   the channel of ``docs/artifacts/20260820_minsum_trained.json`` (BPSK,
+   all-zero codewords, info bits counted, 8 × 32768 a point), its BER at
+   1.5 and 2.0 dB held within 4σ of the artifact's. Checks the
    error rates (uncoded BER against the QPSK formula, coded below
    uncoded, BLER falling with SNR), prints BER/BLER and steady-state
    decoded info bits/s, and checks on one shared batch at 3.0 dB, where
@@ -115,11 +121,16 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    16384 on qc12288 ``minsum_qc_layered@qc12288`` at f32, bf16 and int8
    and ``minsum_qc_flooding@qc12288`` (flooding-20 f32), the storage rows
    bound with the conversion instructions counted in the SASS of probes of
-   the source's load and store helpers; the min-sum layered rows print
-   the full-message design's recorded times beside theirs, and the SASS
-   loops of both
-   serial-C min-sum designs give their shared-memory instructions an
-   edge; and one short sweep of the launch tuner (``kernels/tune.py``).
+   the source's load and store helpers; the min-sum flooding forms that
+   no main path launches (flooding-20 at bf16 and int8, with its count,
+   its ``done_in`` pass), each equal to the plain version, printed with
+   their bounds; the min-sum rows print the
+   full-message designs' recorded times beside theirs, and the SASS loops
+   of both min-sum designs, serial-C and flooding, give their
+   shared-memory instructions an edge; and one short sweep of the launch
+   tuner (``kernels/tune.py``). Each row of the ``kernels`` line names the
+   CUDA entry point its launches ran (``entry``; ``_cs`` on the compressed
+   check state).
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -217,6 +228,12 @@ G4_ROW = "minsum_qc_layered@g4"
 K6_NPZ = os.path.join(ROOT, "docs", "artifacts", "edge_layered_1944_K6.npz")
 K6_BER = {1.75: 0.002604267439898561, 2.25: 9.040017218509392e-05}
 K6_PLAIN_BER = {1.75: 0.02259009181622346, 2.25: 0.0006125619904257206}
+# flooding-20's info-bit BER in docs/artifacts/20260820_minsum_trained.json
+# (examples/train_minsum_1944.py:63-114: all-zero codewords, BPSK r = 1 +
+# σ·n with σ = snr^-½, llr = −2r/σ², the first k bits counted) and the info
+# bits of each of its points
+FLOODING20_BER = {1.5: 0.04572371393343248, 2.0: 0.0011993047647642042}
+FLOODING20_BITS = 987365376
 # the bigcode artifact's BER (docs/artifacts/20260821-121129_bigcode.json:
 # 8 x 16384 all-zero codewords per point, every bit counted)
 BIGCODE_BER = {
@@ -229,11 +246,15 @@ BIGCODE_BER = {
 # sum-product-ref-3, clamp 20): coded BER at the points the no-flag sweep
 # runs
 TABLE_A = {0.0: 7.271e-2, 3.0: 1.142e-2, 6.0: 3.419e-4}
-# the times of the min-sum layered kernel's rows with full messages, the
-# design before the compressed check state (PERF.md §6, this script on an
-# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's; `python -m
+# the times of the min-sum kernels' rows with full messages, the designs
+# before the compressed check state (PERF.md §6, this script on an NVIDIA
+# H100 80GB HBM3 at 700 W: the layered rows of PR 6, the flooding rows of
+# PR 7), printed beside this run's; `python -m
 # ldpc_sims_tpu_torch.kernels.compare` times both designs in one call
 FULL_MESSAGE_MS = {
+    "minsum_qc_flooding": 15.898, "minsum_qc_flooding_es": 8.458,
+    "minsum_qc_flooding@msgq4": 18.520, "minsum_qc_flooding_w": 13.618,
+    "minsum_qc_flooding@qc12288": 41.132,
     "minsum_qc_layered": 5.989, "minsum_qc_layered@es_auto": 3.743,
     "minsum_qc_layered@qc12288": 17.039, "minsum_qc_layered_es": 4.995,
     "minsum_qc_layered_w": 11.864, "minsum_qc_layered@g4": 25.215,
@@ -371,12 +392,13 @@ def edge_instruction_counts() -> dict:
 
 
 def smem_instructions(lib) -> dict:
-    """The shared-memory instructions of the f32 serial-C min-sum kernels
-    in the built library's SASS: for the full-message design
-    (``minsum_qc_layered``, which the codes beyond the compressed state's
-    limits keep) and the compressed one (``minsum_qc_layered_cs``), each
-    innermost loop (a backward branch that holds no other) as
-    (instructions, LDS, STS)."""
+    """The shared-memory instructions of the f32 min-sum kernels in the
+    built library's SASS, serial-C and flooding: for the full-message
+    designs (``minsum_qc_layered``, ``minsum_qc_flooding``, which the codes
+    beyond the compressed state's limits keep) and the compressed ones
+    (``minsum_qc_layered_cs``, ``minsum_qc_flooding_cs``), each innermost
+    loop (a backward branch that holds no other) as (instructions, LDS,
+    STS)."""
     import re
     import shutil
 
@@ -387,8 +409,10 @@ def smem_instructions(lib) -> dict:
     found = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split()[0]
-        key = {"_Z17minsum_qc_layeredPKf": "full-message",
-               "_Z20minsum_qc_layered_csPKf": "compressed"}.get(
+        key = {"_Z17minsum_qc_layeredPKf": "serial-C full-message",
+               "_Z20minsum_qc_layered_csPKf": "serial-C compressed",
+               "_Z18minsum_qc_floodingPKf": "flooding full-message",
+               "_Z21minsum_qc_flooding_csPKf": "flooding compressed"}.get(
                    name[:name.index("PKf") + 3] if "PKf" in name else "")
         if key is None:
             continue
@@ -414,22 +438,23 @@ def smem_instructions(lib) -> dict:
     return found
 
 
-def adversarial(codes, storage_rows, max_err) -> None:
+def adversarial(schedule, codes, storage_rows, max_err) -> None:
     """Integer LLRs in {-3, ..., 3}: tied minima, zero magnitudes and an
     offset above the minimum are common, the cases a compressed check state
-    could get wrong. Every min-sum layered form (fixed with the
+    could get wrong. Every min-sum form of ``schedule`` (fixed with the
     unsatisfied-check count, early stop at K = 1 and 2, ``done_in``,
-    weighted; with and without 3-bit messages) at each storage type and
-    G = 1 and 4, and both drivers, each exactly equal to the plain version
-    (equal values: an int8 message that rounds to zero is +0 in the kernels
-    and may be -0 in the plain version, which no comparison or sum can
-    tell apart)."""
+    weighted; with and without 3-bit messages) at each storage type (and,
+    layered, G = 1 and 4, with both drivers), each exactly equal to the
+    plain version (equal values: an int8 message that rounds to zero is +0
+    in the kernels and may be -0 in the plain version, which no comparison
+    or sum can tell apart)."""
     import torch
 
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
     from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll
 
     B = 1024
+    layered = schedule == "layered"
     for code in codes:
         qc = code.qc
         gen = torch.Generator(device="cuda")
@@ -438,12 +463,15 @@ def adversarial(codes, storage_rows, max_err) -> None:
                             device="cuda").float()
         skip = torch.arange(B, device="cuda") % 3 == 0
         w = random_edge_weights(code, 4, seed=72)
+        state = ("compressed state" if mq.compressed_state(qc, "min-sum",
+                                                           schedule)
+                 else "full messages")
         for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
-            for G in (1, 4):
-                st = dict(schedule="layered", dtype=dt, msg_qclip=4.0,
+            for G in ((1, 4) if layered else (1,)):
+                st = dict(schedule=schedule, dtype=dt, msg_qclip=4.0,
                           layered_group=G)
                 for qb in (None, 3):
-                    at = f"{code.name} {sfx} G={G} msg_qbits={qb}"
+                    at = f"{code.name} {schedule} {sfx} G={G} msg_qbits={qb}"
                     kw = dict(st, msg_qbits=qb, iterations=4,
                               alpha=(1.0, 0.75, 0.5, 1.0),
                               beta=(0.0, 1.0, 2.5, 0.5), clamp=2.0)
@@ -453,14 +481,14 @@ def adversarial(codes, storage_rows, max_err) -> None:
                         p = decode_roll(llr, qc, output=out, **kw)
                         pairs += (list(zip(k, p)) if isinstance(k, tuple)
                                   else [(k, p)])
-                    name = mq.kernel_name("min-sum", "layered", False,
+                    name = mq.kernel_name("min-sum", schedule, False,
                                           qb is not None, dtype=dt)
                     max_err[name] = max(max_err[name],
                                         exact(pairs, f"{at} fixed"))
                     for K in (1, 2):
                         es = dict(kw, early_stop=True, es_check_every=K,
                                   output="hard_iters")
-                        name = mq.kernel_name("min-sum", "layered", True,
+                        name = mq.kernel_name("min-sum", schedule, True,
                                               qb is not None, dtype=dt)
                         max_err[name] = max(max_err[name], exact(
                             list(zip(mq.bp_qc_cuda(llr, qc, **es),
@@ -472,11 +500,17 @@ def adversarial(codes, storage_rows, max_err) -> None:
                                     done_in=skip, **kw)
                     exact([(k[~skip], p[~skip])], f"{at} done_in")
                     kw_w = dict(kw, weights=w, output="posterior")
-                    name = mq.kernel_name("min-sum", "layered", False,
+                    name = mq.kernel_name("min-sum", schedule, False,
                                           qb is not None, True, dt)
                     max_err[name] = max(max_err[name], exact(
                         [(mq.bp_qc_cuda(llr, qc, **kw_w),
                           decode_roll(llr, qc, **kw_w))], f"{at} weighted"))
+                if not layered:
+                    print(f"  {code.name} flooding {sfx} ({state}): fixed, "
+                          "unsatisfied counts, early stop, done_in, weighted "
+                          "(each with and without 3-bit messages) equal",
+                          flush=True)
+                    continue
                 # both drivers, against plain compositions of their passes
                 rb, ri = mq.bp_qc_requeue(llr, qc, 6, probe_iters=2,
                                           es_check_every=1,
@@ -498,10 +532,10 @@ def adversarial(codes, storage_rows, max_err) -> None:
                 exact([(pb_, torch.where(keep[:, None], b1, b2)),
                        (pi_, torch.where(keep, 2, 8).to(torch.int32))],
                       f"{code.name} {sfx} G={G} bp_qc_probe_requeue")
-                print(f"  {code.name} {sfx} G={G}: fixed, unsatisfied "
-                      "counts, early stop, done_in, weighted (each with "
-                      "and without 3-bit messages) and both drivers equal",
-                      flush=True)
+                print(f"  {code.name} {sfx} G={G} ({state}): fixed, "
+                      "unsatisfied counts, early stop, done_in, weighted "
+                      "(each with and without 3-bit messages) and both "
+                      "drivers equal", flush=True)
 
 
 def external_unsat(bits, code):
@@ -573,6 +607,30 @@ def artifact_ber(code, snrdb: float, batches: int, batch: int, seed: int,
         errs += int(bits.sum(dtype=torch.int64))
         frames += int(bits.any(dim=1).sum())
     return errs / (batches * batch * code.n), frames
+
+
+def info_ber(code, snrdb: float, batches: int, batch: int, seed: int,
+             **kw):
+    """Info-bit BER and its standard error on the flooding artifact's
+    channel (examples/train_minsum_1944.py:63-114): all-zero codewords,
+    BPSK r = 1 + σ·n with σ = snr^-½, llr = −2r/σ², the first k bits of
+    each codeword counted; the error from the per-codeword counts."""
+    import torch
+
+    from ldpc_sims_tpu_torch.ops import bp_decode
+
+    sigma = (10.0 ** (snrdb / 10.0)) ** -0.5
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    errs = []
+    for _ in range(batches):
+        r = 1.0 + sigma * torch.randn((batch, code.n), generator=gen,
+                                      device="cuda")
+        bits = bp_decode(-2.0 * r / sigma**2, code, **kw)
+        errs.append(bits[:, :code.k].sum(1, dtype=torch.int64))
+    e = torch.cat(errs).double()
+    return (float(e.mean()) / code.k,
+            float(e.std()) / (e.numel() ** 0.5 * code.k))
 
 
 def uncoded_ber(modulation: str, snrdb: float) -> float:
@@ -1139,10 +1197,12 @@ def main() -> None:
               "shared memory a codeword): posterior equal", flush=True)
 
     # -- phase 2f: adversarial input for the compressed check state ------
-    print("== phase 2f: every serial-C and group-serial min-sum form on "
-          "integer LLRs vs plain versions", flush=True)
-    adversarial((w1944, w648, get_code("qc1944_r23")), storage_rows,
-                max_err)
+    print("== phase 2f: every serial-C, group-serial and flooding min-sum "
+          "form on integer LLRs vs plain versions", flush=True)
+    r23 = get_code("qc1944_r23")  # rows of degree 8-9: full messages
+    adversarial("layered", (w1944, w648, r23), storage_rows, max_err)
+    adversarial("flooding", (w1944, w648, get_code("qc8448_r12"), r23),
+                storage_rows, max_err)
 
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
@@ -1169,6 +1229,18 @@ def main() -> None:
         if not res.coded_bler[1] < res.coded_bler[0]:
             fail(f"{label}: BLER does not fall from 1.5 to 2.0 dB")
         profile_step(mc_step(w1944, cfg, batch, device="cuda"), label, card)
+    # flooding-20 on its artifact's channel, 8 x 32768 codewords a point:
+    # within 4σ, σ from this run's per-codeword counts and the artifact's
+    # (the same per-codeword spread over its 987,365,376 info bits)
+    for snrdb, ref in FLOODING20_BER.items():
+        ber, se = info_ber(w1944, snrdb, 8, batch, seed=43, iterations=20)
+        sig = se * math.sqrt(1 + 8 * batch * w1944.k / FLOODING20_BITS)
+        print(f"  flooding-20 on the artifact's channel @ {snrdb:g} dB: "
+              f"info-bit BER {ber!r} against {ref!r}, 4σ = {4 * sig!r} "
+              f"[{card}]", flush=True)
+        if not abs(ber - ref) <= 4 * sig:
+            fail(f"flooding-20 @ {snrdb:g} dB: BER {ber} not within 4σ of "
+                 f"the artifact's {ref}")
 
     # the early-stop path: es_mode='auto' chooses per point
     es_cfg = LinkConfig(bp_iterations=20, bp_method="min-sum", clamp=None,
@@ -1526,13 +1598,16 @@ def main() -> None:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
-    def row(name, ms, plain_ms, bnd):
+    def row(name, ms, plain_ms, bnd, entry):
         full = (f", full messages: {FULL_MESSAGE_MS[name]!r} ms"
                 if name in FULL_MESSAGE_MS else "")
-        print(f"  {name}: {ms!r} ms (plain {plain_ms!r} ms, bound "
+        print(f"  {name} ({entry}): {ms!r} ms (plain {plain_ms!r} ms, bound "
               f"{bnd[0]!r} ms, {bnd[1]}{full}) [{card}]", flush=True)
         return {
             "name": name,
+            # the CUDA entry point the row's launches run (name_cs: on the
+            # compressed check state)
+            "entry": entry,
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL,
@@ -1564,7 +1639,8 @@ def main() -> None:
             lambda: decode_roll(llr, w1944.qc, **kw), 3, warmup=1)
         # bytes: LLRs read once (f32), hard bits written once (int8)
         kernels.append(row(name, ms, plain_ms, bound(
-            batch * n * (4 + 1), batch * E * edge_ops(**kw))))
+            batch * n * (4 + 1), batch * E * edge_ops(**kw)),
+            mq.entry_point(w1944.qc, "min-sum", kw["schedule"])))
 
     # the early-stop kernels at 2.5 dB, bound by the iterations they ran
     for sched in ("flooding", "layered"):
@@ -1585,7 +1661,7 @@ def main() -> None:
         kernels.append(row(name, ms, plain_ms, bound(
             batch * (n * (4 + 1) + 4),
             ran * E * edge_ops(sched, 1) + checks * E * OPS_PER_EDGE_CHECK,
-        )))
+        ), mq.entry_point(w1944.qc, "min-sum", sched, True)))
 
     # the layered kernel's two launches in one es-auto probe chunk at 3.5
     # dB, where es auto chose probe: the hard_unsat probe-4 over the whole
@@ -1626,7 +1702,8 @@ def main() -> None:
           f"{d_ms!r} ms (plain {d_plain!r} ms, bound {b_ms!r} ms, {b_by}) "
           f"[{card}]", flush=True)
     kernels.append(row(ES_AUTO_ROW, p_ms + d_ms, p_plain + d_plain,
-                       bound(p_bytes + d_bytes, p_ops + d_ops)))
+                       bound(p_bytes + d_bytes, p_ops + d_ops),
+                       mq.entry_point(qc, "min-sum", "layered")))
 
     # the sum-product kernels (fixed at 1.5 dB, early stop at 2.5 dB) and
     # the 4-bit quantized flooding kernel at 1.5 dB, bound by the f32 and
@@ -1649,7 +1726,8 @@ def main() -> None:
             lambda: decode_roll(llr, w1944.qc, **kw), 2, warmup=1)
         per = SP_OPS_PER_EDGE_ITER[sched] + sp_f32
         kernels.append(row(name, ms, plain_ms, bound(
-            batch * n * 5, batch * 20 * E * per, batch * 20 * E * sp_mufu)))
+            batch * n * 5, batch * 20 * E * per, batch * 20 * E * sp_mufu),
+            mq.entry_point(w1944.qc, "sum-product", sched)))
     for sched in ("flooding", "layered"):
         name = mq.KERNELS["sum-product", sched, True, False]
         kw = dict(iterations=20, schedule=sched, early_stop=True,
@@ -1668,7 +1746,8 @@ def main() -> None:
         kernels.append(row(name, ms, plain_ms, bound(
             batch * (n * 5 + 4),
             ran * E * per + (batch + ran) * E * OPS_PER_EDGE_CHECK,
-            ran * E * sp_mufu)))
+            ran * E * sp_mufu),
+            mq.entry_point(w1944.qc, "sum-product", sched, True)))
     kw = dict(iterations=20, schedule="flooding", msg_qbits=4)
     max_err[MSGQ_ROW] = compare(
         mq.bp_qc_cuda(llr, w1944.qc, output="posterior", **kw),
@@ -1678,7 +1757,8 @@ def main() -> None:
     plain_ms = cuda_time_ms(lambda: decode_roll(llr, w1944.qc, **kw), 3, 1)
     kernels.append(row(MSGQ_ROW, ms, plain_ms, bound(
         batch * n * 5, batch * E * (edge_ops("flooding", 20) + 20 * q_f32),
-        batch * E * 20 * q_mufu)))
+        batch * E * 20 * q_mufu),
+        mq.entry_point(w1944.qc, "min-sum", "flooding", quantized=True)))
     # the weighted kernels and the group-serial layered kernel at 1.5 dB:
     # the K6 per-edge layered-6 decoder (its ms arrays as the α/β table),
     # flooding-12 with random per-edge weights, layered-20 with G = 4; the
@@ -1703,7 +1783,11 @@ def main() -> None:
             f"{name} at batch {batch}"))
         ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 20)
         plain_ms = cuda_time_ms(lambda: decode_roll(llr, qc, **kw), 3, 1)
-        kernels.append(row(name, ms, plain_ms, bound(nbytes, ops)))
+        kernels.append(row(name, ms, plain_ms, bound(nbytes, ops),
+                           mq.entry_point(
+                               qc, "min-sum", kw["schedule"],
+                               weighted="weights" in kw,
+                               layered_group=kw.get("layered_group", 1))))
     # the group-serial family: layered-20 at each group size
     for G in (1, 2, 3, 4, 6, 12):
         ms = cuda_time_ms(lambda: mq.bp_qc_cuda(
@@ -1792,7 +1876,8 @@ def main() -> None:
         launches[name] = sum(c[kname] for c in big_launch.values())
         per_step[name] = 1.0
         kernels.append(row(name, ms, plain_ms, bound(
-            io_bytes, batch * E * (edge_ops(**kw8) + 8 * conv_ops[dt]))))
+            io_bytes, batch * E * (edge_ops(**kw8) + 8 * conv_ops[dt])),
+            mq.entry_point(qc, "min-sum", "layered", dtype=dt)))
     bqc = big.qc
     E_big = len(qc_plan(bqc)[0]) * bqc.z
     gen = torch.Generator(device="cuda")
@@ -1822,24 +1907,73 @@ def main() -> None:
         ops = edge_ops(kw["schedule"], it) + it * conv_ops[
             kw.get("dtype", torch.float32)]
         kernels.append(row(name, ms, plain_ms, bound(
-            big_batch * big.n * 5, big_batch * E_big * ops)))
-    # the shared-memory instructions of serial-C min-sum, both designs:
-    # the full-message edge loops are unrolled by 4 (a pass-1 loop of 4
-    # loads an edge, a pass-2 loop of 4 loads and 2 stores an edge) beside
-    # 2 row_ptr loads a check; the compressed check body is unrolled over
-    # its 8 slots, d + 2 loads and d + 2 stores at degree d
+            big_batch * big.n * 5, big_batch * E_big * ops),
+            mq.entry_point(bqc, "min-sum", kw["schedule"],
+                           dtype=kw.get("dtype", torch.float32))))
+    # the min-sum flooding forms that no main path launches, printed with
+    # their bounds (no row: no main-path run launches them): flooding-20 on
+    # wifi1944 at bf16 and int8 (a flooding edge stores and lifts its v2c
+    # and its message each iteration), with its unsatisfied-check count, and
+    # over the codewords a flooding probe-4 leaves unsatisfied at 3.5 dB
+    fl = dict(iterations=20, schedule="flooding")
+    for dt, sfx in storage_rows.items():
+        k = "bf16" if dt == torch.bfloat16 else "i8"
+        kw = dict(fl, dtype=dt, msg_qclip=24.0)
+        exact([(mq.bp_qc_cuda(llr, qc, output="posterior", **kw),
+                decode_roll(llr, qc, output="posterior", **kw))],
+              f"flooding-20 {sfx} at batch {batch}")
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 20)
+        b_ms, b_by = bound(io_bytes, batch * E * (
+            edge_ops(**fl) + 20 * 2 * (cv[f"ld_{k}"] + cv[f"st_{k}"])))
+        print(f"  minsum_qc_flooding@{sfx} "
+              f"({mq.entry_point(qc, 'min-sum', 'flooding', dtype=dt)}): "
+              f"{ms!r} ms (bound {b_ms!r} ms, {b_by}) [{card}]", flush=True)
+    kb, ku = mq.bp_qc_cuda(llr, qc, output="hard_unsat", **fl)
+    pb, pu = decode_roll(llr, qc, output="hard_unsat", **fl)
+    exact([(kb, pb), (ku, pu)], f"flooding-20 hard_unsat at batch {batch}")
+    ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, output="hard_unsat",
+                                            **fl), 20)
+    b_ms, b_by = bound(io_bytes + batch * 4, batch * E * (
+        edge_ops(**fl) + OPS_PER_EDGE_CHECK))
+    print(f"  minsum_qc_flooding@hard_unsat: {ms!r} ms (bound {b_ms!r} ms, "
+          f"{b_by}) [{card}]", flush=True)
+    _, ku = mq.bp_qc_cuda(llr35, qc, iterations=4, output="hard_unsat")
+    done = ku == 0
+    todo = batch - int(done.sum())
+    exact([(mq.bp_qc_cuda(llr35, qc, done_in=done, **fl)[~done],
+            decode_roll(llr35, qc, done_in=done, **fl)[~done])],
+          f"flooding-20 done_in at batch {batch}")
+    ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr35, qc, done_in=done, **fl),
+                      20)
+    b_ms, b_by = bound(todo * n * 5 + batch * 4, todo * E * edge_ops(**fl))
+    print(f"  minsum_qc_flooding@done_in ({todo} of {batch} decoded after a "
+          f"flooding probe-4 at 3.5 dB): {ms!r} ms (bound {b_ms!r} ms, "
+          f"{b_by}) [{card}]", flush=True)
+    # the shared-memory instructions of min-sum, serial-C and flooding,
+    # both designs each. Serial-C: the full-message edge loops are unrolled
+    # by 4 (a pass-1 loop of 4 loads an edge, a pass-2 loop of 4 loads and 2
+    # stores an edge) beside 2 row_ptr loads a check; the compressed check
+    # body is unrolled over its 8 slots, d + 2 loads and d + 2 stores at
+    # degree d. Flooding: the full-message check loops load 4 an edge (pass
+    # 1) and 4 with 1 store (pass 2) beside 2 row_ptr loads a check, and the
+    # rebuild loads 3 an edge beside 2 col_ptr loads and a store a
+    # variable; the compressed check pass holds one body for each degree
+    # 1-8 in its loop (d + 2 loads and 2 stores at degree d: 52 and 16 in
+    # all), and the rebuild loop 2 loads an edge beside an LLR load and a
+    # posterior store a variable
     d_bar = len(qc_plan(w1944.qc)[0]) / w1944.qc.mb
+    v_bar = E / n  # edges a variable
     for design, loops in smem_instructions(lib).items():
-        print(f"  SASS innermost loops of the f32 serial-C min-sum kernel, "
-              f"{design} design (instructions, LDS, STS): {loops}",
-              flush=True)
+        print(f"  SASS innermost loops of the f32 min-sum kernel, {design} "
+              f"design (instructions, LDS, STS): {loops}", flush=True)
     cs_deg = mq.COMPRESSED_LIMITS[0]
     print(f"  shared-memory instructions an edge at wifi1944's mean row "
-          f"degree {d_bar:.3f}: full messages {4 + 6 + 2 / d_bar:.3f}, "
-          f"compressed {2 + 4 / d_bar:.3f} (from loops of 4 x (4 + 0) and "
-          f"4 x (4 + 2), and of {cs_deg + 2} + {cs_deg + 2} for {cs_deg} "
-          "slots)",
-          flush=True)
+          f"degree {d_bar:.3f} and {v_bar:.3f} edges a variable: serial-C "
+          f"full messages {4 + 6 + 2 / d_bar:.3f}, compressed "
+          f"{2 + 4 / d_bar:.3f} (from loops of 4 x (4 + 0) and 4 x (4 + 2), "
+          f"and of {cs_deg + 2} + {cs_deg + 2} for {cs_deg} slots); "
+          f"flooding full messages {4 + 5 + 2 / d_bar + 3 + 3 / v_bar:.3f}, "
+          f"compressed {1 + 4 / d_bar + 2 + 2 / v_bar:.3f}", flush=True)
     # one short sweep of the launch tuner
     from ldpc_sims_tpu_torch.kernels import tune
 

@@ -14,8 +14,10 @@ row. Prints the card, one JSON line per turn and a last JSON line
 a card.
 
 The rows are the kernels' shapes on the main path and the bigcode run:
-wifi1944 (QPSK/OFDM-32 channel LLRs) at batch 32768, qc12288_r12 at
-batch 16384 (LLRs ``N(0,1)·2 − 4``).
+wifi1944 (QPSK/OFDM-32 channel LLRs) at batch 32768, qc8448_r12 and
+qc12288_r12 at batch 16384 (LLRs ``N(0,1)·2 − 4``); each flooding form
+of min-sum at each storage type, the layered forms, the two drivers and
+the sum-product kernels.
 """
 
 from __future__ import annotations
@@ -104,6 +106,9 @@ def time_rows(root: str) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(61)
     xb = torch.randn((16384, big.n), generator=gen, device="cuda") * 2 - 4
+    q8448 = get_code("qc8448_r12")
+    x8448 = torch.randn((16384, q8448.n), generator=gen,
+                        device="cuda") * 2 - 4
 
     lay8 = dict(iterations=8, schedule="layered", alpha=a8, beta=b8)
     lay20 = dict(iterations=20, schedule="layered")
@@ -114,6 +119,12 @@ def time_rows(root: str) -> dict:
                            output="hard_unsat")
         cuda(llr[3.5], qc, done_in=unsat == 0, out=bits, **lay20)
         return bits
+
+    # the codewords a flooding probe-4 leaves unsatisfied at 3.5 dB
+    fl_bits, fl_unsat = cuda(llr[3.5], qc, iterations=4, output="hard_unsat")
+    fl_done = fl_unsat == 0
+    st = {"bf16": dict(dtype=torch.bfloat16, msg_qclip=24.0),
+          "int8": dict(dtype=torch.int8, msg_qclip=24.0)}
 
     rows = {
         # the min-sum layered kernel's forms
@@ -146,17 +157,33 @@ def time_rows(root: str) -> dict:
         **{f"bp_qc_probe_requeue@{s:g}": (lambda s=s: mq.bp_qc_probe_requeue(
             llr[s], qc, 20, probe_iters=4, output="hard_iters"))
            for s in (2.5, 3.0)},
-        # the forms this comparison holds unchanged
+        # the min-sum flooding kernel's forms
         "minsum_qc_flooding": lambda: cuda(llr[1.5], qc, iterations=20),
+        **{f"minsum_qc_flooding@{k}": (lambda kw=kw: cuda(
+            llr[1.5], qc, iterations=20, **kw)) for k, kw in st.items()},
+        "minsum_qc_flooding@hard_unsat": lambda: cuda(
+            llr[1.5], qc, iterations=20, output="hard_unsat"),
+        "minsum_qc_flooding@done_in": lambda: cuda(
+            llr[3.5], qc, iterations=20, done_in=fl_done, out=fl_bits),
         "minsum_qc_flooding_es": lambda: cuda(
             llr[2.5], qc, iterations=20, early_stop=True,
             output="hard_iters"),
+        "minsum_qc_flooding_es@msgq4": lambda: cuda(
+            llr[2.5], qc, iterations=20, early_stop=True,
+            output="hard_iters", msg_qbits=4),
         "minsum_qc_flooding@msgq4": lambda: cuda(llr[1.5], qc, iterations=20,
                                                  msg_qbits=4),
         "minsum_qc_flooding_w": lambda: cuda(llr[1.5], qc, iterations=12,
                                              weights=w12p),
+        "minsum_qc_flooding_w@msgq4": lambda: cuda(
+            llr[1.5], qc, iterations=12, weights=w12p, msg_qbits=4),
         "minsum_qc_flooding@qc12288": lambda: cuda(xb, big.qc,
                                                    iterations=20),
+        **{f"minsum_qc_flooding@qc12288-{k}": (lambda kw=kw: cuda(
+            xb, big.qc, iterations=20, **kw)) for k, kw in st.items()},
+        "minsum_qc_flooding@qc8448": lambda: cuda(x8448, q8448.qc,
+                                                  iterations=20),
+        # the forms this comparison holds unchanged
         "sumproduct_qc_flooding": lambda: cuda(
             llr[1.5], qc, iterations=20, method="sum-product"),
         "sumproduct_qc_layered": lambda: cuda(

@@ -50,9 +50,11 @@
 // {minsum,sumproduct}_qc_{flooding,layered}_w[_msgq] (weighted), 24 forms,
 // each for three storage types: f32 (no suffix), _bf16 and _i8, 72 in all.
 // The six serial-C min-sum forms (minsum_qc_layered[_es][_msgq],
-// minsum_qc_layered_w[_msgq]) have a second kernel each, name_cs, on the
-// compressed check state below; the launcher takes it for group 1 on a
-// code within its limits, under the same form.
+// minsum_qc_layered_w[_msgq]) and the six flooding min-sum forms
+// (minsum_qc_flooding[_es][_msgq], minsum_qc_flooding_w[_msgq]) have a
+// second kernel each, name_cs, on the compressed check state below (36 in
+// all); the launcher takes it, under the same form, for group 1 (layered)
+// on a code within the state's limits.
 //
 // Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
 // or 2; the three objects are built in parallel and linked into one
@@ -103,10 +105,12 @@
 // kernel's registers allow) stride over the group's checks, then over the
 // variables.
 //
-// Design. One CTA decodes one codeword. Its c2v messages (P planes of z
-// floats, 27,864 B at wifi1944) and its posterior (n floats, 7,776 B) stay
-// in shared memory for all iterations, so device memory sees the LLRs read
-// (once per iteration for flooding, through L2) and the output written
+// Design. One CTA decodes one codeword. Its check state (the c2v messages,
+// P planes of z floats, 27,864 B at wifi1944, or the compressed state
+// below) and its posterior (n floats, 7,776 B) stay in shared memory for
+// all iterations, so device memory sees the LLRs read (the full-message
+// flooding forms read them again each iteration, through L2; the
+// compressed ones keep them in shared memory) and the output written
 // once. The public (batch, n) layout is kept: a CTA reads its codeword's
 // contiguous n floats. Threads map to checks:
 //   * flooding updates all mb*z checks from the posterior, then rebuilds
@@ -135,8 +139,8 @@
 // with --fmad=false and without fast math so the arithmetic matches the
 // plain PyTorch version (ops/bp_roll.py) bit for bit.
 //
-// Serial-C min-sum on a compressed check state (the _cs kernels). A
-// min-sum check's message on slot e is sgn_e * T(exmin_e), exmin_e = min2
+// Min-sum on a compressed check state (the _cs kernels). A min-sum
+// check's message on slot e is sgn_e * T(exmin_e), exmin_e = min2
 // at the slot of the first minimum and min1 at the others, T the whole
 // chain that makes a message: (s * max(m - beta, 0)) * alpha, the clamp,
 // the message quantization, the storage. Every step of T is odd:
@@ -171,23 +175,61 @@
 // 700 W). The group-serial forms keep the full messages: on the compressed
 // state G = 4 measured 37.8 ms against 25.2, its warps mixing checks of two
 // block rows. Codes beyond the limits (row degree above 8, more than 64
-// block rows or 192 planes: the rate-2/3, 3/4 and 5/6 qc648 and qc1944
-// codes, row degree 9-18) keep the full messages too; every code the main
-// path and the bigcode run decode has rows of degree 5-8, and 8 slots
-// measured 1.05-1.30x faster than 12 (48 registers a thread against 60).
+// block rows or block columns or 192 planes: the rate-2/3, 3/4 and 5/6
+// qc648 and qc1944 codes, row degree 9-18) keep the full messages too;
+// every code the main path and the bigcode run decode has rows of degree
+// 5-8, and 8 slots measured 1.05-1.30x faster than 12 (48 registers a
+// thread against 60).
+//
+// Flooding min-sum on the compressed state. A flooding check reads only
+// its own old messages, so its new state overwrites its old one in place;
+// the check pass rebuilds each old message from the state, passes each
+// v2c through the message storage as the full design does, and writes the
+// magnitude pair and the word once a check and no posterior. Then each
+// variable's posterior is rebuilt from its checks' states in check-sorted
+// order (variable j*z+q meets check q - shift[p] of plane p's block row at
+// the plane's slot), with the (w*) messages added to (wl*) LLR in f32 and
+// stored once: the plain version's sums in its order, no atomics. The
+// LLRs stay in shared memory as the posterior's storage holds them (n
+// values more a CTA; a register copy on a fixed thread-to-variable map
+// took two to four times the registers a thread and ran slower than
+// reading them again through L2). Warps walk (block row, 32 checks) in the
+// check pass and (column block, 32 variables) in the rebuild, so every
+// plan index a warp reads is uniform and the plan, with each column's
+// (check offset, shift, slot, plane) entries, comes from the kernel
+// parameter (FloodPlan, 6.7 KB); no index is divided by z. A check's slots
+// are unrolled to its degree (one uniform dispatch a check, no guarded
+// slot) and the two minima are kept without a branch; the rebuild adds a
+// column's entries two at a time. Shared-memory instructions an edge at
+// wifi1944 (d = 7.17, 3.58 edges a variable): d + 4 a check and 2 an edge
+// plus 2 a variable (its LLR load and posterior store), 4.12, against
+// 13.12 for the full-message loops (SASS, chip_smoke.py phase 4). The
+// __launch_bounds__(1024) keeps every CTA size the flooding forms take
+// launchable (64 registers at most; the fixed forms use 31-32, early stop
+// 40-42, the weighted 50-53). A CTA takes the state, the posterior and
+// the LLRs: wifi1944 f32 25,280 B, qc12288 159,744 B, qc8448 108,544 B
+// (smem_bytes). The flooding forms then run 1.26-1.63x faster than on
+// full messages, bit for bit the same (PERF.md, kernels/compare.py on an
+// NVIDIA H100 80GB HBM3 at 700 W). Sum-product flooding keeps the full
+// messages.
 //
 // What bounds the kernels on the H100. Serial-C min-sum on the compressed
 // state issues about 45 instructions a slot across its two passes (the
 // message rebuild, the index arithmetic, the two-minima update; the check
 // body's SASS), so instruction issue bounds it, not shared memory: at
 // wifi1944's 3 warps a block row (the third with 17 of 32 lanes busy) that
-// is about 3 ms of a 4.05 ms trained layered-8 at batch 32768. The
-// full-message forms hold ~36 KB a codeword at wifi1944 (6 resident
-// codewords an SM; bf16 19 KB, 11; int8 16 KB, 13; the 5G-class codes'
-// 121-175 KB at f32 one, bf16 and int8 two to four), and their per-edge
-// work, about 10 shared-memory instructions an edge, is issued by few
-// warps, so they are latency bound well above both the byte bound and the
-// f32 op bound (PERF.md). The sum-product forms add eight libdevice
+// is about 3 ms of a 4.05 ms trained layered-8 at batch 32768. Flooding
+// min-sum on the compressed state is issue bound the same way: its check
+// pass holds 947 instructions for the bodies of degrees 1-8 (36 slots,
+// about 21 a slot with each body's state update), its rebuild 17 an edge
+// (SASS), with 81 of 96 lanes busy at z = 81, at full occupancy (32
+// registers, 256 threads, 8 CTAs an SM). The full-message forms hold ~36
+// KB a codeword at wifi1944 (6 resident codewords an SM; bf16 19 KB, 11;
+// int8 16 KB, 13; the 5G-class codes' 121-175 KB at f32 one, bf16 and
+// int8 two to four), and their per-edge work, about 10 (serial-C) or 13
+// (flooding) shared-memory instructions an edge, is issued by few warps,
+// so they are latency bound well above both the byte bound and the f32
+// op bound (PERF.md). The sum-product forms add eight libdevice
 // transcendentals per edge, about 150 f32 and 4 MUFU instructions in the
 // SASS, so f32 issue bounds them, not the special-function units. The
 // early-stop forms do the work of the iterations each codeword runs plus
@@ -304,22 +346,24 @@ __host__ __device__ inline int align16(int bytes) {
   return (bytes + 15) & ~15;
 }
 
-// Bytes of dynamic shared memory one CTA needs: plan, c2v planes (Msg) or,
-// on the compressed state (cs), two Msg magnitudes and a 16-bit word per
-// check, posterior (Post) and, for a group of G > 1 block rows, the f32
-// scratch of the group's planes; each region starts on a 16-byte boundary.
+// Bytes of dynamic shared memory one CTA needs: plan (not on the
+// compressed flooding forms, which read theirs from the parameter), c2v
+// planes (Msg) or, on the compressed state (cs), two Msg magnitudes and a
+// 16-bit word per check, posterior (Post) and, for a group of G > 1 block
+// rows, the f32 scratch of the group's planes; each region starts on a
+// 16-byte boundary.
 template <int kT>
 inline int smem_bytes(int z, int mb, int nb, int P, int group, int row_deg,
-                      bool cs) {
+                      bool cs, bool layered) {
   using S = Storage<kT>;
   const int planes = group * row_deg < P ? group * row_deg : P;
   const int scratch = group > 1 ? planes * z : 0;
   const int msg = static_cast<int>(sizeof(typename S::Msg));
   const int state = cs ? align16(mb * z * 2 * msg) + align16(mb * z * 2)
                        : align16(P * z * msg);
-  return 4 * plan_ints_padded(mb, nb, P) + state +
-         align16(nb * z * static_cast<int>(sizeof(typename S::Post))) +
-         4 * scratch;
+  const int plan = cs && !layered ? 0 : 4 * plan_ints_padded(mb, nb, P);
+  const int post = align16(nb * z * static_cast<int>(sizeof(typename S::Post)));
+  return plan + state + (cs && !layered ? 2 * post : post) + 4 * scratch;
 }
 
 // log tanh(a/2) of a v2c message, a = max(|v|, 1e-12): in [-28.3, 0]
@@ -486,6 +530,52 @@ struct ParamPlan {
   int4 plane[kCsMaxPlanes];
 };
 
+// block columns the flooding plan in the kernel parameter takes
+constexpr int kCsMaxCols = 64;
+
+// The flooding plan in the kernel's parameter space: the rows' plan, and
+// for the posterior rebuild each column block's checks (6.7 KB, within
+// the 32,764 B a kernel's parameters may take since CUDA 12.1).
+//   col_ptr[nb+1]  entries of column block j are [col_ptr[j], col_ptr[j+1]),
+//                  by block row (the plain version's order)
+//   col[e]         (row*z, shift, 1 << slot | slot << 8, plane) of entry
+//                  e: its checks' offset, its circulant shift, its slot in
+//                  its block row as the word's sign bit and index field
+//                  hold it, its plane (the weight table's index)
+struct FloodPlan : ParamPlan {
+  int col_ptr[kCsMaxCols + 1];
+  int4 col[kCsMaxPlanes];
+};
+
+// A warp's walk over the tasks of a flooding pass: block b (a block row,
+// or a column block) and its chunk k of 32 checks or variables, lanes
+// k*32 .. k*32+31 of the z. Warp w starts at task w and steps by the CTA's
+// warp count; (b, k) steps without a division, and every plan index a
+// task reads is the same for the whole warp.
+struct WarpWalk {
+  int b, k;    // the task
+  int db, dk;  // the step: blocks and chunks
+  int chunks;  // chunks a block, ceil(z / 32)
+  __device__ __forceinline__ void next() {
+    b += db;
+    k += dk;
+    if (k >= chunks) {
+      k -= chunks;
+      ++b;
+    }
+  }
+  // this thread's check or variable offset in block b
+  __device__ __forceinline__ int at() const {
+    return (k << 5) + static_cast<int>(threadIdx.x & 31);
+  }
+};
+
+__device__ __forceinline__ WarpWalk warp_walk(int z) {
+  const int chunks = (z + 31) >> 5;
+  const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  return WarpWalk{w / chunks, w % chunks, nw / chunks, nw % chunks, chunks};
+}
+
 // The two stored magnitudes of a check: T(min1) and T(min2).
 template <typename Msg>
 struct alignas(2 * sizeof(Msg)) MagPair {
@@ -512,6 +602,23 @@ __device__ __forceinline__ float cs_message(const MagPair<Msg>& s,
                                             float step) {
   const bool second = e == static_cast<int>(word >> kCsIdxShift);
   return signed_lift(second ? s.m2 : s.m1, (word >> e) & 1u, step);
+}
+
+// A compressed check's new word from its v2c, and T of both magnitudes
+// into t1, t2: (1 * max(exmin - beta, 0)) * alpha is the message of a
+// positive sign, then the clamp and quantization; with no minimum below
+// kBig, min1 == min2 and slot 0 stands for the index. The exclusive sign
+// of slot e is the parity of the other slots' negatives (negs: bit e set
+// where the v2c of slot e is < 0).
+template <bool kQuant>
+__device__ __forceinline__ unsigned cs_finish(float min1, float min2, int idx,
+                                              unsigned negs, const Rule& u,
+                                              float& t1, float& t2) {
+  t1 = postlude<kQuant>(fmaxf(min1 - u.beta, 0.f) * u.alpha, u);
+  t2 = postlude<kQuant>(fmaxf(min2 - u.beta, 0.f) * u.alpha, u);
+  const unsigned signs =
+      (negs ^ ((__popc(negs) & 1) ? kCsSignMask : 0u)) & kCsSignMask;
+  return signs | (static_cast<unsigned>(idx < 0 ? 0 : idx) << kCsIdxShift);
 }
 
 // check_update's serial-C form (kFoldPost) for min-sum on the compressed
@@ -560,17 +667,9 @@ __device__ __forceinline__ void check_update_cs(
       }
     }
   }
-  // T of both magnitudes: (1 * max(exmin - beta, 0)) * alpha is the
-  // message of a positive sign, then the clamp and quantization; with no
-  // minimum below kBig, min1 == min2 and slot 0 stands for the index
-  const float t1 = postlude<kQuant>(fmaxf(min1 - u.beta, 0.f) * u.alpha, u);
-  const float t2 = postlude<kQuant>(fmaxf(min2 - u.beta, 0.f) * u.alpha, u);
+  float t1, t2;
+  const unsigned nw = cs_finish<kQuant>(min1, min2, idx, negs, u, t1, t2);
   const MagPair<Msg> ns{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
-  // exclusive sign of slot e: the parity of the other slots' negatives
-  const unsigned signs =
-      (negs ^ ((__popc(negs) & 1) ? kCsSignMask : 0u)) & kCsSignMask;
-  const unsigned nw =
-      signs | (static_cast<unsigned>(idx < 0 ? 0 : idx) << kCsIdxShift);
 #pragma unroll
   for (int e = 0; e < kCsMaxDeg; ++e) {
     if (e < deg) {
@@ -618,6 +717,152 @@ __device__ __forceinline__ void rebuild_cs(
       acc = acc + __ldg(w + p * z + r) * m;
     }
     post[v] = store<Post>(acc, 1.f);
+  }
+}
+
+// check_update's flooding form (kFoldNone) for min-sum on the compressed
+// state, for check c = i*z + r of degree kDeg whose planes start at p0:
+// its new state from the posterior, written over its old one (a flooding
+// check reads only its own old messages), with the same arithmetic in the
+// same order: the old message rebuilt from the state, the v2c through the
+// message storage (as the TPU kernel stores and reloads it), the two
+// minima and the signs. One posterior load an edge, a state load and store
+// a check, no posterior store. The slots are unrolled to the degree, so
+// no slot is guarded.
+template <int kDeg, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void flood_check(
+    const FloodPlan& fp, MagPair<typename Storage<kT>::Msg>* mag,
+    uint16_t* word, const typename Storage<kT>::Post* post,
+    const float* __restrict__ w, int z, int c, int r, int p0,
+    const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
+  const MagPair<Msg> os = mag[c];
+  const unsigned ow = word[c];
+  const int oslot = static_cast<int>(ow >> kCsIdxShift);
+  float min1 = kBig, min2 = kBig;
+  int idx = -1;
+  unsigned negs = 0;
+#pragma unroll
+  for (int e = 0; e < kDeg; ++e) {
+    const int4 pl = fp.plane[p0 + e];
+    int q = r + pl.y;
+    if (q >= z) q -= z;
+    float m =
+        signed_lift(e == oslot ? os.m2 : os.m1, (ow >> e) & 1u, u.sstep);
+    if constexpr (kW) m = __ldg(w + (p0 + e) * z + r) * m;
+    const float v =
+        lift(store<Msg>(lift(post[pl.x + q], 1.f) - m, u.sinv), u.sstep);
+    negs |= (v < 0.f ? 1u : 0u) << e;
+    // the two minima without a branch: strict, so idx is the first
+    // minimum, as argmin; the minima are magnitudes, never -0
+    const float a = fabsf(v);
+    const bool first = a < min1;
+    min2 = first ? min1 : fminf(min2, a);
+    min1 = first ? a : min1;
+    idx = first ? e : idx;
+  }
+  float t1, t2;
+  word[c] = static_cast<uint16_t>(
+      cs_finish<kQuant>(min1, min2, idx, negs, u, t1, t2));
+  mag[c] = MagPair<Msg>{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
+}
+
+// flood_check at the check's degree deg (at most kDeg): one uniform
+// comparison a degree, from kDeg down.
+template <int kDeg, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void flood_check_deg(
+    int deg, const FloodPlan& fp, MagPair<typename Storage<kT>::Msg>* mag,
+    uint16_t* word, const typename Storage<kT>::Post* post,
+    const float* __restrict__ w, int z, int c, int r, int p0,
+    const Rule& u) {
+  if constexpr (kDeg > 1) {
+    if (deg != kDeg) {
+      flood_check_deg<kDeg - 1, kQuant, kW, kT>(deg, fp, mag, word, post, w,
+                                                z, c, r, p0, u);
+      return;
+    }
+  }
+  flood_check<kDeg, kQuant, kW, kT>(fp, mag, word, post, w, z, c, r, p0, u);
+}
+
+// The flooding check pass on the compressed state. Warps walk (block row,
+// 32 checks), so each plane read from the parameter is warp-uniform.
+template <bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void flood_checks_cs(
+    const FloodPlan& fp, MagPair<typename Storage<kT>::Msg>* mag,
+    uint16_t* word, const typename Storage<kT>::Post* post,
+    const float* __restrict__ w, int z, int mb, WarpWalk wk,
+    const Rule& u) {
+  for (; wk.b < mb; wk.next()) {
+    const int r = wk.at();
+    if (r >= z) continue;
+    const int p0 = fp.row_ptr[wk.b];
+    flood_check_deg<kCsMaxDeg, kQuant, kW, kT>(
+        fp.row_ptr[wk.b + 1] - p0, fp, mag, word, post, w, z, wk.b * z + r,
+        r, p0, u);
+  }
+}
+
+// Edge cp of a column (FloodPlan::col) added to the posterior sum acc of
+// its variable j*z+q: the message of check row*z + (q - shift mod z) at
+// its slot, times its weight (kW).
+template <bool kW, typename Msg>
+__device__ __forceinline__ float flood_add(float acc, const int4& cp,
+                                           const MagPair<Msg>* mag,
+                                           const uint16_t* word,
+                                           const float* __restrict__ w, int z,
+                                           int q, float sstep) {
+  int r = q - cp.y;
+  if (r < 0) r += z;
+  const int c = cp.x + r;
+  const unsigned wd = word[c];
+  // cp.z: the slot's sign bit, and the slot in the index field's place
+  const bool second = ((wd ^ static_cast<unsigned>(cp.z)) &
+                       (7u << kCsIdxShift)) == 0;
+  const MagPair<Msg> s = mag[c];
+  const float m = signed_lift(second ? s.m2 : s.m1,
+                              (wd & static_cast<unsigned>(cp.z) &
+                               kCsSignMask) != 0, sstep);
+  return acc + (kW ? __ldg(w + cp.w * z + r) * m : m);
+}
+
+// The posterior of variable j*z+q rebuilt from the compressed state: (wl*)
+// LLR + the sum of its (w*) messages in check-sorted order, in f32 and
+// stored once. lv: the LLRs as the posterior's storage holds them. The
+// column's entries go two at a time (columns have 2-12).
+template <bool kW, int kT>
+__device__ __forceinline__ void flood_variable_cs(
+    const FloodPlan& fp, const MagPair<typename Storage<kT>::Msg>* mag,
+    const uint16_t* word, typename Storage<kT>::Post* post,
+    const typename Storage<kT>::Post* lv, const float* __restrict__ w,
+    const float* __restrict__ wl, int z, int j, int q, float sstep) {
+  using Post = typename Storage<kT>::Post;
+  const int v = j * z + q;
+  float acc = lift(lv[v], 1.f);
+  if constexpr (kW) acc = __ldg(wl + v) * acc;
+  const int e1 = fp.col_ptr[j + 1];
+  int e = fp.col_ptr[j];
+  for (; e + 1 < e1; e += 2) {
+    acc = flood_add<kW>(acc, fp.col[e], mag, word, w, z, q, sstep);
+    acc = flood_add<kW>(acc, fp.col[e + 1], mag, word, w, z, q, sstep);
+  }
+  if (e < e1) acc = flood_add<kW>(acc, fp.col[e], mag, word, w, z, q, sstep);
+  post[v] = store<Post>(acc, 1.f);
+}
+
+// The flooding posterior rebuild on the compressed state, warps walking
+// (column block, 32 variables).
+template <bool kW, int kT>
+__device__ __forceinline__ void flood_rebuild_cs(
+    const FloodPlan& fp, const MagPair<typename Storage<kT>::Msg>* mag,
+    const uint16_t* word, typename Storage<kT>::Post* post,
+    const typename Storage<kT>::Post* lv, const float* __restrict__ w,
+    const float* __restrict__ wl, int z, int nb, WarpWalk wk, float sstep) {
+  for (; wk.b < nb; wk.next()) {
+    const int q = wk.at();
+    if (q < z)
+      flood_variable_cs<kW, kT>(fp, mag, word, post, lv, w, wl, z, wk.b, q,
+                                sstep);
   }
 }
 
@@ -746,14 +991,36 @@ __device__ __forceinline__ int local_unsat(const Plan& pl, const Post* post,
   return count;
 }
 
+// local_unsat of the compressed flooding forms: this thread's checks of the
+// warps' walk over (block row, 32 checks), the plan from the parameter.
+template <typename Post>
+__device__ __forceinline__ int local_unsat_cs(const FloodPlan& fp,
+                                              const Post* post, int z, int mb,
+                                              WarpWalk wk) {
+  int count = 0;
+  for (; wk.b < mb; wk.next()) {
+    const int r = wk.at();
+    if (r >= z) continue;
+    int parity = 0;
+    for (int p = fp.row_ptr[wk.b]; p < fp.row_ptr[wk.b + 1]; ++p) {
+      const int4 pl = fp.plane[p];
+      int q = r + pl.y;
+      if (q >= z) q -= z;
+      parity ^= lift(post[pl.x + q], 1.f) < 0.f ? 1 : 0;
+    }
+    count += parity;
+  }
+  return count;
+}
+
 // aux_out: the iterations run (kEarlyStop), else the unsatisfied-check
 // count when not null. done_in: codewords to skip, when not null. wm, wl:
 // the weight tables (kW: iterations+1 rows of P*z and of n floats).
 // group: block rows per group of the layered schedule. sstep, sinv: the
 // int8 storage grid's step and its reciprocal (kT = kInt8).
-// kCs: the serial-C min-sum forms on the compressed check state, with the
-// sweep's plan read from pp (the kernel's parameter); else the full
-// messages, and pp is unused.
+// kCs: the min-sum forms on the compressed check state: serial-C with the
+// sweep's plan read from pp, flooding with its plan read from fp (each the
+// kernel's parameter); else the full messages, and both are unused.
 template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
           int kT, bool kCs = false>
 __device__ __forceinline__ void decode(
@@ -763,9 +1030,12 @@ __device__ __forceinline__ void decode(
     const float* __restrict__ ab, const float* __restrict__ wm,
     const float* __restrict__ wl, int z, int mb, int nb, int P,
     int iterations, int check_every, int group, float clamp, float qstep,
-    float qclip, float sstep, float sinv, const ParamPlan* pp) {
-  static_assert(!kCs || (kMethod == kMinSum && kLayered),
-                "the compressed state is the serial-C min-sum forms'");
+    float qclip, float sstep, float sinv, const ParamPlan* pp,
+    const FloodPlan* fp) {
+  static_assert(!kCs || kMethod == kMinSum,
+                "the compressed state is the min-sum forms'");
+  // flooding on the compressed state: no plan in shared memory
+  constexpr bool kFloodCs = kCs && !kLayered;
   using Msg = typename Storage<kT>::Msg;
   using Post = typename Storage<kT>::Post;
   // the flag is the same for the whole CTA, so the return is uniform
@@ -776,7 +1046,7 @@ __device__ __forceinline__ void decode(
   char* smem = reinterpret_cast<char*>(smem_f4);
   const int n = nb * z;
   int* plan = reinterpret_cast<int*>(smem);
-  int off = 4 * plan_ints_padded(mb, nb, P);
+  int off = kFloodCs ? 0 : 4 * plan_ints_padded(mb, nb, P);
   // the full messages, or the compressed state: a magnitude pair and a
   // word per check
   Msg* msg = reinterpret_cast<Msg*>(smem + off);
@@ -791,12 +1061,18 @@ __device__ __forceinline__ void decode(
   }
   Post* post = reinterpret_cast<Post*>(smem + off);
   off += align16(n * static_cast<int>(sizeof(Post)));
+  // the compressed flooding forms' LLRs, as the posterior holds them
+  Post* lv = reinterpret_cast<Post*>(smem + off);
   float* delta = reinterpret_cast<float*>(smem + off);  // group > 1 only
   const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
   const float* l = llr + base;
 
-  const int n_plan = plan_ints(mb, nb, P);
-  for (int t = threadIdx.x; t < n_plan; t += blockDim.x) plan[t] = plan_g[t];
+  if constexpr (!kFloodCs) {
+    const int n_plan = plan_ints(mb, nb, P);
+    for (int t = threadIdx.x; t < n_plan; t += blockDim.x)
+      plan[t] = plan_g[t];
+  }
+  const WarpWalk walk = warp_walk(z);  // the compressed flooding forms'
   if constexpr (kCs) {
     for (int t = threadIdx.x; t < mb * z; t += blockDim.x) {
       mag[t] = MagPair<Msg>{store<Msg>(0.f, sinv), store<Msg>(0.f, sinv)};
@@ -807,15 +1083,19 @@ __device__ __forceinline__ void decode(
       msg[t] = store<Msg>(0.f, sinv);
   }
   // internal convention log(Pr0/Pr1): the negated API LLR
-  if constexpr (!kW)
-    for (int t = threadIdx.x; t < n; t += blockDim.x)
-      post[t] = store<Post>(-l[t], 1.f);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    if constexpr (!kW) post[t] = store<Post>(-l[t], 1.f);
+    if constexpr (kFloodCs) lv[t] = store<Post>(-l[t], 1.f);
+  }
   __syncthreads();
   const Plan pl{plan, plan + (mb + 1), plan + (mb + 1) + P,
                 plan + (mb + 1) + 2 * P, plan + (mb + 1) + 2 * P + (nb + 1)};
   if constexpr (kW) {
     // the posterior of the zero messages under the first weight row
-    if constexpr (kCs)
+    if constexpr (kFloodCs)
+      flood_rebuild_cs<true, kT>(*fp, mag, word, post, lv, wm, wl, z, nb,
+                                 walk, sstep);
+    else if constexpr (kCs)
       rebuild_cs<kT>(pl, *pp, mag, word, post, l, wm, wl, z, n, sstep);
     else
       rebuild<true, kT>(pl, msg, post, l, wm, wl, z, n, sstep);
@@ -833,24 +1113,39 @@ __device__ __forceinline__ void decode(
   };
 
   auto one = [&](const Step& st) {
-    if constexpr (kCs)
+    if constexpr (kFloodCs) {
+      flood_checks_cs<kQuant, kW, kT>(*fp, mag, word, post, st.w, z, mb, walk,
+                                      st.u);
+      __syncthreads();
+      flood_rebuild_cs<kW, kT>(*fp, mag, word, post, lv, st.w_next,
+                               st.wl_next, z, nb, walk, st.u.sstep);
+      __syncthreads();
+    } else if constexpr (kCs) {
       iterate_cs<kQuant, kW, kT>(pl, *pp, mag, word, post, l, z, mb, n, st);
-    else
+    } else {
       iterate<kMethod, kLayered, kQuant, kW, kT>(pl, msg, post, delta, l, z,
                                                  mb, n, group, st);
+    }
+  };
+  // this thread's count of unsatisfied checks
+  auto unsat = [&]() {
+    if constexpr (kFloodCs)
+      return local_unsat_cs(*fp, post, z, mb, walk);
+    else
+      return local_unsat(pl, post, z, mb);
   };
 
   if (kEarlyStop) {
     int ran = iterations;
     // the vote returns the same value to every thread: `done` is uniform
     bool done = done_in == nullptr &&
-                !__syncthreads_or(local_unsat(pl, post, z, mb) != 0);
+                !__syncthreads_or(unsat() != 0);
     if (done) ran = 0;
     const int rounds = iterations / check_every;
     for (int r = 0; r < rounds && !done; ++r) {
       for (int k = 0; k < check_every; ++k)
         one(step(r * check_every + k));
-      if (!__syncthreads_or(local_unsat(pl, post, z, mb) != 0)) {
+      if (!__syncthreads_or(unsat() != 0)) {
         done = true;
         ran = (r + 1) * check_every;
       }
@@ -859,7 +1154,7 @@ __device__ __forceinline__ void decode(
   } else {
     for (int it = 0; it < iterations; ++it) one(step(it));
     if (aux_out != nullptr) {
-      const int mine = local_unsat(pl, post, z, mb);
+      const int mine = unsat();
       if (threadIdx.x == 0) unsat_sum = 0;
       __syncthreads();
       if (mine != 0) atomicAdd(&unsat_sum, mine);
@@ -905,7 +1200,7 @@ constexpr int kStorage = kInt8;
     decode<method, layered, early_stop, quant, weighted, kStorage>(         \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
-        sinv, nullptr);                                                     \
+        sinv, nullptr, nullptr);                                            \
   }
 // The serial-C min-sum forms on the compressed state (entry point name_cs):
 // the same arguments and the sweep's plan as a parameter.
@@ -920,7 +1215,23 @@ constexpr int kStorage = kInt8;
     decode<kMinSum, true, early_stop, quant, weighted, kStorage, true>(     \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
-        sinv, &pp);                                                         \
+        sinv, &pp, nullptr);                                                \
+  }
+// The flooding min-sum forms on the compressed state (name_cs): the same
+// arguments and the flooding plan as a parameter.
+#define QC_KERNEL_FLOOD_CS(name, early_stop, quant, weighted)               \
+  __global__ void __launch_bounds__(1024)                                   \
+      QC_CAT(QC_CAT(name, _cs), QC_SUFFIX)(                                 \
+      const float* llr, float* post_out, int8_t* bits_out,                  \
+      const int* done_in, int* aux_out, const int* plan, const float* ab,   \
+      const float* wm, const float* wl, int z, int mb, int nb, int P,       \
+      int iterations, int check_every, int group, float clamp, float qstep, \
+      float qclip, float sstep, float sinv,                                 \
+      const __grid_constant__ FloodPlan fp) {                               \
+    decode<kMinSum, false, early_stop, quant, weighted, kStorage, true>(    \
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
+        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
+        sinv, nullptr, &fp);                                                \
   }
 
 QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false, false)
@@ -956,6 +1267,12 @@ QC_KERNEL_CS(minsum_qc_layered_msgq, false, true, false)
 QC_KERNEL_CS(minsum_qc_layered_es_msgq, true, true, false)
 QC_KERNEL_CS(minsum_qc_layered_w, false, false, true)
 QC_KERNEL_CS(minsum_qc_layered_w_msgq, false, true, true)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding, false, false, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es, true, false, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_msgq, false, true, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es_msgq, true, true, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w, false, false, true)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, false, true, true)
 
 #define QC_K(name) QC_CAT(name, QC_SUFFIX)
 
@@ -977,12 +1294,22 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
                             const int*, const float*, const float*,
                             const float*, int, int, int, int, int, int, int,
                             float, float, float, float, float, ParamPlan);
+  using KernelFloodCs = void (*)(const float*, float*, int8_t*, const int*,
+                                 int*, const int*, const float*,
+                                 const float*, const float*, int, int, int,
+                                 int, int, int, int, float, float, float,
+                                 float, float, FloodPlan);
   // [early_stop][quant], and the weighted forms by [quant]
   static const KernelCs kCompressed[2][2] = {
       {QC_K(minsum_qc_layered_cs), QC_K(minsum_qc_layered_msgq_cs)},
       {QC_K(minsum_qc_layered_es_cs), QC_K(minsum_qc_layered_es_msgq_cs)}};
   static const KernelCs kCompressedW[2] = {QC_K(minsum_qc_layered_w_cs),
                                            QC_K(minsum_qc_layered_w_msgq_cs)};
+  static const KernelFloodCs kFloodCompressed[2][2] = {
+      {QC_K(minsum_qc_flooding_cs), QC_K(minsum_qc_flooding_msgq_cs)},
+      {QC_K(minsum_qc_flooding_es_cs), QC_K(minsum_qc_flooding_es_msgq_cs)}};
+  static const KernelFloodCs kFloodCompressedW[2] = {
+      QC_K(minsum_qc_flooding_w_cs), QC_K(minsum_qc_flooding_w_msgq_cs)};
   // [method][layered][early_stop][quant]
   static const Kernel kKernels[2][2][2][2] = {
       {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
@@ -1006,25 +1333,33 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads < 32 || threads > 1024 || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the compressed state: layered min-sum on a code whose rows, block rows
-  // and planes fit the state's word and the parameter's plan
+  // the compressed state: min-sum, flooding or serial-C, on a code whose
+  // rows, block rows, planes and block columns fit the state's word and
+  // the parameter's plan
   if (group > mb) group = mb;
   if (compressed &&
-      (method != 0 || !layered || group != 1 || plan_host == nullptr ||
-       row_deg > kCsMaxDeg || mb > kCsMaxRows || P > kCsMaxPlanes))
+      (method != 0 || group != 1 || plan_host == nullptr ||
+       row_deg > kCsMaxDeg || mb > kCsMaxRows || P > kCsMaxPlanes ||
+       nb > kCsMaxCols))
     return static_cast<int>(cudaErrorInvalidValue);
   const Kernel fn =
       weighted ? kWeighted[method != 0][layered != 0][quant != 0]
                : kKernels[method != 0][layered != 0][early_stop != 0]
                          [quant != 0];
   const KernelCs fn_cs =
-      !compressed ? nullptr
-      : weighted  ? kCompressedW[quant != 0]
-                  : kCompressed[early_stop != 0][quant != 0];
-  const void* entry = compressed ? reinterpret_cast<const void*>(fn_cs)
-                                 : reinterpret_cast<const void*>(fn);
-  const int smem =
-      smem_bytes<kStorage>(z, mb, nb, P, group, row_deg, compressed != 0);
+      !compressed || !layered ? nullptr
+      : weighted              ? kCompressedW[quant != 0]
+                              : kCompressed[early_stop != 0][quant != 0];
+  const KernelFloodCs fn_fcs =
+      !compressed || layered ? nullptr
+      : weighted             ? kFloodCompressedW[quant != 0]
+                             : kFloodCompressed[early_stop != 0][quant != 0];
+  const void* entry =
+      fn_cs != nullptr    ? reinterpret_cast<const void*>(fn_cs)
+      : fn_fcs != nullptr ? reinterpret_cast<const void*>(fn_fcs)
+                          : reinterpret_cast<const void*>(fn);
+  const int smem = smem_bytes<kStorage>(z, mb, nb, P, group, row_deg,
+                                        compressed != 0, layered != 0);
   cudaError_t err = cudaFuncSetAttribute(
       entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1041,19 +1376,37 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   int8_t* bits_out = out_hard ? static_cast<int8_t*>(out) : nullptr;
   if (compressed) {
     // the host plan (the layout of `plan`) into the parameter: row_ptr,
-    // then per plane its variables' and checks' offsets, shift and slot
-    ParamPlan pp{};
+    // then per plane its variables' and checks' offsets, shift and slot;
+    // for flooding also col_ptr, then per column entry its checks' offset,
+    // shift, slot and plane
+    FloodPlan fp{};
     const int* plane_col = plan_host + (mb + 1);
     const int* plane_shift = plane_col + P;
-    for (int i = 0; i <= mb; ++i) pp.row_ptr[i] = plan_host[i];
+    const int* col_ptr = plane_shift + P;
+    const int* col_planes = col_ptr + (nb + 1);
+    for (int i = 0; i <= mb; ++i) fp.row_ptr[i] = plan_host[i];
     for (int i = 0; i < mb; ++i)
       for (int p = plan_host[i]; p < plan_host[i + 1]; ++p)
-        pp.plane[p] = make_int4(plane_col[p] * z, plane_shift[p], i * z,
+        fp.plane[p] = make_int4(plane_col[p] * z, plane_shift[p], i * z,
                                 p - plan_host[i]);
-    fn_cs<<<batch, threads, smem, stream>>>(
-        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
-        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
-        sinv, pp);
+    for (int j = 0; j <= nb; ++j) fp.col_ptr[j] = col_ptr[j];
+    for (int e = 0; e < P; ++e) {
+      const int4 pl = fp.plane[col_planes[e]];
+      fp.col[e] = make_int4(pl.z, pl.y, (1 << pl.w) | (pl.w << kCsIdxShift),
+                            col_planes[e]);
+    }
+    if (layered) {
+      const ParamPlan pp = fp;  // the rows' plan alone
+      fn_cs<<<batch, threads, smem, stream>>>(
+          llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
+          nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
+          sinv, pp);
+    } else {
+      fn_fcs<<<batch, threads, smem, stream>>>(
+          llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
+          nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
+          sinv, fp);
+    }
   } else {
     fn<<<batch, threads, smem, stream>>>(
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
@@ -1085,9 +1438,9 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // log(Pr1/Pr0) convention; both (batch, nb*z) row-major. `ab` holds
 // `iterations` rows of (alpha, beta). plan: the device plan; plan_host: the
 // same ints on the host. compressed != 0 selects the compressed check state
-// of the serial-C min-sum forms, group 1 (the _cs kernels; its limits from
-// bp_qc_compressed_limits), which reads plan_host into the kernel's
-// parameter. clamp = +inf for no clamp. done_in:
+// of the min-sum forms, flooding or serial-C with group 1 (the _cs kernels;
+// its limits from bp_qc_compressed_limits), which reads plan_host into the
+// kernel's parameter. clamp = +inf for no clamp. done_in:
 // (batch,) int32 flags of codewords to skip, or null. aux_out: (batch,)
 // int32, the iterations run when early_stop != 0 (then required), else the
 // unsatisfied-check counts, or null. check_every must divide iterations; a
@@ -1119,11 +1472,13 @@ int bp_qc_decode(int dtype, int method, int layered, int early_stop,
                 clamp, qstep, qclip, sstep, sinv, threads, stream);
 }
 
-// The compressed state's limits: row degree, block rows, planes.
+// The compressed state's limits: row degree, block rows, planes, block
+// columns.
 int bp_qc_compressed_limits(int* out) {
   out[0] = kCsMaxDeg;
   out[1] = kCsMaxRows;
   out[2] = kCsMaxPlanes;
+  out[3] = kCsMaxCols;
   return 0;
 }
 

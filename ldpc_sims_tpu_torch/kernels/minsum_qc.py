@@ -10,10 +10,12 @@ forms also group-serial, ``layered_group > 1``), their ``_es`` forms
 (per-codeword early stop) and ``_w`` forms (per-edge neural-BP weights),
 and the ``_msgq`` form of each, each with f32, bf16 (``_bf16``) and int8
 (``_i8``) message storage, all in ``csrc/minsum_qc.cu`` (its header says
-how they work and what bounds them on the H100). The serial-C min-sum
-forms keep a compressed check state (two stored magnitudes and a word of
-signs and index a check, :func:`compressed_state`) and read each edge's
-posterior once; every other form keeps the full messages. The source is
+how they work and what bounds them on the H100). The min-sum forms,
+serial-C and flooding, keep a compressed check state (two stored
+magnitudes and a word of signs and index a check, :func:`compressed_state`):
+serial-C reads each edge's posterior once, flooding rebuilds each
+posterior from its checks' states; every other form keeps the full
+messages. The source is
 compiled with ``nvcc`` for ``sm_90a``, once per storage type in
 parallel, into ``build/kernels/`` of the checkout on first use, linked
 into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
@@ -66,6 +68,7 @@ __all__ = [
     "build",
     "compressed_state",
     "default_threads",
+    "entry_point",
     "kernel_name",
     "probe_capacity",
     "minsum_qc_cuda",
@@ -105,21 +108,24 @@ LAUNCHES = {name + sfx: 0 for _, sfx in STORAGE.values()
 # dynamic shared memory one H100 CTA may use
 _SMEM_LIMIT = 232_448
 # the compressed check state's limits (csrc/minsum_qc.cu: kCsMaxDeg,
-# kCsMaxRows, kCsMaxPlanes): row degree (a thread's register arrays and
-# its word's 8 sign bits), block rows and planes (the kernel parameter's
-# plan)
-COMPRESSED_LIMITS = (8, 64, 192)
+# kCsMaxRows, kCsMaxPlanes, kCsMaxCols): row degree (a thread's register
+# arrays and its word's 8 sign bits), block rows, planes and block columns
+# (the kernel parameter's plan)
+COMPRESSED_LIMITS = (8, 64, 192, 64)
 # the flooding forms' CTA size where an H100 sweep (kernels/tune.py) found
-# one faster than 256, keyed by (n, dtype name, schedule); the layered
-# forms' CTA has G·z threads by design. From the sweep of threads 128,
-# 256, 512, 1024 × the three types, flooding-20 at batch 16384 (PERF.md
-# §6, row 14; NVIDIA H100 80GB HBM3, 700 W): a 5G-class codeword fills
-# an SM's shared memory at f32 (one to four CTAs an SM), so more threads
-# a CTA are more warps an SM; wifi1944 (six to eight CTAs) keeps 256.
+# one faster than 256 (by more than 0.5%), keyed by (n, dtype name,
+# schedule); the layered forms' CTA has G·z threads by design. From the
+# sweep of threads 128, 256, 512, 1024 × the three types, flooding-20 on
+# the compressed check state, wifi1944 at batch 32768 and the 5G-class
+# codes at 16384 (PERF.md §6, row 14; NVIDIA H100 80GB HBM3, 700 W): a
+# 5G-class codeword fills most of an SM's shared memory (one to three CTAs
+# an SM), so more threads a CTA are more warps an SM; wifi1944 keeps 256
+# but at bf16, where 128 measured 0.7% faster.
 _LAUNCH_TABLE: dict[tuple[int, str, str], int] = {
+    (1944, "bfloat16", "flooding"): 128,
     (8448, "float32", "flooding"): 1024,
-    (8448, "bfloat16", "flooding"): 1024,
-    (8448, "int8", "flooding"): 512,
+    (8448, "bfloat16", "flooding"): 512,
+    (8448, "int8", "flooding"): 1024,
     (12288, "float32", "flooding"): 1024,
     (12288, "bfloat16", "flooding"): 1024,
     (12288, "int8", "flooding"): 1024,
@@ -142,6 +148,18 @@ def kernel_name(method: str, schedule: str, early_stop: bool = False,
     base = (KERNELS_W[method, schedule, quantized] if weighted
             else KERNELS[method, schedule, early_stop, quantized])
     return base + STORAGE[storage_dtype(dtype)][1]
+
+
+def entry_point(qc: QcStructure, method: str, schedule: str,
+                early_stop: bool = False, quantized: bool = False,
+                weighted: bool = False, dtype=torch.float32,
+                layered_group: int = 1) -> str:
+    """The entry point of csrc/minsum_qc.cu that a decode of this form on
+    this code launches: :func:`kernel_name`'s, with ``_cs`` before the
+    storage suffix on the compressed check state (:func:`compressed_state`)."""
+    cs = "_cs" if compressed_state(qc, method, schedule, layered_group) else ""
+    return (kernel_name(method, schedule, early_stop, quantized, weighted)
+            + cs + STORAGE[storage_dtype(dtype)][1])
 
 
 # the JAX pallas backend pads the batch to 128 lanes (ldpc_sims_tpu/ops/
@@ -221,7 +239,7 @@ def _library() -> ctypes.CDLL:
     lib.bp_qc_max_row_degree.restype = i32
     lib.bp_qc_compressed_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.bp_qc_compressed_limits.restype = i32
-    limits = (ctypes.c_int * 3)()
+    limits = (ctypes.c_int * len(COMPRESSED_LIMITS))()
     lib.bp_qc_compressed_limits(limits)
     if tuple(limits) != COMPRESSED_LIMITS:
         raise RuntimeError(f"the library's compressed-state limits "
@@ -250,29 +268,30 @@ def compressed_state(qc: QcStructure, method: str = "min-sum",
                      layered_group: int = 1) -> bool:
     """Whether a decode keeps the compressed check state (csrc/minsum_qc.cu:
     two stored magnitudes and a word of signs and index a check): the
-    serial-C min-sum forms (``layered_group`` 1), on a code within
-    ``COMPRESSED_LIMITS`` (row degree, block rows, planes). Every other
-    form keeps the full messages (the group-serial forms measured slower
-    on the compressed state, PERF.md)."""
+    min-sum forms, flooding and serial-C (``layered_group`` 1), on a code
+    within ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block
+    columns). Every other form keeps the full messages (the group-serial
+    forms measured slower on the compressed state, PERF.md)."""
     planes, group_c, _ = qc_plan(qc)
     degree = max(len(ps) for ps in group_c)
-    max_deg, max_rows, max_planes = COMPRESSED_LIMITS
-    return (method == "min-sum" and schedule == "layered"
-            and min(layered_group, qc.mb) == 1
+    max_deg, max_rows, max_planes, max_cols = COMPRESSED_LIMITS
+    return (method == "min-sum"
+            and (schedule == "flooding" or min(layered_group, qc.mb) == 1)
             and degree <= max_deg and qc.mb <= max_rows
-            and len(planes) <= max_planes)
+            and len(planes) <= max_planes and qc.nb <= max_cols)
 
 
 def smem_bytes(qc: QcStructure, layered_group: int = 1,
                dtype=torch.float32, method: str = "min-sum",
                schedule: str = "flooding") -> int:
-    """Dynamic shared memory of one CTA: the int32 plan; the c2v planes
-    (4, 2 or 1 B a message for f32, bf16, int8) or, on the compressed
-    state (:func:`compressed_state`), two stored magnitudes and a 2-byte
-    word a check; the posterior (2 B a variable for bf16, else 4); and for
-    a group-serial launch the f32 message changes of a group's planes (at
-    most ``min(P, G·row degree)`` planes of z floats); each region on a
-    16-byte boundary."""
+    """Dynamic shared memory of one CTA: the int32 plan (not for flooding
+    on the compressed state, whose plan is the kernel's parameter); the
+    c2v planes (4, 2 or 1 B a message for f32, bf16, int8) or, on the
+    compressed state (:func:`compressed_state`), two stored magnitudes and
+    a 2-byte word a check; the posterior (2 B a variable for bf16, else
+    4); and for a group-serial launch the f32 message changes of a group's
+    planes (at most ``min(P, G·row degree)`` planes of z floats); each
+    region on a 16-byte boundary."""
     planes, group_c, _ = qc_plan(qc)
     P = len(planes)
 
@@ -286,11 +305,14 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     degree = max(len(ps) for ps in group_c)
     scratch = min(P, G * degree) * qc.z if G > 1 else 0
     checks = qc.mb * qc.z
-    state = (a16(2 * msg * checks) + a16(2 * checks)
-             if compressed_state(qc, method, schedule, layered_group)
+    cs = compressed_state(qc, method, schedule, layered_group)
+    state = (a16(2 * msg * checks) + a16(2 * checks) if cs
              else a16(msg * P * qc.z))
-    return (a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1)) + state
-            + a16(post * qc.nb * qc.z) + 4 * scratch)
+    flood_cs = cs and schedule == "flooding"
+    plan = 0 if flood_cs else a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1))
+    # the compressed flooding forms keep the LLRs beside the posterior
+    posts = (2 if flood_cs else 1) * a16(post * qc.nb * qc.z)
+    return plan + state + posts + 4 * scratch
 
 
 def _ab_table(alpha, beta, iterations: int) -> np.ndarray:
@@ -530,12 +552,13 @@ def bp_qc_cuda(
         qstep if quant else 1.0, float(msg_qclip) if quant else math.inf,
         sstep, 1.0 / sstep, threads, stream,
     )
-    name = kernel_name(method, schedule, bool(early_stop), quant,
-                       wm is not None, dtype)
     if err != 0:
+        entry = entry_point(qc, method, schedule, bool(early_stop), quant,
+                            wm is not None, dtype, layered_group)
         msg = lib.bp_qc_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{entry} launch failed: {msg}")
+    LAUNCHES[kernel_name(method, schedule, bool(early_stop), quant,
+                         wm is not None, dtype)] += 1
     if output in ("hard_iters", "hard_unsat"):
         return out, aux
     return out

@@ -597,24 +597,26 @@ def test_bigcode_and_tuner_end_to_end(cuda, tmp_path):
     assert all("ms_per_step" in v for v in lines), lines
 
 
+@pytest.mark.parametrize("schedule", ["layered", "flooding"])
 @pytest.mark.parametrize("name", ["wifi648", "qc8448_r12", "qc1944_r23"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8], ids=["f32", "bf16", "int8"])
-def test_serial_c_minsum_integer_llrs(cuda, name, dtype):
-    """Serial-C min-sum on integer LLRs (tied minima, zero magnitudes, β
-    above the minimum) equals the plain version: on the compressed check
-    state (wifi648, rows of degree 7-8 at the state's 8-slot limit;
-    qc8448_r12) and with full messages beyond it (qc1944_r23, degree
-    8-9)."""
+def test_serial_c_minsum_integer_llrs(cuda, name, dtype, schedule):
+    """Serial-C and flooding min-sum on integer LLRs (tied minima, zero
+    magnitudes, β above the minimum) equal the plain version: on the
+    compressed check state (wifi648, rows of degree 7-8 at the state's
+    8-slot limit; qc8448_r12) and with full messages beyond it
+    (qc1944_r23, degree 8-9)."""
     code = get_code(name)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(3)
     x = torch.randint(-3, 4, (64, code.n), generator=gen,
                       device=cuda).float()
-    kw = dict(iterations=4, schedule="layered", dtype=dtype, msg_qclip=4.0,
+    kw = dict(iterations=4, schedule=schedule, dtype=dtype, msg_qclip=4.0,
               alpha=(1.0, 0.75, 0.5, 1.0), beta=(0.0, 1.0, 2.5, 0.5),
               clamp=2.0, output="posterior")
-    assert mq.compressed_state(code.qc) == (name != "qc1944_r23")
+    assert mq.compressed_state(code.qc, schedule=schedule) == (
+        name != "qc1944_r23")
     assert torch.equal(mq.bp_qc_cuda(x, code.qc, **kw),
                        decode_roll(x, code.qc, **kw))
 

@@ -6,7 +6,10 @@ The CUDA kernels run only on the card (tests/test_torch_gpu.py); what
 they compute is checked here by running the loops of
 csrc/minsum_qc.cu line for line in NumPy on the plan table the wrapper
 hands them, fixed and early-stop forms, min-sum and sum-product, with and
-without message quantization, against the plain version. Min-sum, with
+without message quantization, against the plain version, and the
+compressed min-sum flooding loop (state, old messages, check pass,
+posterior rebuild) at each storage type with per-edge weights and early
+stop, against the plain version and the Pallas kernel. Min-sum, with
 or without quantization, agrees exactly. Sum-product agrees within 1e-5
 (absolute and relative): NumPy's float32 exp/expm1/log1p/log round
 differently from PyTorch's on the CPU, and PyTorch's own CPU log1p
@@ -28,7 +31,11 @@ from ldpc_sims_tpu_torch.codes import get_code, list_codes
 from ldpc_sims_tpu_torch.convert import load_trained_schedule
 from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 from ldpc_sims_tpu_torch.ops import init_neural_bp_weights
-from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, qc_plan
+from ldpc_sims_tpu_torch.ops.bp_roll import (
+    decode_roll,
+    pack_edge_weights,
+    qc_plan,
+)
 
 SCHEDULES = os.path.join(os.path.dirname(__file__), "..", "docs",
                          "artifacts", "minsum_trained_schedules.json")
@@ -68,12 +75,20 @@ def unpack_plan(qc):
 
 def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
                    early_stop=False, check_every=1, method="min-sum",
-                   msg_qbits=None, msg_qclip=20.0):
+                   msg_qbits=None, msg_qclip=20.0, compressed=False,
+                   dtype=torch.float32, weights=None):
     """The kernels' decode for a (B, n) LLR batch; returns the posterior
     in the log(Pr1/Pr0) convention and the (B,) iterations each codeword
     ran (``iterations`` for the fixed forms). Each codeword is one CTA:
     under early stop it votes on its syndrome at entry and after every
-    ``check_every``-th iteration and leaves the loop when it holds."""
+    ``check_every``-th iteration and leaves the loop when it holds.
+    ``compressed``: the min-sum flooding loop on the compressed check
+    state (:func:`emulate_flooding_cs`), which also takes the storage
+    ``dtype`` and edge-flavor ``weights``."""
+    if compressed:
+        return emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
+                                   early_stop, check_every, msg_qbits,
+                                   msg_qclip, dtype, weights)
     f32 = np.float32
     row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
     ab = mq._ab_table(alpha, beta, iterations)
@@ -188,6 +203,157 @@ def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
     return -out.T, iters
 
 
+def unsat_count(post, qc):
+    """local_unsat summed over a CTA's threads, for (n, B) posteriors."""
+    row_ptr, col, shift, _, _ = unpack_plan(qc)
+    z, r = qc.z, np.arange(qc.z)
+    count = np.zeros(post.shape[1], np.int64)
+    for i in range(qc.mb):
+        parity = np.zeros((z, post.shape[1]), np.int64)
+        for p in range(row_ptr[i], row_ptr[i + 1]):
+            parity ^= post[col[p] * z + (r + shift[p]) % z] < 0
+        count += parity.sum(0)
+    return count
+
+
+def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
+                        early_stop=False, check_every=1, msg_qbits=None,
+                        msg_qclip=20.0, dtype=torch.float32, weights=None):
+    """The compressed min-sum flooding kernels (csrc/minsum_qc.cu:
+    flood_checks_cs, flood_rebuild_cs) in NumPy, vectorized over a block's
+    z checks or variables and the batch. A check keeps T(min1), T(min2) as
+    stored codes (f32 and bf16: the value; int8: the integer on the grid),
+    its exclusive-sign bits and the slot of its first minimum. Each
+    iteration rebuilds a check's old messages from that state (the sign
+    applied to the code: −0 survives in f32 and bf16, an int8 zero lifts
+    to +0), forms each v2c through the message storage, writes the new
+    state, then rebuilds every posterior as (wl·) LLR + Σ (w·) message in
+    check-sorted order, rounded once to the posterior's storage."""
+    f32 = np.float32
+    row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
+    ab = mq._ab_table(alpha, beta, iterations)
+    z, mb, nb = qc.z, qc.mb, qc.nb
+    r_all = np.arange(z)
+    clamp = f32(np.inf if clamp is None else clamp)
+    qstep = None if msg_qbits is None else f32(
+        2.0 * msg_qclip / (2**msg_qbits - 1))
+    # the int8 grid's step and reciprocal, as the wrapper passes them
+    sstep = f32(2.0 * msg_qclip / 255.0)
+    sinv = f32(1.0 / (2.0 * msg_qclip / 255.0))
+
+    def bf16(v):
+        return torch.from_numpy(np.ascontiguousarray(v, f32)).to(
+            torch.bfloat16).float().numpy()
+
+    def code_of(v):  # store<Msg>
+        if dtype == torch.bfloat16:
+            return bf16(v)
+        if dtype == torch.int8:  # an integer code: a -0 is the code 0
+            return np.clip(np.rint(v * sinv), f32(-127), f32(127)) + f32(0)
+        return v.astype(f32)
+
+    def lift(c):
+        return c * sstep if dtype == torch.int8 else c
+
+    def st_post(v):
+        return bf16(v) if dtype == torch.bfloat16 else v.astype(f32)
+
+    wm = wl = None
+    if weights is not None:
+        wt = pack_edge_weights(weights, qc, iterations)
+        wm, wl = wt.msg.numpy(), wt.llr.numpy()
+    # plane p: its block row and its slot there
+    row_of = np.repeat(np.arange(mb), np.diff(row_ptr))
+    slot_of = np.arange(len(col)) - row_ptr[row_of]
+
+    def message(state, i, e):
+        """(z, B) messages of slot e of block row i's checks."""
+        m1, m2, signs, first = (s[i] for s in state)
+        code = np.where(first == e, m2, m1)
+        code = np.where((signs >> e) & 1 == 1, -code, code)
+        if dtype == torch.int8:
+            code = code + f32(0)  # the negated zero code is the code 0
+        return lift(code).astype(f32)
+
+    def checks(state, post, it):
+        a, b = ab[it]
+        new = [s.copy() for s in state]
+        for i in range(mb):
+            shape = (z, post.shape[1])
+            min1 = np.full(shape, 1e30, f32)
+            min2 = np.full(shape, 1e30, f32)
+            first = np.full(shape, -1)
+            negs = np.zeros(shape, np.int64)
+            for e, p in enumerate(range(row_ptr[i], row_ptr[i + 1])):
+                m = message(state, i, e)
+                if wm is not None:
+                    m = wm[it, p][:, None] * m
+                pv = post[col[p] * z + (r_all + shift[p]) % z]
+                v = lift(code_of(pv - m)).astype(f32)
+                negs |= (v < 0).astype(np.int64) << e
+                av = np.abs(v)
+                lt1 = av < min1
+                lt2 = ~lt1 & (av < min2)
+                min2 = np.where(lt1, min1, np.where(lt2, av, min2))
+                min1 = np.where(lt1, av, min1)
+                first = np.where(lt1, e, first)
+
+            def t(m):
+                y = np.maximum(m - f32(b), f32(0)) * f32(a)
+                y = np.minimum(np.maximum(y, -clamp), clamp)
+                if qstep is not None:
+                    y = np.minimum(np.maximum(np.rint(y / qstep) * qstep,
+                                              -f32(msg_qclip)),
+                                   f32(msg_qclip))
+                return code_of(y.astype(f32))
+
+            parity = np.bitwise_count(negs.astype(np.uint64)) & 1
+            signs = (negs ^ np.where(parity == 1, 0xFF, 0)) & 0xFF
+            new[0][i], new[1][i] = t(min1), t(min2)
+            new[2][i], new[3][i] = signs, np.maximum(first, 0)
+        return new
+
+    def rebuild(state, lv, row):
+        post = np.empty_like(lv)
+        for j in range(nb):
+            acc = lv[j * z:(j + 1) * z]
+            if wl is not None:
+                acc = wl[row, j][:, None] * acc
+            for p in col_planes[col_ptr[j]:col_ptr[j + 1]]:
+                r = (r_all - shift[p]) % z
+                m = message(state, row_of[p], slot_of[p])[r]
+                acc = acc + (m if wm is None else wm[row, p][r][:, None] * m)
+            post[j * z:(j + 1) * z] = st_post(acc)
+        return post
+
+    B = llr.shape[0]
+    lv = st_post(-llr.T)  # (n, B), the LLR as the posterior holds it
+    zero = np.zeros((mb, z, B), f32) + code_of(np.zeros(1, f32))
+    state = [zero, zero.copy(), np.zeros((mb, z, B), np.int64),
+             np.zeros((mb, z, B), np.int64)]
+    post = lv.copy() if wm is None else rebuild(state, lv, 0)
+    iters = np.full(B, iterations)
+    out = np.zeros_like(post)
+    idx = np.arange(B)
+    K = check_every
+    for r in range(-1, iterations // K):
+        if r >= 0:
+            for k in range(K):
+                state = checks(state, post, r * K + k)
+                post = rebuild(state, lv, r * K + k + 1)
+        if not early_stop:
+            continue
+        ok = unsat_count(post, qc) == 0  # the CTAs that leave the loop
+        out[:, idx[ok]] = post[:, ok]
+        iters[idx[ok]] = (r + 1) * K
+        state = [s[..., ~ok] for s in state]
+        post, lv, idx = post[:, ~ok], lv[:, ~ok], idx[~ok]
+        if idx.size == 0:
+            break
+    out[:, idx] = post
+    return -out.T, iters
+
+
 @pytest.mark.parametrize(
     "name", [n for n in list_codes() if get_code(n).qc is not None
              and get_code(n).n <= 1944]
@@ -213,10 +379,16 @@ def test_plan_table_rebuilds_H(name):
 
 
 def test_smem_bytes_wifi1944():
-    # plan 13 + 3·86 + 25 = 296 ints, 86·81 message and 1944 posterior f32,
-    # each region on a 16-byte boundary (the messages' 27,864 B take 27,872)
-    assert mq.smem_bytes(get_code("wifi1944").qc) == 4 * 296 + 27_872 + \
+    # full messages (sum-product flooding): plan 13 + 3·86 + 25 = 296 ints,
+    # 86·81 message and 1944 posterior f32, each region on a 16-byte
+    # boundary (the messages' 27,864 B take 27,872)
+    qc = get_code("wifi1944").qc
+    assert mq.smem_bytes(qc, method="sum-product") == 4 * 296 + 27_872 + \
         4 * 1944
+    # min-sum flooding on the compressed state: 972 checks of two f32
+    # magnitudes and a 2-byte word (1944 B take 1952), the posterior and
+    # the LLRs, and no plan (the kernel's parameter holds it)
+    assert mq.smem_bytes(qc) == 972 * 8 + 1952 + 2 * 4 * 1944
 
 
 @pytest.mark.parametrize("kw", [
@@ -299,6 +471,80 @@ def test_early_stop_kernel_loop_matches_plain_version(layered, K, extra):
     np.testing.assert_array_equal(ours, ref.numpy())
     np.testing.assert_array_equal(iters, ref_iters.numpy())
     assert iters[0] == 0 and iters[-1] == 6 and 0 < iters[1] < 6
+
+
+def integer_llrs(batch, seed):
+    """wifi648 LLRs in {-3, ..., 3}: tied minima, zero magnitudes, and an
+    offset above the minimum are common."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(-3, 4, (batch, 648)).astype(np.float32)
+
+
+FLOODING_CS_CASES = {
+    "table-clamp": dict(iterations=3, alpha=(1.0, 0.75, 0.5),
+                        beta=(0.0, 1.0, 2.5), clamp=2.0),
+    "msgq3": dict(iterations=3, alpha=0.8, beta=(1.5, 0.0, 0.5),
+                  clamp=None, msg_qbits=3),
+    "early-stop-K1": dict(iterations=6, alpha=0.8, beta=0.05, clamp=None,
+                          early_stop=True, check_every=1, msg_qclip=20.0),
+    "early-stop-K2": dict(iterations=6, alpha=0.8, beta=0.05, clamp=None,
+                          early_stop=True, check_every=2, msg_qclip=20.0),
+    "weighted": dict(iterations=2, alpha=0.75, beta=(0.0, 1.0), clamp=3.0,
+                     weighted=True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", list(FLOODING_CS_CASES))
+def test_compressed_flooding_loop_matches_plain_version(case, dtype):
+    """The compressed min-sum flooding loop (state → old messages → check
+    pass → posterior rebuild) against the plain version at each storage
+    type: the α/β table with a clamp and β above the minimum, 3-bit
+    messages, early stop at K = 1 and 2, per-edge weights. Posteriors and
+    iteration counts exactly equal. Integer LLRs give ties, zero
+    magnitudes and zero messages of both signs; the early-stop cases add
+    the three regimes of a channel (passes at entry, converges, never)."""
+    code = get_code("wifi648")
+    kw = {"msg_qclip": 4.0, **FLOODING_CS_CASES[case]}
+    weighted = kw.pop("weighted", False)
+    K = kw.pop("check_every", 1)
+    llr = integer_llrs(5, seed=11)
+    if kw.get("early_stop"):
+        llr = np.concatenate([llr[:2], np.stack([
+            bpsk_llrs(12.0, seed=4), bpsk_llrs(4.0, seed=5),
+            bpsk_llrs(2.5, seed=6)])])
+    w = None
+    if weighted:
+        rng = np.random.default_rng(12)
+        w = {k: rng.uniform(0.7, 1.3, v.shape).astype(np.float32)
+             for k, v in init_neural_bp_weights(code, 2).items()}
+    ours, iters = emulate_kernel(llr, code.qc, layered=False,
+                                 compressed=True, dtype=dtype, weights=w,
+                                 check_every=K, **kw)
+    ref_kw = dict(kw, schedule="flooding", dtype=dtype, weights=w,
+                  es_check_every=K)
+    x = torch.from_numpy(llr)
+    ref = decode_roll(x, code.qc, output="posterior", **ref_kw).numpy()
+    np.testing.assert_array_equal(ours, ref)
+    if kw.get("early_stop"):
+        _, ref_iters = decode_roll(x, code.qc, output="hard_iters", **ref_kw)
+        np.testing.assert_array_equal(iters, ref_iters.numpy())
+        assert iters[-3] == 0 and iters[-1] == 6 and 0 < iters[-2] < 6
+    assert mq.compressed_state(code.qc, "min-sum", "flooding")
+
+
+def test_compressed_flooding_loop_matches_pallas_interpret():
+    """Integer LLRs, α in {1, 0.5} and β in {0, 1}: every message and sum
+    is exact, so the compressed flooding loop equals JAX's Pallas kernel
+    (interpret mode, one 128-lane tile) exactly."""
+    llr = integer_llrs(128, seed=13)
+    kw = dict(iterations=3, alpha=(1.0, 0.5, 0.5), beta=(0.0, 1.0, 0.0))
+    ref = np.asarray(bp_qc_pallas(jnp.asarray(llr), jax_get_code("wifi648").qc,
+                                  interpret=True, output="posterior", **kw))
+    ours, _ = emulate_kernel(llr, get_code("wifi648").qc, clamp=None,
+                             layered=False, compressed=True, **kw)
+    np.testing.assert_array_equal(ours, ref)
 
 
 @pytest.mark.parametrize("kw, match", [

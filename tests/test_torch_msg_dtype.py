@@ -235,11 +235,14 @@ def test_auto_diverges_from_jax_cpu_auto():
 def test_smem_bytes_per_storage_type():
     """Each region sized by its type on a 16-byte boundary; the 5G-class
     codes' bf16 and int8 halve their f32 footprint or better. Sum-product
-    (and flooding, and the group-serial forms) keep the full messages;
-    serial-C min-sum keeps the compressed check state: two stored
-    magnitudes and a 2-byte word a check."""
+    (and the group-serial forms) keep the full messages; min-sum, serial-C
+    and flooding, keeps the compressed check state: two stored magnitudes
+    and a 2-byte word a check, flooding without the plan (its kernel
+    parameter holds it) and with the LLRs beside the posterior, in its
+    storage type."""
     sp = dict(method="sum-product", schedule="layered")
     ms = dict(method="min-sum", schedule="layered")
+    fl = dict(method="min-sum", schedule="flooding")
     qc = get_code("wifi1944").qc  # plan 296 ints, P·z = 6966, n = 1944
     assert mq.smem_bytes(qc, 1, torch.bfloat16, **sp) == 1184 + 13936 + 3888
     assert mq.smem_bytes(qc, 1, torch.int8, **sp) == 1184 + 6976 + 7776
@@ -258,15 +261,31 @@ def test_smem_bytes_per_storage_type():
     assert mq.smem_bytes(big, 1, torch.bfloat16, **ms) == 62_336
     assert mq.smem_bytes(big, 1, torch.int8, **ms) == 74_624
     # qc8448: three f32 CTAs an SM (76,800 B each)
-    assert mq.smem_bytes(get_code("qc8448_r12").qc, **ms) == 75_968
+    q8448 = get_code("qc8448_r12").qc
+    assert mq.smem_bytes(q8448, **ms) == 75_968
+    # flooding: the serial-C bytes less the plan (1,184 B at wifi1944)
+    # and with the LLRs (4 B a variable, bf16 2); sum-product flooding as
+    # layered
+    for dt, llr in ((torch.float32, 7776), (torch.bfloat16, 3888),
+                    (torch.int8, 7776)):
+        assert mq.smem_bytes(qc, 1, dt, **fl) == mq.smem_bytes(
+            qc, 1, dt, **ms) - 1184 + llr
+    # one f32 or int8 CTA an SM at qc12288, two at bf16
+    assert mq.smem_bytes(big, **fl) == 159_744
+    assert mq.smem_bytes(big, 1, torch.bfloat16, **fl) == 86_016
+    assert mq.smem_bytes(big, 1, torch.int8, **fl) == 122_880
+    assert mq.smem_bytes(q8448, **fl) == 108_544
+    assert mq.smem_bytes(big, method="sum-product") == 174_976
     # G = 5 does not fit at f32 but does at bf16
     assert mq.smem_bytes(big, 5, **ms) > mq._SMEM_LIMIT
     assert mq.smem_bytes(big, 5, torch.bfloat16, **ms) <= mq._SMEM_LIMIT
     # the compressed state's limits: rows of degree 8 take it, 9 not
-    assert mq.compressed_state(get_code("wifi648").qc)
-    assert not mq.compressed_state(get_code("qc1944_r23").qc)
-    assert mq.smem_bytes(get_code("qc1944_r23").qc, **ms) == mq.smem_bytes(
-        get_code("qc1944_r23").qc, **sp)
+    r23 = get_code("qc1944_r23").qc
+    for kw in (ms, fl):
+        assert mq.compressed_state(get_code("wifi648").qc, **kw)
+        assert not mq.compressed_state(r23, **kw)
+        assert mq.smem_bytes(r23, **kw) == mq.smem_bytes(r23, **sp)
+    assert not mq.compressed_state(qc, "sum-product", "flooding")
 
 
 def test_bigcode_and_tuner_need_a_card(monkeypatch, capsys):
