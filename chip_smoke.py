@@ -7,7 +7,8 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
 
 1. build the CUDA decode kernels from the checkout's sources, print
    ptxas's register/shared-memory report and the card's name and power
-   limit;
+   limit, and fail unless each of the 36 sum-product kernels with a
+   check's slots in registers (the _sr kernels) has a 0 B stack frame;
 2. hold each kernel against its plain PyTorch version on the card at
    batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75, β=0.1,
    clamp 20), the registry's trained layered-8 on wifi1944 and wifi648
@@ -48,7 +49,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    wifi1944, wifi648 and qc1944_r23, and every min-sum flooding form
    (the same forms, no drivers) at the three types on wifi1944, wifi648,
    qc8448_r12 (the compressed state) and qc1944_r23 (full messages), each
-   exactly equal;
+   exactly equal. Then (2g) every sum-product form (fixed with its
+   unsatisfied-check count, early stop at K = 1 and 2, ``done_in``,
+   weighted; with and without 4-bit messages; both schedules) and both
+   drivers at f32, bf16 and int8 on wifi1944, wifi648 and qc8448_r12,
+   which take the _sr kernels, and on wifi1944 with G = 3 and
+   qc1944_r23, which keep the full-message kernels, on channel LLRs with
+   64 rows saturated at |LLR| = 60, each exactly equal;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -69,7 +76,9 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    layered-20, ``es_mode='auto'``) at 8 and 10 dB, 4 chunks per point;
 3c. the ``wifi648-sweep`` preset (wifi648, layered-20 sum-product,
    ``es_mode='auto'``) at 2.0 and 3.0 dB, 4 chunks of 8 × 4096 per point,
-   its 2.0 dB BLER held within 4σ of the JAX package's committed curve;
+   its 2.0 dB BLER held within 4σ of the JAX package's committed curve,
+   its _sr entry point launched, and a profile of one preset step in each
+   of es auto's two modes at 2.0 dB;
    the same configuration in flooding, flooding with ``es_mode='freeze'``
    and layered with ``es_mode='requeue'`` at 2.0 dB (the other three
    sum-product kernels on a main path); the ``quantized-minsum`` preset at
@@ -108,8 +117,10 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    main-path run, and a row ``minsum_qc_layered@es_auto`` for the layered
    kernel's launches on the es-auto path, timed as one probe chunk at 3.5
    dB (the ``hard_unsat`` probe and the ``done_in`` pass); the four
-   sum-product kernels and ``minsum_qc_flooding@msgq4`` (the quantized
-   form, with the quantized-minsum run's launches), bound by the f32 and
+   sum-product kernels, at wifi1944 and again at the wifi648-sweep
+   preset's shape (``name@wifi648``: wifi648 at 2.0 dB, batch 4096), and
+   ``minsum_qc_flooding@msgq4`` (the quantized form, with the
+   quantized-minsum run's launches), bound by the f32 and
    special-function-unit instructions counted in the SASS of their edge
    sequence; ``minsum_qc_layered_w`` (the K6 decoder),
    ``minsum_qc_flooding_w`` (flooding-12, random weights) and
@@ -123,14 +134,17 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    bound with the conversion instructions counted in the SASS of probes of
    the source's load and store helpers; the min-sum flooding forms that
    no main path launches (flooding-20 at bf16 and int8, with its count,
-   its ``done_in`` pass), each equal to the plain version, printed with
-   their bounds; the min-sum rows print the
-   full-message designs' recorded times beside theirs, and the SASS loops
-   of both min-sum designs, serial-C and flooding, give their
-   shared-memory instructions an edge; and one short sweep of the launch
-   tuner (``kernels/tune.py``). Each row of the ``kernels`` line names the
-   CUDA entry point its launches ran (``entry``; ``_cs`` on the compressed
-   check state).
+   its ``done_in`` pass) and the sum-product forms no main path launches
+   (per-edge weights, 4-bit messages, bf16 and int8 storage, each
+   schedule), each equal to the plain version, printed with their
+   bounds; the min-sum and sum-product rows print the earlier
+   full-message designs' recorded times beside theirs, and the SASS
+   loops of both designs of each kernel, serial-C and flooding, give
+   their shared-memory instructions an edge; and one short sweep of the
+   launch tuner (``kernels/tune.py``). Each row of the ``kernels`` line
+   names the CUDA entry point its launches ran (``entry``; ``_cs`` on the
+   compressed check state, ``_sr`` with the sum-product slots in
+   registers), and each main-path run prints its launches per entry point.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -178,6 +192,11 @@ SP_OPS_PER_EDGE_ITER = {"flooding": 5 + 1, "layered": 5 + 2}
 ES_AUTO_ROW = "minsum_qc_layered@es_auto"
 # the kernels line's row for the 4-bit quantized flooding kernel
 MSGQ_ROW = "minsum_qc_flooding@msgq4"
+# the four sum-product entry points, each with a row at wifi1944 (batch
+# 32768) and one at the wifi648-sweep preset's shape that launches it
+# (name@wifi648: wifi648 at 2.0 dB, batch 4096)
+SP_KERNELS = ("sumproduct_qc_flooding", "sumproduct_qc_layered",
+              "sumproduct_qc_flooding_es", "sumproduct_qc_layered_es")
 # BLER anchors of the JAX package's committed curves at 2.0 dB, (BLER,
 # frames): wifi648-sweep (docs/artifacts/r5_sweeps/20260821-124859_curves.json)
 # and quantized-minsum (docs/artifacts/20260817-105931_curves_msgq{b}.json)
@@ -246,12 +265,15 @@ BIGCODE_BER = {
 # sum-product-ref-3, clamp 20): coded BER at the points the no-flag sweep
 # runs
 TABLE_A = {0.0: 7.271e-2, 3.0: 1.142e-2, 6.0: 3.419e-4}
-# the times of the min-sum kernels' rows with full messages, the designs
-# before the compressed check state (PERF.md §6, this script on an NVIDIA
-# H100 80GB HBM3 at 700 W: the layered rows of PR 6, the flooding rows of
-# PR 7), printed beside this run's; `python -m
-# ldpc_sims_tpu_torch.kernels.compare` times both designs in one call
+# the times of the kernels' rows with full messages and the plan in shared
+# memory, the designs before the compressed check state and the
+# sum-product slots in registers (PERF.md §6, this script on an NVIDIA
+# H100 80GB HBM3 at 700 W, the last run of each earlier design), printed
+# beside this run's; `python -m ldpc_sims_tpu_torch.kernels.compare`
+# times both designs in one call
 FULL_MESSAGE_MS = {
+    "sumproduct_qc_flooding": 42.307, "sumproduct_qc_layered": 48.532,
+    "sumproduct_qc_flooding_es": 17.294, "sumproduct_qc_layered_es": 11.652,
     "minsum_qc_flooding": 15.898, "minsum_qc_flooding_es": 8.458,
     "minsum_qc_flooding@msgq4": 18.520, "minsum_qc_flooding_w": 13.618,
     "minsum_qc_flooding@qc12288": 41.132,
@@ -264,6 +286,28 @@ FULL_MESSAGE_MS = {
 }
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
+
+
+def ptxas_entries(report: str) -> dict:
+    """{entry point (mangled): (stack frame bytes, registers)} from
+    ptxas's -v report of the build."""
+    import re
+
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            stack = None
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name is not None:
+            stack = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            found[name] = (stack, int(m.group(1)))
+            name = None
+    return found
 
 
 def fail(msg: str) -> None:
@@ -392,13 +436,17 @@ def edge_instruction_counts() -> dict:
 
 
 def smem_instructions(lib) -> dict:
-    """The shared-memory instructions of the f32 min-sum kernels in the
-    built library's SASS, serial-C and flooding: for the full-message
+    """The shared-memory instructions of the f32 decode kernels in the
+    built library's SASS, serial-C and flooding: for min-sum's full-message
     designs (``minsum_qc_layered``, ``minsum_qc_flooding``, which the codes
     beyond the compressed state's limits keep) and the compressed ones
-    (``minsum_qc_layered_cs``, ``minsum_qc_flooding_cs``), each innermost
-    loop (a backward branch that holds no other) as (instructions, LDS,
-    STS)."""
+    (``minsum_qc_layered_cs``, ``minsum_qc_flooding_cs``), and for
+    sum-product's full-message designs (``sumproduct_qc_layered``,
+    ``sumproduct_qc_flooding``, the group-serial forms' and the codes'
+    beyond the limits) and the ones with a check's slots in registers
+    (``sumproduct_qc_layered_sr``, ``sumproduct_qc_flooding_sr``), each
+    innermost loop (a backward branch that holds no other) as
+    (instructions, LDS, STS, LDL + STL)."""
     import re
     import shutil
 
@@ -412,7 +460,15 @@ def smem_instructions(lib) -> dict:
         key = {"_Z17minsum_qc_layeredPKf": "serial-C full-message",
                "_Z20minsum_qc_layered_csPKf": "serial-C compressed",
                "_Z18minsum_qc_floodingPKf": "flooding full-message",
-               "_Z21minsum_qc_flooding_csPKf": "flooding compressed"}.get(
+               "_Z21minsum_qc_flooding_csPKf": "flooding compressed",
+               "_Z21sumproduct_qc_layeredPKf":
+                   "sum-product serial-C full-message",
+               "_Z24sumproduct_qc_layered_srPKf":
+                   "sum-product serial-C registers",
+               "_Z22sumproduct_qc_floodingPKf":
+                   "sum-product flooding full-message",
+               "_Z25sumproduct_qc_flooding_srPKf":
+                   "sum-product flooding registers"}.get(
                    name[:name.index("PKf") + 3] if "PKf" in name else "")
         if key is None:
             continue
@@ -433,7 +489,9 @@ def smem_instructions(lib) -> dict:
         found[key] = sorted(
             (sum(1 for a, _, _ in ins if lo <= a <= hi),
              sum(1 for a, op, _ in ins if lo <= a <= hi and op == "LDS"),
-             sum(1 for a, op, _ in ins if lo <= a <= hi and op == "STS"))
+             sum(1 for a, op, _ in ins if lo <= a <= hi and op == "STS"),
+             sum(1 for a, op, _ in ins
+                 if lo <= a <= hi and op in ("LDL", "STL")))
             for lo, hi in inner)
     return found
 
@@ -536,6 +594,101 @@ def adversarial(schedule, codes, storage_rows, max_err) -> None:
                       "unsatisfied counts, early stop, done_in, weighted "
                       "(each with and without 3-bit messages) and both "
                       "drivers equal", flush=True)
+
+
+def sumproduct_registers(codes, kept, storage_rows, max_err) -> None:
+    """Every sum-product form (fixed with its unsatisfied-check count, early
+    stop at K = 1 and 2, ``done_in``, weighted; with and without 4-bit
+    messages; both schedules) and both drivers at f32, bf16 and int8 on
+    channel LLRs with 64 rows saturated at |LLR| = 60, each exactly equal
+    to the plain version: on ``codes`` through the kernels with a check's
+    slots in registers (the _sr entry points), on ``kept`` (code, group)
+    pairs through the full-message kernels they keep."""
+    import torch
+
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll
+
+    for code, G, sr in [(c, 1, True) for c in codes] + [
+            (c, g, False) for c, g in kept]:
+        qc = code.qc
+        B = 4096 if code.n <= 1944 else 1024
+        llr = channel_llrs(code, B, 1.5, seed=81)
+        llr[:64] = torch.where(llr[:64] > 0, 60.0, -60.0)
+        skip = torch.arange(B, device="cuda") % 3 == 0
+        w = random_edge_weights(code, 4, seed=82)
+        for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
+            for sched in ("flooding", "layered") if G == 1 else ("layered",):
+                st = dict(schedule=sched, method="sum-product", dtype=dt,
+                          msg_qclip=20.0, layered_group=G)
+                entry = mq.entry_point(qc, "sum-product", sched, dtype=dt,
+                                       layered_group=G)
+                if ("_sr" in entry) != sr:
+                    fail(f"{code.name} G={G} {sched}: launches {entry}")
+                for qb in (None, 4):
+                    at = f"{code.name} {sched} {sfx} G={G} msg_qbits={qb}"
+                    kw = dict(st, msg_qbits=qb, iterations=6)
+                    pairs = []
+                    for out in ("posterior", "hard_unsat"):
+                        k = mq.bp_qc_cuda(llr, qc, output=out, **kw)
+                        p = decode_roll(llr, qc, output=out, **kw)
+                        pairs += (list(zip(k, p)) if isinstance(k, tuple)
+                                  else [(k, p)])
+                    name = mq.kernel_name("sum-product", sched, False,
+                                          qb is not None, dtype=dt)
+                    max_err[name] = max(max_err[name],
+                                        exact(pairs, f"{at} fixed"))
+                    for K in (1, 2):
+                        es = dict(kw, early_stop=True, es_check_every=K,
+                                  output="hard_iters")
+                        name = mq.kernel_name("sum-product", sched, True,
+                                              qb is not None, dtype=dt)
+                        max_err[name] = max(max_err[name], exact(
+                            list(zip(mq.bp_qc_cuda(llr, qc, **es),
+                                     decode_roll(llr, qc, **es))),
+                            f"{at} early stop K={K}"))
+                    k = mq.bp_qc_cuda(llr, qc, output="posterior",
+                                      done_in=skip, **kw)
+                    p = decode_roll(llr, qc, output="posterior",
+                                    done_in=skip, **kw)
+                    exact([(k[~skip], p[~skip])], f"{at} done_in")
+                    kw_w = dict(kw, iterations=4, weights=w,
+                                output="posterior")
+                    name = mq.kernel_name("sum-product", sched, False,
+                                          qb is not None, True, dt)
+                    max_err[name] = max(max_err[name], exact(
+                        [(mq.bp_qc_cuda(llr, qc, **kw_w),
+                          decode_roll(llr, qc, **kw_w))], f"{at} weighted"))
+                print(f"  {code.name} {sched} {sfx} G={G} ({entry}): fixed, "
+                      "unsatisfied counts, early stop K = 1, 2, done_in, "
+                      "weighted (each with and without 4-bit messages) "
+                      "equal", flush=True)
+            # both drivers, against plain compositions of their passes
+            st = dict(schedule="layered", method="sum-product", dtype=dt,
+                      msg_qclip=20.0, layered_group=G)
+            rb, ri = mq.bp_qc_requeue(llr, qc, 8, probe_iters=2,
+                                      es_check_every=2, output="hard_iters",
+                                      **st)
+            es = dict(st, early_stop=True, es_check_every=2,
+                      output="hard_iters")
+            b1, i1 = decode_roll(llr, qc, iterations=2, **es)
+            b2, i2 = decode_roll(llr, qc, iterations=8, **es)
+            done = i1 < 2
+            exact([(rb, torch.where(done[:, None], b1, b2)),
+                   (ri, torch.where(done, i1, 2 + i2))],
+                  f"{code.name} {sfx} G={G} sum-product bp_qc_requeue")
+            pb_, pi_ = mq.bp_qc_probe_requeue(llr, qc, 8, probe_iters=2,
+                                              output="hard_iters", **st)
+            b1, u1 = decode_roll(llr, qc, iterations=2, output="hard_unsat",
+                                 **st)
+            b2 = decode_roll(llr, qc, iterations=8, **st)
+            keep = (u1 == 0) & (B - int((u1 == 0).sum())
+                                <= mq.probe_capacity(B))
+            exact([(pb_, torch.where(keep[:, None], b1, b2)),
+                   (pi_, torch.where(keep, 2, 10).to(torch.int32))],
+                  f"{code.name} {sfx} G={G} sum-product bp_qc_probe_requeue")
+            print(f"  {code.name} {sfx} G={G}: sum-product drivers equal",
+                  flush=True)
 
 
 def external_unsat(bits, code):
@@ -726,7 +879,8 @@ def drive(label, code, cfg, sweep, need, card, coded_below=True,
     Fails unless every kernel in ``need`` was launched; checks the rates
     (with ``coded_below``, coded BER below uncoded). Returns (result,
     launch counts, events, steady info bits/s); ``events.mc_steps``
-    counts the run's mc_steps."""
+    counts the run's mc_steps, ``events.entries`` the launches per CUDA
+    entry point."""
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
     from ldpc_sims_tpu_torch.parallel import run_sweep
 
@@ -735,6 +889,7 @@ def drive(label, code, cfg, sweep, need, card, coded_below=True,
     res = run_sweep(code, cfg, sweep, weights=weights, log=None, metrics=ev,
                     device="cuda")
     counts = dict(mq.LAUNCHES)
+    ev.entries = dict(mq.ENTRY_LAUNCHES)
     n_steps = ev.mc_steps = len(ev.steps) * sweep.steps_per_sync
     for name in need:
         if counts[name] == 0:
@@ -745,7 +900,8 @@ def drive(label, code, cfg, sweep, need, card, coded_below=True,
     per = {k: v / n_steps for k, v in counts.items() if v}
     launched = {k: v for k, v in counts.items() if v}
     print(f"  {label}: launches {launched} over {n_steps} mc_steps "
-          f"(per mc_step {per}; mc_steps per mode {modes})", flush=True)
+          f"(per mc_step {per}; mc_steps per mode {modes}; entry points "
+          f"{ev.entries})", flush=True)
     for a in ev.auto:
         print(f"  {label} calibration @ {a['snrdb']:g} dB: fixed "
               f"{a['fixed'] * 1e3!r} ms, probe {a['probe'] * 1e3!r} ms "
@@ -821,6 +977,13 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    # the sum-product kernels with a check's slots in registers: no slot
+    # indexed at run time, so no stack frame
+    sr = {k: v for k, v in ptxas_entries(report).items() if "_sr" in k}
+    for k, (stack, regs) in sorted(sr.items()):
+        print(f"  {k}: {stack} B stack frame, {regs} registers", flush=True)
+    if len(sr) != 36 or any(stack != 0 for stack, _ in sr.values()):
+        fail(f"the 36 _sr kernels need 0 B stack frames: {sr}")
 
     # -- phase 2: kernels vs plain versions on the card --------------------
     print("== phase 2: kernels vs plain versions (batch 4096)", flush=True)
@@ -838,8 +1001,9 @@ def main() -> None:
         ("minsum_qc_flooding", w648, dict(
             iterations=20, schedule="flooding"), "wifi648 flooding-20"),
     ]
-    max_err = {name: 0.0 for name in (*mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW,
-                                      G4_ROW)}
+    max_err = {name: 0.0 for name in (
+        *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW,
+        *(f"{k}@wifi648" for k in SP_KERNELS))}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
         k_post = mq.bp_qc_cuda(llr, code.qc, output="posterior", **kw)
@@ -1204,6 +1368,13 @@ def main() -> None:
     adversarial("flooding", (w1944, w648, get_code("qc8448_r12"), r23),
                 storage_rows, max_err)
 
+    # -- phase 2g: sum-product with a check's slots in registers -----------
+    print("== phase 2g: every sum-product form on the kernels with a check's "
+          "slots in registers (and on the full-message kernels a group or "
+          "code keeps) vs plain versions", flush=True)
+    sumproduct_registers((w1944, w648, get_code("qc8448_r12")),
+                         ((w1944, 3), (r23, 1)), storage_rows, max_err)
+
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
           flush=True)
@@ -1332,6 +1503,9 @@ def main() -> None:
         min_info_bits=0, target_frame_errors=10**12)
     res, counts, ev, _ = drive("wifi648-sweep", s_code, s_cfg, s_sweep,
                                ["sumproduct_qc_layered"], card)
+    sp_entry = mq.entry_point(s_code.qc, "sum-product", "layered")
+    if not sp_entry.endswith("_sr") or not ev.entries.get(sp_entry):
+        fail(f"wifi648-sweep did not launch {sp_entry}")
     launches["sumproduct_qc_layered"] = counts["sumproduct_qc_layered"]
     per_step["sumproduct_qc_layered"] = (counts["sumproduct_qc_layered"]
                                          / ev.mc_steps)
@@ -1339,6 +1513,21 @@ def main() -> None:
         fail("wifi648-sweep: expected one es-auto calibration per point")
     bler_within_4sigma("wifi648-sweep @ 2 dB", res.coded_bler[0],
                        res.frames[0], WIFI648_SWEEP_BLER)
+    # one step of the preset (8 link steps of 4096) in each of es auto's
+    # modes at 2 dB, the mode it chose named
+    chose = {a["snrdb"]: a["mode"] for a in ev.auto}.get(2.0)
+    for mode in ("fixed", "probe"):
+        cfg = dataclasses.replace(s_cfg, early_stop=mode == "probe",
+                                  es_mode="probe" if mode == "probe"
+                                  else "freeze")
+        profile_step(
+            mc_step(s_code, cfg, s_sweep.batch_cw,
+                    steps_per_sync=s_sweep.steps_per_sync, device="cuda"),
+            f"wifi648-sweep {mode}"
+            + (" (es auto's choice at 2 dB)" if mode == chose else ""),
+            card, snrdb=2.0,
+            what=f"wifi648-sweep step ({s_sweep.steps_per_sync} link steps "
+                 f"of {s_sweep.batch_cw}) at 2 dB")
     # the other three sum-product kernels on the preset's configuration
     two = dataclasses.replace(s_sweep, snrdb=(2.0,),
                               max_info_bits=2 * chunk_bits)
@@ -1353,8 +1542,17 @@ def main() -> None:
         _, counts, ev, _ = drive(f"wifi648-sweep {label}", s_code,
                                  dataclasses.replace(s_cfg, **over), two,
                                  [kname], card)
+        entry = mq.entry_point(s_code.qc, "sum-product",
+                               "layered" if "layered" in kname
+                               else "flooding", kname.endswith("_es"))
+        if not entry.endswith("_sr") or not ev.entries.get(entry):
+            fail(f"wifi648-sweep {label} did not launch {entry}")
         launches[kname] = counts[kname]
         per_step[kname] = counts[kname] / ev.mc_steps
+    # the four sum-product kernels' rows at the shape that launches them
+    for kname in SP_KERNELS:
+        launches[f"{kname}@wifi648"] = launches[kname]
+        per_step[f"{kname}@wifi648"] = per_step[kname]
     p = PRESETS["quantized-minsum"]
     q_code = get_code(p["code"])
     q_sweep = SweepConfig(**p["sweep"])
@@ -1709,11 +1907,11 @@ def main() -> None:
     # the 4-bit quantized flooding kernel at 1.5 dB, bound by the f32 and
     # MUFU instructions of their edge sequence in the SASS
     ins = edge_instruction_counts()
-    sp_f32, sp_mufu, _ = ins["probe_sp_edge"]
+    sp_f32, sp_mufu, sp_all = ins["probe_sp_edge"]
     q_f32, q_mufu, _ = ins["probe_msgq"]
     print(f"  SASS per edge: sum-product sequence {sp_f32} f32 + {sp_mufu} "
-          f"MUFU instructions; quantization {q_f32} f32 + "
-          f"{q_mufu} MUFU", flush=True)
+          f"MUFU instructions ({sp_all} in all); quantization {q_f32} f32 "
+          f"+ {q_mufu} MUFU", flush=True)
     for sched in ("flooding", "layered"):
         name = mq.KERNELS["sum-product", sched, False, False]
         kw = dict(iterations=20, schedule=sched, method="sum-product")
@@ -1748,6 +1946,36 @@ def main() -> None:
             ran * E * per + (batch + ran) * E * OPS_PER_EDGE_CHECK,
             ran * E * sp_mufu),
             mq.entry_point(w1944.qc, "sum-product", sched, True)))
+    # the same four kernels at the wifi648-sweep preset's shape that
+    # launches them: wifi648 at 2.0 dB, batch 4096, exactly equal to the
+    # plain version (the early-stop forms bound by the iterations they ran)
+    b648 = 4096
+    x648 = channel_llrs(w648, b648, 2.0, seed=14)
+    E648 = len(qc_plan(w648.qc)[0]) * w648.qc.z
+    for kname in SP_KERNELS:
+        name = f"{kname}@wifi648"
+        es = kname.endswith("_es")
+        sched = "layered" if "layered" in kname else "flooding"
+        kw = dict(iterations=20, schedule=sched, method="sum-product",
+                  early_stop=es)
+        out = "hard_iters" if es else "posterior"
+        k = mq.bp_qc_cuda(x648, w648.qc, output=out, **kw)
+        p = decode_roll(x648, w648.qc, output=out, **kw)
+        max_err[name] = exact(list(zip(k, p)) if es else [(k, p)],
+                              f"{name} at batch {b648}")
+        ran = int(k[1].sum()) if es else b648 * 20
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(x648, w648.qc, **kw), 20)
+        plain_ms = cuda_time_ms(lambda: decode_roll(x648, w648.qc, **kw), 2,
+                                warmup=1)
+        if es:
+            print(f"  {name}: mean iterations {ran / b648:.4f} of 20",
+                  flush=True)
+        per = SP_OPS_PER_EDGE_ITER[sched] + sp_f32
+        checks = (b648 + ran) * E648 * OPS_PER_EDGE_CHECK if es else 0
+        kernels.append(row(name, ms, plain_ms, bound(
+            b648 * (w648.n * 5 + (4 if es else 0)),
+            ran * E648 * per + checks, ran * E648 * sp_mufu),
+            mq.entry_point(w648.qc, "sum-product", sched, es)))
     kw = dict(iterations=20, schedule="flooding", msg_qbits=4)
     max_err[MSGQ_ROW] = compare(
         mq.bp_qc_cuda(llr, w1944.qc, output="posterior", **kw),
@@ -1949,6 +2177,45 @@ def main() -> None:
     print(f"  minsum_qc_flooding@done_in ({todo} of {batch} decoded after a "
           f"flooding probe-4 at 3.5 dB): {ms!r} ms (bound {b_ms!r} ms, "
           f"{b_by}) [{card}]", flush=True)
+    # the sum-product forms that no main path launches, printed with their
+    # bounds: per-edge weights (12 iterations, flooding-12's random
+    # weights), 4-bit messages, bf16 and int8 storage (20 iterations), each
+    # schedule, each exactly equal to the plain version; the weights add
+    # their multiplies as weighted_ops counts them, the quantization its
+    # SASS count, the storage its conversions (a layered edge lifts and
+    # stores its message and posterior, a flooding edge its v2c and its
+    # message)
+    sp_cv = {torch.bfloat16: {"layered": 2 * cv["ld_bf16"] + 2 * cv["st_bf16"],
+                              "flooding": 2 * (cv["ld_bf16"]
+                                               + cv["st_bf16"])},
+             torch.int8: {"layered": 2 * cv["ld_i8"] + cv["st_i8"],
+                          "flooding": 2 * (cv["ld_i8"] + cv["st_i8"])}}
+    for sched in ("flooding", "layered"):
+        per = SP_OPS_PER_EDGE_ITER[sched] + sp_f32
+        sp = dict(schedule=sched, method="sum-product")
+        for label, kw, ops, sfu in (
+                ("_w", dict(iterations=12, weights=w12_tables),
+                 E * 12 * (per + (2 if sched == "flooding" else 4))
+                 + n * 13, E * 12 * sp_mufu),
+                ("@msgq4", dict(iterations=20, msg_qbits=4),
+                 E * 20 * (per + q_f32), E * 20 * (sp_mufu + q_mufu)),
+                *((f"@{sfx}", dict(iterations=20, dtype=dt, msg_qclip=24.0),
+                   E * 20 * (per + sp_cv[dt][sched]), E * 20 * sp_mufu)
+                  for dt, sfx in storage_rows.items())):
+            kw = dict(sp, **kw)
+            name = f"sumproduct_qc_{sched}{label}"
+            exact([(mq.bp_qc_cuda(llr, qc, output="posterior", **kw),
+                    decode_roll(llr, qc, output="posterior", **kw))],
+                  f"{name} at batch {batch}")
+            ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 10)
+            nbytes = io_bytes + (4 * 13 * (E + n) if label == "_w" else 0)
+            b_ms, b_by = bound(nbytes, batch * ops, batch * sfu)
+            entry = mq.entry_point(qc, "sum-product", sched,
+                                   quantized="msg_qbits" in kw,
+                                   weighted="weights" in kw,
+                                   dtype=kw.get("dtype", torch.float32))
+            print(f"  {name} ({entry}): {ms!r} ms (bound {b_ms!r} ms, "
+                  f"{b_by}, share {b_ms / ms:.3f}) [{card}]", flush=True)
     # the shared-memory instructions of min-sum, serial-C and flooding,
     # both designs each. Serial-C: the full-message edge loops are unrolled
     # by 4 (a pass-1 loop of 4 loads an edge, a pass-2 loop of 4 loads and 2
@@ -1960,12 +2227,19 @@ def main() -> None:
     # variable; the compressed check pass holds one body for each degree
     # 1-8 in its loop (d + 2 loads and 2 stores at degree d: 52 and 16 in
     # all), and the rebuild loop 2 loads an edge beside an LLR load and a
-    # posterior store a variable
+    # posterior store a variable. Sum-product with full messages: the same
+    # loads and stores as min-sum's full-message loops, and a local store
+    # (the row's lt) an edge in pass 1 and a local load in pass 2; with a
+    # check's slots in registers, one loop holds the bodies of degrees 1-8
+    # (36 slots): serial-C 2 loads (message, posterior) and 2 stores an
+    # edge, 144 in all; flooding 2 loads and 1 store an edge, 108 in all,
+    # and its rebuild 1 load an edge beside an LLR load and a posterior
+    # store a variable; no plan load (the parameter) and no local memory
     d_bar = len(qc_plan(w1944.qc)[0]) / w1944.qc.mb
     v_bar = E / n  # edges a variable
     for design, loops in smem_instructions(lib).items():
-        print(f"  SASS innermost loops of the f32 min-sum kernel, {design} "
-              f"design (instructions, LDS, STS): {loops}", flush=True)
+        print(f"  SASS innermost loops of the f32 kernel, {design} design "
+              f"(instructions, LDS, STS, LDL + STL): {loops}", flush=True)
     cs_deg = mq.COMPRESSED_LIMITS[0]
     print(f"  shared-memory instructions an edge at wifi1944's mean row "
           f"degree {d_bar:.3f} and {v_bar:.3f} edges a variable: serial-C "
@@ -1973,7 +2247,11 @@ def main() -> None:
           f"{2 + 4 / d_bar:.3f} (from loops of 4 x (4 + 0) and 4 x (4 + 2), "
           f"and of {cs_deg + 2} + {cs_deg + 2} for {cs_deg} slots); "
           f"flooding full messages {4 + 5 + 2 / d_bar + 3 + 3 / v_bar:.3f}, "
-          f"compressed {1 + 4 / d_bar + 2 + 2 / v_bar:.3f}", flush=True)
+          f"compressed {1 + 4 / d_bar + 2 + 2 / v_bar:.3f}; sum-product "
+          f"serial-C full messages {4 + 6 + 2 / d_bar:.3f} (+ 2 local), "
+          f"registers {2 + 2:.3f}; sum-product flooding full messages "
+          f"{4 + 5 + 2 / d_bar + 3 + 3 / v_bar:.3f} (+ 2 local), registers "
+          f"{2 + 1 + 1 + 2 / v_bar:.3f}", flush=True)
     # one short sweep of the launch tuner
     from ldpc_sims_tpu_torch.kernels import tune
 

@@ -16,8 +16,11 @@ a card.
 The rows are the kernels' shapes on the main path and the bigcode run:
 wifi1944 (QPSK/OFDM-32 channel LLRs) at batch 32768, qc8448_r12 and
 qc12288_r12 at batch 16384 (LLRs ``N(0,1)·2 − 4``); each flooding form
-of min-sum at each storage type, the layered forms, the two drivers and
-the sum-product kernels.
+of min-sum at each storage type, the layered forms, the two drivers; the
+sum-product kernels' forms at wifi1944 (fixed, early stop, weighted,
+4-bit messages, bf16 and int8 storage) and their four entry points at the
+``wifi648-sweep`` preset's shape, wifi648 at 2.0 dB, batch 4096 and
+32768.
 """
 
 from __future__ import annotations
@@ -106,6 +109,9 @@ def time_rows(root: str) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(61)
     xb = torch.randn((16384, big.n), generator=gen, device="cuda") * 2 - 4
+    w648 = get_code("wifi648")
+    x648 = {b: _channel_llrs(w648, b, 2.0, seed=20 + b // 4096)
+            for b in (4096, 32768)}
     q8448 = get_code("qc8448_r12")
     x8448 = torch.randn((16384, q8448.n), generator=gen,
                         device="cuda") * 2 - 4
@@ -183,7 +189,7 @@ def time_rows(root: str) -> dict:
             xb, big.qc, iterations=20, **kw)) for k, kw in st.items()},
         "minsum_qc_flooding@qc8448": lambda: cuda(x8448, q8448.qc,
                                                   iterations=20),
-        # the forms this comparison holds unchanged
+        # the sum-product kernels' forms
         "sumproduct_qc_flooding": lambda: cuda(
             llr[1.5], qc, iterations=20, method="sum-product"),
         "sumproduct_qc_layered": lambda: cuda(
@@ -194,6 +200,22 @@ def time_rows(root: str) -> dict:
         "sumproduct_qc_layered_es": lambda: cuda(
             llr[2.5], qc, method="sum-product", early_stop=True,
             output="hard_iters", **lay20),
+        **{f"sumproduct_qc_{s}_w": (lambda s=s: cuda(
+            llr[1.5], qc, iterations=12, schedule=s, method="sum-product",
+            weights=w12p)) for s in ("flooding", "layered")},
+        **{f"sumproduct_qc_{s}@{k}": (lambda s=s, kw=kw: cuda(
+            llr[1.5], qc, iterations=20, schedule=s, method="sum-product",
+            **kw))
+           for s in ("flooding", "layered")
+           for k, kw in (("msgq4", dict(msg_qbits=4)), *st.items())},
+        # the wifi648-sweep preset's code and SNR
+        **{f"sumproduct_qc_{s}{es}@wifi648-{b}": (
+            lambda s=s, es=es, x=x648[b]: cuda(
+                x, w648.qc, iterations=20, schedule=s, method="sum-product",
+                early_stop=bool(es),
+                output="hard_iters" if es else "hard"))
+           for b in x648 for s in ("flooding", "layered")
+           for es in ("", "_es")},
     }
     out = {}
     for name, fn in rows.items():

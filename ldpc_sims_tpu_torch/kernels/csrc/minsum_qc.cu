@@ -54,7 +54,13 @@
 // (minsum_qc_flooding[_es][_msgq], minsum_qc_flooding_w[_msgq]) have a
 // second kernel each, name_cs, on the compressed check state below (36 in
 // all); the launcher takes it, under the same form, for group 1 (layered)
-// on a code within the state's limits.
+// on a code within the state's limits. The twelve sum-product forms
+// (sumproduct_qc_{flooding,layered}[_es][_msgq] and
+// sumproduct_qc_{flooding,layered}_w[_msgq]) have a second kernel each
+// too, name_sr, with a check's slots in registers (36 more), which the
+// launcher takes under the same limits: flooding, or layered with group 1,
+// on a code of row degree 8 or less within the parameter plan's block
+// rows, planes and block columns.
 //
 // Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
 // or 2; the three objects are built in parallel and linked into one
@@ -128,10 +134,12 @@
 //   a = max(|v|, 1e-12), lt = log(-expm1(-a)) - log1p(exp(-a)),
 //   s = min(sum(lt) - lt, -1e-12), mag = log1p(exp(s)) - log(-expm1(s));
 // the row sum is taken left to right over the row's slots, as in the plain
-// version, and each thread keeps its row's lt values in a per-thread array
-// of kMaxRowDeg floats rather than computing them twice (the wrapper reads
-// the bound through bp_qc_max_row_degree and checks the code's row degree
-// against it at launch). The transcendentals are libdevice's
+// version. The full-message kernels keep a row's lt values in a
+// per-thread array of kMaxRowDeg floats rather than computing them twice
+// (a slot indexed at run time: local memory, a 128 B stack frame; the
+// wrapper reads the bound through bp_qc_max_row_degree and checks the
+// code's row degree against it at launch), the _sr kernels in registers.
+// The transcendentals are libdevice's
 // expf/expm1f/log1pf/logf, as PyTorch's CUDA exp/expm1/log1p/log, never the
 // __expf-style intrinsics. Then every message is clamped, and quantized
 // when the form has it: q = rint(y / step) * step, clipped to +-qclip, with
@@ -210,8 +218,39 @@
 // the LLRs: wifi1944 f32 25,280 B, qc12288 159,744 B, qc8448 108,544 B
 // (smem_bytes). The flooding forms then run 1.26-1.63x faster than on
 // full messages, bit for bit the same (PERF.md, kernels/compare.py on an
-// NVIDIA H100 80GB HBM3 at 700 W). Sum-product flooding keeps the full
-// messages.
+// NVIDIA H100 80GB HBM3 at 700 W).
+//
+// Sum-product with a check's slots in registers (the _sr kernels). A
+// sum-product message is not a function of two magnitudes, so its check
+// state stays the full messages; what the min-sum designs changed around
+// it carries over. Both schedules read their plan, rows and columns, from
+// the kernel parameter (FloodPlan), so no plan sits in shared memory. A
+// check's slots are unrolled to its degree (one uniform dispatch a check):
+// pass 1 reads each slot's stored message and posterior once and keeps
+// them, the v2c and (weighted) the weight in registers, the v2c's sign as
+// a bit; pass 2 reads no shared memory and writes each message and, for
+// serial-C, each posterior once. That is 2 loads and 2 stores an edge
+// (serial-C) or 2 loads and 1 store an edge and a rebuild of 1 load an
+// edge and 2 a variable (flooding), against 10.28 and 13.12 shared-memory
+// instructions an edge and a local store and load (the lt array) with the
+// full messages at wifi1944 (SASS, chip_smoke.py phase 4). Flooding
+// walks warps over (block row, 32 checks) and (column block, 32
+// variables), no index divided by z, and keeps the LLRs in shared memory
+// in the posterior's type (kSrFloodLlrShared; PERF.md times it against
+// reading them again through L2). The arithmetic is check_update's in its
+// order (the row
+// sum left to right, each v2c through the storage for flooding, the same
+// folds), and within a block row the checks touch disjoint variables, so
+// the values are the same bits. The sequences of sp_lt and sp_mag are
+// calls (sp_lt2, sp_mag2: two slots interleaved a call, two independent
+// chains; one copy a kernel): inlined into every unrolled slot of the
+// eight degree bodies they made each kernel several times longer, and it
+// ran slower than the full-message kernel; one slot a call ran slower than
+// two, four no faster. On an NVIDIA H100 80GB HBM3 at 700 W the _sr forms
+// run 1.00-1.32x faster than the full messages, bit for bit the same
+// (PERF.md, kernels/compare.py). Registers (ptxas, chip_smoke.py phase
+// 1): 52-59 a thread for flooding, 72-98 for serial-C, so a 256-thread
+// flooding CTA is held to four an SM by its registers.
 //
 // What bounds the kernels on the H100. Serial-C min-sum on the compressed
 // state issues about 45 instructions a slot across its two passes (the
@@ -231,7 +270,10 @@
 // so they are latency bound well above both the byte bound and the f32
 // op bound (PERF.md). The sum-product forms add eight libdevice
 // transcendentals per edge, about 150 f32 and 4 MUFU instructions in the
-// SASS, so f32 issue bounds them, not the special-function units. The
+// SASS, so f32 issue bounds them, not the special-function units; with
+// the rest of libdevice's sequences (integer exponent work, selects,
+// branches) a sum-product edge issues well over those ~154 instructions,
+// so the f32 bound understates the issue time (PERF.md). The
 // early-stop forms do the work of the iterations each codeword runs plus
 // one syndrome pass (about one iteration's reads, no writes) per check; a
 // CTA that finishes early frees its SM slot for the next codeword, so the
@@ -346,24 +388,39 @@ __host__ __device__ inline int align16(int bytes) {
   return (bytes + 15) & ~15;
 }
 
+// The kernel designs (bp_qc_decode's `design`): the full messages, the
+// compressed min-sum check state (the _cs kernels), the sum-product slots
+// in registers (the _sr kernels).
+constexpr int kDesignFull = 0;
+constexpr int kDesignCs = 1;
+constexpr int kDesignSr = 2;
+// whether the flooding _sr kernels keep the LLRs in shared memory (else
+// each rebuild reads them again through L2; PERF.md times both)
+constexpr bool kSrFloodLlrShared = true;
+
 // Bytes of dynamic shared memory one CTA needs: plan (not on the
-// compressed flooding forms, which read theirs from the parameter), c2v
-// planes (Msg) or, on the compressed state (cs), two Msg magnitudes and a
-// 16-bit word per check, posterior (Post) and, for a group of G > 1 block
-// rows, the f32 scratch of the group's planes; each region starts on a
-// 16-byte boundary.
+// compressed flooding forms or the _sr forms, which read theirs from the
+// parameter), c2v planes (Msg) or, on the compressed state, two Msg
+// magnitudes and a 16-bit word per check, posterior (Post), the LLRs in
+// the posterior's type (the compressed flooding forms, and the flooding
+// _sr forms with kSrFloodLlrShared) and, for a group of G > 1 block rows,
+// the f32 scratch of the group's planes; each region starts on a 16-byte
+// boundary.
 template <int kT>
 inline int smem_bytes(int z, int mb, int nb, int P, int group, int row_deg,
-                      bool cs, bool layered) {
+                      int design, bool layered) {
   using S = Storage<kT>;
+  const bool cs = design == kDesignCs, sr = design == kDesignSr;
   const int planes = group * row_deg < P ? group * row_deg : P;
   const int scratch = group > 1 ? planes * z : 0;
   const int msg = static_cast<int>(sizeof(typename S::Msg));
   const int state = cs ? align16(mb * z * 2 * msg) + align16(mb * z * 2)
                        : align16(P * z * msg);
-  const int plan = cs && !layered ? 0 : 4 * plan_ints_padded(mb, nb, P);
+  const bool param_plan = (cs && !layered) || sr;
+  const bool llrs = !layered && (cs || (sr && kSrFloodLlrShared));
+  const int plan = param_plan ? 0 : 4 * plan_ints_padded(mb, nb, P);
   const int post = align16(nb * z * static_cast<int>(sizeof(typename S::Post)));
-  return plan + state + (cs && !layered ? 2 * post : post) + 4 * scratch;
+  return plan + state + (llrs ? 2 * post : post) + 4 * scratch;
 }
 
 // log tanh(a/2) of a v2c message, a = max(|v|, 1e-12): in [-28.3, 0]
@@ -376,6 +433,21 @@ __device__ __forceinline__ float sp_lt(float v) {
 __device__ __forceinline__ float sp_mag(float s) {
   return log1pf(expf(s)) - logf(-expm1f(s));
 }
+
+// sp_lt and sp_mag as calls for the _sr kernels, which unroll a check's
+// slots: two slots' sequences interleaved in one call (two independent
+// chains for the scheduler) and a single one for an odd last slot, one copy
+// of each a kernel. Inlined into every slot of every degree's body the
+// sequences made a kernel several times longer, and it ran slower than the
+// full-message kernel.
+__device__ __noinline__ float2 sp_lt2(float a, float b) {
+  return make_float2(sp_lt(a), sp_lt(b));
+}
+__device__ __noinline__ float2 sp_mag2(float a, float b) {
+  return make_float2(sp_mag(a), sp_mag(b));
+}
+__device__ __noinline__ float sp_lt1(float v) { return sp_lt(v); }
+__device__ __noinline__ float sp_mag1(float s) { return sp_mag(s); }
 
 // Message quantization: round half to even onto the step's grid, then clip.
 __device__ __forceinline__ float quantize(float y, float step, float clip) {
@@ -876,6 +948,174 @@ struct Step {
   const float* wl_next;
 };
 
+// ---- Sum-product with a check's slots in registers (the _sr kernels) ----
+//
+// The full messages, with the plan in the kernel parameter (FloodPlan, both
+// schedules), a check's slots unrolled to its degree and its values in
+// registers (the header says why and what it costs).
+
+// Sum-product check r of the block row whose kDeg planes start at p0, the
+// arithmetic of check_update in its order. Pass 1 reads each slot's stored
+// message and posterior once and keeps them, its v2c and (kW) its weight
+// in registers, with the v2c's sign as a bit of negs; then each slot's lt,
+// two slots a call, and the row sum left to right. Pass 2 reads no shared
+// memory: each magnitude from the registers, two slots a call, then each
+// message is stored and, layered, the posterior as store(pv + (w*)
+// (y - old)). Flooding passes each v2c through the message storage, as the
+// TPU kernel stores and reloads it, and writes no posterior. Within a block
+// row the checks touch disjoint variables and a check's slots distinct
+// column blocks, so the posterior pass 2 would read again is the pv of pass
+// 1, and a flooding check writes its new messages over its old ones.
+template <int kDeg, bool kLayered, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void sp_check(
+    const FloodPlan& fp, typename Storage<kT>::Msg* msg,
+    typename Storage<kT>::Post* post, const float* __restrict__ w, int z,
+    int r, int p0, const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
+  using Post = typename Storage<kT>::Post;
+  float pv[kDeg], old[kDeg], x[kDeg], wv[kW ? kDeg : 1];
+  unsigned negs = 0;  // bit e: the v2c of slot e is < 0
+  const int m0 = p0 * z + r;  // slot e's message and weight: m0 + e*z
+#pragma unroll
+  for (int e = 0; e < kDeg; ++e) {
+    const int4 pl = fp.plane[p0 + e];
+    int q = r + pl.y;
+    if (q >= z) q -= z;
+    old[e] = lift(msg[m0 + e * z], u.sstep);
+    float m = old[e];
+    if constexpr (kW) {
+      wv[e] = __ldg(w + m0 + e * z);
+      m = wv[e] * m;
+    }
+    pv[e] = lift(post[pl.x + q], 1.f);
+    float v = pv[e] - m;
+    if constexpr (!kLayered) v = lift(store<Msg>(v, u.sinv), u.sstep);
+    negs |= (v < 0.f ? 1u : 0u) << e;
+    x[e] = v;
+  }
+  // x: the v2c, then each slot's lt, then its magnitude
+#pragma unroll
+  for (int e = 0; e + 1 < kDeg; e += 2) {
+    const float2 t = sp_lt2(x[e], x[e + 1]);
+    x[e] = t.x;
+    x[e + 1] = t.y;
+  }
+  if constexpr (kDeg % 2 == 1) x[kDeg - 1] = sp_lt1(x[kDeg - 1]);
+  float total = 0.f;
+#pragma unroll
+  for (int e = 0; e < kDeg; ++e) total = total + x[e];
+#pragma unroll
+  for (int e = 0; e + 1 < kDeg; e += 2) {
+    const float2 t = sp_mag2(fminf(total - x[e], -1e-12f),
+                             fminf(total - x[e + 1], -1e-12f));
+    x[e] = t.x;
+    x[e + 1] = t.y;
+  }
+  if constexpr (kDeg % 2 == 1)
+    x[kDeg - 1] = sp_mag1(fminf(total - x[kDeg - 1], -1e-12f));
+  // the exclusive sign of slot e: the parity of the other slots' negatives
+  const unsigned odd = static_cast<unsigned>(__popc(negs)) & 1u;
+#pragma unroll
+  for (int e = 0; e < kDeg; ++e) {
+    const float sgn = (((negs >> e) & 1u) ^ odd) ? -1.f : 1.f;
+    float y = postlude<kQuant>(sgn * x[e], u);
+    const Msg stored = store<Msg>(y, u.sinv);
+    msg[m0 + e * z] = stored;
+    if constexpr (kLayered) {
+      // int8 folds what the stored message changes by; bf16 the unrounded
+      // change, as the TPU kernel does
+      if constexpr (kT == kInt8) y = lift(stored, u.sstep);
+      float d = y - old[e];
+      if constexpr (kW) d = wv[e] * d;
+      const int4 pl = fp.plane[p0 + e];
+      int q = r + pl.y;
+      if (q >= z) q -= z;
+      post[pl.x + q] = store<Post>(pv[e] + d, 1.f);
+    }
+  }
+}
+
+// sp_check at the check's degree deg (at most kDeg): one uniform
+// comparison a degree, from kDeg down.
+template <int kDeg, bool kLayered, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void sp_check_deg(
+    int deg, const FloodPlan& fp, typename Storage<kT>::Msg* msg,
+    typename Storage<kT>::Post* post, const float* __restrict__ w, int z,
+    int r, int p0, const Rule& u) {
+  if constexpr (kDeg > 1) {
+    if (deg != kDeg) {
+      sp_check_deg<kDeg - 1, kLayered, kQuant, kW, kT>(deg, fp, msg, post, w,
+                                                       z, r, p0, u);
+      return;
+    }
+  }
+  sp_check<kDeg, kLayered, kQuant, kW, kT>(fp, msg, post, w, z, r, p0, u);
+}
+
+// The posterior rebuilt from the full messages, warps walking (column
+// block, 32 variables): (wl*) LLR + the sum of the (w*) c2v messages of
+// each variable in check-sorted order, in f32 and stored once, no
+// atomics. The LLR as the posterior's storage holds it: from lv in shared
+// memory (kLlrShared), else rounded from l.
+template <bool kW, bool kLlrShared, int kT>
+__device__ __forceinline__ void rebuild_sr(
+    const FloodPlan& fp, const typename Storage<kT>::Msg* msg,
+    typename Storage<kT>::Post* post, const typename Storage<kT>::Post* lv,
+    const float* l, const float* __restrict__ w,
+    const float* __restrict__ wl, int z, int nb, WarpWalk wk, float sstep) {
+  using Post = typename Storage<kT>::Post;
+  for (; wk.b < nb; wk.next()) {
+    const int q = wk.at();
+    if (q >= z) continue;
+    const int v = wk.b * z + q;
+    float acc = kLlrShared ? lift(lv[v], 1.f) : round_post<Post>(-l[v]);
+    if constexpr (kW) acc = __ldg(wl + v) * acc;
+    for (int e = fp.col_ptr[wk.b]; e < fp.col_ptr[wk.b + 1]; ++e) {
+      const int4 cp = fp.col[e];
+      int r = q - cp.y;
+      if (r < 0) r += z;
+      const int m = cp.w * z + r;  // plane cp.w's message of check r
+      const float x = lift(msg[m], sstep);
+      acc = acc + (kW ? __ldg(w + m) * x : x);
+    }
+    post[v] = store<Post>(acc, 1.f);
+  }
+}
+
+// One sum-product iteration on the _sr kernels: the serial-C sweep, one
+// thread per check of a block row and a barrier a row (the weighted form
+// then rebuilds the posterior with the next row of weights), or the
+// flooding check pass with warps walking (block row, 32 checks), then the
+// rebuild. Ends with __syncthreads().
+template <bool kLayered, bool kQuant, bool kW, bool kLlrShared, int kT>
+__device__ __forceinline__ void iterate_sr(
+    const FloodPlan& fp, typename Storage<kT>::Msg* msg,
+    typename Storage<kT>::Post* post, const typename Storage<kT>::Post* lv,
+    const float* l, int z, int mb, int nb, WarpWalk wk, const Step& st) {
+  if constexpr (kLayered) {
+    for (int i = 0; i < mb; ++i) {
+      const int p0 = fp.row_ptr[i], deg = fp.row_ptr[i + 1] - p0;
+      for (int r = threadIdx.x; r < z; r += blockDim.x)
+        sp_check_deg<kCsMaxDeg, true, kQuant, kW, kT>(deg, fp, msg, post,
+                                                      st.w, z, r, p0, st.u);
+      __syncthreads();
+    }
+    if constexpr (!kW) return;
+  } else {
+    for (WarpWalk c = wk; c.b < mb; c.next()) {
+      const int r = c.at();
+      if (r >= z) continue;
+      const int p0 = fp.row_ptr[c.b];
+      sp_check_deg<kCsMaxDeg, false, kQuant, kW, kT>(
+          fp.row_ptr[c.b + 1] - p0, fp, msg, post, st.w, z, r, p0, st.u);
+    }
+    __syncthreads();
+  }
+  rebuild_sr<kW, kLlrShared, kT>(fp, msg, post, lv, l, st.w_next, st.wl_next,
+                                 z, nb, wk, st.u.sstep);
+  __syncthreads();
+}
+
 // One iteration: the serial-C sweep over the mb block rows (layered,
 // group = 1), the group-serial sweep (layered, group > 1), or all checks
 // from the posterior and then the posterior rebuilt (flooding). The
@@ -991,8 +1231,9 @@ __device__ __forceinline__ int local_unsat(const Plan& pl, const Post* post,
   return count;
 }
 
-// local_unsat of the compressed flooding forms: this thread's checks of the
-// warps' walk over (block row, 32 checks), the plan from the parameter.
+// local_unsat of the compressed flooding forms and the _sr forms: this
+// thread's checks of the warps' walk over (block row, 32 checks), the plan
+// from the parameter.
 template <typename Post>
 __device__ __forceinline__ int local_unsat_cs(const FloodPlan& fp,
                                               const Post* post, int z, int mb,
@@ -1020,9 +1261,11 @@ __device__ __forceinline__ int local_unsat_cs(const FloodPlan& fp,
 // int8 storage grid's step and its reciprocal (kT = kInt8).
 // kCs: the min-sum forms on the compressed check state: serial-C with the
 // sweep's plan read from pp, flooding with its plan read from fp (each the
-// kernel's parameter); else the full messages, and both are unused.
+// kernel's parameter). kSr: the sum-product forms with a check's slots in
+// registers, both schedules with their plan read from fp. Else the full
+// messages, and both are unused.
 template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
-          int kT, bool kCs = false>
+          int kT, bool kCs = false, bool kSr = false>
 __device__ __forceinline__ void decode(
     const float* __restrict__ llr, float* __restrict__ post_out,
     int8_t* __restrict__ bits_out, const int* __restrict__ done_in,
@@ -1034,8 +1277,15 @@ __device__ __forceinline__ void decode(
     const FloodPlan* fp) {
   static_assert(!kCs || kMethod == kMinSum,
                 "the compressed state is the min-sum forms'");
+  static_assert(!kSr || (kMethod == kSumProduct && !kCs),
+                "the _sr kernels are the sum-product forms'");
   // flooding on the compressed state: no plan in shared memory
   constexpr bool kFloodCs = kCs && !kLayered;
+  // the plan from the parameter alone (fp), none in shared memory
+  constexpr bool kParamPlan = kFloodCs || kSr;
+  // the LLRs in shared memory, as the posterior holds them
+  constexpr bool kLlrShared =
+      kFloodCs || (kSr && !kLayered && kSrFloodLlrShared);
   using Msg = typename Storage<kT>::Msg;
   using Post = typename Storage<kT>::Post;
   // the flag is the same for the whole CTA, so the return is uniform
@@ -1046,7 +1296,7 @@ __device__ __forceinline__ void decode(
   char* smem = reinterpret_cast<char*>(smem_f4);
   const int n = nb * z;
   int* plan = reinterpret_cast<int*>(smem);
-  int off = kFloodCs ? 0 : 4 * plan_ints_padded(mb, nb, P);
+  int off = kParamPlan ? 0 : 4 * plan_ints_padded(mb, nb, P);
   // the full messages, or the compressed state: a magnitude pair and a
   // word per check
   Msg* msg = reinterpret_cast<Msg*>(smem + off);
@@ -1061,18 +1311,18 @@ __device__ __forceinline__ void decode(
   }
   Post* post = reinterpret_cast<Post*>(smem + off);
   off += align16(n * static_cast<int>(sizeof(Post)));
-  // the compressed flooding forms' LLRs, as the posterior holds them
+  // the LLRs as the posterior holds them (kLlrShared)
   Post* lv = reinterpret_cast<Post*>(smem + off);
   float* delta = reinterpret_cast<float*>(smem + off);  // group > 1 only
   const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
   const float* l = llr + base;
 
-  if constexpr (!kFloodCs) {
+  if constexpr (!kParamPlan) {
     const int n_plan = plan_ints(mb, nb, P);
     for (int t = threadIdx.x; t < n_plan; t += blockDim.x)
       plan[t] = plan_g[t];
   }
-  const WarpWalk walk = warp_walk(z);  // the compressed flooding forms'
+  const WarpWalk walk = warp_walk(z);  // the kParamPlan forms'
   if constexpr (kCs) {
     for (int t = threadIdx.x; t < mb * z; t += blockDim.x) {
       mag[t] = MagPair<Msg>{store<Msg>(0.f, sinv), store<Msg>(0.f, sinv)};
@@ -1085,7 +1335,7 @@ __device__ __forceinline__ void decode(
   // internal convention log(Pr0/Pr1): the negated API LLR
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     if constexpr (!kW) post[t] = store<Post>(-l[t], 1.f);
-    if constexpr (kFloodCs) lv[t] = store<Post>(-l[t], 1.f);
+    if constexpr (kLlrShared) lv[t] = store<Post>(-l[t], 1.f);
   }
   __syncthreads();
   const Plan pl{plan, plan + (mb + 1), plan + (mb + 1) + P,
@@ -1097,6 +1347,9 @@ __device__ __forceinline__ void decode(
                                  walk, sstep);
     else if constexpr (kCs)
       rebuild_cs<kT>(pl, *pp, mag, word, post, l, wm, wl, z, n, sstep);
+    else if constexpr (kSr)
+      rebuild_sr<true, kLlrShared, kT>(*fp, msg, post, lv, l, wm, wl, z, nb,
+                                       walk, sstep);
     else
       rebuild<true, kT>(pl, msg, post, l, wm, wl, z, n, sstep);
     __syncthreads();
@@ -1122,6 +1375,9 @@ __device__ __forceinline__ void decode(
       __syncthreads();
     } else if constexpr (kCs) {
       iterate_cs<kQuant, kW, kT>(pl, *pp, mag, word, post, l, z, mb, n, st);
+    } else if constexpr (kSr) {
+      iterate_sr<kLayered, kQuant, kW, kLlrShared, kT>(*fp, msg, post, lv, l,
+                                                       z, mb, nb, walk, st);
     } else {
       iterate<kMethod, kLayered, kQuant, kW, kT>(pl, msg, post, delta, l, z,
                                                  mb, n, group, st);
@@ -1129,7 +1385,7 @@ __device__ __forceinline__ void decode(
   };
   // this thread's count of unsatisfied checks
   auto unsat = [&]() {
-    if constexpr (kFloodCs)
+    if constexpr (kParamPlan)
       return local_unsat_cs(*fp, post, z, mb, walk);
     else
       return local_unsat(pl, post, z, mb);
@@ -1234,6 +1490,23 @@ constexpr int kStorage = kInt8;
         sinv, nullptr, &fp);                                                \
   }
 
+// The sum-product forms with a check's slots in registers (name_sr): the
+// same arguments and the plan, rows and columns, as a parameter.
+#define QC_KERNEL_SR(name, layered, early_stop, quant, weighted)            \
+  __global__ void QC_CAT(QC_CAT(name, _sr), QC_SUFFIX)(                     \
+      const float* llr, float* post_out, int8_t* bits_out,                  \
+      const int* done_in, int* aux_out, const int* plan, const float* ab,   \
+      const float* wm, const float* wl, int z, int mb, int nb, int P,       \
+      int iterations, int check_every, int group, float clamp, float qstep, \
+      float qclip, float sstep, float sinv,                                 \
+      const __grid_constant__ FloodPlan fp) {                               \
+    decode<kSumProduct, layered, early_stop, quant, weighted, kStorage,     \
+           false, true>(llr, post_out, bits_out, done_in, aux_out, plan,    \
+                        ab, wm, wl, z, mb, nb, P, iterations, check_every,  \
+                        group, clamp, qstep, qclip, sstep, sinv, nullptr,   \
+                        &fp);                                               \
+  }
+
 QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false, false)
 QC_KERNEL(minsum_qc_layered, kMinSum, true, false, false, false)
 QC_KERNEL(minsum_qc_flooding_es, kMinSum, false, true, false, false)
@@ -1273,6 +1546,18 @@ QC_KERNEL_FLOOD_CS(minsum_qc_flooding_msgq, false, true, false)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es_msgq, true, true, false)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w, false, false, true)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, false, true, true)
+QC_KERNEL_SR(sumproduct_qc_flooding, false, false, false, false)
+QC_KERNEL_SR(sumproduct_qc_layered, true, false, false, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_es, false, true, false, false)
+QC_KERNEL_SR(sumproduct_qc_layered_es, true, true, false, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_msgq, false, false, true, false)
+QC_KERNEL_SR(sumproduct_qc_layered_msgq, true, false, true, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_es_msgq, false, true, true, false)
+QC_KERNEL_SR(sumproduct_qc_layered_es_msgq, true, true, true, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_w, false, false, false, true)
+QC_KERNEL_SR(sumproduct_qc_layered_w, true, false, false, true)
+QC_KERNEL_SR(sumproduct_qc_flooding_w_msgq, false, false, true, true)
+QC_KERNEL_SR(sumproduct_qc_layered_w_msgq, true, false, true, true)
 
 #define QC_K(name) QC_CAT(name, QC_SUFFIX)
 
@@ -1281,7 +1566,7 @@ QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, false, true, true)
 extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     int method, int layered, int early_stop, int quant, const float* llr,
     void* out, int out_hard, const int* done_in, int* aux_out,
-    const int* plan, const int* plan_host, int compressed, const float* ab,
+    const int* plan, const int* plan_host, int design, const float* ab,
     const float* wm, const float* wl, int batch, int z, int mb, int nb, int P,
     int row_deg, int iterations, int check_every, int group, float clamp,
     float qstep, float qclip, float sstep, float sinv, int threads,
@@ -1310,6 +1595,18 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
       {QC_K(minsum_qc_flooding_es_cs), QC_K(minsum_qc_flooding_es_msgq_cs)}};
   static const KernelFloodCs kFloodCompressedW[2] = {
       QC_K(minsum_qc_flooding_w_cs), QC_K(minsum_qc_flooding_w_msgq_cs)};
+  // the _sr kernels by [layered][early_stop][quant], weighted by
+  // [layered][quant]
+  static const KernelFloodCs kRegisters[2][2][2] = {
+      {{QC_K(sumproduct_qc_flooding_sr), QC_K(sumproduct_qc_flooding_msgq_sr)},
+       {QC_K(sumproduct_qc_flooding_es_sr),
+        QC_K(sumproduct_qc_flooding_es_msgq_sr)}},
+      {{QC_K(sumproduct_qc_layered_sr), QC_K(sumproduct_qc_layered_msgq_sr)},
+       {QC_K(sumproduct_qc_layered_es_sr),
+        QC_K(sumproduct_qc_layered_es_msgq_sr)}}};
+  static const KernelFloodCs kRegistersW[2][2] = {
+      {QC_K(sumproduct_qc_flooding_w_sr), QC_K(sumproduct_qc_flooding_w_msgq_sr)},
+      {QC_K(sumproduct_qc_layered_w_sr), QC_K(sumproduct_qc_layered_w_msgq_sr)}};
   // [method][layered][early_stop][quant]
   static const Kernel kKernels[2][2][2][2] = {
       {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
@@ -1333,33 +1630,35 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads < 32 || threads > 1024 || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the compressed state: min-sum, flooding or serial-C, on a code whose
-  // rows, block rows, planes and block columns fit the state's word and
-  // the parameter's plan
+  // the compressed state (min-sum) and the _sr kernels (sum-product):
+  // flooding or serial-C, on a code whose rows, block rows, planes and
+  // block columns fit the state's word, the register arrays and the
+  // parameter's plan
   if (group > mb) group = mb;
-  if (compressed &&
-      (method != 0 || group != 1 || plan_host == nullptr ||
-       row_deg > kCsMaxDeg || mb > kCsMaxRows || P > kCsMaxPlanes ||
-       nb > kCsMaxCols))
+  if (design < kDesignFull || design > kDesignSr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Kernel fn =
-      weighted ? kWeighted[method != 0][layered != 0][quant != 0]
-               : kKernels[method != 0][layered != 0][early_stop != 0]
-                         [quant != 0];
-  const KernelCs fn_cs =
-      !compressed || !layered ? nullptr
-      : weighted              ? kCompressedW[quant != 0]
-                              : kCompressed[early_stop != 0][quant != 0];
-  const KernelFloodCs fn_fcs =
-      !compressed || layered ? nullptr
-      : weighted             ? kFloodCompressedW[quant != 0]
-                             : kFloodCompressed[early_stop != 0][quant != 0];
+  if (design != kDesignFull &&
+      (method != (design == kDesignSr ? 1 : 0) || group != 1 ||
+       plan_host == nullptr || row_deg > kCsMaxDeg || mb > kCsMaxRows ||
+       P > kCsMaxPlanes || nb > kCsMaxCols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ly = layered != 0, es = early_stop != 0, qu = quant != 0;
+  const Kernel fn = weighted ? kWeighted[method != 0][ly][qu]
+                             : kKernels[method != 0][ly][es][qu];
+  KernelCs fn_cs = nullptr;       // the plan's rows in the parameter
+  KernelFloodCs fn_fp = nullptr;  // its rows and columns
+  if (design == kDesignCs && layered)
+    fn_cs = weighted ? kCompressedW[qu] : kCompressed[es][qu];
+  else if (design == kDesignCs)
+    fn_fp = weighted ? kFloodCompressedW[qu] : kFloodCompressed[es][qu];
+  else if (design == kDesignSr)
+    fn_fp = weighted ? kRegistersW[ly][qu] : kRegisters[ly][es][qu];
   const void* entry =
-      fn_cs != nullptr    ? reinterpret_cast<const void*>(fn_cs)
-      : fn_fcs != nullptr ? reinterpret_cast<const void*>(fn_fcs)
-                          : reinterpret_cast<const void*>(fn);
-  const int smem = smem_bytes<kStorage>(z, mb, nb, P, group, row_deg,
-                                        compressed != 0, layered != 0);
+      fn_cs != nullptr   ? reinterpret_cast<const void*>(fn_cs)
+      : fn_fp != nullptr ? reinterpret_cast<const void*>(fn_fp)
+                         : reinterpret_cast<const void*>(fn);
+  const int smem = smem_bytes<kStorage>(z, mb, nb, P, group, row_deg, design,
+                                        layered != 0);
   cudaError_t err = cudaFuncSetAttribute(
       entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1374,11 +1673,11 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     threads = attr.maxThreadsPerBlock / 32 * 32;
   float* post_out = out_hard ? nullptr : static_cast<float*>(out);
   int8_t* bits_out = out_hard ? static_cast<int8_t*>(out) : nullptr;
-  if (compressed) {
+  if (design != kDesignFull) {
     // the host plan (the layout of `plan`) into the parameter: row_ptr,
     // then per plane its variables' and checks' offsets, shift and slot;
-    // for flooding also col_ptr, then per column entry its checks' offset,
-    // shift, slot and plane
+    // then col_ptr, and per column entry its checks' offset, shift, slot
+    // and plane (the compressed serial-C forms take the rows alone)
     FloodPlan fp{};
     const int* plane_col = plan_host + (mb + 1);
     const int* plane_shift = plane_col + P;
@@ -1395,14 +1694,14 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
       fp.col[e] = make_int4(pl.z, pl.y, (1 << pl.w) | (pl.w << kCsIdxShift),
                             col_planes[e]);
     }
-    if (layered) {
+    if (fn_cs != nullptr) {
       const ParamPlan pp = fp;  // the rows' plan alone
       fn_cs<<<batch, threads, smem, stream>>>(
           llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
           nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
           sinv, pp);
     } else {
-      fn_fcs<<<batch, threads, smem, stream>>>(
+      fn_fp<<<batch, threads, smem, stream>>>(
           llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
           nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
           sinv, fp);
@@ -1437,10 +1736,12 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // is int8 hard bits when out_hard != 0, else the f32 posterior in the
 // log(Pr1/Pr0) convention; both (batch, nb*z) row-major. `ab` holds
 // `iterations` rows of (alpha, beta). plan: the device plan; plan_host: the
-// same ints on the host. compressed != 0 selects the compressed check state
-// of the min-sum forms, flooding or serial-C with group 1 (the _cs kernels;
-// its limits from bp_qc_compressed_limits), which reads plan_host into the
-// kernel's parameter. clamp = +inf for no clamp. done_in:
+// same ints on the host. design: kDesignFull (0) the full messages;
+// kDesignCs (1) the compressed check state of the min-sum forms, kDesignSr
+// (2) the sum-product forms with a check's slots in registers, each
+// flooding or serial-C with group 1 (the _cs and _sr kernels; their limits
+// from bp_qc_compressed_limits), reading plan_host into the kernel's
+// parameter. clamp = +inf for no clamp. done_in:
 // (batch,) int32 flags of codewords to skip, or null. aux_out: (batch,)
 // int32, the iterations run when early_stop != 0 (then required), else the
 // unsatisfied-check counts, or null. check_every must divide iterations; a
@@ -1456,7 +1757,7 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 int bp_qc_decode(int dtype, int method, int layered, int early_stop,
                  int quant, const float* llr, void* out, int out_hard,
                  const int* done_in, int* aux_out, const int* plan,
-                 const int* plan_host, int compressed, const float* ab,
+                 const int* plan_host, int design, const float* ab,
                  const float* wm, const float* wl, int batch, int z, int mb,
                  int nb, int P, int row_deg, int iterations, int check_every,
                  int group, float clamp, float qstep, float qclip,
@@ -1467,13 +1768,13 @@ int bp_qc_decode(int dtype, int method, int layered, int early_stop,
                                   : nullptr;
   if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(method, layered, early_stop, quant, llr, out, out_hard,
-                done_in, aux_out, plan, plan_host, compressed, ab, wm, wl,
+                done_in, aux_out, plan, plan_host, design, ab, wm, wl,
                 batch, z, mb, nb, P, row_deg, iterations, check_every, group,
                 clamp, qstep, qclip, sstep, sinv, threads, stream);
 }
 
-// The compressed state's limits: row degree, block rows, planes, block
-// columns.
+// The limits of the compressed state and the _sr kernels: row degree,
+// block rows, planes, block columns.
 int bp_qc_compressed_limits(int* out) {
   out[0] = kCsMaxDeg;
   out[1] = kCsMaxRows;

@@ -14,8 +14,12 @@ how they work and what bounds them on the H100). The min-sum forms,
 serial-C and flooding, keep a compressed check state (two stored
 magnitudes and a word of signs and index a check, :func:`compressed_state`):
 serial-C reads each edge's posterior once, flooding rebuilds each
-posterior from its checks' states; every other form keeps the full
-messages. The source is
+posterior from its checks' states. The sum-product forms, serial-C and
+flooding, keep a check's slots in registers (:func:`sumproduct_registers`):
+full messages, each edge's message and posterior read once, the plan in
+the kernel parameter. Every other form (group-serial, codes beyond the
+limits) keeps the full messages with the plan in shared memory. The
+source is
 compiled with ``nvcc`` for ``sm_90a``, once per storage type in
 parallel, into ``build/kernels/`` of the checkout on first use, linked
 into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
@@ -29,7 +33,9 @@ card.
 :func:`bp_qc_cuda` launches a kernel for a CUDA tensor and runs the
 plain version (:func:`..ops.bp_roll.decode_roll`) for a CPU tensor, and
 so do the drivers through it; nothing else selects the plain version.
-``LAUNCHES`` counts the kernel launches per kernel name.
+``LAUNCHES`` counts the kernel launches per kernel name (the form),
+``ENTRY_LAUNCHES`` per CUDA entry point launched (:func:`entry_point`:
+the form's kernel of the design its code takes).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from ldpc_sims_tpu_torch.ops.bp_roll import (
 
 __all__ = [
     "COMPRESSED_LIMITS",
+    "ENTRY_LAUNCHES",
     "LAUNCHES",
     "KERNELS",
     "KERNELS_W",
@@ -68,12 +75,14 @@ __all__ = [
     "build",
     "compressed_state",
     "default_threads",
+    "design",
     "entry_point",
     "kernel_name",
     "probe_capacity",
     "minsum_qc_cuda",
     "reset_launch_counts",
     "smem_bytes",
+    "sumproduct_registers",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "minsum_qc.cu"
@@ -105,39 +114,64 @@ KERNELS_W = {
 # launches per kernel (kernel_name) since the last reset_launch_counts()
 LAUNCHES = {name + sfx: 0 for _, sfx in STORAGE.values()
             for name in (*KERNELS.values(), *KERNELS_W.values())}
+# launches per CUDA entry point (entry_point) since the last
+# reset_launch_counts(); only the entry points launched appear
+ENTRY_LAUNCHES: dict[str, int] = {}
 # dynamic shared memory one H100 CTA may use
 _SMEM_LIMIT = 232_448
-# the compressed check state's limits (csrc/minsum_qc.cu: kCsMaxDeg,
-# kCsMaxRows, kCsMaxPlanes, kCsMaxCols): row degree (a thread's register
-# arrays and its word's 8 sign bits), block rows, planes and block columns
-# (the kernel parameter's plan)
+# the limits of the compressed check state and of the sum-product slots in
+# registers (csrc/minsum_qc.cu: kCsMaxDeg, kCsMaxRows, kCsMaxPlanes,
+# kCsMaxCols): row degree (a thread's register arrays and the state word's
+# 8 sign bits), block rows, planes and block columns (the kernel
+# parameter's plan)
 COMPRESSED_LIMITS = (8, 64, 192, 64)
+# the kernel designs, bp_qc_decode's `design` (csrc/minsum_qc.cu:
+# kDesignFull, kDesignCs, kDesignSr) and the entry points' suffix
+DESIGNS = {"full": (0, ""), "compressed": (1, "_cs"), "registers": (2, "_sr")}
 # the flooding forms' CTA size where an H100 sweep (kernels/tune.py) found
 # one faster than 256 (by more than 0.5%), keyed by (n, dtype name,
-# schedule); the layered forms' CTA has G·z threads by design. From the
-# sweep of threads 128, 256, 512, 1024 × the three types, flooding-20 on
-# the compressed check state, wifi1944 at batch 32768 and the 5G-class
-# codes at 16384 (PERF.md §6, row 14; NVIDIA H100 80GB HBM3, 700 W): a
-# 5G-class codeword fills most of an SM's shared memory (one to three CTAs
-# an SM), so more threads a CTA are more warps an SM; wifi1944 keeps 256
-# but at bf16, where 128 measured 0.7% faster.
-_LAUNCH_TABLE: dict[tuple[int, str, str], int] = {
-    (1944, "bfloat16", "flooding"): 128,
-    (8448, "float32", "flooding"): 1024,
-    (8448, "bfloat16", "flooding"): 512,
-    (8448, "int8", "flooding"): 1024,
-    (12288, "float32", "flooding"): 1024,
-    (12288, "bfloat16", "flooding"): 1024,
-    (12288, "int8", "flooding"): 1024,
+# schedule, method); the layered forms' CTA has G·z threads by design.
+# Min-sum, from the sweep of threads 128, 256, 512, 1024 × the three types,
+# flooding-20 on the compressed check state, wifi1944 at batch 32768 and
+# the 5G-class codes at 16384 (PERF.md §6, row 14; NVIDIA H100 80GB HBM3,
+# 700 W): a 5G-class codeword fills most of an SM's shared memory (one to
+# three CTAs an SM), so more threads a CTA are more warps an SM; wifi1944
+# keeps 256 but at bf16, where 128 measured 0.7% faster. Sum-product, from
+# the sweep of the kernels with a check's slots in registers (wifi1944 at
+# 32768 over 128-512 threads, wifi648 at 4096 and 32768 over 64-384, the
+# 5G-class codes at 16384 over 256-1024), where its best beat min-sum's
+# entry by more than 0.5%: its 52-59 registers a thread hold a 256-thread
+# CTA to four an SM, and at wifi648 the 12 block rows' tasks fill four
+# warps evenly; wifi1944 int8 takes 384 (0.55% faster than 256).
+_LAUNCH_TABLE: dict[tuple[int, str, str, str], int] = {
+    (1944, "bfloat16", "flooding", "min-sum"): 128,
+    (8448, "float32", "flooding", "min-sum"): 1024,
+    (8448, "bfloat16", "flooding", "min-sum"): 512,
+    (8448, "int8", "flooding", "min-sum"): 1024,
+    (12288, "float32", "flooding", "min-sum"): 1024,
+    (12288, "bfloat16", "flooding", "min-sum"): 1024,
+    (12288, "int8", "flooding", "min-sum"): 1024,
+    (648, "float32", "flooding", "sum-product"): 128,
+    (648, "bfloat16", "flooding", "sum-product"): 128,
+    (648, "int8", "flooding", "sum-product"): 128,
+    (1944, "bfloat16", "flooding", "sum-product"): 128,
+    (1944, "int8", "flooding", "sum-product"): 384,
+    (8448, "float32", "flooding", "sum-product"): 1024,
+    (8448, "bfloat16", "flooding", "sum-product"): 512,
+    (8448, "int8", "flooding", "sum-product"): 512,
+    (12288, "float32", "flooding", "sum-product"): 1024,
+    (12288, "bfloat16", "flooding", "sum-product"): 512,
+    (12288, "int8", "flooding", "sum-product"): 1024,
 }
 
 
 def default_threads(qc: QcStructure, dtype=torch.float32,
-                    schedule: str = "flooding") -> int:
+                    schedule: str = "flooding",
+                    method: str = "min-sum") -> int:
     """The measured-best flooding CTA size for this (code, dtype,
-    schedule): ``_LAUNCH_TABLE``'s entry, else 256."""
+    schedule, method): ``_LAUNCH_TABLE``'s entry, else 256."""
     name = str(storage_dtype(dtype)).removeprefix("torch.")
-    return _LAUNCH_TABLE.get((qc.nb * qc.z, name, schedule), 256)
+    return _LAUNCH_TABLE.get((qc.nb * qc.z, name, schedule, method), 256)
 
 
 def kernel_name(method: str, schedule: str, early_stop: bool = False,
@@ -156,10 +190,12 @@ def entry_point(qc: QcStructure, method: str, schedule: str,
                 layered_group: int = 1) -> str:
     """The entry point of csrc/minsum_qc.cu that a decode of this form on
     this code launches: :func:`kernel_name`'s, with ``_cs`` before the
-    storage suffix on the compressed check state (:func:`compressed_state`)."""
-    cs = "_cs" if compressed_state(qc, method, schedule, layered_group) else ""
+    storage suffix on the compressed check state (:func:`compressed_state`)
+    and ``_sr`` with the sum-product slots in registers
+    (:func:`sumproduct_registers`)."""
+    sfx = DESIGNS[design(qc, method, schedule, layered_group)][1]
     return (kernel_name(method, schedule, early_stop, quantized, weighted)
-            + cs + STORAGE[storage_dtype(dtype)][1])
+            + sfx + STORAGE[storage_dtype(dtype)][1])
 
 
 # the JAX pallas backend pads the batch to 128 lanes (ldpc_sims_tpu/ops/
@@ -170,6 +206,7 @@ _JAX_TILE = 128
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -263,6 +300,18 @@ def _plan_array(qc: QcStructure) -> np.ndarray:
     ]).astype(np.int32)
 
 
+def _param_plan(qc: QcStructure, schedule: str, layered_group: int) -> bool:
+    """Flooding or serial-C (``layered_group`` 1) on a code within
+    ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block columns):
+    the decodes whose plan the kernel parameter carries."""
+    planes, group_c, _ = qc_plan(qc)
+    degree = max(len(ps) for ps in group_c)
+    max_deg, max_rows, max_planes, max_cols = COMPRESSED_LIMITS
+    return ((schedule == "flooding" or min(layered_group, qc.mb) == 1)
+            and degree <= max_deg and qc.mb <= max_rows
+            and len(planes) <= max_planes and qc.nb <= max_cols)
+
+
 def compressed_state(qc: QcStructure, method: str = "min-sum",
                      schedule: str = "layered",
                      layered_group: int = 1) -> bool:
@@ -272,26 +321,50 @@ def compressed_state(qc: QcStructure, method: str = "min-sum",
     within ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block
     columns). Every other form keeps the full messages (the group-serial
     forms measured slower on the compressed state, PERF.md)."""
-    planes, group_c, _ = qc_plan(qc)
-    degree = max(len(ps) for ps in group_c)
-    max_deg, max_rows, max_planes, max_cols = COMPRESSED_LIMITS
-    return (method == "min-sum"
-            and (schedule == "flooding" or min(layered_group, qc.mb) == 1)
-            and degree <= max_deg and qc.mb <= max_rows
-            and len(planes) <= max_planes and qc.nb <= max_cols)
+    return method == "min-sum" and _param_plan(qc, schedule, layered_group)
+
+
+def sumproduct_registers(qc: QcStructure, method: str = "sum-product",
+                         schedule: str = "layered",
+                         layered_group: int = 1) -> bool:
+    """Whether a decode runs the sum-product kernels with a check's slots in
+    registers (csrc/minsum_qc.cu, the _sr kernels: full messages, each
+    edge's message and posterior read once, the slots unrolled to the
+    check's degree, the plan in the kernel parameter): the sum-product
+    forms, flooding and serial-C (``layered_group`` 1), on a code within
+    ``COMPRESSED_LIMITS``, the register arrays' 8 slots and the
+    parameter's plan. The group-serial forms and the codes beyond the
+    limits keep the full-message kernels with the plan in shared memory."""
+    return (method == "sum-product"
+            and _param_plan(qc, schedule, layered_group))
+
+
+def design(qc: QcStructure, method: str, schedule: str,
+           layered_group: int = 1) -> str:
+    """The kernel design a decode launches, a key of ``DESIGNS``:
+    'compressed' (:func:`compressed_state`), 'registers'
+    (:func:`sumproduct_registers`) or 'full'."""
+    if _param_plan(qc, schedule, layered_group):
+        if method == "min-sum":
+            return "compressed"
+        if method == "sum-product":
+            return "registers"
+    return "full"
 
 
 def smem_bytes(qc: QcStructure, layered_group: int = 1,
                dtype=torch.float32, method: str = "min-sum",
                schedule: str = "flooding") -> int:
     """Dynamic shared memory of one CTA: the int32 plan (not for flooding
-    on the compressed state, whose plan is the kernel's parameter); the
-    c2v planes (4, 2 or 1 B a message for f32, bf16, int8) or, on the
-    compressed state (:func:`compressed_state`), two stored magnitudes and
-    a 2-byte word a check; the posterior (2 B a variable for bf16, else
-    4); and for a group-serial launch the f32 message changes of a group's
-    planes (at most ``min(P, G·row degree)`` planes of z floats); each
-    region on a 16-byte boundary."""
+    on the compressed state or for the sum-product slots in registers,
+    whose plan is the kernel's parameter); the c2v planes (4, 2 or 1 B a
+    message for f32, bf16, int8) or, on the compressed state
+    (:func:`compressed_state`), two stored magnitudes and a 2-byte word a
+    check; the posterior (2 B a variable for bf16, else 4), and the LLRs
+    in its type for the flooding forms that read their plan from the
+    parameter; and for a group-serial launch the f32 message changes of a
+    group's planes (at most ``min(P, G·row degree)`` planes of z floats);
+    each region on a 16-byte boundary."""
     planes, group_c, _ = qc_plan(qc)
     P = len(planes)
 
@@ -305,13 +378,15 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     degree = max(len(ps) for ps in group_c)
     scratch = min(P, G * degree) * qc.z if G > 1 else 0
     checks = qc.mb * qc.z
-    cs = compressed_state(qc, method, schedule, layered_group)
+    kind = design(qc, method, schedule, layered_group)
+    cs, sr = kind == "compressed", kind == "registers"
+    flooding = schedule == "flooding"
     state = (a16(2 * msg * checks) + a16(2 * checks) if cs
              else a16(msg * P * qc.z))
-    flood_cs = cs and schedule == "flooding"
-    plan = 0 if flood_cs else a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1))
-    # the compressed flooding forms keep the LLRs beside the posterior
-    posts = (2 if flood_cs else 1) * a16(post * qc.nb * qc.z)
+    param_plan = (cs and flooding) or sr
+    plan = 0 if param_plan else a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1))
+    # the LLRs beside the posterior
+    posts = (2 if flooding and param_plan else 1) * a16(post * qc.nb * qc.z)
     return plan + state + posts + 4 * scratch
 
 
@@ -452,7 +527,7 @@ def bp_qc_cuda(
         raise ValueError("threads sets the flooding forms' CTA size; a "
                          "layered CTA has layered_group·z threads")
     if threads is None:
-        threads = default_threads(qc, dtype, schedule)
+        threads = default_threads(qc, dtype, schedule, method)
     if not (32 <= threads <= 1024 and threads % 32 == 0):
         raise ValueError(f"threads={threads!r} must be a multiple of 32 "
                          "in [32, 1024]")
@@ -542,7 +617,7 @@ def bp_qc_cuda(
         None if flags is None else flags.data_ptr(),
         None if aux is None else aux.data_ptr(),
         plan.data_ptr(), _host_plan(qc).ctypes.data,
-        int(compressed_state(qc, method, schedule, layered_group)),
+        DESIGNS[design(qc, method, schedule, layered_group)][0],
         ab.data_ptr(),
         None if wm is None else wm.data_ptr(),
         None if wl is None else wl.data_ptr(),
@@ -552,13 +627,14 @@ def bp_qc_cuda(
         qstep if quant else 1.0, float(msg_qclip) if quant else math.inf,
         sstep, 1.0 / sstep, threads, stream,
     )
+    entry = entry_point(qc, method, schedule, bool(early_stop), quant,
+                        wm is not None, dtype, layered_group)
     if err != 0:
-        entry = entry_point(qc, method, schedule, bool(early_stop), quant,
-                            wm is not None, dtype, layered_group)
         msg = lib.bp_qc_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: {msg}")
     LAUNCHES[kernel_name(method, schedule, bool(early_stop), quant,
                          wm is not None, dtype)] += 1
+    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
     if output in ("hard_iters", "hard_unsat"):
         return out, aux
     return out

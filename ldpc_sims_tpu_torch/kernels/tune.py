@@ -4,10 +4,12 @@ types and schedules on the card.
 The counterpart of the JAX package's ``ldpc_sims_tpu/kernels/tune.py``
 (which times lane tiles × dtypes × schedules on a TPU). Behind ``python -m
 ldpc_sims_tpu_torch.kernels.tune``: times ``bp_qc_cuda`` on the current
-card for a grid of (threads, dtype, schedule) and prints one JSON line per
-point. Its output fills ``kernels.minsum_qc._LAUNCH_TABLE`` (read by
-``default_threads``), which holds an entry only where a sweep measured a
-CTA size faster than the default 256. ``threads`` is the flooding forms'
+card for a grid of (threads, dtype, schedule) of one decode method and
+prints one JSON line per point. Its output fills
+``kernels.minsum_qc._LAUNCH_TABLE`` (read by ``default_threads``, keyed by
+(n, dtype, schedule, method)), which holds an entry only where a sweep
+measured a CTA size faster than the default 256 (for sum-product: faster
+than min-sum's entry). ``threads`` is the flooding forms'
 CTA size; a layered CTA has G·z threads by design, so a layered point is
 timed once per dtype (``threads`` null). A point that fails to launch
 (too much shared memory, say) prints an error line and the sweep goes on:
@@ -15,7 +17,7 @@ that is the sweep's own report, as in the JAX tuner.
 
 Env:  TUNE_CODE (wifi1944), TUNE_BATCH (32768), TUNE_ITERS (20),
       TUNE_THREADS (128,256,512), TUNE_DTYPES (float32,bfloat16,int8),
-      TUNE_SCHEDULES (flooding).
+      TUNE_SCHEDULES (flooding), TUNE_METHOD (min-sum, or sum-product).
 """
 
 from __future__ import annotations
@@ -85,16 +87,18 @@ def main() -> int:
     dtypes = os.environ.get("TUNE_DTYPES",
                             "float32,bfloat16,int8").split(",")
     schedules = os.environ.get("TUNE_SCHEDULES", "flooding").split(",")
+    method = os.environ.get("TUNE_METHOD", "min-sum")
     for sched in schedules:
         for th in threads if sched == "flooding" else [None]:
             for dt in dtypes:
                 try:
                     r = time_config(code, batch, iters, th, dt,
-                                    schedule=sched)
+                                    method=method, schedule=sched)
                 except (RuntimeError, ValueError) as e:
                     # a launch the card refuses: the sweep's report
                     r = {"code": code.name, "threads": th, "dtype": dt,
-                         "schedule": sched, "error": str(e)[:200]}
+                         "schedule": sched, "method": method,
+                         "error": str(e)[:200]}
                 print(json.dumps(r), flush=True)
     return 0
 

@@ -621,6 +621,65 @@ def test_serial_c_minsum_integer_llrs(cuda, name, dtype, schedule):
                        decode_roll(x, code.qc, **kw))
 
 
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc8448_r12",
+                                  "qc1944_r23"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+def test_sumproduct_registers_match_plain_version(cuda, name, dtype,
+                                                  schedule):
+    """Sum-product with a check's slots in registers (the _sr entry points)
+    on a saturated row and the channel's regimes: fixed with its
+    unsatisfied-check count, early stop at K = 2, per-edge weights, each
+    with and without 4-bit messages, exactly equal to the plain version;
+    qc1944_r23 (rows of degree 8-9) keeps the full-message kernels."""
+    code = get_code(name)
+    x = saturated(mixed_llrs(code, 40, cuda, seed=11))
+    entry = mq.entry_point(code.qc, "sum-product", schedule, dtype=dtype)
+    assert ("_sr" in entry) == (name != "qc1944_r23")
+    w = random_edge_weights(code, 3, seed=12)
+    mq.reset_launch_counts()
+    for qb in (None, 4):
+        kw = dict(schedule=schedule, method="sum-product", dtype=dtype,
+                  msg_qbits=qb, msg_qclip=20.0)
+        for extra in (dict(iterations=6, output="posterior"),
+                      dict(iterations=6, output="hard_unsat"),
+                      dict(iterations=6, early_stop=True, es_check_every=2,
+                           output="hard_iters"),
+                      dict(iterations=3, weights=w, output="posterior")):
+            got = mq.bp_qc_cuda(x, code.qc, **kw, **extra)
+            want = decode_roll(x, code.qc, **kw, **extra)
+            for g, r in (zip(got, want) if isinstance(got, tuple)
+                         else [(got, want)]):
+                assert torch.equal(g, r), (qb, extra.get("output"))
+    # per message width: the fixed entry point twice, early stop and
+    # weighted once each
+    assert mq.ENTRY_LAUNCHES == {
+        mq.entry_point(code.qc, "sum-product", schedule, es, qb is not None,
+                       weighted, dtype): n
+        for qb in (None, 4)
+        for es, weighted, n in ((False, False, 2), (True, False, 1),
+                                (False, True, 1))}
+
+
+def test_sumproduct_registers_in_the_wifi648_sweep_preset(cuda):
+    """The preset's decode (layered-20 sum-product, es auto's two modes)
+    launches the _sr kernel, and group-serial decodes the full-message
+    one."""
+    code = get_code("wifi648")
+    x, cw = llrs(code, 256, cuda, mu=5.0, seed=13)
+    mq.reset_launch_counts()
+    for mode in ("probe", "requeue"):
+        bits = bp_decode(x, code, iterations=20, method="sum-product",
+                         schedule="layered", early_stop=True, es_mode=mode)
+        np.testing.assert_array_equal(bits.cpu().numpy(), cw)
+    bp_decode(x, code, iterations=20, method="sum-product",
+              schedule="layered", layered_group=3)
+    assert mq.ENTRY_LAUNCHES == {"sumproduct_qc_layered_sr": 2,
+                                 "sumproduct_qc_layered_es_sr": 2,
+                                 "sumproduct_qc_layered": 1}
+
+
 def test_gather_backend_on_the_card(cuda):
     """The gather backend runs on a CUDA tensor and agrees with its run on
     the CPU: bits equal wherever |posterior| > 1e-4."""

@@ -18,6 +18,8 @@ card both sides call the same libdevice functions (tests/test_torch_gpu.py
 asks for equality of bits there).
 """
 
+import functools
+import math
 import os
 
 import jax.numpy as jnp
@@ -379,12 +381,20 @@ def test_plan_table_rebuilds_H(name):
 
 
 def test_smem_bytes_wifi1944():
-    # full messages (sum-product flooding): plan 13 + 3·86 + 25 = 296 ints,
-    # 86·81 message and 1944 posterior f32, each region on a 16-byte
-    # boundary (the messages' 27,864 B take 27,872)
+    # full messages with the plan (sum-product group-serial, G = 2): plan
+    # 13 + 3·86 + 25 = 296 ints, 86·81 message and 1944 posterior f32 and
+    # the f32 scratch of 2·8 planes, each region on a 16-byte boundary (the
+    # messages' 27,864 B take 27,872)
     qc = get_code("wifi1944").qc
-    assert mq.smem_bytes(qc, method="sum-product") == 4 * 296 + 27_872 + \
-        4 * 1944
+    assert mq.smem_bytes(qc, 2, method="sum-product",
+                         schedule="layered") == 4 * 296 + 27_872 + \
+        4 * 1944 + 4 * 16 * 81
+    # sum-product with its slots in registers: the same messages and
+    # posterior without the plan (the kernel's parameter holds it), and
+    # flooding with the LLRs beside the posterior
+    assert mq.smem_bytes(qc, method="sum-product",
+                         schedule="layered") == 27_872 + 4 * 1944
+    assert mq.smem_bytes(qc, method="sum-product") == 27_872 + 2 * 4 * 1944
     # min-sum flooding on the compressed state: 972 checks of two f32
     # magnitudes and a 2-byte word (1944 B take 1952), the posterior and
     # the LLRs, and no plan (the kernel's parameter holds it)
@@ -545,6 +555,338 @@ def test_compressed_flooding_loop_matches_pallas_interpret():
     ours, _ = emulate_kernel(llr, get_code("wifi648").qc, clamp=None,
                              layered=False, compressed=True, **kw)
     np.testing.assert_array_equal(ours, ref)
+
+
+@functools.cache
+def cached_code(name):
+    """get_code, built once per test process (the 5G-class codes' girth
+    search takes seconds)."""
+    return get_code(name)
+
+
+def flood_plan(qc):
+    """The launcher's FloodPlan (csrc/minsum_qc.cu, bp_qc_launch) from the
+    wrapper's plan table: row_ptr; per plane (col·z, shift, row·z, slot);
+    col_ptr; per column entry (row·z, shift, slot bits, plane)."""
+    row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
+    z = qc.z
+    row_of = np.repeat(np.arange(qc.mb), np.diff(row_ptr))
+    slot = np.arange(len(col)) - row_ptr[row_of]
+    plane = np.stack([col * z, shift, row_of * z, slot], 1)
+    cols = np.stack([plane[col_planes, 2], plane[col_planes, 1],
+                     (1 << slot[col_planes]) | (slot[col_planes] << 8),
+                     col_planes], 1)
+    return row_ptr, plane, col_ptr, cols
+
+
+def warp_walk(z, threads, blocks):
+    """WarpWalk (csrc/minsum_qc.cu) for each warp of a CTA of ``threads``:
+    its tasks (b, lanes) over ``blocks`` blocks of z checks or variables,
+    lanes the offsets 32k .. 32k+31 below z of its chunk k."""
+    chunks, nw = -(-z // 32), threads // 32
+    walks = []
+    for w in range(nw):
+        b, k = divmod(w, chunks)
+        db, dk = divmod(nw, chunks)
+        tasks = []
+        while b < blocks:
+            lanes = np.arange(32 * k, 32 * k + 32)
+            tasks.append((b, lanes[lanes < z]))
+            b, k = b + db, k + dk
+            if k >= chunks:
+                b, k = b + 1, k - chunks
+        walks.append(tasks)
+    return walks
+
+
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc8448_r12",
+                                  "qc12288_r12"])
+def test_warp_walks_visit_in_plain_order(name):
+    """The flooding walks of every CTA size the wrapper launches (and the
+    layered CTA's, whose rebuild and counts walk the same way) visit every
+    check and every variable once; a check's slots meet the variables of
+    its row of H in column order, and a variable's FloodPlan entries its
+    checks in check-sorted order, the plain version's rebuild order."""
+    code = cached_code(name)
+    qc = code.qc
+    z = qc.z
+    row_ptr, plane, col_ptr, cols = flood_plan(qc)
+    for threads in (32, 128, 256, 512, 1024, -(-z // 32) * 32):
+        for blocks in (qc.mb, qc.nb):
+            seen = np.zeros(blocks * z, np.int64)
+            for tasks in warp_walk(z, threads, blocks):
+                for b, lanes in tasks:
+                    seen[b * z + lanes] += 1
+            assert (seen == 1).all(), (threads, blocks)
+    H = code.H
+    for b in range(qc.mb):
+        pl = plane[row_ptr[b]:row_ptr[b + 1]]
+        r = np.arange(z)[:, None]
+        slots = pl[:, 0] + (r + pl[:, 1]) % z  # (z, degree) variables
+        want = [np.flatnonzero(H[b * z + i]) for i in range(z)]
+        assert all((slots[i] == want[i]).all() for i in range(z))
+    for j in range(qc.nb):
+        cp = cols[col_ptr[j]:col_ptr[j + 1]]
+        q = np.arange(z)[:, None]
+        checks = cp[:, 0] + (q - cp[:, 1]) % z  # (z, degree) checks
+        want = [np.flatnonzero(H[:, j * z + i]) for i in range(z)]
+        assert all((checks[i] == want[i]).all() for i in range(z))
+        # the entry's plane and slot are its check's: the plain version's
+        # message of that edge
+        assert (plane[cp[:, 3], 2] == cp[:, 0]).all()
+        assert (1 << plane[cp[:, 3], 3] == cp[:, 2] & 0xFF).all()
+
+
+def emulate_sumproduct_sr(llr, qc, iterations, layered, msg_qbits=None,
+                          msg_qclip=20.0, clamp=None, dtype=torch.float32,
+                          weights=None, threads=256):
+    """The sum-product _sr kernels (csrc/minsum_qc.cu: sp_check,
+    iterate_sr, rebuild_sr) in torch, with the plain version's exp,
+    expm1, log1p and log, vectorized over a block row's threads (layered)
+    or a warp task's lanes (flooding) and the batch. A check's slots are
+    unrolled: pass 1 keeps each slot's old message, posterior, v2c and
+    weight as registers, then each slot's lt, and sums the row left to
+    right; pass 2 forms each magnitude and message from the registers and
+    stores the message and, layered, the posterior. Flooding
+    walks warps over (block row, 32 checks), then over (column block, 32
+    variables) for the rebuild from the LLRs in the posterior's storage.
+    Returns the posterior, log(Pr1/Pr0)."""
+    f32 = torch.float32
+    row_ptr, plane, col_ptr, cols = flood_plan(qc)
+    z, mb, nb = qc.z, qc.mb, qc.nb
+    x = torch.from_numpy(llr)
+    B = x.shape[0]
+    big = torch.tensor(math.inf if clamp is None else clamp, dtype=f32)
+    qstep = None if msg_qbits is None else torch.tensor(
+        2.0 * msg_qclip / (2**msg_qbits - 1), dtype=f32)
+    qclip = torch.tensor(msg_qclip, dtype=f32)
+    sstep = torch.tensor(2.0 * msg_qclip / 255.0, dtype=f32)
+    sinv = torch.tensor(1.0 / (2.0 * msg_qclip / 255.0), dtype=f32)
+
+    def store_msg(v):  # lift(store<Msg>(v)); an int8 zero code lifts to +0
+        if dtype == torch.bfloat16:
+            return v.to(torch.bfloat16).to(f32)
+        if dtype == torch.int8:
+            return (torch.clamp(torch.round(v * sinv), -127.0, 127.0)
+                    + 0.0) * sstep
+        return v
+
+    def store_post(v):
+        return v.to(torch.bfloat16).to(f32) if dtype == torch.bfloat16 else v
+
+    def sp_lt(v):
+        a = torch.clamp_min(v.abs(), 1e-12)
+        return torch.log(-torch.expm1(-a)) - torch.log1p(torch.exp(-a))
+
+    def sp_mag(s):
+        return torch.log1p(torch.exp(s)) - torch.log(-torch.expm1(s))
+
+    def postlude(y):
+        y = torch.minimum(torch.maximum(y, -big), big)
+        if qstep is not None:
+            y = torch.round(y / qstep) * qstep
+            y = torch.minimum(torch.maximum(y, -qclip), qclip)
+        return y
+
+    wm = wl = None
+    if weights is not None:
+        wt = pack_edge_weights(weights, qc, iterations)
+        wm, wl = wt.msg, wt.llr.reshape(iterations + 1, -1)
+
+    def check(msg, post, it, i, rs):
+        """sp_check of the checks rs of block row i."""
+        p0, deg = row_ptr[i], row_ptr[i + 1] - row_ptr[i]
+        pv, old, x, wv = [], [], [], []
+        negs = torch.zeros((B, rs.size), dtype=torch.int64)
+        for e in range(deg):
+            cx, s = plane[p0 + e, :2]
+            vi = torch.from_numpy(cx + (rs + s) % z)
+            old.append(msg[p0 + e][:, rs])
+            m = old[e]
+            if wm is not None:
+                wv.append(wm[it, p0 + e, rs])
+                m = wv[e] * m
+            pv.append(post[:, vi])
+            v = pv[e] - m
+            if not layered:
+                v = store_msg(v)
+            negs |= (v < 0).to(torch.int64) << e
+            x.append(v)
+        x = [sp_lt(v) for v in x]
+        total = torch.zeros((B, rs.size), dtype=f32)
+        for e in range(deg):
+            total = total + x[e]
+        x = [sp_mag(torch.clamp_max(total - t, -1e-12)) for t in x]
+        odd = sum((negs >> e) & 1 for e in range(deg)) & 1
+        for e in range(deg):
+            sgn = torch.where(((negs >> e) & 1) ^ odd == 1, -1.0, 1.0)
+            y = postlude(sgn * x[e])
+            stored = store_msg(y)
+            msg[p0 + e][:, rs] = stored
+            if layered:
+                if dtype == torch.int8:
+                    y = stored
+                d = y - old[e]
+                if wm is not None:
+                    d = wv[e] * d
+                cx, s = plane[p0 + e, :2]
+                post[:, torch.from_numpy(cx + (rs + s) % z)] = \
+                    store_post(pv[e] + d)
+
+    def rebuild(msg, lv, row):
+        post = torch.empty_like(lv)
+        for tasks in warp_walk(z, threads, nb):
+            for j, qs in tasks:
+                v = torch.from_numpy(j * z + qs)
+                acc = lv[:, v]
+                if wl is not None:
+                    acc = wl[row, v] * acc
+                for cx, s, _, p in cols[col_ptr[j]:col_ptr[j + 1]]:
+                    r = torch.from_numpy((qs - s) % z)
+                    m = msg[p][:, r]
+                    acc = acc + (m if wm is None else wm[row, p, r] * m)
+                post[:, v] = store_post(acc)
+        return post
+
+    lv = store_post(-x)  # (B, n): the LLRs as the posterior holds them
+    msg = [torch.zeros((B, z), dtype=f32) for _ in range(len(plane))]
+    post = lv.clone() if wm is None else rebuild(msg, lv, 0)
+    if layered:
+        threads = -(-z // 32) * 32
+    for it in range(iterations):
+        if layered:
+            for i in range(mb):
+                check(msg, post, it, i, np.arange(z))
+            if wm is not None:
+                post = rebuild(msg, lv, it + 1)
+        else:
+            for tasks in warp_walk(z, threads, mb):
+                for i, rs in tasks:
+                    check(msg, post, it, i, rs)
+            post = rebuild(msg, lv, it + 1)
+    return (-post).numpy()
+
+
+def saturated_llrs(code, batch, seed):
+    """Consistent-Gaussian LLRs of random codewords (log Pr1/Pr0), their
+    mean rising from 1 to 6 over the rows; row 0 its codeword at |LLR| =
+    60, row 1 at 60 with random signs (every check in conflict)."""
+    rng = np.random.default_rng(seed)
+    cw = code.encode_np(rng.integers(0, 2, (batch, code.k)))
+    mu = np.linspace(1.0, 6.0, batch)[:, None]
+    llr = (2.0 * cw - 1.0) * mu + rng.normal(0, 1, cw.shape) * np.sqrt(2 * mu)
+    llr[0] = (2.0 * cw[0] - 1.0) * 60.0
+    llr[1] = np.where(rng.random(code.n) < 0.5, -60.0, 60.0)
+    return np.ascontiguousarray(llr, np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("qbits", [None, 5], ids=["", "msgq5"])
+@pytest.mark.parametrize("layered", [False, True],
+                         ids=["flooding", "layered"])
+def test_sumproduct_registers_loop_matches_plain_version(layered, qbits,
+                                                         dtype):
+    """The sum-product _sr loops (slots unrolled, the row summed left to
+    right, pass 2 from registers, the flooding walks) equal decode_roll's
+    sum-product exactly on every row but the conflicted saturated one,
+    which both keep finite (there Σlt − lt cancels to a few ulps of one
+    large lt). 32 codewords of wifi648: every tensor a multiple of 32
+    elements, so no operation takes a scalar tail."""
+    code = get_code("wifi648")
+    llr = saturated_llrs(code, 32, seed=21)
+    kw = dict(iterations=2, msg_qbits=qbits, msg_qclip=20.0, dtype=dtype,
+              clamp=20.0)
+    ours = emulate_sumproduct_sr(llr, code.qc, layered=layered, **kw)
+    ref = decode_roll(torch.from_numpy(llr), code.qc, output="posterior",
+                      method="sum-product",
+                      schedule="layered" if layered else "flooding",
+                      **kw).numpy()
+    assert np.isfinite(ours).all() and np.isfinite(ref).all()
+    rows = np.arange(32) != 1
+    np.testing.assert_array_equal(ours[rows], ref[rows])
+    assert mq.sumproduct_registers(code.qc, "sum-product",
+                                   "layered" if layered else "flooding")
+
+
+@pytest.mark.parametrize("layered", [False, True],
+                         ids=["flooding", "layered"])
+def test_sumproduct_registers_weighted_loop_matches_plain_version(layered):
+    """The weighted _sr loops (w·old in the v2c, w·(new − old) folded,
+    the rebuild with the next row's weights) exactly equal decode_roll,
+    at a CTA of 128 threads (four warps walking the flooding passes)."""
+    code = get_code("wifi648")
+    llr = saturated_llrs(code, 32, seed=22)
+    rng = np.random.default_rng(23)
+    w = {k: rng.uniform(0.7, 1.3, v.shape).astype(np.float32)
+         for k, v in init_neural_bp_weights(code, 2).items()}
+    ours = emulate_sumproduct_sr(llr, code.qc, 2, layered, weights=w,
+                                 threads=128)
+    ref = decode_roll(torch.from_numpy(llr), code.qc, iterations=2,
+                      output="posterior", method="sum-product", weights=w,
+                      schedule="layered" if layered else "flooding").numpy()
+    rows = np.arange(32) != 1
+    np.testing.assert_array_equal(ours[rows], ref[rows])
+
+
+def test_sumproduct_registers_loop_matches_pallas_interpret():
+    """The layered _sr loop against JAX's Pallas kernel in interpret mode
+    (one 128-lane tile of wifi648), at the tolerance JAX holds that kernel
+    to its roll backend: the TPU kernel takes log(1 − e^−a) as a series
+    where the port calls expm1."""
+    rng = np.random.default_rng(24)
+    llr = rng.normal(0, 3, (128, 648)).astype(np.float32)
+    kw = dict(iterations=2, clamp=20.0)
+    ref = np.asarray(bp_qc_pallas(jnp.asarray(llr),
+                                  jax_get_code("wifi648").qc, interpret=True,
+                                  method="sum-product", schedule="layered",
+                                  output="posterior", **kw))
+    ours = emulate_sumproduct_sr(llr, get_code("wifi648").qc, layered=True,
+                                 **kw)
+    np.testing.assert_allclose(ours, ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("name, fits", [
+    ("wifi648", True), ("wifi1944", True), ("qc8448_r12", True),
+    ("qc12288_r12", True), ("qc1944_r23", False), ("qc648_r56", False)])
+def test_sumproduct_registers_selection(name, fits):
+    """Which decodes take the _sr kernels: sum-product, flooding or
+    serial-C (G = 1, or a G that covers a one-row code), on a code within
+    the register arrays' 8 slots and the parameter plan's limits; G > 1
+    and the codes beyond keep the full-message kernels, min-sum its
+    compressed state."""
+    qc = cached_code(name).qc
+    for sched, G, want in (("flooding", 1, fits), ("layered", 1, fits),
+                           ("layered", 2, False), ("layered", 4, False)):
+        assert mq.sumproduct_registers(qc, "sum-product", sched, G) == want
+        assert not mq.sumproduct_registers(qc, "min-sum", sched, G)
+        kind = mq.design(qc, "sum-product", sched, G)
+        assert kind == ("registers" if want else "full")
+        entry = mq.entry_point(qc, "sum-product", sched, dtype=torch.int8,
+                               layered_group=G)
+        assert entry == f"sumproduct_qc_{sched}" + ("_sr" if want else "") \
+            + "_i8"
+        assert mq.design(qc, "min-sum", sched, G) == (
+            "compressed" if fits and G == 1 else "full")
+    assert mq.entry_point(qc, "sum-product", "layered", True, True) == (
+        "sumproduct_qc_layered_es_msgq" + ("_sr" if fits else ""))
+    assert mq.entry_point(qc, "sum-product", "flooding", weighted=True,
+                          dtype=torch.bfloat16) == (
+        "sumproduct_qc_flooding_w" + ("_sr" if fits else "") + "_bf16")
+
+
+def test_launch_table_keys_the_method():
+    """The flooding CTA size is looked up per method: sum-product's sweep
+    moved wifi648 to 128 threads and the 5G-class int8/bf16 entries, while
+    min-sum keeps its own entries and the default 256."""
+    w648, w1944 = cached_code("wifi648").qc, cached_code("wifi1944").qc
+    assert mq.default_threads(w648) == 256
+    assert mq.default_threads(w648, method="sum-product") == 128
+    assert mq.default_threads(w1944, torch.bfloat16) == 128
+    assert mq.default_threads(w1944, torch.bfloat16,
+                              method="sum-product") == 128
+    assert mq.default_threads(w1944, method="sum-product") == 256
+    assert {k[3] for k in mq._LAUNCH_TABLE} == {"min-sum", "sum-product"}
 
 
 @pytest.mark.parametrize("kw, match", [

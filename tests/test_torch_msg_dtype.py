@@ -235,17 +235,18 @@ def test_auto_diverges_from_jax_cpu_auto():
 def test_smem_bytes_per_storage_type():
     """Each region sized by its type on a 16-byte boundary; the 5G-class
     codes' bf16 and int8 halve their f32 footprint or better. Sum-product
-    (and the group-serial forms) keep the full messages; min-sum, serial-C
+    (and the group-serial forms) keep the full messages, serial-C and
+    flooding sum-product without the plan (their kernel parameter holds
+    it), flooding with the LLRs beside the posterior; min-sum, serial-C
     and flooding, keeps the compressed check state: two stored magnitudes
-    and a 2-byte word a check, flooding without the plan (its kernel
-    parameter holds it) and with the LLRs beside the posterior, in its
-    storage type."""
+    and a 2-byte word a check, flooding without the plan and with the LLRs
+    beside the posterior, in its storage type."""
     sp = dict(method="sum-product", schedule="layered")
     ms = dict(method="min-sum", schedule="layered")
     fl = dict(method="min-sum", schedule="flooding")
     qc = get_code("wifi1944").qc  # plan 296 ints, P·z = 6966, n = 1944
-    assert mq.smem_bytes(qc, 1, torch.bfloat16, **sp) == 1184 + 13936 + 3888
-    assert mq.smem_bytes(qc, 1, torch.int8, **sp) == 1184 + 6976 + 7776
+    assert mq.smem_bytes(qc, 1, torch.bfloat16, **sp) == 13936 + 3888
+    assert mq.smem_bytes(qc, 1, torch.int8, **sp) == 6976 + 7776
     # 972 checks: magnitudes 8, 4 or 2 B, words 1944 B (1952 aligned)
     assert mq.smem_bytes(qc, 1, **ms) == 1184 + 7776 + 1952 + 7776
     assert mq.smem_bytes(qc, 1, torch.bfloat16, **ms) == (1184 + 3888
@@ -253,9 +254,12 @@ def test_smem_bytes_per_storage_type():
     assert mq.smem_bytes(qc, 1, torch.int8, **ms) == (1184 + 1952 + 1952
                                                       + 7776)
     big = get_code("qc12288_r12").qc
-    assert mq.smem_bytes(big, **sp) == 174_976
-    assert mq.smem_bytes(big, 1, torch.bfloat16, **sp) == 87_936
-    assert mq.smem_bytes(big, 1, torch.int8, **sp) == 81_280
+    # the full messages with their 896 B plan (the group-serial forms, G = 2
+    # with the scratch of 2·6 planes), and serial-C sum-product without it
+    assert mq.smem_bytes(big, 2, **sp) == 174_976 + 4 * 12 * 512
+    assert mq.smem_bytes(big, **sp) == 174_976 - 896
+    assert mq.smem_bytes(big, 1, torch.bfloat16, **sp) == 87_936 - 896
+    assert mq.smem_bytes(big, 1, torch.int8, **sp) == 81_280 - 896
     # two f32 CTAs an SM (115,712 B each with the 1 KB a CTA reserves)
     assert mq.smem_bytes(big, **ms) == 111_488
     assert mq.smem_bytes(big, 1, torch.bfloat16, **ms) == 62_336
@@ -265,17 +269,20 @@ def test_smem_bytes_per_storage_type():
     assert mq.smem_bytes(q8448, **ms) == 75_968
     # flooding: the serial-C bytes less the plan (1,184 B at wifi1944)
     # and with the LLRs (4 B a variable, bf16 2); sum-product flooding as
-    # layered
+    # its serial-C with the LLRs
     for dt, llr in ((torch.float32, 7776), (torch.bfloat16, 3888),
                     (torch.int8, 7776)):
         assert mq.smem_bytes(qc, 1, dt, **fl) == mq.smem_bytes(
             qc, 1, dt, **ms) - 1184 + llr
+        assert mq.smem_bytes(qc, 1, dt, method="sum-product") == \
+            mq.smem_bytes(qc, 1, dt, **sp) + llr
     # one f32 or int8 CTA an SM at qc12288, two at bf16
     assert mq.smem_bytes(big, **fl) == 159_744
     assert mq.smem_bytes(big, 1, torch.bfloat16, **fl) == 86_016
     assert mq.smem_bytes(big, 1, torch.int8, **fl) == 122_880
     assert mq.smem_bytes(q8448, **fl) == 108_544
-    assert mq.smem_bytes(big, method="sum-product") == 174_976
+    # one f32 sum-product flooding CTA an SM at qc12288
+    assert mq.smem_bytes(big, method="sum-product") == 174_080 + 49_152
     # G = 5 does not fit at f32 but does at bf16
     assert mq.smem_bytes(big, 5, **ms) > mq._SMEM_LIMIT
     assert mq.smem_bytes(big, 5, torch.bfloat16, **ms) <= mq._SMEM_LIMIT
@@ -286,6 +293,7 @@ def test_smem_bytes_per_storage_type():
         assert not mq.compressed_state(r23, **kw)
         assert mq.smem_bytes(r23, **kw) == mq.smem_bytes(r23, **sp)
     assert not mq.compressed_state(qc, "sum-product", "flooding")
+    assert not mq.sumproduct_registers(r23, "sum-product", "flooding")
 
 
 def test_bigcode_and_tuner_need_a_card(monkeypatch, capsys):
