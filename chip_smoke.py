@@ -8,7 +8,8 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
 1. build the CUDA decode kernels from the checkout's sources, print
    ptxas's register/shared-memory report and the card's name and power
    limit, and fail unless each of the 36 sum-product kernels with a
-   check's slots in registers (the _sr kernels) has a 0 B stack frame;
+   check's slots in registers (the _sr kernels) and each of the 36
+   group-serial kernels (the _gs kernels) has a 0 B stack frame;
 2. hold each kernel against its plain PyTorch version on the card at
    batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75, β=0.1,
    clamp 20), the registry's trained layered-8 on wifi1944 and wifi648
@@ -30,32 +31,37 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    random per-edge weights in [0.7, 1.3] on wifi1944 and wifi648 at 1.5
    dB, and the committed K6 decoder (its ms arrays as the α/β table):
    posteriors within the tolerance, bits and counts equal; the
-   group-serial layered schedule at G = 2, 3, 12 for min-sum and
-   sum-product (posteriors within the tolerance, bits equal) and with
-   early stop at G = 3 (bits and iterations equal); G = 1 equal bit for
-   bit to the serial-C kernel and plain version; G = mb within 1e-4 of
-   flooding for all but at most one codeword in a thousand. Then (2e)
+   group-serial layered schedule (the _gs kernels) at G = 2, 3, 4 and mb
+   for min-sum and sum-product on channel LLRs with 64 rows saturated at
+   |LLR| = 60 (posteriors and bits exactly equal) and with early stop at
+   G = 3 (bits and iterations equal); G = 1 equal bit for bit to the
+   serial-C kernel and plain version; G = mb within 1e-4 of flooding for
+   all but at most one codeword in a thousand. Then (2e)
    every form at bf16 and int8 message storage on wifi1944 and wifi648 at
    1.5 dB with 64 rows saturated at |LLR| = 60 (both rules, both
    schedules, with and without 4-bit messages: posteriors, bits and
-   counts, early stop, ``done_in``; the weighted forms, G = 3 and both
-   drivers), every comparison exactly equal, then qc12288_r12 layered-10
+   counts, early stop, ``done_in``; the weighted forms, G = 2, 3, 4 and
+   mb, and both drivers), every comparison exactly equal, then
+   qc12288_r12 layered-10
    at all three storage types, batch 256. Then (2f) every min-sum
    layered form (fixed with its unsatisfied-check count, early stop at
    K = 1 and 2, ``done_in``, weighted; with and without 3-bit messages)
-   and both drivers at f32, bf16 and int8 and G = 1 and 4 on integer
-   LLRs in {-3, ..., 3} (tied minima, zero magnitudes, an offset above
-   the minimum: the inputs a compressed check state could get wrong) on
-   wifi1944, wifi648 and qc1944_r23, and every min-sum flooding form
+   and both drivers at f32, bf16 and int8 and G = 1, 2, 3, 4 and mb on
+   integer LLRs in {-3, ..., 3} (tied minima, zero magnitudes, an offset
+   above the minimum: the inputs a compressed check state could get
+   wrong) on wifi1944 and wifi648 (serial-C on the _cs kernels, G > 1 on
+   the _gs kernels) and at G = 1 and 4 on qc1944_r23 (full messages),
+   and every min-sum flooding form
    (the same forms, no drivers) at the three types on wifi1944, wifi648,
    qc8448_r12 (the compressed state) and qc1944_r23 (full messages), each
    exactly equal. Then (2g) every sum-product form (fixed with its
    unsatisfied-check count, early stop at K = 1 and 2, ``done_in``,
    weighted; with and without 4-bit messages; both schedules) and both
    drivers at f32, bf16 and int8 on wifi1944, wifi648 and qc8448_r12,
-   which take the _sr kernels, and on wifi1944 with G = 3 and
-   qc1944_r23, which keep the full-message kernels, on channel LLRs with
-   64 rows saturated at |LLR| = 60, each exactly equal;
+   which take the _sr kernels, on wifi1944 and wifi648 at G = 2, 3, 4
+   and mb, which take the _gs kernels, and on qc1944_r23 at G = 1 and 2,
+   which keeps the full-message kernels, on channel LLRs with 64 rows
+   saturated at |LLR| = 60, each exactly equal;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -95,7 +101,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    least 5× below plain layered-6; flooding-12 with random per-edge
    weights at 1.5 dB; ``sweep --schedule layered --iters 20
    --layered-group 4`` beside layered-20 at 1.5 and 2.0 dB, with phase
-   3's flooding-20 on the same seeds;
+   3's flooding-20 on the same seeds (the entry point it launched, its
+   BER/BLER beside layered-20's, a profile of its step), and its
+   sum-product form; the committed
+   TPU sweeps' configuration of qc1944_r23, r34 and r56
+   (``docs/artifacts/20260821_qc1944_r*_sweep_tpu.json``: layered-20
+   min-sum, ``es_mode='freeze'``, clamp 20, the full-message kernels) at
+   one waterfall point each, its BLER held within 4σ of the artifact's;
 3e. the bigcode scale run (``ldpc_sims_tpu_torch.examples.bigcode``) at
    full width on qc8448_r12 and qc12288_r12, batch 16384, its pipe cut
    from 16 to 4 decodes: the rates of flooding-20 f32 and layered-10 at
@@ -124,8 +136,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    special-function-unit instructions counted in the SASS of their edge
    sequence; ``minsum_qc_layered_w`` (the K6 decoder),
    ``minsum_qc_flooding_w`` (flooding-12, random weights) and
-   ``minsum_qc_layered@g4`` (layered-20, G = 4), each with the launches of
-   its phase 3d run; layered-20 at each group size G = 1, 2, 3, 4, 6, 12;
+   ``minsum_qc_layered@g4`` (layered-20, G = 4) and
+   ``sumproduct_qc_layered@g4``, each with the launches of its phase 3d
+   run; layered-20 at each group size G = 1, 2, 3, 4, 6, 12 with its entry
+   point, bound and the full-message kernel's recorded time; the
+   full-message rows
+   ``minsum_qc_layered_es@qc1944_r23``, ``_r34``, ``_r56`` (their phase 3d
+   configuration and launches);
    then the times of both drivers; then the storage rows with the launches
    of phase 3e: ``minsum_qc_layered@bf16`` and ``@int8`` (trained
    layered-8 on wifi1944, beside ``minsum_qc_layered``), and at batch
@@ -144,7 +161,8 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    launch tuner (``kernels/tune.py``). Each row of the ``kernels`` line
    names the CUDA entry point its launches ran (``entry``; ``_cs`` on the
    compressed check state, ``_sr`` with the sum-product slots in
-   registers), and each main-path run prints its launches per entry point.
+   registers, ``_gs`` group-serial), and each main-path run prints its
+   launches per entry point.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
 the package is not beside this script, or when any phase fails. The last
@@ -239,9 +257,23 @@ extern "C" __global__ void probe_st_i8(const float* x, int8_t* y, float s) {
   y[i] = store<int8_t>(x[i], s);
 }
 """
-# the kernels line's row for minsum_qc_layered's launches on the
-# --layered-group 4 path (layered-20, G = 4)
+# the kernels line's rows for the layered kernels' launches on the
+# --layered-group 4 paths (layered-20, G = 4), min-sum and sum-product
 G4_ROW = "minsum_qc_layered@g4"
+SP_G4_ROW = "sumproduct_qc_layered@g4"
+# layered-20 min-sum on wifi1944 at batch 32768 and 1.5 dB by group size
+# on the full-message group-serial kernel of the tree before the _gs
+# kernels (G = 1: the compressed serial-C kernel, unchanged), printed
+# beside this run's: the old turns of `python -m
+# ldpc_sims_tpu_torch.kernels.compare` of that tree (commit 1251547)
+# against the _gs kernels, on an NVIDIA H100 80GB HBM3 at 700 W
+FULL_MESSAGE_GROUP_MS = {1: 10.083, 2: 36.089, 3: 25.985, 4: 25.212,
+                         6: 20.589, 12: 19.791}
+# the committed TPU sweeps of the codes beyond the compressed state's
+# limits (rows of degree 9-18) and the waterfall point each is held to
+HIGH_RATE = {"qc1944_r23": 3, "qc1944_r34": 4, "qc1944_r56": 5}
+HIGH_RATE_SWEEP = os.path.join(ROOT, "docs", "artifacts",
+                               "20260821_{}_sweep_tpu.json")
 # the committed per-edge layered-6 decoder for wifi1944 and its measured
 # coded BER on its own BPSK-AWGN channel (all n bits counted)
 K6_NPZ = os.path.join(ROOT, "docs", "artifacts", "edge_layered_1944_K6.npz")
@@ -266,11 +298,12 @@ BIGCODE_BER = {
 # runs
 TABLE_A = {0.0: 7.271e-2, 3.0: 1.142e-2, 6.0: 3.419e-4}
 # the times of the kernels' rows with full messages and the plan in shared
-# memory, the designs before the compressed check state and the
-# sum-product slots in registers (PERF.md §6, this script on an NVIDIA
-# H100 80GB HBM3 at 700 W, the last run of each earlier design), printed
-# beside this run's; `python -m ldpc_sims_tpu_torch.kernels.compare`
-# times both designs in one call
+# memory, the designs before the compressed check state, the sum-product
+# slots in registers and the _gs kernels (PERF.md §6, this script on an
+# NVIDIA H100 80GB HBM3 at 700 W, the last run of each earlier design;
+# sumproduct_qc_layered@g4 from `python -m
+# ldpc_sims_tpu_torch.kernels.compare`, which times both designs in one
+# call), printed beside this run's
 FULL_MESSAGE_MS = {
     "sumproduct_qc_flooding": 42.307, "sumproduct_qc_layered": 48.532,
     "sumproduct_qc_flooding_es": 17.294, "sumproduct_qc_layered_es": 11.652,
@@ -280,6 +313,7 @@ FULL_MESSAGE_MS = {
     "minsum_qc_layered": 5.989, "minsum_qc_layered@es_auto": 3.743,
     "minsum_qc_layered@qc12288": 17.039, "minsum_qc_layered_es": 4.995,
     "minsum_qc_layered_w": 11.864, "minsum_qc_layered@g4": 25.215,
+    "sumproduct_qc_layered@g4": 56.299,
     "minsum_qc_layered@bf16": 5.505, "minsum_qc_layered@int8": 5.851,
     "minsum_qc_layered@qc12288-bf16": 13.834,
     "minsum_qc_layered@qc12288-int8": 15.277,
@@ -444,9 +478,10 @@ def smem_instructions(lib) -> dict:
     sum-product's full-message designs (``sumproduct_qc_layered``,
     ``sumproduct_qc_flooding``, the group-serial forms' and the codes'
     beyond the limits) and the ones with a check's slots in registers
-    (``sumproduct_qc_layered_sr``, ``sumproduct_qc_flooding_sr``), each
-    innermost loop (a backward branch that holds no other) as
-    (instructions, LDS, STS, LDL + STL)."""
+    (``sumproduct_qc_layered_sr``, ``sumproduct_qc_flooding_sr``), and the
+    group-serial kernels of both rules (``minsum_qc_layered_gs``,
+    ``sumproduct_qc_layered_gs``), each innermost loop (a backward branch
+    that holds no other) as (instructions, LDS, STS, LDL + STL)."""
     import re
     import shutil
 
@@ -468,7 +503,10 @@ def smem_instructions(lib) -> dict:
                "_Z22sumproduct_qc_floodingPKf":
                    "sum-product flooding full-message",
                "_Z25sumproduct_qc_flooding_srPKf":
-                   "sum-product flooding registers"}.get(
+                   "sum-product flooding registers",
+               "_Z20minsum_qc_layered_gsPKf": "group-serial compressed",
+               "_Z24sumproduct_qc_layered_gsPKf":
+                   "sum-product group-serial registers"}.get(
                    name[:name.index("PKf") + 3] if "PKf" in name else "")
         if key is None:
             continue
@@ -502,10 +540,12 @@ def adversarial(schedule, codes, storage_rows, max_err) -> None:
     could get wrong. Every min-sum form of ``schedule`` (fixed with the
     unsatisfied-check count, early stop at K = 1 and 2, ``done_in``,
     weighted; with and without 3-bit messages) at each storage type (and,
-    layered, G = 1 and 4, with both drivers), each exactly equal to the
-    plain version (equal values: an int8 message that rounds to zero is +0
+    layered, at each group size, with both drivers), each exactly equal to
+    the plain version (equal values: an int8 message that rounds to zero is +0
     in the kernels and may be -0 in the plain version, which no comparison
-    or sum can tell apart)."""
+    or sum can tell apart). Layered, a code within the compressed state's
+    limits runs G = 1 (the _cs kernels), 2, 3, 4 and mb (the _gs
+    kernels), one beyond them G = 1 and 4 (full messages)."""
     import torch
 
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
@@ -521,11 +561,13 @@ def adversarial(schedule, codes, storage_rows, max_err) -> None:
                             device="cuda").float()
         skip = torch.arange(B, device="cuda") % 3 == 0
         w = random_edge_weights(code, 4, seed=72)
-        state = ("compressed state" if mq.compressed_state(qc, "min-sum",
-                                                           schedule)
-                 else "full messages")
+        fits = mq.design(qc, "min-sum", schedule) != "full"
+        groups = ((1,) if not layered else (1, 2, 3, 4, qc.mb) if fits
+                  else (1, 4))
         for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
-            for G in ((1, 4) if layered else (1,)):
+            for G in groups:
+                state = mq.entry_point(qc, "min-sum", schedule, dtype=dt,
+                                       layered_group=G)
                 st = dict(schedule=schedule, dtype=dt, msg_qclip=4.0,
                           layered_group=G)
                 for qb in (None, 3):
@@ -596,23 +638,23 @@ def adversarial(schedule, codes, storage_rows, max_err) -> None:
                       "drivers equal", flush=True)
 
 
-def sumproduct_registers(codes, kept, storage_rows, max_err) -> None:
+def sumproduct_registers(cases, storage_rows, max_err) -> None:
     """Every sum-product form (fixed with its unsatisfied-check count, early
     stop at K = 1 and 2, ``done_in``, weighted; with and without 4-bit
-    messages; both schedules) and both drivers at f32, bf16 and int8 on
-    channel LLRs with 64 rows saturated at |LLR| = 60, each exactly equal
-    to the plain version: on ``codes`` through the kernels with a check's
-    slots in registers (the _sr entry points), on ``kept`` (code, group)
-    pairs through the full-message kernels they keep."""
+    messages; both schedules, layered alone for G > 1) and both drivers at
+    f32, bf16 and int8 on channel LLRs with 64 rows saturated at |LLR| =
+    60, each exactly equal to the plain version, for each (code, group,
+    entry point suffix) of ``cases``: ``_sr`` (a check's slots in
+    registers), ``_gs`` (group-serial) or ``""`` (the full-message kernels
+    a code beyond the limits keeps)."""
     import torch
 
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
     from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll
 
-    for code, G, sr in [(c, 1, True) for c in codes] + [
-            (c, g, False) for c, g in kept]:
+    for code, G, want in cases:
         qc = code.qc
-        B = 4096 if code.n <= 1944 else 1024
+        B = 4096 if code.n <= 1944 and G == 1 else 1024
         llr = channel_llrs(code, B, 1.5, seed=81)
         llr[:64] = torch.where(llr[:64] > 0, 60.0, -60.0)
         skip = torch.arange(B, device="cuda") % 3 == 0
@@ -623,7 +665,8 @@ def sumproduct_registers(codes, kept, storage_rows, max_err) -> None:
                           msg_qclip=20.0, layered_group=G)
                 entry = mq.entry_point(qc, "sum-product", sched, dtype=dt,
                                        layered_group=G)
-                if ("_sr" in entry) != sr:
+                if entry != mq.kernel_name("sum-product", sched) + want + \
+                        mq.STORAGE[dt][1]:
                     fail(f"{code.name} G={G} {sched}: launches {entry}")
                 for qb in (None, 4):
                     at = f"{code.name} {sched} {sfx} G={G} msg_qbits={qb}"
@@ -977,13 +1020,15 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    # the sum-product kernels with a check's slots in registers: no slot
-    # indexed at run time, so no stack frame
-    sr = {k: v for k, v in ptxas_entries(report).items() if "_sr" in k}
-    for k, (stack, regs) in sorted(sr.items()):
-        print(f"  {k}: {stack} B stack frame, {regs} registers", flush=True)
-    if len(sr) != 36 or any(stack != 0 for stack, _ in sr.values()):
-        fail(f"the 36 _sr kernels need 0 B stack frames: {sr}")
+    # the sum-product kernels with a check's slots in registers and the
+    # group-serial kernels: no slot indexed at run time, so no stack frame
+    for sfx in ("_sr", "_gs"):
+        ks = {k: v for k, v in ptxas_entries(report).items() if sfx in k}
+        for k, (stack, regs) in sorted(ks.items()):
+            print(f"  {k}: {stack} B stack frame, {regs} registers",
+                  flush=True)
+        if len(ks) != 36 or any(stack != 0 for stack, _ in ks.values()):
+            fail(f"the 36 {sfx} kernels need 0 B stack frames: {ks}")
 
     # -- phase 2: kernels vs plain versions on the card --------------------
     print("== phase 2: kernels vs plain versions (batch 4096)", flush=True)
@@ -1196,20 +1241,28 @@ def main() -> None:
                 pb, pu = decode_roll(llr, qc, output="hard_unsat", **kw)
                 exact([(kb, pb), (ku, pu), (kb, (kp > 0).to(torch.int8))],
                       f"{at} hard_unsat")
-        # group-serial layered: min-sum and sum-product, and min-sum's
-        # early-stop form, against the plain version
+        # group-serial layered on the _gs kernels: min-sum and
+        # sum-product, and min-sum's early-stop form, against the plain
+        # version, exactly, with 64 rows saturated at |LLR| = 60
+        sat = llr.clone()
+        sat[:64] = torch.where(sat[:64] > 0, 60.0, -60.0)
         for method in ("min-sum", "sum-product"):
-            for G in (2, 3, 12):
+            for G in (2, 3, 4, qc.mb):
                 at = f"{code.name} layered-6 {method} G={G}"
                 kw = dict(iterations=6, schedule="layered", method=method,
                           layered_group=G)
                 name = mq.KERNELS[method, "layered", False, False]
-                kp = mq.bp_qc_cuda(llr, qc, output="posterior", **kw)
-                pp = decode_roll(llr, qc, output="posterior", **kw)
-                torch.cuda.synchronize()
-                max_err[name] = max(max_err[name], compare(kp, pp, at))
-                exact([(mq.bp_qc_cuda(llr, qc, **kw), (pp > 0).to(
-                    torch.int8))], f"{at} bits")
+                entry = mq.entry_point(qc, method, "layered",
+                                       layered_group=G)
+                if not entry.endswith("_gs"):
+                    fail(f"{at}: launches {entry}")
+                kp = mq.bp_qc_cuda(sat, qc, output="posterior", **kw)
+                pp = decode_roll(sat, qc, output="posterior", **kw)
+                max_err[name] = max(max_err[name], exact(
+                    [(kp, pp), (mq.bp_qc_cuda(sat, qc, **kw),
+                                (pp > 0).to(torch.int8))], at))
+            print(f"  {code.name} layered-6 {method} G = 2, 3, 4, {qc.mb} "
+                  f"({entry}): posteriors and bits equal", flush=True)
         kw = dict(iterations=20, schedule="layered", layered_group=3,
                   early_stop=True, output="hard_iters")
         kb, ki = mq.bp_qc_cuda(llr, qc, **kw)
@@ -1312,15 +1365,18 @@ def main() -> None:
                         [(mq.bp_qc_cuda(llr, qc, **kw6),
                           decode_roll(llr, qc, **kw6))], f"{at} weighted"))
                     if sched == "layered":
-                        g3 = dict(fixed, layered_group=3,
-                                  output="posterior")
-                        max_err[name] = max(max_err[name], exact(
-                            [(mq.bp_qc_cuda(llr, qc, **g3),
-                              decode_roll(llr, qc, **g3))], f"{at} G=3"))
+                        for G in (2, 3, 4, qc.mb):
+                            gk = dict(fixed, layered_group=G,
+                                      output="posterior")
+                            max_err[name] = max(max_err[name], exact(
+                                [(mq.bp_qc_cuda(llr, qc, **gk),
+                                  decode_roll(llr, qc, **gk))],
+                                f"{at} G={G}"))
                     print(f"  {at}: posterior, bits, counts, early stop "
                           f"(mean {float(ki.float().mean()):.3f} "
                           "iterations), done_in, weighted"
-                          + (", G=3" if sched == "layered" else "")
+                          + (f", G = 2, 3, 4, {qc.mb}"
+                             if sched == "layered" else "")
                           + " equal", flush=True)
             # both drivers
             es = dict(schedule="layered", early_stop=True, es_check_every=2,
@@ -1370,10 +1426,13 @@ def main() -> None:
 
     # -- phase 2g: sum-product with a check's slots in registers -----------
     print("== phase 2g: every sum-product form on the kernels with a check's "
-          "slots in registers (and on the full-message kernels a group or "
-          "code keeps) vs plain versions", flush=True)
-    sumproduct_registers((w1944, w648, get_code("qc8448_r12")),
-                         ((w1944, 3), (r23, 1)), storage_rows, max_err)
+          "slots in registers, serial-C, flooding and group-serial (and on "
+          "the full-message kernels a code beyond the limits keeps) vs plain "
+          "versions", flush=True)
+    sumproduct_registers(
+        [(c, 1, "_sr") for c in (w1944, w648, get_code("qc8448_r12"))]
+        + [(c, G, "_gs") for c in (w1944, w648) for G in (2, 3, 4, c.qc.mb)]
+        + [(r23, 1, ""), (r23, 2, "")], storage_rows, max_err)
 
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
@@ -1651,19 +1710,66 @@ def main() -> None:
                                         sweep, ["minsum_qc_layered"], card)
     launches[G4_ROW] = counts["minsum_qc_layered"]
     per_step[G4_ROW] = counts["minsum_qc_layered"] / ev.mc_steps
-    res_l20, _, _, rate_l20 = drive(
+    g4_entries = ev.entries
+    if set(g4_entries) != {"minsum_qc_layered_gs"}:
+        fail(f"layered-20 G=4 launched {g4_entries}, not the _gs kernel")
+    profile_step(mc_step(w1944, g4_cfg, batch, device="cuda"),
+                 "layered-20 G=4", card)
+    res_l20, _, ev, rate_l20 = drive(
         "layered-20", w1944, dataclasses.replace(g4_cfg, bp_layered_group=1),
         sweep, ["minsum_qc_layered"], card)
+    l20_entries = ev.entries
     res_f20, rate_f20 = main_res["flooding-20"]
     for i, snr in enumerate(res_g4.snrdb):
         print(f"  @ {snr:g} dB coded BER / BLER: layered-20 "
-              f"{res_l20.coded_ber[i]!r} / {res_l20.coded_bler[i]!r}, G=4 "
+              f"({', '.join(l20_entries)}) {res_l20.coded_ber[i]!r} / "
+              f"{res_l20.coded_bler[i]!r}, G=4 ({', '.join(g4_entries)}) "
               f"{res_g4.coded_ber[i]!r} / {res_g4.coded_bler[i]!r}, "
               f"flooding-20 {res_f20.coded_ber[i]!r} / "
               f"{res_f20.coded_bler[i]!r} [{card}]", flush=True)
     print(f"  decoded info bits/s: layered-20 {rate_l20!r}, G=4 {rate_g4!r}, "
           f"flooding-20 {rate_f20!r}; K6 per-edge layered-6 {rate_w!r}, "
           f"plain layered-6 {rate_p!r} [{card}]", flush=True)
+    # its sum-product form: `sweep ... --method sum-product --layered-group
+    # 4`, one point
+    args = build_parser().parse_args([
+        "sweep", "--code", "wifi1944", "--method", "sum-product",
+        "--schedule", "layered", "--iters", "20", "--layered-group", "4"])
+    _, sp_g4_cfg, _, _, _ = sweep_configs(args)
+    _, counts, ev, _ = drive("sum-product layered-20 G=4", w1944,
+                             sp_g4_cfg,
+                             dataclasses.replace(sweep, snrdb=(1.5,)),
+                             ["sumproduct_qc_layered"], card)
+    if set(ev.entries) != {"sumproduct_qc_layered_gs"}:
+        fail(f"sum-product layered-20 G=4 launched {ev.entries}")
+    launches[SP_G4_ROW] = counts["sumproduct_qc_layered"]
+    per_step[SP_G4_ROW] = counts["sumproduct_qc_layered"] / ev.mc_steps
+    # the committed TPU sweeps of qc1944_r23, r34 and r56 (rows of degree
+    # 9-18: the full-message kernels), their configuration at one
+    # waterfall point each, the BLER within 4σ of the artifact's
+    high_llr = {}
+    for cname, k in HIGH_RATE.items():
+        with open(HIGH_RATE_SWEEP.format(cname)) as f:
+            art = json.load(f)
+        hcode = get_code(cname)
+        hcfg = LinkConfig(**art["link"])
+        snr = art["snrdb"][k]
+        row = f"minsum_qc_layered_es@{cname}"
+        res, counts, ev, rate = drive(
+            f"{cname} layered-20 es freeze", hcode, hcfg,
+            dataclasses.replace(sweep, snrdb=(snr,),
+                                max_info_bits=steps_per_point * batch
+                                * hcode.k),
+            ["minsum_qc_layered_es"], card)
+        if set(ev.entries) != {"minsum_qc_layered_es"}:
+            fail(f"{cname}: launched {ev.entries}, not the full-message "
+                 "kernel")
+        launches[row] = counts["minsum_qc_layered_es"]
+        per_step[row] = counts["minsum_qc_layered_es"] / ev.mc_steps
+        bler_within_4sigma(f"{cname} @ {snr:g} dB", res.coded_bler[0],
+                           res.frames[0],
+                           (art["coded_bler"][k], art["frames"][k]))
+        high_llr[cname] = (hcode, hcfg, snr)
 
     # -- phase 3e: the bigcode scale run ----------------------------------
     print("== phase 3e: the bigcode run at full width (qc8448_r12, "
@@ -2016,11 +2122,53 @@ def main() -> None:
                                qc, "min-sum", kw["schedule"],
                                weighted="weights" in kw,
                                layered_group=kw.get("layered_group", 1))))
-    # the group-serial family: layered-20 at each group size
+    # sum-product layered-20 at G = 4, bound as the sum-product rows
+    kw = dict(iterations=20, schedule="layered", method="sum-product",
+              layered_group=4)
+    max_err[SP_G4_ROW] = exact(
+        [(mq.bp_qc_cuda(llr, qc, output="posterior", **kw),
+          decode_roll(llr, qc, output="posterior", **kw))],
+        f"{SP_G4_ROW} at batch {batch}")
+    ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 10)
+    plain_ms = cuda_time_ms(lambda: decode_roll(llr, qc, **kw), 2, warmup=1)
+    per = SP_OPS_PER_EDGE_ITER["layered"] + sp_f32
+    kernels.append(row(SP_G4_ROW, ms, plain_ms, bound(
+        batch * n * 5, batch * 20 * E * per, batch * 20 * E * sp_mufu),
+        mq.entry_point(qc, "sum-product", "layered", layered_group=4)))
+    # the group-serial family: layered-20 at each group size, its entry
+    # point, bound and the full-message group-serial kernel's time
+    b_ms, b_by = bound(io_bytes, batch * E * edge_ops("layered", 20))
     for G in (1, 2, 3, 4, 6, 12):
         ms = cuda_time_ms(lambda: mq.bp_qc_cuda(
             llr, qc, iterations=20, schedule="layered", layered_group=G), 20)
-        print(f"  layered-20 G={G} at 1.5 dB: {ms!r} ms [{card}]", flush=True)
+        entry = mq.entry_point(qc, "min-sum", "layered", layered_group=G)
+        print(f"  layered-20 G={G} at 1.5 dB ({entry}): {ms!r} ms (bound "
+              f"{b_ms!r} ms, {b_by}, share {b_ms / ms:.3f}; full "
+              f"messages: {FULL_MESSAGE_GROUP_MS[G]!r} ms) [{card}]",
+              flush=True)
+    # the full-message kernel on the codes beyond the compressed state's
+    # limits: layered-20 es freeze, clamp 20, each at its phase 3d point
+    # on this chain's channel LLRs, bound by the iterations it ran
+    for cname, (hcode, hcfg, snr) in high_llr.items():
+        name = f"minsum_qc_layered_es@{cname}"
+        hqc = hcode.qc
+        xh = channel_llrs(hcode, batch, snr, seed=15)
+        kw = dict(iterations=20, schedule="layered", clamp=hcfg.clamp,
+                  early_stop=True, es_check_every=1)
+        kb, ki = mq.bp_qc_cuda(xh, hqc, output="hard_iters", **kw)
+        pb, pi = decode_roll(xh, hqc, output="hard_iters", **kw)
+        max_err[name] = exact([(kb, pb), (ki, pi)], f"{name} at batch {batch}")
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xh, hqc, **kw), 10)
+        plain_ms = cuda_time_ms(lambda: decode_roll(xh, hqc, **kw), 2, 1)
+        ran = int(ki.sum())
+        Eh = len(qc_plan(hqc)[0]) * hqc.z
+        print(f"  {name} at {snr:g} dB: mean iterations {ran / batch:.4f} "
+              "of 20", flush=True)
+        kernels.append(row(name, ms, plain_ms, bound(
+            batch * (hcode.n * 5 + 4),
+            ran * Eh * edge_ops("layered", 1, clamp=hcfg.clamp)
+            + (batch + ran) * Eh * OPS_PER_EDGE_CHECK),
+            mq.entry_point(hqc, "min-sum", "layered", True)))
     # the drivers against plain compositions of their passes, at 2.5 dB
     # (where the probe overflows) and 3.0 dB (its compact path), each
     # bound by the iterations and checks its passes ran

@@ -11,7 +11,8 @@ its two turns of a checkout. Each turn also hashes every row's output,
 and the run fails unless both checkouts give the same bytes for every
 row. Prints the card, one JSON line per turn and a last JSON line
 ``{"rows": {name: {"old_ms", "new_ms", "ratio"}}, ...}``; exits 1 without
-a card.
+a card. ``COMPARE_ROWS`` (comma-separated row names) times those rows
+alone.
 
 The rows are the kernels' shapes on the main path and the bigcode run:
 wifi1944 (QPSK/OFDM-32 channel LLRs) at batch 32768, qc8448_r12 and
@@ -20,7 +21,10 @@ of min-sum at each storage type, the layered forms, the two drivers; the
 sum-product kernels' forms at wifi1944 (fixed, early stop, weighted,
 4-bit messages, bf16 and int8 storage) and their four entry points at the
 ``wifi648-sweep`` preset's shape, wifi648 at 2.0 dB, batch 4096 and
-32768.
+32768; the group-serial forms (layered-20 at G = 1, 2, 3, 4, 6 and 12;
+at G = 4, bf16 and int8, early stop, the K6 decoder's weights,
+sum-product; wifi648 at batch 32768, G = 2 and 4; layered-10 at G = 2
+and 4 on qc8448 and qc12288, batch 16384).
 """
 
 from __future__ import annotations
@@ -149,8 +153,28 @@ def time_rows(root: str) -> dict:
             llr[1.5], qc, iterations=6, schedule="layered",
             weights=k6p["tables"], alpha=k6p["ms_alpha"],
             beta=k6p["ms_beta"]),
-        "minsum_qc_layered@g4": lambda: cuda(llr[1.5], qc, layered_group=4,
-                                             **lay20),
+        # the group-serial forms
+        **{f"minsum_qc_layered@g{G}": (lambda G=G: cuda(
+            llr[1.5], qc, layered_group=G, **lay20))
+           for G in (1, 2, 3, 4, 6, 12)},
+        **{f"minsum_qc_layered@g4-{k}": (lambda kw=kw: cuda(
+            llr[1.5], qc, layered_group=4, **lay20, **kw))
+           for k, kw in st.items()},
+        "minsum_qc_layered_es@g4": lambda: cuda(
+            llr[2.5], qc, layered_group=4, early_stop=True,
+            output="hard_iters", **lay20),
+        "minsum_qc_layered_w@g4": lambda: cuda(
+            llr[1.5], qc, iterations=6, schedule="layered", layered_group=4,
+            weights=k6p["tables"], alpha=k6p["ms_alpha"],
+            beta=k6p["ms_beta"]),
+        "sumproduct_qc_layered@g4": lambda: cuda(
+            llr[1.5], qc, method="sum-product", layered_group=4, **lay20),
+        **{f"minsum_qc_layered@wifi648-g{G}": (lambda G=G: cuda(
+            x648[32768], w648.qc, layered_group=G, **lay20)) for G in (2, 4)},
+        **{f"minsum_qc_layered@{k}-g{G}": (lambda c=c, x=x, G=G: cuda(
+            x, c.qc, iterations=10, schedule="layered", layered_group=G))
+           for k, c, x in (("qc8448", q8448, x8448), ("qc12288", big, xb))
+           for G in (2, 4)},
         **{f"minsum_qc_layered@qc12288{sfx}": (lambda dt=dt: cuda(
             xb, big.qc, iterations=10, schedule="layered", dtype=dt,
             msg_qclip=24.0))
@@ -217,6 +241,13 @@ def time_rows(root: str) -> dict:
            for b in x648 for s in ("flooding", "layered")
            for es in ("", "_es")},
     }
+    only = os.environ.get("COMPARE_ROWS")
+    if only:
+        names = only.split(",")
+        unknown = sorted(set(names) - set(rows))
+        if unknown:
+            raise SystemExit(f"COMPARE_ROWS: no rows {unknown}")
+        rows = {k: rows[k] for k in names}
     out = {}
     for name, fn in rows.items():
         digest = _digest(fn())

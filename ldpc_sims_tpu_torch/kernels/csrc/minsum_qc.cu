@@ -19,9 +19,10 @@
 //     :259-275, the weighted update :356-367 and sweep :392-397,
 //     :408-410, :434-436, the re-base :442-457, :463-467), a compile-time
 //     flag too (the _w forms; no early stop, as on the TPU);
-//   * the group-serial layered sweep, layered_group > 1 (:398-440), a
-//     runtime argument of the layered forms whose group = 1 path is the
-//     serial-C code as before;
+//   * the group-serial layered sweep, layered_group > 1 (:398-440): a
+//     runtime argument of the layered forms, whose group = 1 path is the
+//     serial-C code, and on a code within the compressed state's limits
+//     the _gs kernels below;
 //   * bf16 and int8 message storage (`dtype`, :130-134, `ld`/`st`
 //     :216-228, the folds :420-439), a template parameter of every form.
 // Every form takes scalar alpha/beta as a table with one repeated row (min-sum
@@ -60,7 +61,10 @@
 // too, name_sr, with a check's slots in registers (36 more), which the
 // launcher takes under the same limits: flooding, or layered with group 1,
 // on a code of row degree 8 or less within the parameter plan's block
-// rows, planes and block columns.
+// rows, planes and block columns. The twelve layered forms of both rules
+// (the six min-sum and six sum-product layered forms) have a third kernel
+// each, name_gs, group-serial (36 more), which the launcher takes for
+// group > 1 on a code within the same limits.
 //
 // Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
 // or 2; the three objects are built in parallel and linked into one
@@ -99,17 +103,46 @@
 // message change folds in as w*(new - old).
 //
 // Group-serial layered. The checks of a group of G block rows read the
-// posterior as it stood before the group, so they cannot fold their
-// changes at once as serial-C does: two rows of a group can meet in a
-// column block. Each check writes its changes into a shared-memory scratch
-// that holds the group's planes (at most min(P, G*row_deg) planes of z
-// floats, so a G > 1 launch takes that much more shared memory); after a
-// barrier each thread folds them into its variables, adding a variable's
-// changes in row order (its column's planes are listed by block row) as
-// the plain version does, deterministic and without atomics. So a group
-// costs two barriers. The threads (G*z rounded to warps, as many as the
-// kernel's registers allow) stride over the group's checks, then over the
-// variables.
+// posterior as it stood before the group, so a change cannot fold at once
+// where two rows of the group meet in a column block. On the full-message
+// kernels (the codes beyond the limits below) each check writes all its
+// changes into a shared-memory scratch of the group's planes (at most
+// min(P, G*row_deg) planes of z floats); after a barrier each thread
+// folds them into its variables, adding a variable's changes in row order
+// (its column's planes are listed by block row) as the plain version does,
+// deterministic and without atomics; the threads (G*z rounded to warps)
+// stride over the group's checks, then over all the variables, each
+// scanning its column's plane list. So a group costs two barriers.
+//
+// The _gs kernels (both rules, every group-taking form, on a code within
+// the limits) redesign that loop for Hopper. A plane is private when it
+// is the only plane of its column block within its group: no other check
+// of the group reads its variables, so its check folds its change into
+// the posterior at once, store(pv + d), the plain version's one addition
+// (at wifi1944, G = 4: 25 of 86 planes). Only a shared plane's change goes
+// to the scratch, which holds the largest group's shared planes (7,128 B
+// at wifi1944, G = 4, against 10,368 for all its planes), in variable
+// orientation: at the offset q its check computed for the posterior, so
+// the fold pass reads the rows at the variable's own offset, without
+// shifts. The per-group plan (GroupPlan: each plane private or its
+// scratch row; each group's shared column blocks with their count and the
+// first of their consecutive scratch rows, by block row) is built on the
+// host (kernels/minsum_qc.py:group_plan) and read from the kernel
+// parameter, like FloodPlan. Warps walk (block row of the group, 32
+// checks), so no warp mixes two rows' degrees and plans and no index is
+// divided by z (the full-message loop's warps straddle rows at z = 81); a
+// check's slots are unrolled to its degree and held in registers (min-sum
+// on the compressed state: gs_check_cs; sum-product: sp_check, no lt
+// array in local memory). After one barrier the fold pass walks (fold
+// entry, 32 variables) over the group's shared column blocks alone (23 a
+// wifi1944 iteration at G = 4 against 3 x 1,944 variables), each variable
+// adding its changes in block-row order, rounding to storage after each,
+// two loads at a time; then one barrier (none where the group has no
+// shared column block). A sum-product CTA has a warp for each 32 checks of
+// a group (at most 1024 threads), a min-sum CTA one block row's warps
+// where four CTAs fit an SM's shared memory, else as sum-product (the
+// launcher); bit for bit the full-message kernels'
+// results (kernels/compare.py against the earlier tree, PERF.md).
 //
 // Design. One CTA decodes one codeword. Its check state (the c2v messages,
 // P planes of z floats, 27,864 B at wifi1944, or the compressed state
@@ -180,11 +213,13 @@
 // check), as the SASS of both kernels shows (chip_smoke.py phase 4). The
 // serial-C forms then run at 1.20-1.60x their full-message times, bit for
 // bit the same (PERF.md, kernels/compare.py on an NVIDIA H100 80GB HBM3 at
-// 700 W). The group-serial forms keep the full messages: on the compressed
-// state G = 4 measured 37.8 ms against 25.2, its warps mixing checks of two
-// block rows. Codes beyond the limits (row degree above 8, more than 64
-// block rows or block columns or 192 planes: the rate-2/3, 3/4 and 5/6
-// qc648 and qc1944 codes, row degree 9-18) keep the full messages too;
+// 700 W). The min-sum _gs kernels keep the compressed state too: against
+// full messages with a check's slots in registers (64 registers a thread
+// to its 56) it measured 1.04-1.32x faster at f32 and equal at int8
+// (PERF.md). Codes beyond the limits (row degree above 8,
+// more than 64 block rows or block columns or 192 planes: the rate-2/3,
+// 3/4 and 5/6 qc648 and qc1944 codes, row degree 9-18) keep the full
+// messages;
 // every code the main path and the bigcode run decode has rows of degree
 // 5-8, and 8 slots measured 1.05-1.30x faster than 12 (48 registers a
 // thread against 60).
@@ -390,37 +425,43 @@ __host__ __device__ inline int align16(int bytes) {
 
 // The kernel designs (bp_qc_decode's `design`): the full messages, the
 // compressed min-sum check state (the _cs kernels), the sum-product slots
-// in registers (the _sr kernels).
+// in registers (the _sr kernels), the group-serial sweep with its
+// per-group plan in the kernel parameter (the _gs kernels).
 constexpr int kDesignFull = 0;
 constexpr int kDesignCs = 1;
 constexpr int kDesignSr = 2;
+constexpr int kDesignGs = 3;
 // whether the flooding _sr kernels keep the LLRs in shared memory (else
 // each rebuild reads them again through L2; PERF.md times both)
 constexpr bool kSrFloodLlrShared = true;
+// shared memory of an H100 SM, and what it reserves a CTA
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemPerCta = 1024;
 
 // Bytes of dynamic shared memory one CTA needs: plan (not on the
-// compressed flooding forms or the _sr forms, which read theirs from the
-// parameter), c2v planes (Msg) or, on the compressed state, two Msg
-// magnitudes and a 16-bit word per check, posterior (Post), the LLRs in
-// the posterior's type (the compressed flooding forms, and the flooding
-// _sr forms with kSrFloodLlrShared) and, for a group of G > 1 block rows,
-// the f32 scratch of the group's planes; each region starts on a 16-byte
+// compressed flooding forms, the _sr or the _gs forms, which read theirs
+// from the parameter), c2v planes (Msg) or, on the compressed state
+// (`compressed`), two Msg magnitudes and a 16-bit word per check,
+// posterior (Post), the LLRs in the posterior's type (the compressed
+// flooding forms, and the flooding _sr forms with kSrFloodLlrShared) and,
+// for a group of G > 1 block rows, the f32 scratch of scratch_planes
+// planes (the full-message kernels: the group's planes; the _gs kernels:
+// the largest group's shared planes); each region starts on a 16-byte
 // boundary.
 template <int kT>
-inline int smem_bytes(int z, int mb, int nb, int P, int group, int row_deg,
-                      int design, bool layered) {
+inline int smem_bytes(int z, int mb, int nb, int P, int scratch_planes,
+                      int design, bool layered, bool compressed) {
   using S = Storage<kT>;
-  const bool cs = design == kDesignCs, sr = design == kDesignSr;
-  const int planes = group * row_deg < P ? group * row_deg : P;
-  const int scratch = group > 1 ? planes * z : 0;
+  const bool sr = design == kDesignSr, gs = design == kDesignGs;
   const int msg = static_cast<int>(sizeof(typename S::Msg));
-  const int state = cs ? align16(mb * z * 2 * msg) + align16(mb * z * 2)
-                       : align16(P * z * msg);
-  const bool param_plan = (cs && !layered) || sr;
-  const bool llrs = !layered && (cs || (sr && kSrFloodLlrShared));
+  const int state = compressed
+                        ? align16(mb * z * 2 * msg) + align16(mb * z * 2)
+                        : align16(P * z * msg);
+  const bool param_plan = (compressed && !layered) || sr || gs;
+  const bool llrs = !layered && (compressed || (sr && kSrFloodLlrShared));
   const int plan = param_plan ? 0 : 4 * plan_ints_padded(mb, nb, P);
   const int post = align16(nb * z * static_cast<int>(sizeof(typename S::Post)));
-  return plan + state + (llrs ? 2 * post : post) + 4 * scratch;
+  return plan + state + (llrs ? 2 * post : post) + 4 * scratch_planes * z;
 }
 
 // log tanh(a/2) of a v2c message, a = max(|v|, 1e-12): in [-28.3, 0]
@@ -467,6 +508,9 @@ __device__ __forceinline__ float postlude(float y, const Rule& u) {
 constexpr int kFoldNone = 0;   // flooding: nothing (the posterior is rebuilt)
 constexpr int kFoldPost = 1;   // serial-C: fold into the posterior at once
 constexpr int kFoldDelta = 2;  // group-serial: keep in `delta` for later
+// the _gs kernels: a private plane's change into the posterior at once, a
+// shared plane's into `delta` at its scratch row
+constexpr int kFoldGroup = 3;
 
 // Exclusive check update of check (i, r). Reads v2c = post - c2v (with
 // weights, post - w*c2v) for each of its edges (flooding: as the message
@@ -618,6 +662,36 @@ struct FloodPlan : ParamPlan {
   int col_ptr[kCsMaxCols + 1];
   int4 col[kCsMaxPlanes];
 };
+
+// groups and fold entries the group-serial plan takes: G >= 2 over at most
+// kCsMaxRows block rows, and an entry holds two planes or more
+constexpr int kGsMaxGroups = kCsMaxRows / 2;
+constexpr int kGsMaxFolds = kCsMaxPlanes / 2;
+
+// The group-serial plan in the kernel's parameter space (the _gs kernels,
+// 9,136 B): the flooding plan (the check walk, the counts and the weighted
+// rebuild read its rows and columns), and what each group's fold pass
+// needs. A plane is private when it is the only plane of its column block
+// within its group: no other check of the group reads its variables, so
+// its change folds into the posterior at once, as serial-C folds; a shared
+// plane's change waits in the group's f32 scratch for the fold pass, in
+// variable orientation (the change of variable col*z + q at scratch row
+// times z + q), so the fold pass does no shift arithmetic. The shared
+// planes of a column block have consecutive scratch rows in block-row
+// order. The launcher copies it from the host ints of
+// kernels/minsum_qc.py:group_plan.
+//   fold_ptr[g+1]  group g's fold entries are [fold_ptr[g], fold_ptr[g+1])
+//   scratch[p]     plane p's scratch row times z, or -1 (private)
+//   fold[f]        (col*z, row*z, count, 0): a column block that count >= 2
+//                  planes of the group meet, and the scratch row of the
+//                  first of them (by block row, the plain version's order)
+struct GroupPlan : FloodPlan {
+  int fold_ptr[kGsMaxGroups + 1];
+  int scratch[kCsMaxPlanes];
+  int4 fold[kGsMaxFolds];
+};
+static_assert(sizeof(GroupPlan) <= 32764,
+              "a kernel's parameters take at most 32,764 B on sm_90");
 
 // A warp's walk over the tasks of a flooding pass: block b (a block row,
 // or a column block) and its chunk k of 32 checks or variables, lanes
@@ -900,17 +974,19 @@ __device__ __forceinline__ float flood_add(float acc, const int4& cp,
 
 // The posterior of variable j*z+q rebuilt from the compressed state: (wl*)
 // LLR + the sum of its (w*) messages in check-sorted order, in f32 and
-// stored once. lv: the LLRs as the posterior's storage holds them. The
-// column's entries go two at a time (columns have 2-12).
-template <bool kW, int kT>
+// stored once. The LLR as the posterior's storage holds it: from lv in
+// shared memory (kLlrShared), else rounded from l. The column's entries go
+// two at a time (columns have 2-12).
+template <bool kW, bool kLlrShared, int kT>
 __device__ __forceinline__ void flood_variable_cs(
     const FloodPlan& fp, const MagPair<typename Storage<kT>::Msg>* mag,
     const uint16_t* word, typename Storage<kT>::Post* post,
-    const typename Storage<kT>::Post* lv, const float* __restrict__ w,
-    const float* __restrict__ wl, int z, int j, int q, float sstep) {
+    const typename Storage<kT>::Post* lv, const float* l,
+    const float* __restrict__ w, const float* __restrict__ wl, int z, int j,
+    int q, float sstep) {
   using Post = typename Storage<kT>::Post;
   const int v = j * z + q;
-  float acc = lift(lv[v], 1.f);
+  float acc = kLlrShared ? lift(lv[v], 1.f) : round_post<Post>(-l[v]);
   if constexpr (kW) acc = __ldg(wl + v) * acc;
   const int e1 = fp.col_ptr[j + 1];
   int e = fp.col_ptr[j];
@@ -922,20 +998,112 @@ __device__ __forceinline__ void flood_variable_cs(
   post[v] = store<Post>(acc, 1.f);
 }
 
-// The flooding posterior rebuild on the compressed state, warps walking
-// (column block, 32 variables).
-template <bool kW, int kT>
+// The posterior rebuild on the compressed state (flooding, and the weighted
+// _gs forms' re-base), warps walking (column block, 32 variables).
+template <bool kW, bool kLlrShared, int kT>
 __device__ __forceinline__ void flood_rebuild_cs(
     const FloodPlan& fp, const MagPair<typename Storage<kT>::Msg>* mag,
     const uint16_t* word, typename Storage<kT>::Post* post,
-    const typename Storage<kT>::Post* lv, const float* __restrict__ w,
-    const float* __restrict__ wl, int z, int nb, WarpWalk wk, float sstep) {
+    const typename Storage<kT>::Post* lv, const float* l,
+    const float* __restrict__ w, const float* __restrict__ wl, int z, int nb,
+    WarpWalk wk, float sstep) {
   for (; wk.b < nb; wk.next()) {
     const int q = wk.at();
     if (q < z)
-      flood_variable_cs<kW, kT>(fp, mag, word, post, lv, w, wl, z, wk.b, q,
-                                sstep);
+      flood_variable_cs<kW, kLlrShared, kT>(fp, mag, word, post, lv, l, w,
+                                            wl, z, wk.b, q, sstep);
   }
+}
+
+// check_update_cs's group-serial form (the min-sum _gs kernels) for check
+// c = i*z + r of degree kDeg whose planes start at p0: the same arithmetic
+// in the same order, the slots unrolled to the degree (no slot guarded) and
+// the two minima kept without a branch, as flood_check keeps them. Pass 1
+// reads the state once and each slot's posterior once; pass 2 folds a
+// private slot's change into the posterior at once, as store(pv + d), and
+// writes a shared slot's d to its scratch row at its variable's offset;
+// then the new state once.
+template <int kDeg, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void gs_check_cs(
+    const GroupPlan& gp, MagPair<typename Storage<kT>::Msg>* mag,
+    uint16_t* word, typename Storage<kT>::Post* post, float* delta,
+    const float* __restrict__ w, int z, int c, int r, int p0,
+    const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
+  using Post = typename Storage<kT>::Post;
+  const MagPair<Msg> os = mag[c];
+  const unsigned ow = word[c];
+  float pv[kDeg], old[kDeg], wv[kW ? kDeg : 1];
+  float min1 = kBig, min2 = kBig;
+  int idx = -1;
+  unsigned negs = 0;  // bit e: the v2c of slot e is < 0
+#pragma unroll
+  for (int e = 0; e < kDeg; ++e) {
+    const int4 pl = gp.plane[p0 + e];
+    int q = r + pl.y;
+    if (q >= z) q -= z;
+    old[e] = cs_message(os, ow, e, u.sstep);
+    float m = old[e];
+    if constexpr (kW) {
+      wv[e] = __ldg(w + (p0 + e) * z + r);
+      m = wv[e] * m;
+    }
+    pv[e] = lift(post[pl.x + q], 1.f);
+    const float v = pv[e] - m;
+    negs |= (v < 0.f ? 1u : 0u) << e;
+    // strict, so idx is the first minimum, as argmin
+    const float a = fabsf(v);
+    const bool first = a < min1;
+    min2 = first ? min1 : fminf(min2, a);
+    min1 = first ? a : min1;
+    idx = first ? e : idx;
+  }
+  float t1, t2;
+  const unsigned nw = cs_finish<kQuant>(min1, min2, idx, negs, u, t1, t2);
+  const MagPair<Msg> ns{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
+#pragma unroll
+  for (int e = 0; e < kDeg; ++e) {
+    // int8 folds what the stored message changes by; bf16 the unrounded
+    // change, as the TPU kernel does
+    float y;
+    if constexpr (kT == kInt8) {
+      y = cs_message(ns, nw, e, u.sstep);
+    } else {
+      const float t = e == static_cast<int>(nw >> kCsIdxShift) ? t2 : t1;
+      y = (nw >> e) & 1u ? -t : t;
+    }
+    float d = y - old[e];
+    if constexpr (kW) d = wv[e] * d;
+    const int4 pl = gp.plane[p0 + e];
+    int q = r + pl.y;
+    if (q >= z) q -= z;
+    const int sc = gp.scratch[p0 + e];
+    if (sc >= 0)
+      delta[sc + q] = d;
+    else
+      post[pl.x + q] = store<Post>(pv[e] + d, 1.f);
+  }
+  mag[c] = ns;
+  word[c] = static_cast<uint16_t>(nw);
+}
+
+// gs_check_cs at the check's degree deg (at most kDeg): one uniform
+// comparison a degree, from kDeg down.
+template <int kDeg, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void gs_check_cs_deg(
+    int deg, const GroupPlan& gp, MagPair<typename Storage<kT>::Msg>* mag,
+    uint16_t* word, typename Storage<kT>::Post* post, float* delta,
+    const float* __restrict__ w, int z, int c, int r, int p0,
+    const Rule& u) {
+  if constexpr (kDeg > 1) {
+    if (deg != kDeg) {
+      gs_check_cs_deg<kDeg - 1, kQuant, kW, kT>(deg, gp, mag, word, post,
+                                                delta, w, z, c, r, p0, u);
+      return;
+    }
+  }
+  gs_check_cs<kDeg, kQuant, kW, kT>(gp, mag, word, post, delta, w, z, c, r,
+                                    p0, u);
 }
 
 // The per-iteration arguments of `iterate`: the (alpha, beta) rule and,
@@ -966,11 +1134,14 @@ struct Step {
 // row the checks touch disjoint variables and a check's slots distinct
 // column blocks, so the posterior pass 2 would read again is the pv of pass
 // 1, and a flooding check writes its new messages over its old ones.
-template <int kDeg, bool kLayered, bool kQuant, bool kW, int kT>
+// kFold: kFoldNone (flooding), kFoldPost (serial-C) or kFoldGroup (the _gs
+// kernels: a shared slot writes its change to its scratch row in delta,
+// at its variable's offset, and a private one folds it at once).
+template <int kDeg, int kFold, bool kQuant, bool kW, int kT>
 __device__ __forceinline__ void sp_check(
     const FloodPlan& fp, typename Storage<kT>::Msg* msg,
-    typename Storage<kT>::Post* post, const float* __restrict__ w, int z,
-    int r, int p0, const Rule& u) {
+    typename Storage<kT>::Post* post, float* delta, const int* scratch,
+    const float* __restrict__ w, int z, int r, int p0, const Rule& u) {
   using Msg = typename Storage<kT>::Msg;
   using Post = typename Storage<kT>::Post;
   float pv[kDeg], old[kDeg], x[kDeg], wv[kW ? kDeg : 1];
@@ -989,7 +1160,8 @@ __device__ __forceinline__ void sp_check(
     }
     pv[e] = lift(post[pl.x + q], 1.f);
     float v = pv[e] - m;
-    if constexpr (!kLayered) v = lift(store<Msg>(v, u.sinv), u.sstep);
+    if constexpr (kFold == kFoldNone)
+      v = lift(store<Msg>(v, u.sinv), u.sstep);
     negs |= (v < 0.f ? 1u : 0u) << e;
     x[e] = v;
   }
@@ -1021,7 +1193,7 @@ __device__ __forceinline__ void sp_check(
     float y = postlude<kQuant>(sgn * x[e], u);
     const Msg stored = store<Msg>(y, u.sinv);
     msg[m0 + e * z] = stored;
-    if constexpr (kLayered) {
+    if constexpr (kFold != kFoldNone) {
       // int8 folds what the stored message changes by; bf16 the unrounded
       // change, as the TPU kernel does
       if constexpr (kT == kInt8) y = lift(stored, u.sstep);
@@ -1030,26 +1202,31 @@ __device__ __forceinline__ void sp_check(
       const int4 pl = fp.plane[p0 + e];
       int q = r + pl.y;
       if (q >= z) q -= z;
-      post[pl.x + q] = store<Post>(pv[e] + d, 1.f);
+      if (kFold == kFoldGroup && scratch[p0 + e] >= 0)
+        delta[scratch[p0 + e] + q] = d;
+      else
+        post[pl.x + q] = store<Post>(pv[e] + d, 1.f);
     }
   }
 }
 
 // sp_check at the check's degree deg (at most kDeg): one uniform
 // comparison a degree, from kDeg down.
-template <int kDeg, bool kLayered, bool kQuant, bool kW, int kT>
+template <int kDeg, int kFold, bool kQuant, bool kW, int kT>
 __device__ __forceinline__ void sp_check_deg(
     int deg, const FloodPlan& fp, typename Storage<kT>::Msg* msg,
-    typename Storage<kT>::Post* post, const float* __restrict__ w, int z,
-    int r, int p0, const Rule& u) {
+    typename Storage<kT>::Post* post, float* delta, const int* scratch,
+    const float* __restrict__ w, int z, int r, int p0, const Rule& u) {
   if constexpr (kDeg > 1) {
     if (deg != kDeg) {
-      sp_check_deg<kDeg - 1, kLayered, kQuant, kW, kT>(deg, fp, msg, post, w,
-                                                       z, r, p0, u);
+      sp_check_deg<kDeg - 1, kFold, kQuant, kW, kT>(deg, fp, msg, post,
+                                                    delta, scratch, w, z, r,
+                                                    p0, u);
       return;
     }
   }
-  sp_check<kDeg, kLayered, kQuant, kW, kT>(fp, msg, post, w, z, r, p0, u);
+  sp_check<kDeg, kFold, kQuant, kW, kT>(fp, msg, post, delta, scratch, w, z,
+                                        r, p0, u);
 }
 
 // The posterior rebuilt from the full messages, warps walking (column
@@ -1096,8 +1273,8 @@ __device__ __forceinline__ void iterate_sr(
     for (int i = 0; i < mb; ++i) {
       const int p0 = fp.row_ptr[i], deg = fp.row_ptr[i + 1] - p0;
       for (int r = threadIdx.x; r < z; r += blockDim.x)
-        sp_check_deg<kCsMaxDeg, true, kQuant, kW, kT>(deg, fp, msg, post,
-                                                      st.w, z, r, p0, st.u);
+        sp_check_deg<kCsMaxDeg, kFoldPost, kQuant, kW, kT>(
+            deg, fp, msg, post, nullptr, nullptr, st.w, z, r, p0, st.u);
       __syncthreads();
     }
     if constexpr (!kW) return;
@@ -1106,14 +1283,84 @@ __device__ __forceinline__ void iterate_sr(
       const int r = c.at();
       if (r >= z) continue;
       const int p0 = fp.row_ptr[c.b];
-      sp_check_deg<kCsMaxDeg, false, kQuant, kW, kT>(
-          fp.row_ptr[c.b + 1] - p0, fp, msg, post, st.w, z, r, p0, st.u);
+      sp_check_deg<kCsMaxDeg, kFoldNone, kQuant, kW, kT>(
+          fp.row_ptr[c.b + 1] - p0, fp, msg, post, nullptr, nullptr, st.w, z,
+          r, p0, st.u);
     }
     __syncthreads();
   }
   rebuild_sr<kW, kLlrShared, kT>(fp, msg, post, lv, l, st.w_next, st.wl_next,
                                  z, nb, wk, st.u.sstep);
   __syncthreads();
+}
+
+// One group-serial iteration on the _gs kernels, for each group of `group`
+// block rows (the last one possibly shorter): the check pass, warps walking
+// (block row of the group, 32 checks), a private slot's change folded into
+// the posterior at once and a shared slot's kept in delta; a barrier; the
+// fold pass, warps walking (fold entry, 32 variables) over the group's
+// shared column blocks alone, each variable adding its changes in block-row
+// order and rounding to the posterior's storage after each; a barrier (none
+// where the group has no shared column block: its checks folded all their
+// changes). The weighted forms then rebuild the posterior with the next
+// iteration's weights. kCsState: min-sum on the compressed check state
+// (mag, word), else sum-product on the full messages (msg). Ends with
+// __syncthreads().
+template <bool kCsState, bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void iterate_gs(
+    const GroupPlan& gp, typename Storage<kT>::Msg* msg,
+    MagPair<typename Storage<kT>::Msg>* mag, uint16_t* word,
+    typename Storage<kT>::Post* post, float* delta, const float* l, int z,
+    int mb, int nb, int group, WarpWalk wk, const Step& st) {
+  using Post = typename Storage<kT>::Post;
+  for (int g = 0, g0 = 0; g0 < mb; ++g, g0 += group) {
+    const int g1 = min(g0 + group, mb);
+    WarpWalk c = wk;
+    for (c.b += g0; c.b < g1; c.next()) {
+      const int r = c.at();
+      if (r >= z) continue;
+      const int p0 = gp.row_ptr[c.b], deg = gp.row_ptr[c.b + 1] - p0;
+      if constexpr (kCsState)
+        gs_check_cs_deg<kCsMaxDeg, kQuant, kW, kT>(
+            deg, gp, mag, word, post, delta, st.w, z, c.b * z + r, r, p0,
+            st.u);
+      else
+        sp_check_deg<kCsMaxDeg, kFoldGroup, kQuant, kW, kT>(
+            deg, gp, msg, post, delta, gp.scratch, st.w, z, r, p0, st.u);
+    }
+    __syncthreads();
+    const int f0 = gp.fold_ptr[g], f1 = gp.fold_ptr[g + 1];
+    if (f0 == f1) continue;  // uniform: the group's value
+    WarpWalk f = wk;
+    for (f.b += f0; f.b < f1; f.next()) {
+      const int q = f.at();
+      if (q >= z) continue;
+      // the entry's changes of variable col*z + q, by block row: scratch
+      // rows fe.y/z .. fe.y/z + fe.z - 1, loaded two at a time
+      const int4 fe = gp.fold[f.b];
+      const float* dq = delta + fe.y + q;
+      float acc = lift(post[fe.x + q], 1.f);
+      int k = 0;
+      for (; k + 1 < fe.z; k += 2) {
+        const float d0 = dq[k * z], d1 = dq[(k + 1) * z];
+        acc = round_post<Post>(acc + d0);
+        acc = round_post<Post>(acc + d1);
+      }
+      if (k < fe.z) acc = round_post<Post>(acc + dq[k * z]);
+      post[fe.x + q] = store<Post>(acc, 1.f);
+    }
+    __syncthreads();
+  }
+  if constexpr (kW) {
+    if constexpr (kCsState)
+      flood_rebuild_cs<true, false, kT>(gp, mag, word, post, nullptr, l,
+                                        st.w_next, st.wl_next, z, nb, wk,
+                                        st.u.sstep);
+    else
+      rebuild_sr<true, false, kT>(gp, msg, post, nullptr, l, st.w_next,
+                                  st.wl_next, z, nb, wk, st.u.sstep);
+    __syncthreads();
+  }
 }
 
 // One iteration: the serial-C sweep over the mb block rows (layered,
@@ -1262,10 +1509,13 @@ __device__ __forceinline__ int local_unsat_cs(const FloodPlan& fp,
 // kCs: the min-sum forms on the compressed check state: serial-C with the
 // sweep's plan read from pp, flooding with its plan read from fp (each the
 // kernel's parameter). kSr: the sum-product forms with a check's slots in
-// registers, both schedules with their plan read from fp. Else the full
-// messages, and both are unused.
+// registers, both schedules with their plan read from fp. kGs: the
+// group-serial forms (layered, group > 1) with their plan read from gp (and
+// fp, the same parameter): min-sum on the compressed state (kCs),
+// sum-product on full messages. Else the full messages, and the three are
+// unused.
 template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
-          int kT, bool kCs = false, bool kSr = false>
+          int kT, bool kCs = false, bool kSr = false, bool kGs = false>
 __device__ __forceinline__ void decode(
     const float* __restrict__ llr, float* __restrict__ post_out,
     int8_t* __restrict__ bits_out, const int* __restrict__ done_in,
@@ -1274,15 +1524,18 @@ __device__ __forceinline__ void decode(
     const float* __restrict__ wl, int z, int mb, int nb, int P,
     int iterations, int check_every, int group, float clamp, float qstep,
     float qclip, float sstep, float sinv, const ParamPlan* pp,
-    const FloodPlan* fp) {
+    const FloodPlan* fp, const GroupPlan* gp) {
   static_assert(!kCs || kMethod == kMinSum,
                 "the compressed state is the min-sum forms'");
   static_assert(!kSr || (kMethod == kSumProduct && !kCs),
                 "the _sr kernels are the sum-product forms'");
+  static_assert(!kGs || (kLayered && !kSr && kCs == (kMethod == kMinSum)),
+                "the _gs kernels are the group-serial layered forms', "
+                "min-sum on the compressed state");
   // flooding on the compressed state: no plan in shared memory
   constexpr bool kFloodCs = kCs && !kLayered;
-  // the plan from the parameter alone (fp), none in shared memory
-  constexpr bool kParamPlan = kFloodCs || kSr;
+  // the plan from the parameter alone (fp, gp), none in shared memory
+  constexpr bool kParamPlan = kFloodCs || kSr || kGs;
   // the LLRs in shared memory, as the posterior holds them
   constexpr bool kLlrShared =
       kFloodCs || (kSr && !kLayered && kSrFloodLlrShared);
@@ -1342,12 +1595,12 @@ __device__ __forceinline__ void decode(
                 plan + (mb + 1) + 2 * P, plan + (mb + 1) + 2 * P + (nb + 1)};
   if constexpr (kW) {
     // the posterior of the zero messages under the first weight row
-    if constexpr (kFloodCs)
-      flood_rebuild_cs<true, kT>(*fp, mag, word, post, lv, wm, wl, z, nb,
-                                 walk, sstep);
+    if constexpr (kFloodCs || (kGs && kCs))
+      flood_rebuild_cs<true, kLlrShared, kT>(*fp, mag, word, post, lv, l, wm,
+                                             wl, z, nb, walk, sstep);
     else if constexpr (kCs)
       rebuild_cs<kT>(pl, *pp, mag, word, post, l, wm, wl, z, n, sstep);
-    else if constexpr (kSr)
+    else if constexpr (kSr || kGs)
       rebuild_sr<true, kLlrShared, kT>(*fp, msg, post, lv, l, wm, wl, z, nb,
                                        walk, sstep);
     else
@@ -1366,12 +1619,15 @@ __device__ __forceinline__ void decode(
   };
 
   auto one = [&](const Step& st) {
-    if constexpr (kFloodCs) {
+    if constexpr (kGs) {
+      iterate_gs<kCs, kQuant, kW, kT>(*gp, msg, mag, word, post, delta, l, z,
+                                      mb, nb, group, walk, st);
+    } else if constexpr (kFloodCs) {
       flood_checks_cs<kQuant, kW, kT>(*fp, mag, word, post, st.w, z, mb, walk,
                                       st.u);
       __syncthreads();
-      flood_rebuild_cs<kW, kT>(*fp, mag, word, post, lv, st.w_next,
-                               st.wl_next, z, nb, walk, st.u.sstep);
+      flood_rebuild_cs<kW, true, kT>(*fp, mag, word, post, lv, l, st.w_next,
+                                     st.wl_next, z, nb, walk, st.u.sstep);
       __syncthreads();
     } else if constexpr (kCs) {
       iterate_cs<kQuant, kW, kT>(pl, *pp, mag, word, post, l, z, mb, n, st);
@@ -1456,7 +1712,7 @@ constexpr int kStorage = kInt8;
     decode<method, layered, early_stop, quant, weighted, kStorage>(         \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
-        sinv, nullptr, nullptr);                                            \
+        sinv, nullptr, nullptr, nullptr);                                   \
   }
 // The serial-C min-sum forms on the compressed state (entry point name_cs):
 // the same arguments and the sweep's plan as a parameter.
@@ -1471,7 +1727,7 @@ constexpr int kStorage = kInt8;
     decode<kMinSum, true, early_stop, quant, weighted, kStorage, true>(     \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
-        sinv, &pp, nullptr);                                                \
+        sinv, &pp, nullptr, nullptr);                                       \
   }
 // The flooding min-sum forms on the compressed state (name_cs): the same
 // arguments and the flooding plan as a parameter.
@@ -1487,7 +1743,7 @@ constexpr int kStorage = kInt8;
     decode<kMinSum, false, early_stop, quant, weighted, kStorage, true>(    \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
-        sinv, nullptr, &fp);                                                \
+        sinv, nullptr, &fp, nullptr);                                       \
   }
 
 // The sum-product forms with a check's slots in registers (name_sr): the
@@ -1504,7 +1760,24 @@ constexpr int kStorage = kInt8;
            false, true>(llr, post_out, bits_out, done_in, aux_out, plan,    \
                         ab, wm, wl, z, mb, nb, P, iterations, check_every,  \
                         group, clamp, qstep, qclip, sstep, sinv, nullptr,   \
-                        &fp);                                               \
+                        &fp, nullptr);                                      \
+  }
+
+// The group-serial layered forms (name_gs): the same arguments and the
+// per-group plan as a parameter; min-sum on the compressed state.
+#define QC_KERNEL_GS(name, method, early_stop, quant, weighted)             \
+  __global__ void QC_CAT(QC_CAT(name, _gs), QC_SUFFIX)(                     \
+      const float* llr, float* post_out, int8_t* bits_out,                  \
+      const int* done_in, int* aux_out, const int* plan, const float* ab,   \
+      const float* wm, const float* wl, int z, int mb, int nb, int P,       \
+      int iterations, int check_every, int group, float clamp, float qstep, \
+      float qclip, float sstep, float sinv,                                 \
+      const __grid_constant__ GroupPlan gp) {                               \
+    decode<method, true, early_stop, quant, weighted, kStorage,             \
+           method == kMinSum, false, true>(                                 \
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
+        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
+        sinv, nullptr, &gp, &gp);                                           \
   }
 
 QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false, false)
@@ -1558,6 +1831,18 @@ QC_KERNEL_SR(sumproduct_qc_flooding_w, false, false, false, true)
 QC_KERNEL_SR(sumproduct_qc_layered_w, true, false, false, true)
 QC_KERNEL_SR(sumproduct_qc_flooding_w_msgq, false, false, true, true)
 QC_KERNEL_SR(sumproduct_qc_layered_w_msgq, true, false, true, true)
+QC_KERNEL_GS(minsum_qc_layered, kMinSum, false, false, false)
+QC_KERNEL_GS(minsum_qc_layered_es, kMinSum, true, false, false)
+QC_KERNEL_GS(minsum_qc_layered_msgq, kMinSum, false, true, false)
+QC_KERNEL_GS(minsum_qc_layered_es_msgq, kMinSum, true, true, false)
+QC_KERNEL_GS(minsum_qc_layered_w, kMinSum, false, false, true)
+QC_KERNEL_GS(minsum_qc_layered_w_msgq, kMinSum, false, true, true)
+QC_KERNEL_GS(sumproduct_qc_layered, kSumProduct, false, false, false)
+QC_KERNEL_GS(sumproduct_qc_layered_es, kSumProduct, true, false, false)
+QC_KERNEL_GS(sumproduct_qc_layered_msgq, kSumProduct, false, true, false)
+QC_KERNEL_GS(sumproduct_qc_layered_es_msgq, kSumProduct, true, true, false)
+QC_KERNEL_GS(sumproduct_qc_layered_w, kSumProduct, false, false, true)
+QC_KERNEL_GS(sumproduct_qc_layered_w_msgq, kSumProduct, false, true, true)
 
 #define QC_K(name) QC_CAT(name, QC_SUFFIX)
 
@@ -1566,11 +1851,11 @@ QC_KERNEL_SR(sumproduct_qc_layered_w_msgq, true, false, true, true)
 extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     int method, int layered, int early_stop, int quant, const float* llr,
     void* out, int out_hard, const int* done_in, int* aux_out,
-    const int* plan, const int* plan_host, int design, const float* ab,
-    const float* wm, const float* wl, int batch, int z, int mb, int nb, int P,
-    int row_deg, int iterations, int check_every, int group, float clamp,
-    float qstep, float qclip, float sstep, float sinv, int threads,
-    cudaStream_t stream) {
+    const int* plan, const int* plan_host, const int* group_host, int design,
+    const float* ab, const float* wm, const float* wl, int batch, int z,
+    int mb, int nb, int P, int row_deg, int iterations, int check_every,
+    int group, float clamp, float qstep, float qclip, float sstep,
+    float sinv, int threads, cudaStream_t stream) {
   using Kernel = void (*)(const float*, float*, int8_t*, const int*, int*,
                           const int*, const float*, const float*,
                           const float*, int, int, int, int, int, int, int,
@@ -1584,6 +1869,10 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
                                  const float*, const float*, int, int, int,
                                  int, int, int, int, float, float, float,
                                  float, float, FloodPlan);
+  using KernelGs = void (*)(const float*, float*, int8_t*, const int*, int*,
+                            const int*, const float*, const float*,
+                            const float*, int, int, int, int, int, int, int,
+                            float, float, float, float, float, GroupPlan);
   // [early_stop][quant], and the weighted forms by [quant]
   static const KernelCs kCompressed[2][2] = {
       {QC_K(minsum_qc_layered_cs), QC_K(minsum_qc_layered_msgq_cs)},
@@ -1607,6 +1896,17 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   static const KernelFloodCs kRegistersW[2][2] = {
       {QC_K(sumproduct_qc_flooding_w_sr), QC_K(sumproduct_qc_flooding_w_msgq_sr)},
       {QC_K(sumproduct_qc_layered_w_sr), QC_K(sumproduct_qc_layered_w_msgq_sr)}};
+  // the _gs kernels by [method][early_stop][quant], weighted by
+  // [method][quant]
+  static const KernelGs kGroupSerial[2][2][2] = {
+      {{QC_K(minsum_qc_layered_gs), QC_K(minsum_qc_layered_msgq_gs)},
+       {QC_K(minsum_qc_layered_es_gs), QC_K(minsum_qc_layered_es_msgq_gs)}},
+      {{QC_K(sumproduct_qc_layered_gs), QC_K(sumproduct_qc_layered_msgq_gs)},
+       {QC_K(sumproduct_qc_layered_es_gs),
+        QC_K(sumproduct_qc_layered_es_msgq_gs)}}};
+  static const KernelGs kGroupSerialW[2][2] = {
+      {QC_K(minsum_qc_layered_w_gs), QC_K(minsum_qc_layered_w_msgq_gs)},
+      {QC_K(sumproduct_qc_layered_w_gs), QC_K(sumproduct_qc_layered_w_msgq_gs)}};
   // [method][layered][early_stop][quant]
   static const Kernel kKernels[2][2][2][2] = {
       {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
@@ -1631,34 +1931,56 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   if (threads < 32 || threads > 1024 || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // the compressed state (min-sum) and the _sr kernels (sum-product):
-  // flooding or serial-C, on a code whose rows, block rows, planes and
-  // block columns fit the state's word, the register arrays and the
-  // parameter's plan
+  // flooding or serial-C; the _gs kernels: group-serial (both rules); each
+  // on a code whose rows, block rows, planes and block columns fit the
+  // state's word, the register arrays and the parameter's plan
   if (group > mb) group = mb;
-  if (design < kDesignFull || design > kDesignSr)
+  if (design < kDesignFull || design > kDesignGs)
     return static_cast<int>(cudaErrorInvalidValue);
   if (design != kDesignFull &&
-      (method != (design == kDesignSr ? 1 : 0) || group != 1 ||
+      ((design == kDesignGs) != (group > 1) ||
+       (design != kDesignGs && method != (design == kDesignSr ? 1 : 0)) ||
        plan_host == nullptr || row_deg > kCsMaxDeg || mb > kCsMaxRows ||
        P > kCsMaxPlanes || nb > kCsMaxCols))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the group plan's header: G, groups, fold entries, shared planes, the
+  // largest group's shared planes (kernels/minsum_qc.py:group_plan)
+  if (design == kDesignGs &&
+      (group_host == nullptr || group_host[0] != group ||
+       group_host[1] != (mb + group - 1) / group ||
+       group_host[1] > kGsMaxGroups || group_host[2] > kGsMaxFolds ||
+       group_host[3] > P || group_host[4] > group_host[3]))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int ly = layered != 0, es = early_stop != 0, qu = quant != 0;
-  const Kernel fn = weighted ? kWeighted[method != 0][ly][qu]
-                             : kKernels[method != 0][ly][es][qu];
+  const int sp = method != 0;
+  const Kernel fn = weighted ? kWeighted[sp][ly][qu] : kKernels[sp][ly][es][qu];
   KernelCs fn_cs = nullptr;       // the plan's rows in the parameter
   KernelFloodCs fn_fp = nullptr;  // its rows and columns
+  KernelGs fn_gs = nullptr;       // and its groups
   if (design == kDesignCs && layered)
     fn_cs = weighted ? kCompressedW[qu] : kCompressed[es][qu];
   else if (design == kDesignCs)
     fn_fp = weighted ? kFloodCompressedW[qu] : kFloodCompressed[es][qu];
   else if (design == kDesignSr)
     fn_fp = weighted ? kRegistersW[ly][qu] : kRegisters[ly][es][qu];
+  else if (design == kDesignGs)
+    fn_gs = weighted ? kGroupSerialW[sp][qu] : kGroupSerial[sp][es][qu];
   const void* entry =
       fn_cs != nullptr   ? reinterpret_cast<const void*>(fn_cs)
       : fn_fp != nullptr ? reinterpret_cast<const void*>(fn_fp)
+      : fn_gs != nullptr ? reinterpret_cast<const void*>(fn_gs)
                          : reinterpret_cast<const void*>(fn);
-  const int smem = smem_bytes<kStorage>(z, mb, nb, P, group, row_deg, design,
-                                        layered != 0);
+  // the scratch: the _gs kernels' largest group's shared planes, the full
+  // messages' group planes
+  const int scratch_planes =
+      design == kDesignGs ? group_host[4]
+      : group > 1         ? (group * row_deg < P ? group * row_deg : P)
+                          : 0;
+  const bool compressed =
+      design == kDesignCs ||
+      (design == kDesignGs && method == 0);
+  const int smem = smem_bytes<kStorage>(z, mb, nb, P, scratch_planes, design,
+                                        layered != 0, compressed);
   cudaError_t err = cudaFuncSetAttribute(
       entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1667,8 +1989,21 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   if (err != cudaSuccess) return static_cast<int>(err);
   // layered: one thread per check of a group of block rows (as many as the
   // kernel's registers allow); flooding: `threads` stride over the checks,
-  // then over the variables
-  if (layered) threads = ((group * z + 31) / 32) * 32;
+  // then over the variables. The _gs kernels' walks take any warp count:
+  // sum-product takes a warp for each (block row of a group, 32 checks), at
+  // most 1024 threads; so does min-sum where its CTA's shared memory leaves
+  // room for fewer than four CTAs an SM (the 5G-class codes), and else one
+  // block row's warps, serial-C's CTA, whose warps walk the group's rows
+  // (its barriers wait for fewer warps, and more CTAs share the SM; PERF.md
+  // times both on wifi648, wifi1944, qc8448 and qc12288)
+  if (design == kDesignGs) {
+    const int chunks = (z + 31) / 32;
+    const bool row = method == 0 && 4 * (smem + kSmemPerCta) <= kSmemPerSm;
+    const int warps = row ? chunks : group * chunks;
+    threads = (warps < 32 ? warps : 32) * 32;
+  } else if (layered) {
+    threads = ((group * z + 31) / 32) * 32;
+  }
   if (threads > attr.maxThreadsPerBlock)
     threads = attr.maxThreadsPerBlock / 32 * 32;
   float* post_out = out_hard ? nullptr : static_cast<float*>(out);
@@ -1677,30 +2012,46 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     // the host plan (the layout of `plan`) into the parameter: row_ptr,
     // then per plane its variables' and checks' offsets, shift and slot;
     // then col_ptr, and per column entry its checks' offset, shift, slot
-    // and plane (the compressed serial-C forms take the rows alone)
-    FloodPlan fp{};
+    // and plane (the compressed serial-C forms take the rows alone); the
+    // _gs forms add the group plan's arrays as group_host holds them
+    GroupPlan gp{};
     const int* plane_col = plan_host + (mb + 1);
     const int* plane_shift = plane_col + P;
     const int* col_ptr = plane_shift + P;
     const int* col_planes = col_ptr + (nb + 1);
-    for (int i = 0; i <= mb; ++i) fp.row_ptr[i] = plan_host[i];
+    for (int i = 0; i <= mb; ++i) gp.row_ptr[i] = plan_host[i];
     for (int i = 0; i < mb; ++i)
       for (int p = plan_host[i]; p < plan_host[i + 1]; ++p)
-        fp.plane[p] = make_int4(plane_col[p] * z, plane_shift[p], i * z,
+        gp.plane[p] = make_int4(plane_col[p] * z, plane_shift[p], i * z,
                                 p - plan_host[i]);
-    for (int j = 0; j <= nb; ++j) fp.col_ptr[j] = col_ptr[j];
+    for (int j = 0; j <= nb; ++j) gp.col_ptr[j] = col_ptr[j];
     for (int e = 0; e < P; ++e) {
-      const int4 pl = fp.plane[col_planes[e]];
-      fp.col[e] = make_int4(pl.z, pl.y, (1 << pl.w) | (pl.w << kCsIdxShift),
+      const int4 pl = gp.plane[col_planes[e]];
+      gp.col[e] = make_int4(pl.z, pl.y, (1 << pl.w) | (pl.w << kCsIdxShift),
                             col_planes[e]);
     }
-    if (fn_cs != nullptr) {
-      const ParamPlan pp = fp;  // the rows' plan alone
+    if (fn_gs != nullptr) {
+      const int groups = group_host[1], folds = group_host[2];
+      const int* fold_ptr = group_host + 5;
+      const int* scratch = fold_ptr + groups + 1;
+      const int* fold = scratch + P;
+      for (int g = 0; g <= groups; ++g) gp.fold_ptr[g] = fold_ptr[g];
+      for (int p = 0; p < P; ++p) gp.scratch[p] = scratch[p];
+      for (int f = 0; f < folds; ++f)
+        gp.fold[f] = make_int4(fold[3 * f], fold[3 * f + 1], fold[3 * f + 2],
+                               0);
+      fn_gs<<<batch, threads, smem, stream>>>(
+          llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
+          nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
+          sinv, gp);
+    } else if (fn_cs != nullptr) {
+      const ParamPlan pp = gp;  // the rows' plan alone
       fn_cs<<<batch, threads, smem, stream>>>(
           llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
           nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
           sinv, pp);
     } else {
+      const FloodPlan fp = gp;  // the rows and columns
       fn_fp<<<batch, threads, smem, stream>>>(
           llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb,
           nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,
@@ -1719,15 +2070,15 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
 extern "C" {
 
 int bp_qc_launch_bf16(int, int, int, int, const float*, void*, int,
-                      const int*, int*, const int*, const int*, int,
-                      const float*, const float*, const float*, int, int, int,
-                      int, int, int, int, int, int, float, float, float,
+                      const int*, int*, const int*, const int*, const int*,
+                      int, const float*, const float*, const float*, int, int,
+                      int, int, int, int, int, int, int, float, float, float,
                       float, float, int, cudaStream_t);
 int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
-                    int*, const int*, const int*, int, const float*,
-                    const float*, const float*, int, int, int, int, int, int,
-                    int, int, int, float, float, float, float, float, int,
-                    cudaStream_t);
+                    int*, const int*, const int*, const int*, int,
+                    const float*, const float*, const float*, int, int, int,
+                    int, int, int, int, int, int, float, float, float, float,
+                    float, int, cudaStream_t);
 
 // Launches one decode on `stream`: grid = batch CTAs, one codeword each.
 // dtype: the message storage, 0 f32, 1 bf16, 2 int8 (its grid's step sstep
@@ -1739,9 +2090,12 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // same ints on the host. design: kDesignFull (0) the full messages;
 // kDesignCs (1) the compressed check state of the min-sum forms, kDesignSr
 // (2) the sum-product forms with a check's slots in registers, each
-// flooding or serial-C with group 1 (the _cs and _sr kernels; their limits
-// from bp_qc_compressed_limits), reading plan_host into the kernel's
-// parameter. clamp = +inf for no clamp. done_in:
+// flooding or serial-C with group 1 (the _cs and _sr kernels); kDesignGs
+// (3) the group-serial forms of both rules with group > 1 (the _gs
+// kernels), which also read group_host (kernels/minsum_qc.py:group_plan)
+// into the parameter's GroupPlan (or null for the other designs); each
+// within the limits of bp_qc_compressed_limits, reading plan_host into the
+// kernel's parameter. clamp = +inf for no clamp. done_in:
 // (batch,) int32 flags of codewords to skip, or null. aux_out: (batch,)
 // int32, the iterations run when early_stop != 0 (then required), else the
 // unsatisfied-check counts, or null. check_every must divide iterations; a
@@ -1749,28 +2103,31 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // code's largest row degree). wm, wl: the weight tables ((iterations+1)
 // rows of P*z check-oriented edge weights and of nb*z LLR weights), or both
 // null; weights take no early stop. group: block rows per group of the
-// layered schedule (1 = serial-C; above 1 a CTA takes min(P,
-// group*row_deg)*z floats more of shared memory). threads: the flooding
+// layered schedule (1 = serial-C; above 1 the full-message kernels take
+// min(P, group*row_deg)*z floats more of shared memory, the _gs kernels
+// the largest group's shared planes of z floats). threads: the flooding
 // forms' CTA size, a multiple of 32 in [32, 1024] (a layered CTA has
-// group*z threads rounded up to warps). Returns the CUDA error code of the
-// launch (0 on success).
+// group*z threads rounded up to warps, a _gs CTA a warp for each 32 checks
+// of a group or of one block row, at most 1024 threads). Returns the CUDA
+// error code of the launch (0 on success).
 int bp_qc_decode(int dtype, int method, int layered, int early_stop,
                  int quant, const float* llr, void* out, int out_hard,
                  const int* done_in, int* aux_out, const int* plan,
-                 const int* plan_host, int design, const float* ab,
-                 const float* wm, const float* wl, int batch, int z, int mb,
-                 int nb, int P, int row_deg, int iterations, int check_every,
-                 int group, float clamp, float qstep, float qclip,
-                 float sstep, float sinv, int threads, cudaStream_t stream) {
+                 const int* plan_host, const int* group_host, int design,
+                 const float* ab, const float* wm, const float* wl, int batch,
+                 int z, int mb, int nb, int P, int row_deg, int iterations,
+                 int check_every, int group, float clamp, float qstep,
+                 float qclip, float sstep, float sinv, int threads,
+                 cudaStream_t stream) {
   auto* launch = dtype == kF32    ? bp_qc_launch
                  : dtype == kBf16 ? bp_qc_launch_bf16
                  : dtype == kInt8 ? bp_qc_launch_i8
                                   : nullptr;
   if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(method, layered, early_stop, quant, llr, out, out_hard,
-                done_in, aux_out, plan, plan_host, design, ab, wm, wl,
-                batch, z, mb, nb, P, row_deg, iterations, check_every, group,
-                clamp, qstep, qclip, sstep, sinv, threads, stream);
+                done_in, aux_out, plan, plan_host, group_host, design, ab, wm,
+                wl, batch, z, mb, nb, P, row_deg, iterations, check_every,
+                group, clamp, qstep, qclip, sstep, sinv, threads, stream);
 }
 
 // The limits of the compressed state and the _sr kernels: row degree,
@@ -1780,6 +2137,15 @@ int bp_qc_compressed_limits(int* out) {
   out[1] = kCsMaxRows;
   out[2] = kCsMaxPlanes;
   out[3] = kCsMaxCols;
+  return 0;
+}
+
+// The group-serial plan's bytes (sizeof(GroupPlan)), groups and fold
+// entries.
+int bp_qc_group_plan_limits(int* out) {
+  out[0] = static_cast<int>(sizeof(GroupPlan));
+  out[1] = kGsMaxGroups;
+  out[2] = kGsMaxFolds;
   return 0;
 }
 

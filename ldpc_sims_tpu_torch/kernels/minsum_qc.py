@@ -17,9 +17,13 @@ serial-C reads each edge's posterior once, flooding rebuilds each
 posterior from its checks' states. The sum-product forms, serial-C and
 flooding, keep a check's slots in registers (:func:`sumproduct_registers`):
 full messages, each edge's message and posterior read once, the plan in
-the kernel parameter. Every other form (group-serial, codes beyond the
-limits) keeps the full messages with the plan in shared memory. The
-source is
+the kernel parameter. The group-serial forms (``layered_group > 1``) of
+both rules take the ``_gs`` kernels: the per-group plan of
+:func:`group_plan` in the kernel parameter, a private plane's change
+folded at once and only the shared planes through the scratch, min-sum on
+the compressed state and sum-product with its slots in registers. Codes
+beyond the limits keep the full messages with the plan in shared memory.
+The source is
 compiled with ``nvcc`` for ``sm_90a``, once per storage type in
 parallel, into ``build/kernels/`` of the checkout on first use, linked
 into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
@@ -77,6 +81,8 @@ __all__ = [
     "default_threads",
     "design",
     "entry_point",
+    "group_plan",
+    "group_plan_bytes",
     "kernel_name",
     "probe_capacity",
     "minsum_qc_cuda",
@@ -126,11 +132,18 @@ _SMEM_LIMIT = 232_448
 # parameter's plan)
 COMPRESSED_LIMITS = (8, 64, 192, 64)
 # the kernel designs, bp_qc_decode's `design` (csrc/minsum_qc.cu:
-# kDesignFull, kDesignCs, kDesignSr) and the entry points' suffix
-DESIGNS = {"full": (0, ""), "compressed": (1, "_cs"), "registers": (2, "_sr")}
+# kDesignFull, kDesignCs, kDesignSr, kDesignGs) and the entry points' suffix
+DESIGNS = {"full": (0, ""), "compressed": (1, "_cs"), "registers": (2, "_sr"),
+           "group": (3, "_gs")}
+# the group-serial plan in the kernel parameter (csrc/minsum_qc.cu:
+# GroupPlan): groups (G ≥ 2 over at most 64 block rows) and fold entries
+# (two planes or more each, of at most 192), and the bytes a kernel's
+# parameters may take on sm_90 (CUDA 12.1 and later)
+GROUP_PLAN_LIMITS = (32, 96)
+PARAM_BYTES_LIMIT = 32_764
 # the flooding forms' CTA size where an H100 sweep (kernels/tune.py) found
 # one faster than 256 (by more than 0.5%), keyed by (n, dtype name,
-# schedule, method); the layered forms' CTA has G·z threads by design.
+# schedule, method); the layered kernels size their own CTA.
 # Min-sum, from the sweep of threads 128, 256, 512, 1024 × the three types,
 # flooding-20 on the compressed check state, wifi1944 at batch 32768 and
 # the 5G-class codes at 16384 (PERF.md §6, row 14; NVIDIA H100 80GB HBM3,
@@ -190,9 +203,10 @@ def entry_point(qc: QcStructure, method: str, schedule: str,
                 layered_group: int = 1) -> str:
     """The entry point of csrc/minsum_qc.cu that a decode of this form on
     this code launches: :func:`kernel_name`'s, with ``_cs`` before the
-    storage suffix on the compressed check state (:func:`compressed_state`)
-    and ``_sr`` with the sum-product slots in registers
-    (:func:`sumproduct_registers`)."""
+    storage suffix on the compressed check state (serial-C and flooding
+    min-sum), ``_sr`` with the sum-product slots in registers (serial-C and
+    flooding sum-product) and ``_gs`` for the group-serial forms of both
+    rules (:func:`design`)."""
     sfx = DESIGNS[design(qc, method, schedule, layered_group)][1]
     return (kernel_name(method, schedule, early_stop, quantized, weighted)
             + sfx + STORAGE[storage_dtype(dtype)][1])
@@ -267,9 +281,9 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     f32 = ctypes.c_float
     lib.bp_qc_decode.argtypes = [
-        i32, i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp,
-        vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, f32, f32, f32, f32,
-        f32, i32, vp,
+        i32, i32, i32, i32, i32, vp, vp, i32, vp, vp, vp, vp, vp, i32, vp,
+        vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, f32, f32, f32,
+        f32, f32, i32, vp,
     ]
     lib.bp_qc_decode.restype = i32
     lib.bp_qc_max_row_degree.argtypes = []
@@ -281,6 +295,14 @@ def _library() -> ctypes.CDLL:
     if tuple(limits) != COMPRESSED_LIMITS:
         raise RuntimeError(f"the library's compressed-state limits "
                            f"{tuple(limits)} are not {COMPRESSED_LIMITS}")
+    lib.bp_qc_group_plan_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.bp_qc_group_plan_limits.restype = i32
+    group = (ctypes.c_int * 3)()
+    lib.bp_qc_group_plan_limits(group)
+    want = (group_plan_bytes(), *GROUP_PLAN_LIMITS)
+    if tuple(group) != want:
+        raise RuntimeError(f"the library's group-serial plan (bytes, groups, "
+                           f"fold entries) {tuple(group)} is not {want}")
     lib.bp_qc_error_string.argtypes = [i32]
     lib.bp_qc_error_string.restype = ctypes.c_char_p
     return lib
@@ -300,15 +322,14 @@ def _plan_array(qc: QcStructure) -> np.ndarray:
     ]).astype(np.int32)
 
 
-def _param_plan(qc: QcStructure, schedule: str, layered_group: int) -> bool:
-    """Flooding or serial-C (``layered_group`` 1) on a code within
-    ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block columns):
-    the decodes whose plan the kernel parameter carries."""
+def _within_limits(qc: QcStructure) -> bool:
+    """A code within ``COMPRESSED_LIMITS`` (row degree, block rows, planes,
+    block columns): its plan fits the kernel parameter and its rows the
+    register arrays."""
     planes, group_c, _ = qc_plan(qc)
     degree = max(len(ps) for ps in group_c)
     max_deg, max_rows, max_planes, max_cols = COMPRESSED_LIMITS
-    return ((schedule == "flooding" or min(layered_group, qc.mb) == 1)
-            and degree <= max_deg and qc.mb <= max_rows
+    return (degree <= max_deg and qc.mb <= max_rows
             and len(planes) <= max_planes and qc.nb <= max_cols)
 
 
@@ -317,54 +338,129 @@ def compressed_state(qc: QcStructure, method: str = "min-sum",
                      layered_group: int = 1) -> bool:
     """Whether a decode keeps the compressed check state (csrc/minsum_qc.cu:
     two stored magnitudes and a word of signs and index a check): the
-    min-sum forms, flooding and serial-C (``layered_group`` 1), on a code
-    within ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block
-    columns). Every other form keeps the full messages (the group-serial
-    forms measured slower on the compressed state, PERF.md)."""
-    return method == "min-sum" and _param_plan(qc, schedule, layered_group)
+    min-sum forms, flooding, serial-C and group-serial, on a code within
+    ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block columns).
+    Every other form keeps the full messages."""
+    return (method == "min-sum"
+            and design(qc, method, schedule, layered_group) != "full")
 
 
 def sumproduct_registers(qc: QcStructure, method: str = "sum-product",
                          schedule: str = "layered",
                          layered_group: int = 1) -> bool:
     """Whether a decode runs the sum-product kernels with a check's slots in
-    registers (csrc/minsum_qc.cu, the _sr kernels: full messages, each
-    edge's message and posterior read once, the slots unrolled to the
+    registers (csrc/minsum_qc.cu, the _sr and _gs kernels: full messages,
+    each edge's message and posterior read once, the slots unrolled to the
     check's degree, the plan in the kernel parameter): the sum-product
-    forms, flooding and serial-C (``layered_group`` 1), on a code within
+    forms of every schedule and group on a code within
     ``COMPRESSED_LIMITS``, the register arrays' 8 slots and the
-    parameter's plan. The group-serial forms and the codes beyond the
-    limits keep the full-message kernels with the plan in shared memory."""
+    parameter's plan. The codes beyond the limits keep the full-message
+    kernels with the plan in shared memory."""
     return (method == "sum-product"
-            and _param_plan(qc, schedule, layered_group))
+            and design(qc, method, schedule, layered_group) != "full")
 
 
 def design(qc: QcStructure, method: str, schedule: str,
            layered_group: int = 1) -> str:
-    """The kernel design a decode launches, a key of ``DESIGNS``:
-    'compressed' (:func:`compressed_state`), 'registers'
-    (:func:`sumproduct_registers`) or 'full'."""
-    if _param_plan(qc, schedule, layered_group):
-        if method == "min-sum":
-            return "compressed"
-        if method == "sum-product":
-            return "registers"
-    return "full"
+    """The kernel design a decode launches, a key of ``DESIGNS``, on a code
+    within ``COMPRESSED_LIMITS``: 'group' for the group-serial forms
+    (layered, ``min(layered_group, mb) > 1``), else 'compressed'
+    (min-sum) or 'registers' (sum-product); 'full' beyond the limits."""
+    if not _within_limits(qc):
+        return "full"
+    if schedule == "layered" and min(layered_group, qc.mb) > 1:
+        return "group"
+    return "compressed" if method == "min-sum" else "registers"
+
+
+def group_plan_bytes() -> int:
+    """The bytes of the group-serial plan in the kernel parameter
+    (csrc/minsum_qc.cu: GroupPlan, its arrays sized for the largest code
+    within ``COMPRESSED_LIMITS``), each array at its element's alignment:
+    ParamPlan's row_ptr (int) and planes (int4), FloodPlan's col_ptr (int)
+    and column entries (int4), then fold_ptr and scratch (int) and the
+    fold entries (int4)."""
+    _, rows, planes, cols = COMPRESSED_LIMITS
+    groups, folds = GROUP_PLAN_LIMITS
+    size = 0
+    for count, nbytes, align in ((rows + 1, 4, 4), (planes, 16, 16),
+                                 (cols + 1, 4, 4), (planes, 16, 16),
+                                 (groups + 1, 4, 4), (planes, 4, 4),
+                                 (folds, 16, 16)):
+        size = -(-size // align) * align + count * nbytes
+    return -(-size // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def group_plan(qc: QcStructure, layered_group: int) -> np.ndarray:
+    """The group-serial kernels' per-group plan (csrc/minsum_qc.cu:
+    GroupPlan) as the int32 host ints the launcher copies into the kernel
+    parameter, for groups of G = ``min(layered_group, mb)`` block rows (the
+    last one possibly shorter). A plane is private when it is the only
+    plane of its column block within its group (its change folds at once),
+    else shared (its change waits in the group's scratch, in variable
+    orientation). Layout:
+
+    * a header: G, groups, fold entries F, shared planes, and the largest
+      group's shared planes (its scratch rows);
+    * ``fold_ptr[groups + 1]``: group g's fold entries are
+      ``[fold_ptr[g], fold_ptr[g + 1])``;
+    * per plane, its scratch row times z within its group, or −1 (private);
+    * per fold entry (col·z, row·z, count): a column block that count ≥ 2
+      planes of its group meet, and the first of their scratch rows; they
+      take consecutive rows in block-row order (the plain version's fold
+      order).
+
+    Raises ValueError when the plan does not fit ``GROUP_PLAN_LIMITS``."""
+    planes, group_c, _ = qc_plan(qc)
+    z, mb = qc.z, qc.mb
+    G = min(layered_group, mb)
+    if G < 2:
+        raise ValueError(f"a group-serial plan needs G ≥ 2, got {G}")
+    scratch = [-1] * len(planes)
+    fold_ptr, fold = [0], []
+    widest = shared = 0
+    for g0 in range(0, mb, G):
+        by_col: dict[int, list[int]] = {}
+        for i in range(g0, min(g0 + G, mb)):  # block rows in order
+            for p in group_c[i]:
+                by_col.setdefault(planes[p][1], []).append(p)
+        rows = 0
+        for j, ps in sorted(by_col.items()):
+            if len(ps) < 2:
+                continue
+            fold.append((j * z, rows * z, len(ps)))
+            for p in ps:
+                scratch[p] = rows * z
+                rows += 1
+        fold_ptr.append(len(fold))
+        widest, shared = max(widest, rows), shared + rows
+    groups = len(fold_ptr) - 1
+    max_groups, max_folds = GROUP_PLAN_LIMITS
+    if groups > max_groups or len(fold) > max_folds:
+        raise ValueError(
+            f"the group-serial plan of G={G} has {groups} groups and "
+            f"{len(fold)} fold entries; the kernel parameter takes at most "
+            f"{max_groups} and {max_folds}")
+    return np.array([G, groups, len(fold), shared, widest, *fold_ptr,
+                     *scratch, *(x for f in fold for x in f)], np.int32)
 
 
 def smem_bytes(qc: QcStructure, layered_group: int = 1,
                dtype=torch.float32, method: str = "min-sum",
                schedule: str = "flooding") -> int:
     """Dynamic shared memory of one CTA: the int32 plan (not for flooding
-    on the compressed state or for the sum-product slots in registers,
-    whose plan is the kernel's parameter); the c2v planes (4, 2 or 1 B a
-    message for f32, bf16, int8) or, on the compressed state
-    (:func:`compressed_state`), two stored magnitudes and a 2-byte word a
-    check; the posterior (2 B a variable for bf16, else 4), and the LLRs
-    in its type for the flooding forms that read their plan from the
-    parameter; and for a group-serial launch the f32 message changes of a
-    group's planes (at most ``min(P, G·row degree)`` planes of z floats);
-    each region on a 16-byte boundary."""
+    on the compressed state, the sum-product slots in registers or the
+    group-serial kernels, whose plan is the kernel's parameter); the c2v
+    planes (4, 2 or 1 B a message for f32, bf16, int8) or, on the
+    compressed state (:func:`compressed_state`), two stored magnitudes and
+    a 2-byte word a check; the posterior (2 B a variable for bf16, else 4),
+    and the LLRs in its type for the flooding forms that read their plan
+    from the parameter; and for a group-serial launch the f32 scratch of
+    the message changes: the largest group's shared planes
+    (:func:`group_plan`) for the group-serial kernels, a group's planes (at
+    most ``min(P, G·row degree)``) for the full-message kernels, each z
+    floats; each region on a 16-byte boundary."""
     planes, group_c, _ = qc_plan(qc)
     P = len(planes)
 
@@ -376,14 +472,18 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     post = 2 if dtype == torch.bfloat16 else 4
     G = min(layered_group, qc.mb)
     degree = max(len(ps) for ps in group_c)
-    scratch = min(P, G * degree) * qc.z if G > 1 else 0
     checks = qc.mb * qc.z
     kind = design(qc, method, schedule, layered_group)
-    cs, sr = kind == "compressed", kind == "registers"
+    sr, gs = kind == "registers", kind == "group"
+    cs = compressed_state(qc, method, schedule, layered_group)
+    if gs:
+        scratch = int(group_plan(qc, G)[4]) * qc.z
+    else:
+        scratch = min(P, G * degree) * qc.z if G > 1 else 0
     flooding = schedule == "flooding"
     state = (a16(2 * msg * checks) + a16(2 * checks) if cs
              else a16(msg * P * qc.z))
-    param_plan = (cs and flooding) or sr
+    param_plan = (cs and flooding) or sr or gs
     plan = 0 if param_plan else a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1))
     # the LLRs beside the posterior
     posts = (2 if flooding and param_plan else 1) * a16(post * qc.nb * qc.z)
@@ -487,7 +587,8 @@ def bp_qc_cuda(
     semantics (:func:`..ops.bp_roll.decode_roll`); the posterior output
     is f32 either way. ``threads``: the flooding forms' CTA size, a
     multiple of 32 in [32, 1024] (JAX's ``tile``); None takes
-    :func:`default_threads`. A layered CTA has G·z threads, so a layered
+    :func:`default_threads`. The layered kernels size their own CTA (z
+    threads a block row, or the group-serial kernels' warps), so a layered
     decode takes no ``threads``.
     """
     if schedule not in ("flooding", "layered"):
@@ -525,7 +626,7 @@ def bp_qc_cuda(
     dtype = storage_dtype(dtype)
     if threads is not None and schedule == "layered":
         raise ValueError("threads sets the flooding forms' CTA size; a "
-                         "layered CTA has layered_group·z threads")
+                         "layered CTA is sized by its kernel")
     if threads is None:
         threads = default_threads(qc, dtype, schedule, method)
     if not (32 <= threads <= 1024 and threads % 32 == 0):
@@ -589,6 +690,10 @@ def bp_qc_cuda(
             f"check of degree {degree}; the sum-product kernels take at "
             f"most {cap}"
         )
+    kind = design(qc, method, schedule, layered_group)
+    # the group-serial kernels' per-group plan (raises when it does not fit
+    # the kernel parameter)
+    group = (group_plan(qc, layered_group) if kind == "group" else None)
     plan, ab = _device_tables(qc, alpha, beta, iterations, str(llr.device))
     wm = wl = None
     if weights is not None:
@@ -617,7 +722,7 @@ def bp_qc_cuda(
         None if flags is None else flags.data_ptr(),
         None if aux is None else aux.data_ptr(),
         plan.data_ptr(), _host_plan(qc).ctypes.data,
-        DESIGNS[design(qc, method, schedule, layered_group)][0],
+        None if group is None else group.ctypes.data, DESIGNS[kind][0],
         ab.data_ptr(),
         None if wm is None else wm.data_ptr(),
         None if wl is None else wl.data_ptr(),

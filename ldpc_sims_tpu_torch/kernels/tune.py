@@ -10,7 +10,7 @@ prints one JSON line per point. Its output fills
 (n, dtype, schedule, method)), which holds an entry only where a sweep
 measured a CTA size faster than the default 256 (for sum-product: faster
 than min-sum's entry). ``threads`` is the flooding forms'
-CTA size; a layered CTA has G·z threads by design, so a layered point is
+CTA size; the layered kernels size their own CTA, so a layered point is
 timed once per dtype (``threads`` null). A point that fails to launch
 (too much shared memory, say) prints an error line and the sweep goes on:
 that is the sweep's own report, as in the JAX tuner.

@@ -445,9 +445,10 @@ def test_group_serial_endpoints_on_card(cuda):
 
 @pytest.mark.parametrize("group", [2, 4])
 def test_group_serial_on_the_largest_code(cuda, group):
-    """qc12288 (z = 512, 171 KB of state a CTA): a group's scratch holds
-    only its own planes, so G = 4 still fits (224 KB); G = 5 would not,
-    and the wrapper says so before the launch."""
+    """qc12288 (z = 512, 109 KB of compressed state a CTA): a group's
+    scratch holds only its shared planes, so G = 4 takes 144 KB; G = mb
+    (all 61 planes shared, 230 KB) would not fit, and the wrapper says so
+    before the launch."""
     code = get_code("qc12288_r12")
     gen = torch.Generator().manual_seed(16)
     x = (2.0 + 2.0 * torch.randn((8, code.n), generator=gen)).to(cuda)
@@ -458,7 +459,7 @@ def test_group_serial_on_the_largest_code(cuda, group):
     torch.cuda.synchronize()
     torch.testing.assert_close(post, ref, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="shared memory"):
-        mq.bp_qc_cuda(x, code.qc, **dict(kw, layered_group=5))
+        mq.bp_qc_cuda(x, code.qc, **dict(kw, layered_group=12))
 
 
 STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8}
@@ -539,11 +540,11 @@ def test_storage_on_the_largest_code(cuda, dtype):
 
 
 def test_storage_shared_memory_limit(cuda):
-    """qc12288 at G = 5: 236 KB at f32 raises before the launch, bf16's
-    149 KB launches and equals the plain version."""
+    """qc12288 at G = mb: 230 KB at f32 raises before the launch, bf16's
+    182 KB launches and equals the plain version."""
     code = get_code("qc12288_r12")
     x, _ = llrs(code, 4, cuda, seed=15)
-    kw = dict(iterations=2, schedule="layered", layered_group=5,
+    kw = dict(iterations=2, schedule="layered", layered_group=12,
               output="posterior")
     with pytest.raises(ValueError, match="shared memory"):
         mq.bp_qc_cuda(x, code.qc, **kw)
@@ -664,8 +665,7 @@ def test_sumproduct_registers_match_plain_version(cuda, name, dtype,
 
 def test_sumproduct_registers_in_the_wifi648_sweep_preset(cuda):
     """The preset's decode (layered-20 sum-product, es auto's two modes)
-    launches the _sr kernel, and group-serial decodes the full-message
-    one."""
+    launches the _sr kernel, and a group-serial decode the _gs one."""
     code = get_code("wifi648")
     x, cw = llrs(code, 256, cuda, mu=5.0, seed=13)
     mq.reset_launch_counts()
@@ -677,7 +677,50 @@ def test_sumproduct_registers_in_the_wifi648_sweep_preset(cuda):
               schedule="layered", layered_group=3)
     assert mq.ENTRY_LAUNCHES == {"sumproduct_qc_layered_sr": 2,
                                  "sumproduct_qc_layered_es_sr": 2,
-                                 "sumproduct_qc_layered": 1}
+                                 "sumproduct_qc_layered_gs": 1}
+
+
+@pytest.mark.parametrize("method", ["min-sum", "sum-product"])
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc1944_r23"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+def test_group_serial_kernels_exactly_equal(cuda, name, dtype, method):
+    """The group-serial kernels (_gs) at G = 2, 3, 4 and mb: fixed with its
+    unsatisfied-check count, early stop at K = 2, per-edge weights, each
+    with and without 3-bit messages, exactly equal to the plain version on
+    integer LLRs (min-sum: ties, zero magnitudes, β above the minimum) or
+    channel LLRs with saturated rows (sum-product); qc1944_r23 (rows of
+    degree 8-9) keeps the full-message kernels."""
+    code = get_code(name)
+    if method == "min-sum":
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(5)
+        x = torch.randint(-3, 4, (64, code.n), generator=gen,
+                          device=cuda).float()
+        rule = dict(alpha=(1.0, 0.75, 0.5, 1.0), beta=(0.0, 1.0, 2.5, 0.5),
+                    clamp=2.0, msg_qclip=4.0)
+    else:
+        x = saturated(mixed_llrs(code, 64, cuda, seed=6))
+        rule = dict(msg_qclip=20.0)
+    w = random_edge_weights(code, 4, seed=7)
+    for G in (2, 3, 4, code.qc.mb):
+        mq.reset_launch_counts()
+        for qb in (None, 3):
+            kw = dict(rule, iterations=4, schedule="layered", method=method,
+                      dtype=dtype, msg_qbits=qb, layered_group=G)
+            for extra in (dict(output="posterior"), dict(output="hard_unsat"),
+                          dict(early_stop=True, es_check_every=2,
+                               output="hard_iters"),
+                          dict(weights=w, output="posterior")):
+                got = mq.bp_qc_cuda(x, code.qc, **kw, **extra)
+                want = decode_roll(x, code.qc, **kw, **extra)
+                for g, r in (zip(got, want) if isinstance(got, tuple)
+                             else [(got, want)]):
+                    assert torch.equal(g, r), (G, qb, extra.get("output"))
+        gs = name != "qc1944_r23"
+        assert all(("_qc_layered" in e) and ("_gs" in e) == gs
+                   for e in mq.ENTRY_LAUNCHES)
+        assert sum(mq.ENTRY_LAUNCHES.values()) == 8
 
 
 def test_gather_backend_on_the_card(cuda):

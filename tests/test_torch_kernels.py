@@ -381,14 +381,25 @@ def test_plan_table_rebuilds_H(name):
 
 
 def test_smem_bytes_wifi1944():
-    # full messages with the plan (sum-product group-serial, G = 2): plan
-    # 13 + 3·86 + 25 = 296 ints, 86·81 message and 1944 posterior f32 and
-    # the f32 scratch of 2·8 planes, each region on a 16-byte boundary (the
-    # messages' 27,864 B take 27,872)
+    # full messages with the plan (sum-product group-serial, G = 2, on a
+    # code beyond the limits: qc1944_r23, rows of degree 8-9): plan 9 +
+    # 3·65 + 25 = 229 ints (232 padded), 65·81 message and 1944 posterior
+    # f32 and the f32 scratch of 2·9 planes, each region on a 16-byte
+    # boundary (the messages' 21,060 B take 21,072)
+    r23 = get_code("qc1944_r23").qc
+    assert mq.smem_bytes(r23, 2, method="sum-product",
+                         schedule="layered") == 4 * 232 + 21_072 + \
+        4 * 1944 + 4 * 18 * 81
+    # wifi1944 group-serial (the _gs kernels): no plan (the kernel's
+    # parameter holds it) and the scratch of the largest group's shared
+    # planes only, 8 at G = 2 and 22 at G = 4: sum-product's messages,
+    # min-sum's compressed state
     qc = get_code("wifi1944").qc
     assert mq.smem_bytes(qc, 2, method="sum-product",
-                         schedule="layered") == 4 * 296 + 27_872 + \
-        4 * 1944 + 4 * 16 * 81
+                         schedule="layered") == 27_872 + 4 * 1944 + \
+        4 * 8 * 81
+    assert mq.smem_bytes(qc, 4, method="min-sum", schedule="layered") == \
+        972 * 8 + 1952 + 4 * 1944 + 4 * 22 * 81
     # sum-product with its slots in registers: the same messages and
     # posterior without the plan (the kernel's parameter holds it), and
     # flooding with the LLRs beside the posterior
@@ -850,24 +861,27 @@ def test_sumproduct_registers_loop_matches_pallas_interpret():
     ("wifi648", True), ("wifi1944", True), ("qc8448_r12", True),
     ("qc12288_r12", True), ("qc1944_r23", False), ("qc648_r56", False)])
 def test_sumproduct_registers_selection(name, fits):
-    """Which decodes take the _sr kernels: sum-product, flooding or
-    serial-C (G = 1, or a G that covers a one-row code), on a code within
-    the register arrays' 8 slots and the parameter plan's limits; G > 1
-    and the codes beyond keep the full-message kernels, min-sum its
-    compressed state."""
+    """Which decodes keep a sum-product check's slots in registers: every
+    sum-product decode on a code within the register arrays' 8 slots and
+    the parameter plan's limits, flooding and serial-C (G = 1) on the _sr
+    kernels, group-serial (G > 1) on the _gs kernels; the codes beyond
+    keep the full-message kernels at every G, min-sum its compressed state
+    (_cs, and _gs for G > 1) within them."""
     qc = cached_code(name).qc
-    for sched, G, want in (("flooding", 1, fits), ("layered", 1, fits),
-                           ("layered", 2, False), ("layered", 4, False)):
-        assert mq.sumproduct_registers(qc, "sum-product", sched, G) == want
+    for sched, G in (("flooding", 1), ("layered", 1), ("layered", 2),
+                     ("layered", 4)):
+        group = G > 1
+        assert mq.sumproduct_registers(qc, "sum-product", sched, G) == fits
         assert not mq.sumproduct_registers(qc, "min-sum", sched, G)
         kind = mq.design(qc, "sum-product", sched, G)
-        assert kind == ("registers" if want else "full")
+        want = ("group" if group else "registers") if fits else "full"
+        assert kind == want
         entry = mq.entry_point(qc, "sum-product", sched, dtype=torch.int8,
                                layered_group=G)
-        assert entry == f"sumproduct_qc_{sched}" + ("_sr" if want else "") \
+        assert entry == f"sumproduct_qc_{sched}" + mq.DESIGNS[want][1] \
             + "_i8"
         assert mq.design(qc, "min-sum", sched, G) == (
-            "compressed" if fits and G == 1 else "full")
+            ("group" if group else "compressed") if fits else "full")
     assert mq.entry_point(qc, "sum-product", "layered", True, True) == (
         "sumproduct_qc_layered_es_msgq" + ("_sr" if fits else ""))
     assert mq.entry_point(qc, "sum-product", "flooding", weighted=True,

@@ -235,12 +235,15 @@ def test_auto_diverges_from_jax_cpu_auto():
 def test_smem_bytes_per_storage_type():
     """Each region sized by its type on a 16-byte boundary; the 5G-class
     codes' bf16 and int8 halve their f32 footprint or better. Sum-product
-    (and the group-serial forms) keep the full messages, serial-C and
-    flooding sum-product without the plan (their kernel parameter holds
-    it), flooding with the LLRs beside the posterior; min-sum, serial-C
-    and flooding, keeps the compressed check state: two stored magnitudes
-    and a 2-byte word a check, flooding without the plan and with the LLRs
-    beside the posterior, in its storage type."""
+    keeps the full messages, serial-C, flooding and group-serial
+    sum-product without the plan (their kernel parameter holds it),
+    flooding with the LLRs beside the posterior, group-serial with the
+    scratch of the largest group's shared planes; min-sum, serial-C and
+    flooding, keeps the compressed check state: two stored magnitudes and
+    a 2-byte word a check, flooding without the plan and with the LLRs
+    beside the posterior, in its storage type. A code beyond the limits
+    (qc1944_r23) keeps the full messages and the plan for G > 1, with the
+    scratch of a group's planes."""
     sp = dict(method="sum-product", schedule="layered")
     ms = dict(method="min-sum", schedule="layered")
     fl = dict(method="min-sum", schedule="flooding")
@@ -254,10 +257,18 @@ def test_smem_bytes_per_storage_type():
     assert mq.smem_bytes(qc, 1, torch.int8, **ms) == (1184 + 1952 + 1952
                                                       + 7776)
     big = get_code("qc12288_r12").qc
-    # the full messages with their 896 B plan (the group-serial forms, G = 2
-    # with the scratch of 2·6 planes), and serial-C sum-product without it
-    assert mq.smem_bytes(big, 2, **sp) == 174_976 + 4 * 12 * 512
+    # the full messages with their 896 B plan less the plan: serial-C
+    # sum-product, and group-serial at G = 2 with the scratch of the
+    # largest group's 8 shared planes
+    assert mq.smem_bytes(big, 2, **sp) == 174_976 - 896 + 4 * 8 * 512
     assert mq.smem_bytes(big, **sp) == 174_976 - 896
+    # beyond the limits (qc1944_r23: 65 planes, rows of degree 8-9) G = 2
+    # keeps the full messages with the plan (229 ints, 928 B) and the
+    # scratch of min(P, 2·9) planes
+    r23 = get_code("qc1944_r23").qc
+    assert mq.smem_bytes(r23, 2, **sp) == 928 + 21_072 + 7776 + 4 * 18 * 81
+    assert mq.smem_bytes(r23, 2, torch.bfloat16, **sp) == (
+        928 + 10_544 + 3888 + 4 * 18 * 81)
     assert mq.smem_bytes(big, 1, torch.bfloat16, **sp) == 87_936 - 896
     assert mq.smem_bytes(big, 1, torch.int8, **sp) == 81_280 - 896
     # two f32 CTAs an SM (115,712 B each with the 1 KB a CTA reserves)
@@ -283,9 +294,12 @@ def test_smem_bytes_per_storage_type():
     assert mq.smem_bytes(q8448, **fl) == 108_544
     # one f32 sum-product flooding CTA an SM at qc12288
     assert mq.smem_bytes(big, method="sum-product") == 174_080 + 49_152
-    # G = 5 does not fit at f32 but does at bf16
-    assert mq.smem_bytes(big, 5, **ms) > mq._SMEM_LIMIT
-    assert mq.smem_bytes(big, 5, torch.bfloat16, **ms) <= mq._SMEM_LIMIT
+    # G = mb (all 61 planes shared) does not fit at f32 but does at bf16
+    # (the group-serial scratch holds the largest group's shared planes
+    # only, so G = 5 fits at f32 too)
+    assert mq.smem_bytes(big, 12, **ms) > mq._SMEM_LIMIT
+    assert mq.smem_bytes(big, 12, torch.bfloat16, **ms) <= mq._SMEM_LIMIT
+    assert mq.smem_bytes(big, 5, **ms) <= mq._SMEM_LIMIT
     # the compressed state's limits: rows of degree 8 take it, 9 not
     r23 = get_code("qc1944_r23").qc
     for kw in (ms, fl):
