@@ -8,8 +8,10 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
 1. build the CUDA decode kernels from the checkout's sources, print
    ptxas's register/shared-memory report and the card's name and power
    limit, and fail unless each of the 36 sum-product kernels with a
-   check's slots in registers (the _sr kernels) and each of the 36
-   group-serial kernels (the _gs kernels) has a 0 B stack frame;
+   check's slots in registers (the _sr kernels), each of the 36
+   group-serial kernels (the _gs kernels) and each of the 36 min-sum
+   kernels on the compressed state's wide word (the _cw kernels) has a 0 B
+   stack frame, printing their registers;
 2. hold each kernel against its plain PyTorch version on the card at
    batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75, β=0.1,
    clamp 20), the registry's trained layered-8 on wifi1944 and wifi648
@@ -50,11 +52,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    integer LLRs in {-3, ..., 3} (tied minima, zero magnitudes, an offset
    above the minimum: the inputs a compressed check state could get
    wrong) on wifi1944 and wifi648 (serial-C on the _cs kernels, G > 1 on
-   the _gs kernels) and at G = 1 and 4 on qc1944_r23 (full messages),
-   and every min-sum flooding form
-   (the same forms, no drivers) at the three types on wifi1944, wifi648,
-   qc8448_r12 (the compressed state) and qc1944_r23 (full messages), each
-   exactly equal. Then (2g) every sum-product form (fixed with its
+   the _gs kernels), at G = 1 on qc648_r23, qc648_r56, qc1944_r23 and
+   qc1944_r56 (rows of degree 8-9 and 17-18: the wide word's _cw kernels)
+   and at G = 4 on qc1944_r23 (full messages), and every min-sum flooding
+   form (the same forms, no drivers) at the three types on wifi1944,
+   wifi648, qc8448_r12 (the compressed state) and the four high-rate codes
+   (the wide word), each exactly equal, each decode failing unless it
+   takes its design. Then (2g) every sum-product form (fixed with its
    unsatisfied-check count, early stop at K = 1 and 2, ``done_in``,
    weighted; with and without 4-bit messages; both schedules) and both
    drivers at f32, bf16 and int8 on wifi1944, wifi648 and qc8448_r12,
@@ -106,8 +110,14 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    sum-product form; the committed
    TPU sweeps' configuration of qc1944_r23, r34 and r56
    (``docs/artifacts/20260821_qc1944_r*_sweep_tpu.json``: layered-20
-   min-sum, ``es_mode='freeze'``, clamp 20, the full-message kernels) at
-   one waterfall point each, its BLER held within 4σ of the artifact's;
+   min-sum, ``es_mode='freeze'``, clamp 20, the wide word's
+   ``minsum_qc_layered_es_cw``) at one waterfall point each, its BLER held
+   within 4σ of the artifact's and the entry point it launched printed;
+   one point of the error-floor campaign on qc1944_r56
+   (``docs/artifacts/20260821-115110_error_floor_qc1944_r56.json``: 6.25
+   dB, all-zero codewords, BPSK, 8 × 32768 frames through ``bp_decode``),
+   flooding-20's and layered-10's FER each within 4σ of the artifact's, on
+   the _cw entry points;
 3e. the bigcode scale run (``ldpc_sims_tpu_torch.examples.bigcode``) at
    full width on qc8448_r12 and qc12288_r12, batch 16384, its pipe cut
    from 16 to 4 decodes: the rates of flooding-20 f32 and layered-10 at
@@ -139,10 +149,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    ``minsum_qc_layered@g4`` (layered-20, G = 4) and
    ``sumproduct_qc_layered@g4``, each with the launches of its phase 3d
    run; layered-20 at each group size G = 1, 2, 3, 4, 6, 12 with its entry
-   point, bound and the full-message kernel's recorded time; the
-   full-message rows
+   point, bound and the full-message kernel's recorded time; the rows
    ``minsum_qc_layered_es@qc1944_r23``, ``_r34``, ``_r56`` (their phase 3d
-   configuration and launches);
+   configuration and launches, on the wide word, beside the full-message
+   kernel's recorded time) and the error-floor point's
+   ``minsum_qc_flooding@qc1944_r56`` (flooding-20) and
+   ``minsum_qc_layered@qc1944_r56`` (layered-10), with the launches of
+   their phase 3d run;
    then the times of both drivers; then the storage rows with the launches
    of phase 3e: ``minsum_qc_layered@bf16`` and ``@int8`` (trained
    layered-8 on wifi1944, beside ``minsum_qc_layered``), and at batch
@@ -151,17 +164,23 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    bound with the conversion instructions counted in the SASS of probes of
    the source's load and store helpers; the min-sum flooding forms that
    no main path launches (flooding-20 at bf16 and int8, with its count,
-   its ``done_in`` pass) and the sum-product forms no main path launches
+   its ``done_in`` pass), the error-floor campaign's decoders on
+   qc1944_r34/r56 and qc648_r34/r56 at its first SNR (flooding-20,
+   layered-10 and the probe driver, on the wide word's kernels) and
+   flooding-20 and layered-20 on qc1944_r56 at each storage type, and the
+   sum-product forms no main path launches
    (per-edge weights, 4-bit messages, bf16 and int8 storage, each
    schedule), each equal to the plain version, printed with their
    bounds; the min-sum and sum-product rows print the earlier
    full-message designs' recorded times beside theirs, and the SASS
-   loops of both designs of each kernel, serial-C and flooding, give
-   their shared-memory instructions an edge; and one short sweep of the
+   loops of both designs of each kernel, serial-C and flooding (and the
+   wide word's), give their shared-memory instructions an edge and each
+   kernel's code size; and one short sweep of the
    launch tuner (``kernels/tune.py``). Each row of the ``kernels`` line
    names the CUDA entry point its launches ran (``entry``; ``_cs`` on the
-   compressed check state, ``_sr`` with the sum-product slots in
-   registers, ``_gs`` group-serial), and each main-path run prints its
+   compressed check state, ``_cw`` on its wide word, ``_sr`` with the
+   sum-product slots in registers, ``_gs`` group-serial), and each
+   main-path run prints its
    launches per entry point.
 
 Exits non-zero, printing no result, when no CUDA device is present, when
@@ -270,10 +289,29 @@ SP_G4_ROW = "sumproduct_qc_layered@g4"
 FULL_MESSAGE_GROUP_MS = {1: 10.083, 2: 36.089, 3: 25.985, 4: 25.212,
                          6: 20.589, 12: 19.791}
 # the committed TPU sweeps of the codes beyond the compressed state's
-# limits (rows of degree 9-18) and the waterfall point each is held to
+# narrow word (rows of degree 9-18: the wide word's _cw kernels) and the
+# waterfall point each is held to
 HIGH_RATE = {"qc1944_r23": 3, "qc1944_r34": 4, "qc1944_r56": 5}
 HIGH_RATE_SWEEP = os.path.join(ROOT, "docs", "artifacts",
                                "20260821_{}_sweep_tpu.json")
+# one point of the error-floor campaign on qc1944_r56
+# (docs/artifacts/20260821-115110_error_floor_qc1944_r56.json: all-zero
+# codewords, BPSK r = 1 + σ·n with σ = snr^-½, LLR = −2r/σ², every
+# coded bit counted; examples/error_floor_campaign.py:89-99): its SNR, and each
+# decoder's FER over its frames, with the kernels line's row of its decode
+FLOOR_CODE, FLOOR_SNR = "qc1944_r56", 6.25
+# the campaign's first SNR on each code it ran beyond the narrow word
+# (docs/artifacts/20260821-11*_error_floor_qc*.json)
+FLOOR_SHAPES = {"qc1944_r34": 5.25, "qc1944_r56": 6.25, "qc648_r34": 5.5,
+                "qc648_r56": 6.5}
+FLOOR_FER = {
+    "flooding-20": (0.0020148595174153644, 31457280,
+                    dict(iterations=20, schedule="flooding"),
+                    "minsum_qc_flooding@qc1944_r56"),
+    "layered-10": (0.0021327336629231772, 31457280,
+                   dict(iterations=10, schedule="layered"),
+                   "minsum_qc_layered@qc1944_r56"),
+}
 # the committed per-edge layered-6 decoder for wifi1944 and its measured
 # coded BER on its own BPSK-AWGN channel (all n bits counted)
 K6_NPZ = os.path.join(ROOT, "docs", "artifacts", "edge_layered_1944_K6.npz")
@@ -317,6 +355,15 @@ FULL_MESSAGE_MS = {
     "minsum_qc_layered@bf16": 5.505, "minsum_qc_layered@int8": 5.851,
     "minsum_qc_layered@qc12288-bf16": 13.834,
     "minsum_qc_layered@qc12288-int8": 15.277,
+    # the high-rate codes' rows on the full-message kernels the wide word
+    # replaced (this script's run on commit c5ad6e2; the error-floor rows:
+    # the old turns of `python -m ldpc_sims_tpu_torch.kernels.compare` of
+    # that commit)
+    "minsum_qc_layered_es@qc1944_r23": 5.328,
+    "minsum_qc_layered_es@qc1944_r34": 4.471,
+    "minsum_qc_layered_es@qc1944_r56": 4.342,
+    "minsum_qc_flooding@qc1944_r56": 12.479,
+    "minsum_qc_layered@qc1944_r56": 5.085,
 }
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
@@ -469,7 +516,7 @@ def edge_instruction_counts() -> dict:
     return {k: (v["f32"], v["mufu"], v["all"]) for k, v in counts.items()}
 
 
-def smem_instructions(lib) -> dict:
+def smem_instructions(lib) -> tuple[dict, dict]:
     """The shared-memory instructions of the f32 decode kernels in the
     built library's SASS, serial-C and flooding: for min-sum's full-message
     designs (``minsum_qc_layered``, ``minsum_qc_flooding``, which the codes
@@ -480,8 +527,10 @@ def smem_instructions(lib) -> dict:
     beyond the limits) and the ones with a check's slots in registers
     (``sumproduct_qc_layered_sr``, ``sumproduct_qc_flooding_sr``), and the
     group-serial kernels of both rules (``minsum_qc_layered_gs``,
-    ``sumproduct_qc_layered_gs``), each innermost loop (a backward branch
-    that holds no other) as (instructions, LDS, STS, LDL + STL)."""
+    ``sumproduct_qc_layered_gs``) and the min-sum kernels on the wide word
+    (``minsum_qc_layered_cw``, ``minsum_qc_flooding_cw``), each innermost
+    loop (a backward branch that holds no other) as (instructions, LDS,
+    STS, LDL + STL); and each kernel's SASS instructions in all."""
     import re
     import shutil
 
@@ -489,7 +538,7 @@ def smem_instructions(lib) -> dict:
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True,
                           timeout=300).stdout
-    found = {}
+    found, sizes = {}, {}
     for block in sass.split("Function : ")[1:]:
         name = block.split()[0]
         key = {"_Z17minsum_qc_layeredPKf": "serial-C full-message",
@@ -505,6 +554,8 @@ def smem_instructions(lib) -> dict:
                "_Z25sumproduct_qc_flooding_srPKf":
                    "sum-product flooding registers",
                "_Z20minsum_qc_layered_gsPKf": "group-serial compressed",
+               "_Z20minsum_qc_layered_cwPKf": "serial-C compressed-wide",
+               "_Z21minsum_qc_flooding_cwPKf": "flooding compressed-wide",
                "_Z24sumproduct_qc_layered_gsPKf":
                    "sum-product group-serial registers"}.get(
                    name[:name.index("PKf") + 3] if "PKf" in name else "")
@@ -517,6 +568,8 @@ def smem_instructions(lib) -> dict:
             if m:
                 ins.append((int(m.group(1), 16), m.group(2).split(".")[0],
                             m.group(3)))
+        # the kernel's code size
+        sizes[key] = len(ins)
         loops = []
         for addr, op, rest in ins:
             t = re.search(r"0x([0-9a-f]+)", rest)
@@ -531,10 +584,10 @@ def smem_instructions(lib) -> dict:
              sum(1 for a, op, _ in ins
                  if lo <= a <= hi and op in ("LDL", "STL")))
             for lo, hi in inner)
-    return found
+    return found, sizes
 
 
-def adversarial(schedule, codes, storage_rows, max_err) -> None:
+def adversarial(schedule, cases, storage_rows, max_err) -> None:
     """Integer LLRs in {-3, ..., 3}: tied minima, zero magnitudes and an
     offset above the minimum are common, the cases a compressed check state
     could get wrong. Every min-sum form of ``schedule`` (fixed with the
@@ -543,9 +596,11 @@ def adversarial(schedule, codes, storage_rows, max_err) -> None:
     layered, at each group size, with both drivers), each exactly equal to
     the plain version (equal values: an int8 message that rounds to zero is +0
     in the kernels and may be -0 in the plain version, which no comparison
-    or sum can tell apart). Layered, a code within the compressed state's
-    limits runs G = 1 (the _cs kernels), 2, 3, 4 and mb (the _gs
-    kernels), one beyond them G = 1 and 4 (full messages)."""
+    or sum can tell apart). ``cases``: (code, group sizes) pairs; on a code
+    within the compressed state's limits G = 1 runs the _cs kernels, G > 1
+    the _gs kernels; on a code beyond them by its row degree alone G = 1
+    (and flooding) the wide word's _cw kernels, G > 1 the full messages.
+    Fails if a decode launches another design."""
     import torch
 
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
@@ -553,7 +608,7 @@ def adversarial(schedule, codes, storage_rows, max_err) -> None:
 
     B = 1024
     layered = schedule == "layered"
-    for code in codes:
+    for code, groups in cases:
         qc = code.qc
         gen = torch.Generator(device="cuda")
         gen.manual_seed(71)
@@ -561,13 +616,16 @@ def adversarial(schedule, codes, storage_rows, max_err) -> None:
                             device="cuda").float()
         skip = torch.arange(B, device="cuda") % 3 == 0
         w = random_edge_weights(code, 4, seed=72)
-        fits = mq.design(qc, "min-sum", schedule) != "full"
-        groups = ((1,) if not layered else (1, 2, 3, 4, qc.mb) if fits
-                  else (1, 4))
+        fits = mq._within_limits(qc)
         for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
             for G in groups:
                 state = mq.entry_point(qc, "min-sum", schedule, dtype=dt,
                                        layered_group=G)
+                want = ("compressed" if G == 1 else "group") if fits else (
+                    "compressed-wide" if G == 1 else "full")
+                if mq.design(qc, "min-sum", schedule, G) != want:
+                    fail(f"{code.name} {schedule} G={G}: launches {state}, "
+                         f"not the {want} design")
                 st = dict(schedule=schedule, dtype=dt, msg_qclip=4.0,
                           layered_group=G)
                 for qb in (None, 3):
@@ -790,16 +848,14 @@ def artifact_ber(code, snrdb: float, batches: int, batch: int, seed: int,
     BPSK r = 1 + σ·n with σ = snr^-½, llr = −2r/σ², every bit counted."""
     import torch
 
+    from ldpc_sims_tpu_torch.kernels.compare import floor_llrs
     from ldpc_sims_tpu_torch.ops import bp_decode
 
-    sigma = (10.0 ** (snrdb / 10.0)) ** -0.5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     errs = frames = 0
     for _ in range(batches):
-        r = 1.0 + sigma * torch.randn((batch, code.n), generator=gen,
-                                      device="cuda")
-        bits = bp_decode(-2.0 * r / sigma**2, code, **kw)
+        bits = bp_decode(floor_llrs(code, batch, snrdb, gen), code, **kw)
         errs += int(bits.sum(dtype=torch.int64))
         frames += int(bits.any(dim=1).sum())
     return errs / (batches * batch * code.n), frames
@@ -813,16 +869,14 @@ def info_ber(code, snrdb: float, batches: int, batch: int, seed: int,
     each codeword counted; the error from the per-codeword counts."""
     import torch
 
+    from ldpc_sims_tpu_torch.kernels.compare import floor_llrs
     from ldpc_sims_tpu_torch.ops import bp_decode
 
-    sigma = (10.0 ** (snrdb / 10.0)) ** -0.5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     errs = []
     for _ in range(batches):
-        r = 1.0 + sigma * torch.randn((batch, code.n), generator=gen,
-                                      device="cuda")
-        bits = bp_decode(-2.0 * r / sigma**2, code, **kw)
+        bits = bp_decode(floor_llrs(code, batch, snrdb, gen), code, **kw)
         errs.append(bits[:, :code.k].sum(1, dtype=torch.int64))
     e = torch.cat(errs).double()
     return (float(e.mean()) / code.k,
@@ -995,6 +1049,7 @@ def main() -> None:
     from ldpc_sims_tpu_torch.codes import get_code
     from ldpc_sims_tpu_torch.convert import load_trained_schedule
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.kernels.compare import floor_llrs
     from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, qc_plan
     from ldpc_sims_tpu_torch.ops import bp_decode, pack_decoder_weights
     from ldpc_sims_tpu_torch.ops.chain import LinkConfig
@@ -1020,9 +1075,10 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    # the sum-product kernels with a check's slots in registers and the
-    # group-serial kernels: no slot indexed at run time, so no stack frame
-    for sfx in ("_sr", "_gs"):
+    # the sum-product kernels with a check's slots in registers, the
+    # group-serial kernels and the min-sum kernels on the wide word: no
+    # slot indexed at run time, so no stack frame
+    for sfx in ("_sr", "_gs", "_cw"):
         ks = {k: v for k, v in ptxas_entries(report).items() if sfx in k}
         for k, (stack, regs) in sorted(ks.items()):
             print(f"  {k}: {stack} B stack frame, {regs} registers",
@@ -1419,10 +1475,16 @@ def main() -> None:
     # -- phase 2f: adversarial input for the compressed check state ------
     print("== phase 2f: every serial-C, group-serial and flooding min-sum "
           "form on integer LLRs vs plain versions", flush=True)
-    r23 = get_code("qc1944_r23")  # rows of degree 8-9: full messages
-    adversarial("layered", (w1944, w648, r23), storage_rows, max_err)
-    adversarial("flooding", (w1944, w648, get_code("qc8448_r12"), r23),
+    # rows of degree 8-9, 17-18: the wide word's _cw kernels (qc1944_r23 at
+    # G = 4 on the full messages it keeps)
+    r23 = get_code("qc1944_r23")
+    wide = [get_code(c) for c in ("qc648_r23", "qc648_r56")] + [
+        r23, get_code("qc1944_r56")]
+    adversarial("layered", [(c, (1, 2, 3, 4, c.qc.mb)) for c in (w1944, w648)]
+                + [(c, (1, 4) if c is r23 else (1,)) for c in wide],
                 storage_rows, max_err)
+    adversarial("flooding", [(c, (1,)) for c in (
+        w1944, w648, get_code("qc8448_r12"), *wide)], storage_rows, max_err)
 
     # -- phase 2g: sum-product with a check's slots in registers -----------
     print("== phase 2g: every sum-product form on the kernels with a check's "
@@ -1761,15 +1823,37 @@ def main() -> None:
                                 max_info_bits=steps_per_point * batch
                                 * hcode.k),
             ["minsum_qc_layered_es"], card)
-        if set(ev.entries) != {"minsum_qc_layered_es"}:
-            fail(f"{cname}: launched {ev.entries}, not the full-message "
+        if set(ev.entries) != {"minsum_qc_layered_es_cw"}:
+            fail(f"{cname}: launched {ev.entries}, not the wide word's "
                  "kernel")
+        print(f"  {cname}: launched {ev.entries}", flush=True)
         launches[row] = counts["minsum_qc_layered_es"]
         per_step[row] = counts["minsum_qc_layered_es"] / ev.mc_steps
         bler_within_4sigma(f"{cname} @ {snr:g} dB", res.coded_bler[0],
                            res.frames[0],
                            (art["coded_bler"][k], art["frames"][k]))
         high_llr[cname] = (hcode, hcfg, snr)
+    # one error-floor point of qc1944_r56 on the campaign's channel, 8 x
+    # 32768 frames a decoder through bp_decode, the counters set to 0 just
+    # before and read just after each decoder's run; FER within 4σ of the
+    # artifact's
+    fcode = get_code(FLOOR_CODE)
+    for label, (ref_fer, ref_frames, kw, row) in FLOOR_FER.items():
+        mq.reset_launch_counts()
+        ber, fe = artifact_ber(fcode, FLOOR_SNR, 8, batch, seed=43, **kw)
+        counts = dict(mq.LAUNCHES)
+        entries = dict(mq.ENTRY_LAUNCHES)
+        kname = mq.kernel_name("min-sum", kw["schedule"])
+        if counts[kname] != 8 or set(entries) != {kname + "_cw"}:
+            fail(f"{FLOOR_CODE} {label}: launched {entries}, not {kname}_cw "
+                 "once in each of 8 decodes")
+        launches[row] = counts[kname]
+        per_step[row] = counts[kname] / 8  # launches a decode
+        print(f"  {FLOOR_CODE} {label} @ {FLOOR_SNR:g} dB (error-floor "
+              f"channel, {entries}): coded BER {ber!r}, {fe} frames in error "
+              f"of {8 * batch} [{card}]", flush=True)
+        bler_within_4sigma(f"{FLOOR_CODE} {label} FER @ {FLOOR_SNR:g} dB",
+                           fe / (8 * batch), 8 * batch, (ref_fer, ref_frames))
 
     # -- phase 3e: the bigcode scale run ----------------------------------
     print("== phase 3e: the bigcode run at full width (qc8448_r12, "
@@ -2169,6 +2253,22 @@ def main() -> None:
             ran * Eh * edge_ops("layered", 1, clamp=hcfg.clamp)
             + (batch + ran) * Eh * OPS_PER_EDGE_CHECK),
             mq.entry_point(hqc, "min-sum", "layered", True)))
+    # the error-floor point's decoders on qc1944_r56 (flooding-20,
+    # layered-10) at batch 32768 on the campaign's channel, with the
+    # launches of their phase 3d run, bound as the fixed min-sum rows
+    fqc = fcode.qc
+    Ef = len(qc_plan(fqc)[0]) * fqc.z
+    xf = floor_llrs(fcode, batch, FLOOR_SNR, 44)
+    for label, (_, _, kw, name) in FLOOR_FER.items():
+        max_err[name] = exact(
+            [(mq.bp_qc_cuda(xf, fqc, output="posterior", **kw),
+              decode_roll(xf, fqc, output="posterior", **kw))],
+            f"{name} at batch {batch}")
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xf, fqc, **kw), 10)
+        plain_ms = cuda_time_ms(lambda: decode_roll(xf, fqc, **kw), 2, 1)
+        kernels.append(row(name, ms, plain_ms, bound(
+            batch * fcode.n * 5, batch * Ef * edge_ops(**kw)),
+            mq.entry_point(fqc, "min-sum", kw["schedule"])))
     # the drivers against plain compositions of their passes, at 2.5 dB
     # (where the probe overflows) and 3.0 dB (its compact path), each
     # bound by the iterations and checks its passes ran
@@ -2325,6 +2425,69 @@ def main() -> None:
     print(f"  minsum_qc_flooding@done_in ({todo} of {batch} decoded after a "
           f"flooding probe-4 at 3.5 dB): {ms!r} ms (bound {b_ms!r} ms, "
           f"{b_by}) [{card}]", flush=True)
+    # the error-floor campaign's decoders on the high-rate codes (the wide
+    # word's kernels), printed with their bounds (no row: no main path
+    # launches them): flooding-20, layered-10 and the probe driver (4 probe
+    # iterations, 20 in all) at each campaign's first SNR, batch 32768, each
+    # exactly equal to the plain version; then flooding-20 and layered-20
+    # at bf16 and int8 on qc1944_r56 (the storage rows' conversions)
+    for cname, snr in FLOOR_SHAPES.items():
+        c = get_code(cname)
+        cq = c.qc
+        Ec = len(qc_plan(cq)[0]) * cq.z
+        x = floor_llrs(c, batch, snr, 45)
+        c_bytes = batch * c.n * 5
+        for label, kw in (("flooding-20", fl),
+                          ("layered-10", dict(iterations=10,
+                                              schedule="layered"))):
+            exact([(mq.bp_qc_cuda(x, cq, output="posterior", **kw),
+                    decode_roll(x, cq, output="posterior", **kw))],
+                  f"{cname} {label} at batch {batch}")
+            ms = cuda_time_ms(lambda: mq.bp_qc_cuda(x, cq, **kw), 10)
+            b_ms, b_by = bound(c_bytes, batch * Ec * edge_ops(**kw))
+            print(f"  {cname} {label} @ {snr:g} dB "
+                  f"({mq.entry_point(cq, 'min-sum', kw['schedule'])}): "
+                  f"{ms!r} ms (bound {b_ms!r} ms, {b_by}, share "
+                  f"{b_ms / ms:.3f}) [{card}]", flush=True)
+        # the probe driver, bound by the iterations its passes ran
+        pb_, pit = mq.bp_qc_probe_requeue(x, cq, 20, probe_iters=4,
+                                          output="hard_iters")
+        b1, u1 = decode_roll(x, cq, iterations=4, schedule="layered",
+                             output="hard_unsat")
+        keep = (u1 == 0) & (batch - int((u1 == 0).sum())
+                            <= mq.probe_capacity(batch))
+        exact([(pb_, torch.where(keep[:, None], b1, decode_roll(
+            x, cq, iterations=20, schedule="layered")))],
+            f"{cname} bp_qc_probe_requeue at batch {batch}")
+        redo = int((pit > 4).sum())
+        ms = cuda_time_ms(lambda: mq.bp_qc_probe_requeue(
+            x, cq, 20, probe_iters=4), 10)
+        c_it = Ec * edge_ops("layered", 1)
+        b_ms, b_by = bound(c_bytes, batch * (
+            4 * c_it + Ec * OPS_PER_EDGE_CHECK) + redo * 20 * c_it)
+        print(f"  {cname} probe-plain4-20 @ {snr:g} dB, {redo} of {batch} "
+              f"re-decoded: {ms!r} ms (bound {b_ms!r} ms, {b_by}, share "
+              f"{b_ms / ms:.3f}) [{card}]", flush=True)
+    for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
+        k = {torch.bfloat16: "bf16", torch.int8: "i8"}.get(dt)
+        for label, kw, ops in (
+                ("flooding-20", dict(fl, dtype=dt, msg_qclip=24.0),
+                 edge_ops(**fl) + (20 * 2 * (cv[f"ld_{k}"] + cv[f"st_{k}"])
+                                   if k else 0)),
+                ("layered-20", dict(iterations=20, schedule="layered",
+                                    dtype=dt, msg_qclip=24.0),
+                 edge_ops("layered", 20) + 20 * conv_ops[dt])):
+            if label == "flooding-20" and dt == torch.float32:
+                continue  # the minsum_qc_flooding@qc1944_r56 row
+            exact([(mq.bp_qc_cuda(xf, fqc, output="posterior", **kw),
+                    decode_roll(xf, fqc, output="posterior", **kw))],
+                  f"{FLOOR_CODE} {label} {sfx} at batch {batch}")
+            ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xf, fqc, **kw), 10)
+            b_ms, b_by = bound(batch * fcode.n * 5, batch * Ef * ops)
+            entry = mq.entry_point(fqc, "min-sum", kw["schedule"], dtype=dt)
+            print(f"  {FLOOR_CODE} {label} {sfx} @ {FLOOR_SNR:g} dB "
+                  f"({entry}): {ms!r} ms (bound {b_ms!r} ms, {b_by}, share "
+                  f"{b_ms / ms:.3f}) [{card}]", flush=True)
     # the sum-product forms that no main path launches, printed with their
     # bounds: per-edge weights (12 iterations, flooding-12's random
     # weights), 4-bit messages, bf16 and int8 storage (20 iterations), each
@@ -2385,9 +2548,11 @@ def main() -> None:
     # store a variable; no plan load (the parameter) and no local memory
     d_bar = len(qc_plan(w1944.qc)[0]) / w1944.qc.mb
     v_bar = E / n  # edges a variable
-    for design, loops in smem_instructions(lib).items():
+    loops_by_design, sizes = smem_instructions(lib)
+    for design, loops in loops_by_design.items():
         print(f"  SASS innermost loops of the f32 kernel, {design} design "
-              f"(instructions, LDS, STS, LDL + STL): {loops}", flush=True)
+              f"({sizes[design]} instructions in all; instructions, LDS, "
+              f"STS, LDL + STL): {loops}", flush=True)
     cs_deg = mq.COMPRESSED_LIMITS[0]
     print(f"  shared-memory instructions an edge at wifi1944's mean row "
           f"degree {d_bar:.3f} and {v_bar:.3f} edges a variable: serial-C "
@@ -2400,6 +2565,18 @@ def main() -> None:
           f"registers {2 + 2:.3f}; sum-product flooding full messages "
           f"{4 + 5 + 2 / d_bar + 3 + 3 / v_bar:.3f} (+ 2 local), registers "
           f"{2 + 1 + 1 + 2 / v_bar:.3f}", flush=True)
+    # the wide word on qc1944_r56 (rows of degree 17-18): serial-C as the
+    # compressed design, d + 2 loads and d + 2 stores a check of degree d;
+    # flooding d + 2 loads and 2 stores a check, 2 loads an edge and 2 a
+    # variable in the rebuild; the full messages as on wifi1944
+    d_w = len(qc_plan(fqc)[0]) / fqc.mb
+    v_w = Ef / fcode.n
+    print(f"  shared-memory instructions an edge at qc1944_r56's mean row "
+          f"degree {d_w:.3f} and {v_w:.3f} edges a variable: serial-C full "
+          f"messages {4 + 6 + 2 / d_w:.3f}, compressed-wide "
+          f"{2 + 4 / d_w:.3f}; flooding full messages "
+          f"{4 + 5 + 2 / d_w + 3 + 3 / v_w:.3f}, compressed-wide "
+          f"{1 + 4 / d_w + 2 + 2 / v_w:.3f}", flush=True)
     # one short sweep of the launch tuner
     from ldpc_sims_tpu_torch.kernels import tune
 

@@ -24,7 +24,14 @@ sum-product kernels' forms at wifi1944 (fixed, early stop, weighted,
 32768; the group-serial forms (layered-20 at G = 1, 2, 3, 4, 6 and 12;
 at G = 4, bf16 and int8, early stop, the K6 decoder's weights,
 sum-product; wifi648 at batch 32768, G = 2 and 4; layered-10 at G = 2
-and 4 on qc8448 and qc12288, batch 16384).
+and 4 on qc8448 and qc12288, batch 16384); the rate-2/3, 3/4 and 5/6
+codes, rows of degree 8-18, at batch 32768: the committed TPU sweeps'
+configuration of qc1944_r23, r34 and r56 (layered-20 early stop, clamp
+20, QPSK/OFDM-32 at 3.749, 4.761 and 5.718 dB), the error-floor
+campaign's three decoders (flooding-20, layered-10, the probe driver with
+4 probe iterations and 20 in all) on qc1944_r34/r56 and qc648_r34/r56 at
+its first SNR (all-zero codewords, BPSK, LLR = −2r/σ²), and flooding-20
+and layered-20 on qc1944_r56 at bf16 and int8.
 """
 
 from __future__ import annotations
@@ -36,9 +43,18 @@ import statistics
 import subprocess
 import sys
 
-__all__ = ["main", "time_rows"]
+__all__ = ["floor_llrs", "main", "time_rows"]
 
 SNRS = (1.5, 2.5, 3.0, 3.5)
+# the committed TPU sweeps of the high-rate codes and the point each row
+# takes (docs/artifacts/20260821_qc1944_r*_sweep_tpu.json)
+HIGH_RATE_SWEEP = {"qc1944_r23": 3.749387366082999,
+                   "qc1944_r34": 4.760912590556813,
+                   "qc1944_r56": 5.718487496163564}
+# the error-floor campaign's first SNR a code
+# (docs/artifacts/20260821-11*_error_floor_qc*.json)
+ERROR_FLOOR_SNR = {"qc1944_r34": 5.25, "qc1944_r56": 6.25,
+                   "qc648_r34": 5.5, "qc648_r56": 6.5}
 
 
 def _channel_llrs(code, batch: int, snrdb: float, seed: int):
@@ -56,6 +72,22 @@ def _channel_llrs(code, batch: int, snrdb: float, seed: int):
     rx = phy.awgn(gen, tx, snr)
     sym = phy.ofdm_demodulate(rx)
     return phy.demodulate_qpsk_llr(sym, snr).reshape(batch, code.n)
+
+
+def floor_llrs(code, batch: int, snrdb: float, gen):
+    """The error-floor campaign's channel (examples/error_floor_campaign.py:
+    89-99), also that of the K6 and flooding training scripts: all-zero
+    codewords, BPSK r = 1 + σ·n with σ = snr^-½, LLR = −2r/σ². ``gen`` is a
+    CUDA ``torch.Generator`` to draw from, or a seed for a new one."""
+    import torch
+
+    if isinstance(gen, int):
+        seed, gen = gen, torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+    sigma = (10.0 ** (snrdb / 10.0)) ** -0.5
+    r = 1.0 + sigma * torch.randn((batch, code.n), generator=gen,
+                                  device="cuda")
+    return -2.0 * r / sigma**2
 
 
 def _ms(fn, reps: int) -> float:
@@ -119,6 +151,13 @@ def time_rows(root: str) -> dict:
     q8448 = get_code("qc8448_r12")
     x8448 = torch.randn((16384, q8448.n), generator=gen,
                         device="cuda") * 2 - 4
+
+    high = {c: get_code(c) for c in HIGH_RATE_SWEEP}
+    x_high = {c: _channel_llrs(high[c], batch, s, seed=15)
+              for c, s in HIGH_RATE_SWEEP.items()}
+    floor = {c: get_code(c) for c in ERROR_FLOOR_SNR}
+    x_floor = {c: floor_llrs(floor[c], batch, s, 91)
+               for c, s in ERROR_FLOOR_SNR.items()}
 
     lay8 = dict(iterations=8, schedule="layered", alpha=a8, beta=b8)
     lay20 = dict(iterations=20, schedule="layered")
@@ -232,6 +271,26 @@ def time_rows(root: str) -> dict:
             **kw))
            for s in ("flooding", "layered")
            for k, kw in (("msgq4", dict(msg_qbits=4)), *st.items())},
+        # the high-rate codes (rows of degree 8-18): the TPU sweeps' rows
+        **{f"minsum_qc_layered_es@{c}": (lambda c=c: cuda(
+            x_high[c], high[c].qc, clamp=20.0, early_stop=True,
+            output="hard_iters", **lay20)) for c in HIGH_RATE_SWEEP},
+        # the error-floor campaign's decoders
+        **{f"minsum_qc_flooding@{c}": (lambda c=c: cuda(
+            x_floor[c], floor[c].qc, iterations=20)) for c in ERROR_FLOOR_SNR},
+        **{f"minsum_qc_layered@{c}": (lambda c=c: cuda(
+            x_floor[c], floor[c].qc, iterations=10, schedule="layered"))
+           for c in ERROR_FLOOR_SNR},
+        **{f"bp_qc_probe_requeue@{c}": (lambda c=c: mq.bp_qc_probe_requeue(
+            x_floor[c], floor[c].qc, 20, probe_iters=4, output="hard_iters"))
+           for c in ERROR_FLOOR_SNR},
+        # qc1944_r56's storage types: flooding-20 and layered-20
+        **{f"minsum_qc_flooding@qc1944_r56-{k}": (lambda kw=kw: cuda(
+            x_floor["qc1944_r56"], floor["qc1944_r56"].qc, iterations=20,
+            **kw)) for k, kw in st.items()},
+        **{f"minsum_qc_layered@qc1944_r56-l20{sfx}": (lambda kw=kw: cuda(
+            x_floor["qc1944_r56"], floor["qc1944_r56"].qc, **lay20, **kw))
+           for sfx, kw in (("", {}), *((f"-{k}", v) for k, v in st.items()))},
         # the wifi648-sweep preset's code and SNR
         **{f"sumproduct_qc_{s}{es}@wifi648-{b}": (
             lambda s=s, es=es, x=x648[b]: cuda(

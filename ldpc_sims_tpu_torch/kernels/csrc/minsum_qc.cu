@@ -64,7 +64,11 @@
 // rows, planes and block columns. The twelve layered forms of both rules
 // (the six min-sum and six sum-product layered forms) have a third kernel
 // each, name_gs, group-serial (36 more), which the launcher takes for
-// group > 1 on a code within the same limits.
+// group > 1 on a code within the same limits. The twelve min-sum forms
+// with a name_cs kernel have a fourth, name_cw, on the compressed state's
+// wide word (36 more), which the launcher takes for flooding and group 1
+// on a code beyond the limits by its row degree alone (rows of degree
+// 8-18: the rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes).
 //
 // Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
 // or 2; the three objects are built in parallel and linked into one
@@ -216,13 +220,28 @@
 // 700 W). The min-sum _gs kernels keep the compressed state too: against
 // full messages with a check's slots in registers (64 registers a thread
 // to its 56) it measured 1.04-1.32x faster at f32 and equal at int8
-// (PERF.md). Codes beyond the limits (row degree above 8,
-// more than 64 block rows or block columns or 192 planes: the rate-2/3,
-// 3/4 and 5/6 qc648 and qc1944 codes, row degree 9-18) keep the full
-// messages;
-// every code the main path and the bigcode run decode has rows of degree
-// 5-8, and 8 slots measured 1.05-1.30x faster than 12 (48 registers a
-// thread against 60).
+// (PERF.md). Every code the main path and the bigcode run decode has rows
+// of degree 5-8, and 8 slots measured 1.05-1.30x faster than 12 (48
+// registers a thread against 60), so the codes with rows above 8 slots take
+// the wide word below instead of widening this one.
+//
+// Min-sum on the wide compressed state (the _cw kernels). The rate-2/3,
+// 3/4 and 5/6 qc648 and qc1944 codes have rows of degree 8-9, 11-12 and
+// 17-18 and fit the limits above but for the 8 slots. Their serial-C and
+// flooding min-sum forms keep the same state with a 32-bit word: the
+// exclusive-sign bits of up to 24 slots (bits 0-23) and the slot of the
+// first minimum (bits 24-28); CsState<true> names the word, and every
+// function of the state takes it as a template parameter, so the _cs
+// kernels are the same instantiations as before. A check's slots are
+// unrolled to its row's exact degree, one body for each degree the
+// library's codes have (CwDegrees: 8, 9, 11, 12, 17, 18), dispatched once
+// a block row (serial-C: the CTA's row; flooding: the warp's task), so no
+// slot is guarded and no register array is larger than the row. The
+// flooding plan's column entries carry the slot's sign bit and the slot
+// in the wide word's index field (slot << 24; the narrow word's slot << 8
+// would put a slot of 8 or more into the index field). The other kernel
+// forms on these codes (group-serial min-sum and every sum-product form)
+// keep the full messages.
 //
 // Flooding min-sum on the compressed state. A flooding check reads only
 // its own old messages, so its new state overwrites its old one in place;
@@ -319,6 +338,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #ifndef QC_STORAGE
 #error "compile once per storage type: -DQC_STORAGE=0 (f32), 1 (bf16), 2 (int8)"
@@ -431,6 +451,8 @@ constexpr int kDesignFull = 0;
 constexpr int kDesignCs = 1;
 constexpr int kDesignSr = 2;
 constexpr int kDesignGs = 3;
+// the compressed min-sum check state on its wide word (the _cw kernels)
+constexpr int kDesignCw = 4;
 // whether the flooding _sr kernels keep the LLRs in shared memory (else
 // each rebuild reads them again through L2; PERF.md times both)
 constexpr bool kSrFloodLlrShared = true;
@@ -441,7 +463,8 @@ constexpr int kSmemPerCta = 1024;
 // Bytes of dynamic shared memory one CTA needs: plan (not on the
 // compressed flooding forms, the _sr or the _gs forms, which read theirs
 // from the parameter), c2v planes (Msg) or, on the compressed state
-// (`compressed`), two Msg magnitudes and a 16-bit word per check,
+// (`compressed`), two Msg magnitudes and a 16-bit word per check (a
+// 32-bit word on the _cw kernels),
 // posterior (Post), the LLRs in the posterior's type (the compressed
 // flooding forms, and the flooding _sr forms with kSrFloodLlrShared) and,
 // for a group of G > 1 block rows, the f32 scratch of scratch_planes
@@ -454,8 +477,9 @@ inline int smem_bytes(int z, int mb, int nb, int P, int scratch_planes,
   using S = Storage<kT>;
   const bool sr = design == kDesignSr, gs = design == kDesignGs;
   const int msg = static_cast<int>(sizeof(typename S::Msg));
+  const int word = design == kDesignCw ? 4 : 2;  // CsState's Word
   const int state = compressed
-                        ? align16(mb * z * 2 * msg) + align16(mb * z * 2)
+                        ? align16(mb * z * 2 * msg) + align16(mb * z * word)
                         : align16(P * z * msg);
   const bool param_plan = (compressed && !layered) || sr || gs;
   const bool llrs = !layered && (compressed || (sr && kSrFloodLlrShared));
@@ -629,10 +653,75 @@ __device__ __forceinline__ void rebuild(const Plan& pl,
 // bits 8-10 the slot of the first minimum
 constexpr int kCsMaxDeg = 8;
 constexpr int kCsIdxShift = kCsMaxDeg;
-constexpr unsigned kCsSignMask = (1u << kCsMaxDeg) - 1;
+// slots a wide compressed check takes (the _cw kernels): bits 0-23 of its
+// 32-bit word are the signs, bits 24-28 the slot of the first minimum
+constexpr int kCwMaxDeg = 24;
 // the largest plan the kernel parameter carries
 constexpr int kCsMaxRows = 64;
 constexpr int kCsMaxPlanes = 192;
+
+// The word of a compressed check: its type, the slots it takes, where the
+// slot of the first minimum starts and the masks of both fields. The
+// narrow word (the _cs and _gs kernels) has 8 sign bits and a 3-bit index
+// in 16 bits; the wide word (the _cw kernels) 24 sign bits and a 5-bit
+// index in 32.
+template <bool kWide>
+struct CsState {
+  using Word = uint16_t;
+  static constexpr bool kIsWide = false;
+  static constexpr int kMaxDeg = kCsMaxDeg;
+  static constexpr int kIdxShift = kCsIdxShift;
+  static constexpr unsigned kIdxMask = 7u << kIdxShift;
+  static constexpr unsigned kSignMask = (1u << kMaxDeg) - 1;
+};
+template <>
+struct CsState<true> {
+  using Word = uint32_t;
+  static constexpr bool kIsWide = true;
+  static constexpr int kMaxDeg = kCwMaxDeg;
+  static constexpr int kIdxShift = kCwMaxDeg;
+  static constexpr unsigned kIdxMask = 31u << kIdxShift;
+  static constexpr unsigned kSignMask = (1u << kMaxDeg) - 1;
+};
+using CsNarrow = CsState<false>;
+using CsWide = CsState<true>;
+static_assert(sizeof(CsNarrow::Word) == 2 && sizeof(CsWide::Word) == 4,
+              "smem_bytes sizes the words");
+static_assert(CsWide::kIdxShift + 5 <= 32 &&
+                  (kCwMaxDeg - 1) <= (CsWide::kIdxMask >> CsWide::kIdxShift),
+              "the wide word holds 24 sign bits and a 5-bit slot");
+
+// The row degrees the wide kernels have a body for, each unrolled to its
+// degree: those of the library's codes beyond the narrow word's 8 slots
+// (rows of degree 8-9, 11-12 and 17-18, each code's rows one degree
+// apart), the most common first. A body for every degree up to 24 would
+// make each kernel several times longer (PERF.md). The launcher refuses a
+// code with a row of another degree.
+template <int... kDegs>
+struct Degrees {};
+using CwDegrees = Degrees<17, 11, 8, 18, 12, 9>;
+template <int... kDegs>
+constexpr unsigned degree_mask(Degrees<kDegs...>) {
+  return ((1u << kDegs) | ...);
+}
+constexpr unsigned kCwDegreeMask = degree_mask(CwDegrees{});
+static_assert((kCwDegreeMask >> (kCwMaxDeg + 1)) == 0,
+              "a wide body above the word's slots");
+
+// f(std::integral_constant<int, deg>) for the body of degree deg: one
+// uniform comparison a degree of the list, the last taken without one.
+template <typename F, int kD, int... kRest>
+__device__ __forceinline__ void by_degree(Degrees<kD, kRest...>, int deg,
+                                          const F& f) {
+  if constexpr (sizeof...(kRest) > 0) {
+    if (deg != kD) {
+      by_degree(Degrees<kRest...>{}, deg, f);
+      return;
+    }
+  }
+  f(std::integral_constant<int, kD>{});
+}
+
 
 // The layered sweep's plan in the kernel's parameter space (the constant
 // bank): its index p is the same for every thread of a warp, so each read
@@ -654,10 +743,11 @@ constexpr int kCsMaxCols = 64;
 // the 32,764 B a kernel's parameters may take since CUDA 12.1).
 //   col_ptr[nb+1]  entries of column block j are [col_ptr[j], col_ptr[j+1]),
 //                  by block row (the plain version's order)
-//   col[e]         (row*z, shift, 1 << slot | slot << 8, plane) of entry
-//                  e: its checks' offset, its circulant shift, its slot in
-//                  its block row as the word's sign bit and index field
-//                  hold it, its plane (the weight table's index)
+//   col[e]         (row*z, shift, 1 << slot | slot << kIdxShift, plane) of
+//                  entry e: its checks' offset, its circulant shift, its
+//                  slot in its block row as the word's sign bit and index
+//                  field hold it (kIdxShift: 8 for the narrow word, 24 for
+//                  the wide one), its plane (the weight table's index)
 struct FloodPlan : ParamPlan {
   int col_ptr[kCsMaxCols + 1];
   int4 col[kCsMaxPlanes];
@@ -741,12 +831,12 @@ __device__ __forceinline__ float signed_lift(int8_t m, bool neg, float step) {
   return lift(static_cast<int8_t>(neg ? -m : m), step);
 }
 
-// The message of slot e of a check from its state.
-template <typename Msg>
+// The message of slot e of a check from its state (S: its word).
+template <typename S, typename Msg>
 __device__ __forceinline__ float cs_message(const MagPair<Msg>& s,
                                             unsigned word, int e,
                                             float step) {
-  const bool second = e == static_cast<int>(word >> kCsIdxShift);
+  const bool second = e == static_cast<int>(word >> S::kIdxShift);
   return signed_lift(second ? s.m2 : s.m1, (word >> e) & 1u, step);
 }
 
@@ -756,45 +846,51 @@ __device__ __forceinline__ float cs_message(const MagPair<Msg>& s,
 // kBig, min1 == min2 and slot 0 stands for the index. The exclusive sign
 // of slot e is the parity of the other slots' negatives (negs: bit e set
 // where the v2c of slot e is < 0).
-template <bool kQuant>
+template <bool kQuant, typename S>
 __device__ __forceinline__ unsigned cs_finish(float min1, float min2, int idx,
                                               unsigned negs, const Rule& u,
                                               float& t1, float& t2) {
   t1 = postlude<kQuant>(fmaxf(min1 - u.beta, 0.f) * u.alpha, u);
   t2 = postlude<kQuant>(fmaxf(min2 - u.beta, 0.f) * u.alpha, u);
   const unsigned signs =
-      (negs ^ ((__popc(negs) & 1) ? kCsSignMask : 0u)) & kCsSignMask;
-  return signs | (static_cast<unsigned>(idx < 0 ? 0 : idx) << kCsIdxShift);
+      (negs ^ ((__popc(negs) & 1) ? S::kSignMask : 0u)) & S::kSignMask;
+  return signs | (static_cast<unsigned>(idx < 0 ? 0 : idx) << S::kIdxShift);
 }
 
 // check_update's serial-C form (kFoldPost) for min-sum on the compressed
 // state: the same arithmetic in the same order, with each edge's posterior
 // read once. Pass 1 keeps each slot's
-// posterior value and old message in registers (arrays of kCsMaxDeg,
+// posterior value and old message in registers (arrays of kSlots,
 // unrolled: no slot is indexed at run time), pass 2 writes the posterior
-// as store(pv + (y - old)) and the new state once per check.
-template <bool kQuant, bool kW, int kT>
+// as store(pv + (y - old)) and the new state once per check. S: the word.
+// The narrow word's kernels take kSlots = 8 and guard each slot by the
+// row's degree; the wide word's are called at the row's exact degree
+// kSlots (by_degree), so no slot is guarded.
+template <bool kQuant, bool kW, int kT, typename S = CsNarrow,
+          int kSlots = kCsMaxDeg>
 __device__ __forceinline__ void check_update_cs(
     const ParamPlan& pp, MagPair<typename Storage<kT>::Msg>* mag,
-    uint16_t* word, typename Storage<kT>::Post* post,
+    typename S::Word* word, typename Storage<kT>::Post* post,
     const float* __restrict__ w, int z, int i, int r, const Rule& u) {
   using Msg = typename Storage<kT>::Msg;
   using Post = typename Storage<kT>::Post;
-  const int p0 = pp.row_ptr[i], deg = pp.row_ptr[i + 1] - p0;
+  static_assert(kSlots <= S::kMaxDeg, "more slots than the word's");
+  const int p0 = pp.row_ptr[i];
+  const int deg = S::kIsWide ? kSlots : pp.row_ptr[i + 1] - p0;
   const int c = i * z + r;
   const MagPair<Msg> os = mag[c];
   const unsigned ow = word[c];
-  float pv[kCsMaxDeg], old[kCsMaxDeg], wv[kW ? kCsMaxDeg : 1];
+  float pv[kSlots], old[kSlots], wv[kW ? kSlots : 1];
   float min1 = kBig, min2 = kBig;
   int idx = -1;
   unsigned negs = 0;  // bit e: the v2c of slot e is < 0
 #pragma unroll
-  for (int e = 0; e < kCsMaxDeg; ++e) {
+  for (int e = 0; e < kSlots; ++e) {
     if (e < deg) {
       const int4 pl = pp.plane[p0 + e];
       int q = r + pl.y;
       if (q >= z) q -= z;
-      old[e] = cs_message(os, ow, e, u.sstep);
+      old[e] = cs_message<S>(os, ow, e, u.sstep);
       float m = old[e];
       if constexpr (kW) {
         wv[e] = __ldg(w + (p0 + e) * z + r);
@@ -814,18 +910,18 @@ __device__ __forceinline__ void check_update_cs(
     }
   }
   float t1, t2;
-  const unsigned nw = cs_finish<kQuant>(min1, min2, idx, negs, u, t1, t2);
+  const unsigned nw = cs_finish<kQuant, S>(min1, min2, idx, negs, u, t1, t2);
   const MagPair<Msg> ns{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
 #pragma unroll
-  for (int e = 0; e < kCsMaxDeg; ++e) {
+  for (int e = 0; e < kSlots; ++e) {
     if (e < deg) {
       // int8 folds what the stored message changes by; bf16 the unrounded
       // change, as the TPU kernel does
       float y;
       if constexpr (kT == kInt8) {
-        y = cs_message(ns, nw, e, u.sstep);
+        y = cs_message<S>(ns, nw, e, u.sstep);
       } else {
-        const float t = e == static_cast<int>(nw >> kCsIdxShift) ? t2 : t1;
+        const float t = e == static_cast<int>(nw >> S::kIdxShift) ? t2 : t1;
         y = (nw >> e) & 1u ? -t : t;
       }
       float d = y - old[e];
@@ -837,15 +933,16 @@ __device__ __forceinline__ void check_update_cs(
     }
   }
   mag[c] = ns;
-  word[c] = static_cast<uint16_t>(nw);
+  word[c] = static_cast<typename S::Word>(nw);
 }
 
 // rebuild on the compressed state: variable j*z+q meets check r = q -
 // shift[p] of plane p's block row at the plane's slot.
-template <int kT>
+template <int kT, typename S = CsNarrow>
 __device__ __forceinline__ void rebuild_cs(
     const Plan& pl, const ParamPlan& pp,
-    const MagPair<typename Storage<kT>::Msg>* mag, const uint16_t* word,
+    const MagPair<typename Storage<kT>::Msg>* mag,
+    const typename S::Word* word,
     typename Storage<kT>::Post* post, const float* l,
     const float* __restrict__ w, const float* __restrict__ wl, int z, int n,
     float sstep) {
@@ -859,7 +956,7 @@ __device__ __forceinline__ void rebuild_cs(
       int r = q - info.y;
       if (r < 0) r += z;
       const int c = info.z + r;
-      const float m = cs_message(mag[c], word[c], info.w, sstep);
+      const float m = cs_message<S>(mag[c], word[c], info.w, sstep);
       acc = acc + __ldg(w + p * z + r) * m;
     }
     post[v] = store<Post>(acc, 1.f);
@@ -874,20 +971,20 @@ __device__ __forceinline__ void rebuild_cs(
 // message storage (as the TPU kernel stores and reloads it), the two
 // minima and the signs. One posterior load an edge, a state load and store
 // a check, no posterior store. The slots are unrolled to the degree, so
-// no slot is guarded.
-template <int kDeg, bool kQuant, bool kW, int kT>
-__device__ __forceinline__ void flood_check(
-    const FloodPlan& fp, MagPair<typename Storage<kT>::Msg>* mag,
-    uint16_t* word, const typename Storage<kT>::Post* post,
-    const float* __restrict__ w, int z, int c, int r, int p0,
-    const Rule& u) {
+// no slot is guarded. S: the word. flood_slots is the pass over the slots
+// from the old state (os, ow), into min1, min2, idx and negs (kBig, kBig,
+// -1 and 0 before it); flood_finish writes the new state. The wide word's
+// check pass calls them apart, the slots in a body of the row's degree and
+// one flood_finish after it (one copy of its quantization a kernel).
+template <int kDeg, bool kW, int kT, typename S>
+__device__ __forceinline__ void flood_slots(
+    const FloodPlan& fp, const MagPair<typename Storage<kT>::Msg>& os,
+    unsigned ow, const typename Storage<kT>::Post* post,
+    const float* __restrict__ w, int z, int r, int p0, const Rule& u,
+    float& min1, float& min2, int& idx, unsigned& negs) {
   using Msg = typename Storage<kT>::Msg;
-  const MagPair<Msg> os = mag[c];
-  const unsigned ow = word[c];
-  const int oslot = static_cast<int>(ow >> kCsIdxShift);
-  float min1 = kBig, min2 = kBig;
-  int idx = -1;
-  unsigned negs = 0;
+  static_assert(kDeg <= S::kMaxDeg, "more slots than the word's");
+  const int oslot = static_cast<int>(ow >> S::kIdxShift);
 #pragma unroll
   for (int e = 0; e < kDeg; ++e) {
     const int4 pl = fp.plane[p0 + e];
@@ -907,10 +1004,34 @@ __device__ __forceinline__ void flood_check(
     min1 = first ? a : min1;
     idx = first ? e : idx;
   }
+}
+
+template <bool kQuant, int kT, typename S>
+__device__ __forceinline__ void flood_finish(
+    MagPair<typename Storage<kT>::Msg>* mag, typename S::Word* word, int c,
+    float min1, float min2, int idx, unsigned negs, const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
   float t1, t2;
-  word[c] = static_cast<uint16_t>(
-      cs_finish<kQuant>(min1, min2, idx, negs, u, t1, t2));
+  word[c] = static_cast<typename S::Word>(
+      cs_finish<kQuant, S>(min1, min2, idx, negs, u, t1, t2));
   mag[c] = MagPair<Msg>{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
+}
+
+template <int kDeg, bool kQuant, bool kW, int kT, typename S = CsNarrow>
+__device__ __forceinline__ void flood_check(
+    const FloodPlan& fp, MagPair<typename Storage<kT>::Msg>* mag,
+    typename S::Word* word, const typename Storage<kT>::Post* post,
+    const float* __restrict__ w, int z, int c, int r, int p0,
+    const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
+  const MagPair<Msg> os = mag[c];
+  const unsigned ow = word[c];
+  float min1 = kBig, min2 = kBig;
+  int idx = -1;
+  unsigned negs = 0;
+  flood_slots<kDeg, kW, kT, S>(fp, os, ow, post, w, z, r, p0, u, min1, min2,
+                               idx, negs);
+  flood_finish<kQuant, kT, S>(mag, word, c, min1, min2, idx, negs, u);
 }
 
 // flood_check at the check's degree deg (at most kDeg): one uniform
@@ -932,30 +1053,45 @@ __device__ __forceinline__ void flood_check_deg(
 }
 
 // The flooding check pass on the compressed state. Warps walk (block row,
-// 32 checks), so each plane read from the parameter is warp-uniform.
-template <bool kQuant, bool kW, int kT>
+// 32 checks), so each plane read from the parameter is warp-uniform, and
+// so is the degree: the narrow word's bodies of degrees 8 down to 1
+// (flood_check_deg), the wide word's of the degrees of CwDegrees.
+template <bool kQuant, bool kW, int kT, typename S = CsNarrow>
 __device__ __forceinline__ void flood_checks_cs(
     const FloodPlan& fp, MagPair<typename Storage<kT>::Msg>* mag,
-    uint16_t* word, const typename Storage<kT>::Post* post,
+    typename S::Word* word, const typename Storage<kT>::Post* post,
     const float* __restrict__ w, int z, int mb, WarpWalk wk,
     const Rule& u) {
   for (; wk.b < mb; wk.next()) {
     const int r = wk.at();
     if (r >= z) continue;
-    const int p0 = fp.row_ptr[wk.b];
-    flood_check_deg<kCsMaxDeg, kQuant, kW, kT>(
-        fp.row_ptr[wk.b + 1] - p0, fp, mag, word, post, w, z, wk.b * z + r,
-        r, p0, u);
+    const int p0 = fp.row_ptr[wk.b], deg = fp.row_ptr[wk.b + 1] - p0;
+    const int c = wk.b * z + r;
+    if constexpr (S::kIsWide) {
+      const MagPair<typename Storage<kT>::Msg> os = mag[c];
+      const unsigned ow = word[c];
+      float min1 = kBig, min2 = kBig;
+      int idx = -1;
+      unsigned negs = 0;
+      by_degree(CwDegrees{}, deg, [&](auto d) {
+        flood_slots<decltype(d)::value, kW, kT, S>(
+            fp, os, ow, post, w, z, r, p0, u, min1, min2, idx, negs);
+      });
+      flood_finish<kQuant, kT, S>(mag, word, c, min1, min2, idx, negs, u);
+    } else {
+      flood_check_deg<kCsMaxDeg, kQuant, kW, kT>(deg, fp, mag, word, post, w,
+                                                 z, c, r, p0, u);
+    }
   }
 }
 
 // Edge cp of a column (FloodPlan::col) added to the posterior sum acc of
 // its variable j*z+q: the message of check row*z + (q - shift mod z) at
 // its slot, times its weight (kW).
-template <bool kW, typename Msg>
+template <bool kW, typename S, typename Msg>
 __device__ __forceinline__ float flood_add(float acc, const int4& cp,
                                            const MagPair<Msg>* mag,
-                                           const uint16_t* word,
+                                           const typename S::Word* word,
                                            const float* __restrict__ w, int z,
                                            int q, float sstep) {
   int r = q - cp.y;
@@ -963,12 +1099,12 @@ __device__ __forceinline__ float flood_add(float acc, const int4& cp,
   const int c = cp.x + r;
   const unsigned wd = word[c];
   // cp.z: the slot's sign bit, and the slot in the index field's place
-  const bool second = ((wd ^ static_cast<unsigned>(cp.z)) &
-                       (7u << kCsIdxShift)) == 0;
+  const bool second =
+      ((wd ^ static_cast<unsigned>(cp.z)) & S::kIdxMask) == 0;
   const MagPair<Msg> s = mag[c];
   const float m = signed_lift(second ? s.m2 : s.m1,
                               (wd & static_cast<unsigned>(cp.z) &
-                               kCsSignMask) != 0, sstep);
+                               S::kSignMask) != 0, sstep);
   return acc + (kW ? __ldg(w + cp.w * z + r) * m : m);
 }
 
@@ -977,10 +1113,10 @@ __device__ __forceinline__ float flood_add(float acc, const int4& cp,
 // stored once. The LLR as the posterior's storage holds it: from lv in
 // shared memory (kLlrShared), else rounded from l. The column's entries go
 // two at a time (columns have 2-12).
-template <bool kW, bool kLlrShared, int kT>
+template <bool kW, bool kLlrShared, int kT, typename S = CsNarrow>
 __device__ __forceinline__ void flood_variable_cs(
     const FloodPlan& fp, const MagPair<typename Storage<kT>::Msg>* mag,
-    const uint16_t* word, typename Storage<kT>::Post* post,
+    const typename S::Word* word, typename Storage<kT>::Post* post,
     const typename Storage<kT>::Post* lv, const float* l,
     const float* __restrict__ w, const float* __restrict__ wl, int z, int j,
     int q, float sstep) {
@@ -991,27 +1127,28 @@ __device__ __forceinline__ void flood_variable_cs(
   const int e1 = fp.col_ptr[j + 1];
   int e = fp.col_ptr[j];
   for (; e + 1 < e1; e += 2) {
-    acc = flood_add<kW>(acc, fp.col[e], mag, word, w, z, q, sstep);
-    acc = flood_add<kW>(acc, fp.col[e + 1], mag, word, w, z, q, sstep);
+    acc = flood_add<kW, S>(acc, fp.col[e], mag, word, w, z, q, sstep);
+    acc = flood_add<kW, S>(acc, fp.col[e + 1], mag, word, w, z, q, sstep);
   }
-  if (e < e1) acc = flood_add<kW>(acc, fp.col[e], mag, word, w, z, q, sstep);
+  if (e < e1)
+    acc = flood_add<kW, S>(acc, fp.col[e], mag, word, w, z, q, sstep);
   post[v] = store<Post>(acc, 1.f);
 }
 
 // The posterior rebuild on the compressed state (flooding, and the weighted
 // _gs forms' re-base), warps walking (column block, 32 variables).
-template <bool kW, bool kLlrShared, int kT>
+template <bool kW, bool kLlrShared, int kT, typename S = CsNarrow>
 __device__ __forceinline__ void flood_rebuild_cs(
     const FloodPlan& fp, const MagPair<typename Storage<kT>::Msg>* mag,
-    const uint16_t* word, typename Storage<kT>::Post* post,
+    const typename S::Word* word, typename Storage<kT>::Post* post,
     const typename Storage<kT>::Post* lv, const float* l,
     const float* __restrict__ w, const float* __restrict__ wl, int z, int nb,
     WarpWalk wk, float sstep) {
   for (; wk.b < nb; wk.next()) {
     const int q = wk.at();
     if (q < z)
-      flood_variable_cs<kW, kLlrShared, kT>(fp, mag, word, post, lv, l, w,
-                                            wl, z, wk.b, q, sstep);
+      flood_variable_cs<kW, kLlrShared, kT, S>(fp, mag, word, post, lv, l, w,
+                                               wl, z, wk.b, q, sstep);
   }
 }
 
@@ -1042,7 +1179,7 @@ __device__ __forceinline__ void gs_check_cs(
     const int4 pl = gp.plane[p0 + e];
     int q = r + pl.y;
     if (q >= z) q -= z;
-    old[e] = cs_message(os, ow, e, u.sstep);
+    old[e] = cs_message<CsNarrow>(os, ow, e, u.sstep);
     float m = old[e];
     if constexpr (kW) {
       wv[e] = __ldg(w + (p0 + e) * z + r);
@@ -1059,7 +1196,8 @@ __device__ __forceinline__ void gs_check_cs(
     idx = first ? e : idx;
   }
   float t1, t2;
-  const unsigned nw = cs_finish<kQuant>(min1, min2, idx, negs, u, t1, t2);
+  const unsigned nw =
+      cs_finish<kQuant, CsNarrow>(min1, min2, idx, negs, u, t1, t2);
   const MagPair<Msg> ns{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
 #pragma unroll
   for (int e = 0; e < kDeg; ++e) {
@@ -1067,7 +1205,7 @@ __device__ __forceinline__ void gs_check_cs(
     // change, as the TPU kernel does
     float y;
     if constexpr (kT == kInt8) {
-      y = cs_message(ns, nw, e, u.sstep);
+      y = cs_message<CsNarrow>(ns, nw, e, u.sstep);
     } else {
       const float t = e == static_cast<int>(nw >> kCsIdxShift) ? t2 : t1;
       y = (nw >> e) & 1u ? -t : t;
@@ -1439,22 +1577,31 @@ __device__ __forceinline__ void iterate(const Plan& pl,
 }
 
 // `iterate` for the serial-C min-sum forms on the compressed state: the
-// same sweep, folds and barriers.
-template <bool kQuant, bool kW, int kT>
+// same sweep, folds and barriers. S: the word; the wide word's checks are
+// unrolled to their block row's degree (uniform for the CTA).
+template <bool kQuant, bool kW, int kT, typename S = CsNarrow>
 __device__ __forceinline__ void iterate_cs(
     const Plan& pl, const ParamPlan& pp,
-    MagPair<typename Storage<kT>::Msg>* mag, uint16_t* word,
+    MagPair<typename Storage<kT>::Msg>* mag, typename S::Word* word,
     typename Storage<kT>::Post* post, const float* l, int z, int mb, int n,
     const Step& st) {
   for (int i = 0; i < mb; ++i) {
-    for (int r = threadIdx.x; r < z; r += blockDim.x)
-      check_update_cs<kQuant, kW, kT>(pp, mag, word, post, st.w, z, i, r,
-                                      st.u);
+    if constexpr (S::kIsWide) {
+      by_degree(CwDegrees{}, pp.row_ptr[i + 1] - pp.row_ptr[i], [&](auto d) {
+        for (int r = threadIdx.x; r < z; r += blockDim.x)
+          check_update_cs<kQuant, kW, kT, S, decltype(d)::value>(
+              pp, mag, word, post, st.w, z, i, r, st.u);
+      });
+    } else {
+      for (int r = threadIdx.x; r < z; r += blockDim.x)
+        check_update_cs<kQuant, kW, kT>(pp, mag, word, post, st.w, z, i, r,
+                                        st.u);
+    }
     __syncthreads();
   }
   if constexpr (kW) {
-    rebuild_cs<kT>(pl, pp, mag, word, post, l, st.w_next, st.wl_next, z, n,
-                   st.u.sstep);
+    rebuild_cs<kT, S>(pl, pp, mag, word, post, l, st.w_next, st.wl_next, z,
+                      n, st.u.sstep);
     __syncthreads();
   }
 }
@@ -1513,9 +1660,11 @@ __device__ __forceinline__ int local_unsat_cs(const FloodPlan& fp,
 // group-serial forms (layered, group > 1) with their plan read from gp (and
 // fp, the same parameter): min-sum on the compressed state (kCs),
 // sum-product on full messages. Else the full messages, and the three are
-// unused.
+// unused. kWide: the compressed state's wide word (the _cw kernels,
+// serial-C and flooding min-sum on rows of degree 8-18).
 template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
-          int kT, bool kCs = false, bool kSr = false, bool kGs = false>
+          int kT, bool kCs = false, bool kSr = false, bool kGs = false,
+          bool kWide = false>
 __device__ __forceinline__ void decode(
     const float* __restrict__ llr, float* __restrict__ post_out,
     int8_t* __restrict__ bits_out, const int* __restrict__ done_in,
@@ -1532,6 +1681,10 @@ __device__ __forceinline__ void decode(
   static_assert(!kGs || (kLayered && !kSr && kCs == (kMethod == kMinSum)),
                 "the _gs kernels are the group-serial layered forms', "
                 "min-sum on the compressed state");
+  static_assert(!kWide || (kCs && !kGs),
+                "the wide word is the serial-C and flooding min-sum forms'");
+  using S = CsState<kWide>;
+  using Word = typename S::Word;
   // flooding on the compressed state: no plan in shared memory
   constexpr bool kFloodCs = kCs && !kLayered;
   // the plan from the parameter alone (fp, gp), none in shared memory
@@ -1554,11 +1707,11 @@ __device__ __forceinline__ void decode(
   // word per check
   Msg* msg = reinterpret_cast<Msg*>(smem + off);
   MagPair<Msg>* mag = reinterpret_cast<MagPair<Msg>*>(smem + off);
-  uint16_t* word = nullptr;
+  Word* word = nullptr;
   if constexpr (kCs) {
     off += align16(mb * z * static_cast<int>(sizeof(MagPair<Msg>)));
-    word = reinterpret_cast<uint16_t*>(smem + off);
-    off += align16(mb * z * 2);
+    word = reinterpret_cast<Word*>(smem + off);
+    off += align16(mb * z * static_cast<int>(sizeof(Word)));
   } else {
     off += align16(P * z * static_cast<int>(sizeof(Msg)));
   }
@@ -1596,10 +1749,10 @@ __device__ __forceinline__ void decode(
   if constexpr (kW) {
     // the posterior of the zero messages under the first weight row
     if constexpr (kFloodCs || (kGs && kCs))
-      flood_rebuild_cs<true, kLlrShared, kT>(*fp, mag, word, post, lv, l, wm,
-                                             wl, z, nb, walk, sstep);
+      flood_rebuild_cs<true, kLlrShared, kT, S>(*fp, mag, word, post, lv, l,
+                                                wm, wl, z, nb, walk, sstep);
     else if constexpr (kCs)
-      rebuild_cs<kT>(pl, *pp, mag, word, post, l, wm, wl, z, n, sstep);
+      rebuild_cs<kT, S>(pl, *pp, mag, word, post, l, wm, wl, z, n, sstep);
     else if constexpr (kSr || kGs)
       rebuild_sr<true, kLlrShared, kT>(*fp, msg, post, lv, l, wm, wl, z, nb,
                                        walk, sstep);
@@ -1623,14 +1776,16 @@ __device__ __forceinline__ void decode(
       iterate_gs<kCs, kQuant, kW, kT>(*gp, msg, mag, word, post, delta, l, z,
                                       mb, nb, group, walk, st);
     } else if constexpr (kFloodCs) {
-      flood_checks_cs<kQuant, kW, kT>(*fp, mag, word, post, st.w, z, mb, walk,
-                                      st.u);
+      flood_checks_cs<kQuant, kW, kT, S>(*fp, mag, word, post, st.w, z, mb,
+                                         walk, st.u);
       __syncthreads();
-      flood_rebuild_cs<kW, true, kT>(*fp, mag, word, post, lv, l, st.w_next,
-                                     st.wl_next, z, nb, walk, st.u.sstep);
+      flood_rebuild_cs<kW, true, kT, S>(*fp, mag, word, post, lv, l,
+                                        st.w_next, st.wl_next, z, nb, walk,
+                                        st.u.sstep);
       __syncthreads();
     } else if constexpr (kCs) {
-      iterate_cs<kQuant, kW, kT>(pl, *pp, mag, word, post, l, z, mb, n, st);
+      iterate_cs<kQuant, kW, kT, S>(pl, *pp, mag, word, post, l, z, mb, n,
+                                    st);
     } else if constexpr (kSr) {
       iterate_sr<kLayered, kQuant, kW, kLlrShared, kT>(*fp, msg, post, lv, l,
                                                        z, mb, nb, walk, st);
@@ -1714,33 +1869,37 @@ constexpr int kStorage = kInt8;
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
         sinv, nullptr, nullptr, nullptr);                                   \
   }
-// The serial-C min-sum forms on the compressed state (entry point name_cs):
-// the same arguments and the sweep's plan as a parameter.
-#define QC_KERNEL_CS(name, early_stop, quant, weighted)                     \
-  __global__ void QC_CAT(QC_CAT(name, _cs), QC_SUFFIX)(                     \
+// The serial-C min-sum forms on the compressed state (entry point name_cs,
+// or name_cw on the wide word): the same arguments and the sweep's plan as
+// a parameter.
+#define QC_KERNEL_CS(name, sfx, wide, early_stop, quant, weighted)          \
+  __global__ void QC_CAT(QC_CAT(name, sfx), QC_SUFFIX)(                     \
       const float* llr, float* post_out, int8_t* bits_out,                  \
       const int* done_in, int* aux_out, const int* plan, const float* ab,   \
       const float* wm, const float* wl, int z, int mb, int nb, int P,       \
       int iterations, int check_every, int group, float clamp, float qstep, \
       float qclip, float sstep, float sinv,                                 \
       const __grid_constant__ ParamPlan pp) {                               \
-    decode<kMinSum, true, early_stop, quant, weighted, kStorage, true>(     \
+    decode<kMinSum, true, early_stop, quant, weighted, kStorage, true,      \
+           false, false, wide>(                                             \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
         sinv, &pp, nullptr, nullptr);                                       \
   }
-// The flooding min-sum forms on the compressed state (name_cs): the same
-// arguments and the flooding plan as a parameter.
-#define QC_KERNEL_FLOOD_CS(name, early_stop, quant, weighted)               \
+// The flooding min-sum forms on the compressed state (name_cs, or name_cw
+// on the wide word): the same arguments and the flooding plan as a
+// parameter.
+#define QC_KERNEL_FLOOD_CS(name, sfx, wide, early_stop, quant, weighted)    \
   __global__ void __launch_bounds__(1024)                                   \
-      QC_CAT(QC_CAT(name, _cs), QC_SUFFIX)(                                 \
+      QC_CAT(QC_CAT(name, sfx), QC_SUFFIX)(                                 \
       const float* llr, float* post_out, int8_t* bits_out,                  \
       const int* done_in, int* aux_out, const int* plan, const float* ab,   \
       const float* wm, const float* wl, int z, int mb, int nb, int P,       \
       int iterations, int check_every, int group, float clamp, float qstep, \
       float qclip, float sstep, float sinv,                                 \
       const __grid_constant__ FloodPlan fp) {                               \
-    decode<kMinSum, false, early_stop, quant, weighted, kStorage, true>(    \
+    decode<kMinSum, false, early_stop, quant, weighted, kStorage, true,     \
+           false, false, wide>(                                             \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
         sinv, nullptr, &fp, nullptr);                                       \
@@ -1807,18 +1966,30 @@ QC_KERNEL(sumproduct_qc_layered_w, kSumProduct, true, false, false, true)
 QC_KERNEL(sumproduct_qc_flooding_w_msgq, kSumProduct, false, false, true,
           true)
 QC_KERNEL(sumproduct_qc_layered_w_msgq, kSumProduct, true, false, true, true)
-QC_KERNEL_CS(minsum_qc_layered, false, false, false)
-QC_KERNEL_CS(minsum_qc_layered_es, true, false, false)
-QC_KERNEL_CS(minsum_qc_layered_msgq, false, true, false)
-QC_KERNEL_CS(minsum_qc_layered_es_msgq, true, true, false)
-QC_KERNEL_CS(minsum_qc_layered_w, false, false, true)
-QC_KERNEL_CS(minsum_qc_layered_w_msgq, false, true, true)
-QC_KERNEL_FLOOD_CS(minsum_qc_flooding, false, false, false)
-QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es, true, false, false)
-QC_KERNEL_FLOOD_CS(minsum_qc_flooding_msgq, false, true, false)
-QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es_msgq, true, true, false)
-QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w, false, false, true)
-QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, false, true, true)
+QC_KERNEL_CS(minsum_qc_layered, _cs, false, false, false, false)
+QC_KERNEL_CS(minsum_qc_layered_es, _cs, false, true, false, false)
+QC_KERNEL_CS(minsum_qc_layered_msgq, _cs, false, false, true, false)
+QC_KERNEL_CS(minsum_qc_layered_es_msgq, _cs, false, true, true, false)
+QC_KERNEL_CS(minsum_qc_layered_w, _cs, false, false, false, true)
+QC_KERNEL_CS(minsum_qc_layered_w_msgq, _cs, false, false, true, true)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding, _cs, false, false, false, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es, _cs, false, true, false, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_msgq, _cs, false, false, true, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es_msgq, _cs, false, true, true, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w, _cs, false, false, false, true)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, _cs, false, false, true, true)
+QC_KERNEL_CS(minsum_qc_layered, _cw, true, false, false, false)
+QC_KERNEL_CS(minsum_qc_layered_es, _cw, true, true, false, false)
+QC_KERNEL_CS(minsum_qc_layered_msgq, _cw, true, false, true, false)
+QC_KERNEL_CS(minsum_qc_layered_es_msgq, _cw, true, true, true, false)
+QC_KERNEL_CS(minsum_qc_layered_w, _cw, true, false, false, true)
+QC_KERNEL_CS(minsum_qc_layered_w_msgq, _cw, true, false, true, true)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding, _cw, true, false, false, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es, _cw, true, true, false, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_msgq, _cw, true, false, true, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es_msgq, _cw, true, true, true, false)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w, _cw, true, false, false, true)
+QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, _cw, true, false, true, true)
 QC_KERNEL_SR(sumproduct_qc_flooding, false, false, false, false)
 QC_KERNEL_SR(sumproduct_qc_layered, true, false, false, false)
 QC_KERNEL_SR(sumproduct_qc_flooding_es, false, true, false, false)
@@ -1884,6 +2055,17 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
       {QC_K(minsum_qc_flooding_es_cs), QC_K(minsum_qc_flooding_es_msgq_cs)}};
   static const KernelFloodCs kFloodCompressedW[2] = {
       QC_K(minsum_qc_flooding_w_cs), QC_K(minsum_qc_flooding_w_msgq_cs)};
+  // the same forms on the wide word (the _cw kernels)
+  static const KernelCs kCompressedWide[2][2] = {
+      {QC_K(minsum_qc_layered_cw), QC_K(minsum_qc_layered_msgq_cw)},
+      {QC_K(minsum_qc_layered_es_cw), QC_K(minsum_qc_layered_es_msgq_cw)}};
+  static const KernelCs kCompressedWideW[2] = {
+      QC_K(minsum_qc_layered_w_cw), QC_K(minsum_qc_layered_w_msgq_cw)};
+  static const KernelFloodCs kFloodWide[2][2] = {
+      {QC_K(minsum_qc_flooding_cw), QC_K(minsum_qc_flooding_msgq_cw)},
+      {QC_K(minsum_qc_flooding_es_cw), QC_K(minsum_qc_flooding_es_msgq_cw)}};
+  static const KernelFloodCs kFloodWideW[2] = {
+      QC_K(minsum_qc_flooding_w_cw), QC_K(minsum_qc_flooding_w_msgq_cw)};
   // the _sr kernels by [layered][early_stop][quant], weighted by
   // [layered][quant]
   static const KernelFloodCs kRegisters[2][2][2] = {
@@ -1933,16 +2115,24 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   // the compressed state (min-sum) and the _sr kernels (sum-product):
   // flooding or serial-C; the _gs kernels: group-serial (both rules); each
   // on a code whose rows, block rows, planes and block columns fit the
-  // state's word, the register arrays and the parameter's plan
+  // state's word, the register arrays and the parameter's plan. The _cw
+  // kernels: min-sum flooding or serial-C on a code whose rows fit the
+  // wide word and each have a body of their degree (CwDegrees)
   if (group > mb) group = mb;
-  if (design < kDesignFull || design > kDesignGs)
+  if (design < kDesignFull || design > kDesignCw)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int max_deg = design == kDesignCw ? kCwMaxDeg : kCsMaxDeg;
   if (design != kDesignFull &&
       ((design == kDesignGs) != (group > 1) ||
        (design != kDesignGs && method != (design == kDesignSr ? 1 : 0)) ||
-       plan_host == nullptr || row_deg > kCsMaxDeg || mb > kCsMaxRows ||
+       plan_host == nullptr || row_deg > max_deg || mb > kCsMaxRows ||
        P > kCsMaxPlanes || nb > kCsMaxCols))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kDesignCw) {
+    for (int i = 0; i < mb; ++i)
+      if (((kCwDegreeMask >> (plan_host[i + 1] - plan_host[i])) & 1u) == 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
   // the group plan's header: G, groups, fold entries, shared planes, the
   // largest group's shared planes (kernels/minsum_qc.py:group_plan)
   if (design == kDesignGs &&
@@ -1961,6 +2151,10 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     fn_cs = weighted ? kCompressedW[qu] : kCompressed[es][qu];
   else if (design == kDesignCs)
     fn_fp = weighted ? kFloodCompressedW[qu] : kFloodCompressed[es][qu];
+  else if (design == kDesignCw && layered)
+    fn_cs = weighted ? kCompressedWideW[qu] : kCompressedWide[es][qu];
+  else if (design == kDesignCw)
+    fn_fp = weighted ? kFloodWideW[qu] : kFloodWide[es][qu];
   else if (design == kDesignSr)
     fn_fp = weighted ? kRegistersW[ly][qu] : kRegisters[ly][es][qu];
   else if (design == kDesignGs)
@@ -1977,7 +2171,7 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
       : group > 1         ? (group * row_deg < P ? group * row_deg : P)
                           : 0;
   const bool compressed =
-      design == kDesignCs ||
+      design == kDesignCs || design == kDesignCw ||
       (design == kDesignGs && method == 0);
   const int smem = smem_bytes<kStorage>(z, mb, nb, P, scratch_planes, design,
                                         layered != 0, compressed);
@@ -2025,9 +2219,13 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
         gp.plane[p] = make_int4(plane_col[p] * z, plane_shift[p], i * z,
                                 p - plan_host[i]);
     for (int j = 0; j <= nb; ++j) gp.col_ptr[j] = col_ptr[j];
+    // the slot's sign bit and index field where the design's word keeps
+    // them (8 sign bits, or 24 on the wide word)
+    const int shift =
+        design == kDesignCw ? CsWide::kIdxShift : CsNarrow::kIdxShift;
     for (int e = 0; e < P; ++e) {
       const int4 pl = gp.plane[col_planes[e]];
-      gp.col[e] = make_int4(pl.z, pl.y, (1 << pl.w) | (pl.w << kCsIdxShift),
+      gp.col[e] = make_int4(pl.z, pl.y, (1 << pl.w) | (pl.w << shift),
                             col_planes[e]);
     }
     if (fn_gs != nullptr) {
@@ -2090,7 +2288,9 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // same ints on the host. design: kDesignFull (0) the full messages;
 // kDesignCs (1) the compressed check state of the min-sum forms, kDesignSr
 // (2) the sum-product forms with a check's slots in registers, each
-// flooding or serial-C with group 1 (the _cs and _sr kernels); kDesignGs
+// flooding or serial-C with group 1 (the _cs and _sr kernels); kDesignCw
+// (4) the min-sum forms of kDesignCs on the wide word, on codes with rows
+// above 8 slots (the _cw kernels, bp_qc_wide_limits); kDesignGs
 // (3) the group-serial forms of both rules with group > 1 (the _gs
 // kernels), which also read group_host (kernels/minsum_qc.py:group_plan)
 // into the parameter's GroupPlan (or null for the other designs); each
@@ -2137,6 +2337,14 @@ int bp_qc_compressed_limits(int* out) {
   out[1] = kCsMaxRows;
   out[2] = kCsMaxPlanes;
   out[3] = kCsMaxCols;
+  return 0;
+}
+
+// The limits of the wide word (the _cw kernels): its slots, and a mask of
+// the row degrees they have a body for (bit d: degree d).
+int bp_qc_wide_limits(int* out) {
+  out[0] = kCwMaxDeg;
+  out[1] = static_cast<int>(kCwDegreeMask);
   return 0;
 }
 

@@ -22,8 +22,11 @@ both rules take the ``_gs`` kernels: the per-group plan of
 :func:`group_plan` in the kernel parameter, a private plane's change
 folded at once and only the shared planes through the scratch, min-sum on
 the compressed state and sum-product with its slots in registers. Codes
-beyond the limits keep the full messages with the plan in shared memory.
-The source is
+beyond the limits by their row degree alone (rows of 8-18 slots: the
+rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes) take the ``_cw`` kernels for
+min-sum flooding and serial-C: the compressed state with a 32-bit word
+(``WIDE_LIMITS``). Every other form beyond the limits keeps the full
+messages with the plan in shared memory. The source is
 compiled with ``nvcc`` for ``sm_90a``, once per storage type in
 parallel, into ``build/kernels/`` of the checkout on first use, linked
 into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
@@ -73,6 +76,7 @@ __all__ = [
     "KERNELS",
     "KERNELS_W",
     "SOURCE",
+    "WIDE_LIMITS",
     "bp_qc_cuda",
     "bp_qc_probe_requeue",
     "bp_qc_requeue",
@@ -131,10 +135,16 @@ _SMEM_LIMIT = 232_448
 # 8 sign bits), block rows, planes and block columns (the kernel
 # parameter's plan)
 COMPRESSED_LIMITS = (8, 64, 192, 64)
+# the compressed state's wide word (csrc/minsum_qc.cu: kCwMaxDeg,
+# CwDegrees): its sign bits, and the row degrees its kernels have a body
+# for (those of the library's codes with rows above 8 slots); the block
+# rows, planes and block columns are COMPRESSED_LIMITS'
+WIDE_LIMITS = (24, (8, 9, 11, 12, 17, 18))
 # the kernel designs, bp_qc_decode's `design` (csrc/minsum_qc.cu:
-# kDesignFull, kDesignCs, kDesignSr, kDesignGs) and the entry points' suffix
+# kDesignFull, kDesignCs, kDesignSr, kDesignGs, kDesignCw) and the entry
+# points' suffix
 DESIGNS = {"full": (0, ""), "compressed": (1, "_cs"), "registers": (2, "_sr"),
-           "group": (3, "_gs")}
+           "group": (3, "_gs"), "compressed-wide": (4, "_cw")}
 # the group-serial plan in the kernel parameter (csrc/minsum_qc.cu:
 # GroupPlan): groups (G ≥ 2 over at most 64 block rows) and fold entries
 # (two planes or more each, of at most 192), and the bytes a kernel's
@@ -295,6 +305,14 @@ def _library() -> ctypes.CDLL:
     if tuple(limits) != COMPRESSED_LIMITS:
         raise RuntimeError(f"the library's compressed-state limits "
                            f"{tuple(limits)} are not {COMPRESSED_LIMITS}")
+    lib.bp_qc_wide_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.bp_qc_wide_limits.restype = i32
+    wide = (ctypes.c_int * 2)()
+    lib.bp_qc_wide_limits(wide)
+    want = (WIDE_LIMITS[0], sum(1 << d for d in WIDE_LIMITS[1]))
+    if tuple(wide) != want:
+        raise RuntimeError(f"the library's wide-word limits (slots, degree "
+                           f"mask) {tuple(wide)} are not {want}")
     lib.bp_qc_group_plan_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.bp_qc_group_plan_limits.restype = i32
     group = (ctypes.c_int * 3)()
@@ -322,14 +340,19 @@ def _plan_array(qc: QcStructure) -> np.ndarray:
     ]).astype(np.int32)
 
 
-def _within_limits(qc: QcStructure) -> bool:
+def _within_limits(qc: QcStructure, wide: bool = False) -> bool:
     """A code within ``COMPRESSED_LIMITS`` (row degree, block rows, planes,
     block columns): its plan fits the kernel parameter and its rows the
-    register arrays."""
+    register arrays. ``wide``: within them but for the row degree, each
+    row's degree one of ``WIDE_LIMITS``' (the wide word's bodies)."""
     planes, group_c, _ = qc_plan(qc)
     degree = max(len(ps) for ps in group_c)
     max_deg, max_rows, max_planes, max_cols = COMPRESSED_LIMITS
-    return (degree <= max_deg and qc.mb <= max_rows
+    if wide:
+        rows_fit = all(len(ps) in WIDE_LIMITS[1] for ps in group_c)
+    else:
+        rows_fit = degree <= max_deg
+    return (rows_fit and qc.mb <= max_rows
             and len(planes) <= max_planes and qc.nb <= max_cols)
 
 
@@ -339,8 +362,10 @@ def compressed_state(qc: QcStructure, method: str = "min-sum",
     """Whether a decode keeps the compressed check state (csrc/minsum_qc.cu:
     two stored magnitudes and a word of signs and index a check): the
     min-sum forms, flooding, serial-C and group-serial, on a code within
-    ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block columns).
-    Every other form keeps the full messages."""
+    ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block columns),
+    and flooding and serial-C on the wide word on a code beyond them by
+    its row degree alone (:func:`design`). Every other form keeps the full
+    messages."""
     return (method == "min-sum"
             and design(qc, method, schedule, layered_group) != "full")
 
@@ -365,10 +390,16 @@ def design(qc: QcStructure, method: str, schedule: str,
     """The kernel design a decode launches, a key of ``DESIGNS``, on a code
     within ``COMPRESSED_LIMITS``: 'group' for the group-serial forms
     (layered, ``min(layered_group, mb) > 1``), else 'compressed'
-    (min-sum) or 'registers' (sum-product); 'full' beyond the limits."""
+    (min-sum) or 'registers' (sum-product). Beyond the limits by the row
+    degree alone (each row's degree one of ``WIDE_LIMITS``'), min-sum
+    flooding and serial-C take 'compressed-wide'; every other decode
+    beyond the limits 'full'."""
+    group = schedule == "layered" and min(layered_group, qc.mb) > 1
     if not _within_limits(qc):
-        return "full"
-    if schedule == "layered" and min(layered_group, qc.mb) > 1:
+        wide = (method == "min-sum" and not group
+                and _within_limits(qc, wide=True))
+        return "compressed-wide" if wide else "full"
+    if group:
         return "group"
     return "compressed" if method == "min-sum" else "registers"
 
@@ -454,7 +485,8 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     group-serial kernels, whose plan is the kernel's parameter); the c2v
     planes (4, 2 or 1 B a message for f32, bf16, int8) or, on the
     compressed state (:func:`compressed_state`), two stored magnitudes and
-    a 2-byte word a check; the posterior (2 B a variable for bf16, else 4),
+    a 2-byte word a check (a 4-byte word on the wide word's kernels,
+    'compressed-wide'); the posterior (2 B a variable for bf16, else 4),
     and the LLRs in its type for the flooding forms that read their plan
     from the parameter; and for a group-serial launch the f32 scratch of
     the message changes: the largest group's shared planes
@@ -481,7 +513,8 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     else:
         scratch = min(P, G * degree) * qc.z if G > 1 else 0
     flooding = schedule == "flooding"
-    state = (a16(2 * msg * checks) + a16(2 * checks) if cs
+    word = 4 if kind == "compressed-wide" else 2
+    state = (a16(2 * msg * checks) + a16(word * checks) if cs
              else a16(msg * P * qc.z))
     param_plan = (cs and flooding) or sr or gs
     plan = 0 if param_plan else a16(4 * (qc.mb + 1 + 3 * P + qc.nb + 1))

@@ -76,7 +76,7 @@ def _check_ported(cfg: LinkConfig) -> None:
         raise ValueError(f"unknown agc {cfg.agc!r}")
     if cfg.snr_per_symbol:
         raise NotImplementedError(
-            "snr_per_symbol is not ported yet (ROADMAP A5)"
+            "snr_per_symbol is not ported yet (ROADMAP A10)"
         )
 
 

@@ -209,12 +209,30 @@ def test_link_step_quantized_adc_decodes(agc, snrdb):
 
 
 @pytest.mark.parametrize("over, match", [
-    (dict(snr_per_symbol=True), "ROADMAP A5"),
+    (dict(snr_per_symbol=True), "ROADMAP A10"),
 ])
 def test_link_step_unported_raise(over, match):
     cfg = LinkConfig(bp_method="min-sum", **over)
     with pytest.raises(NotImplementedError, match=match):
         link_step(torch.Generator(), 3.0, get_code("wifi648"), cfg, 8)
+
+
+@pytest.mark.parametrize("argv", [
+    ["sweep", "--preset", "small-cpu", "--seed", "7"],
+    ["sweep", "--code", "wifi648", "--method", "min-sum", "--seed", "7"],
+], ids=["preset", "flags"])
+def test_sweep_passes_its_seed(argv):
+    """``sweep --seed`` reaches the sweep's SweepConfig, with a preset and
+    with flags. The JAX CLI builds its SweepConfig without the seed
+    (ldpc_sims_tpu/cli/main.py:227, :232-237), so every JAX sweep runs
+    seed 0 whatever --seed says; the port keeps the seed it is given
+    (ROADMAP C5)."""
+    from ldpc_sims_tpu_torch.cli.main import build_parser, sweep_configs
+
+    _, _, sweep, _, _ = sweep_configs(build_parser().parse_args(argv))
+    assert sweep.seed == 7
+    default = build_parser().parse_args(argv[:-2])
+    assert sweep_configs(default)[2].seed == default.seed
 
 
 SMALL = LinkConfig(bp_iterations=3, bp_method="min-sum", clamp=None)

@@ -606,8 +606,8 @@ def test_serial_c_minsum_integer_llrs(cuda, name, dtype, schedule):
     """Serial-C and flooding min-sum on integer LLRs (tied minima, zero
     magnitudes, β above the minimum) equal the plain version: on the
     compressed check state (wifi648, rows of degree 7-8 at the state's
-    8-slot limit; qc8448_r12) and with full messages beyond it
-    (qc1944_r23, degree 8-9)."""
+    8-slot limit; qc8448_r12) and on its wide word beyond that limit
+    (qc1944_r23, degree 8-9: the _cw kernels)."""
     code = get_code(name)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(3)
@@ -616,10 +616,14 @@ def test_serial_c_minsum_integer_llrs(cuda, name, dtype, schedule):
     kw = dict(iterations=4, schedule=schedule, dtype=dtype, msg_qclip=4.0,
               alpha=(1.0, 0.75, 0.5, 1.0), beta=(0.0, 1.0, 2.5, 0.5),
               clamp=2.0, output="posterior")
-    assert mq.compressed_state(code.qc, schedule=schedule) == (
-        name != "qc1944_r23")
+    assert mq.compressed_state(code.qc, schedule=schedule)
+    assert mq.design(code.qc, "min-sum", schedule) == (
+        "compressed-wide" if name == "qc1944_r23" else "compressed")
+    mq.reset_launch_counts()
     assert torch.equal(mq.bp_qc_cuda(x, code.qc, **kw),
                        decode_roll(x, code.qc, **kw))
+    assert mq.ENTRY_LAUNCHES == {
+        mq.entry_point(code.qc, "min-sum", schedule, dtype=dtype): 1}
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
@@ -690,7 +694,8 @@ def test_group_serial_kernels_exactly_equal(cuda, name, dtype, method):
     with and without 3-bit messages, exactly equal to the plain version on
     integer LLRs (min-sum: ties, zero magnitudes, β above the minimum) or
     channel LLRs with saturated rows (sum-product); qc1944_r23 (rows of
-    degree 8-9) keeps the full-message kernels."""
+    degree 8-9) keeps the full-message kernels for G > 1 (its min-sum G = 1
+    takes the wide word's _cw kernel, sum-product the full messages)."""
     code = get_code(name)
     if method == "min-sum":
         gen = torch.Generator(device=cuda)
@@ -721,6 +726,92 @@ def test_group_serial_kernels_exactly_equal(cuda, name, dtype, method):
         assert all(("_qc_layered" in e) and ("_gs" in e) == gs
                    for e in mq.ENTRY_LAUNCHES)
         assert sum(mq.ENTRY_LAUNCHES.values()) == 8
+    want = {("qc1944_r23", "min-sum"): "compressed-wide",
+            ("qc1944_r23", "sum-product"): "full"}.get(
+        (name, method), "compressed" if method == "min-sum" else "registers")
+    assert mq.design(code.qc, method, "layered", 1) == want
+
+
+WIDE_CODES = ["qc648_r23", "qc648_r34", "qc648_r56", "qc1944_r56"]
+
+
+@pytest.mark.parametrize("schedule", ["layered", "flooding"])
+@pytest.mark.parametrize("name", WIDE_CODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+def test_wide_state_kernels_exactly_equal(cuda, name, dtype, schedule):
+    """The min-sum kernels on the compressed state's wide word (_cw: rows
+    of degree 8-9, 11-12 and 17-18) on integer LLRs (ties, zero
+    magnitudes, β above the minimum): fixed with its unsatisfied-check
+    count, early stop at K = 1 and 2, done_in, per-edge weights, each with
+    and without 3-bit messages, and (serial-C) both drivers, exactly equal
+    to the plain version; every launch on a _cw entry point."""
+    code = get_code(name)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    x = torch.randint(-3, 4, (96, code.n), generator=gen,
+                      device=cuda).float()
+    skip = torch.arange(96, device=cuda) % 3 == 0
+    w = random_edge_weights(code, 4, seed=9)
+    mq.reset_launch_counts()
+    for qb in (None, 3):
+        kw = dict(iterations=4, schedule=schedule, dtype=dtype, msg_qbits=qb,
+                  msg_qclip=4.0, alpha=(1.0, 0.75, 0.5, 1.0),
+                  beta=(0.0, 1.0, 2.5, 0.5), clamp=2.0)
+        for extra in (dict(output="posterior"), dict(output="hard_unsat"),
+                      dict(early_stop=True, es_check_every=1,
+                           output="hard_iters"),
+                      dict(early_stop=True, es_check_every=2,
+                           output="hard_iters"),
+                      dict(weights=w, output="posterior")):
+            got = mq.bp_qc_cuda(x, code.qc, **kw, **extra)
+            want = decode_roll(x, code.qc, **kw, **extra)
+            for g, r in (zip(got, want) if isinstance(got, tuple)
+                         else [(got, want)]):
+                assert torch.equal(g, r), (qb, extra.get("output"))
+        got = mq.bp_qc_cuda(x, code.qc, output="posterior", done_in=skip,
+                            **kw)
+        want = decode_roll(x, code.qc, output="posterior", done_in=skip,
+                           **kw)
+        assert torch.equal(got[~skip], want[~skip])
+    if schedule == "layered":
+        st = dict(schedule="layered", dtype=dtype, msg_qclip=4.0)
+        rb, ri = mq.bp_qc_requeue(x, code.qc, 6, probe_iters=2,
+                                  es_check_every=1, output="hard_iters", **st)
+        es = dict(st, early_stop=True, output="hard_iters")
+        b1, i1 = decode_roll(x, code.qc, iterations=2, **es)
+        b2, i2 = decode_roll(x, code.qc, iterations=6, **es)
+        done = i1 < 2
+        assert torch.equal(rb, torch.where(done[:, None], b1, b2))
+        assert torch.equal(ri, torch.where(done, i1, 2 + i2))
+        pb, _ = mq.bp_qc_probe_requeue(x, code.qc, 6, probe_iters=2,
+                                       output="hard_iters", **st)
+        b1, u1 = decode_roll(x, code.qc, iterations=2, output="hard_unsat",
+                             **st)
+        keep = (u1 == 0) & (96 - int((u1 == 0).sum())
+                            <= mq.probe_capacity(96))
+        assert torch.equal(pb, torch.where(keep[:, None], b1, decode_roll(
+            x, code.qc, iterations=6, **st)))
+    assert mq.ENTRY_LAUNCHES and all(
+        e.split("_i8")[0].split("_bf16")[0].endswith("_cw")
+        for e in mq.ENTRY_LAUNCHES), mq.ENTRY_LAUNCHES
+
+
+def test_wide_state_kernels_have_no_stack_frame(cuda):
+    """ptxas's report of the build: each of the 36 _cw kernels has a 0 B
+    stack frame (every slot of a check unrolled to its degree)."""
+    import re
+
+    report = mq.build()[1]
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name is not None and "_cw" in name:
+            found[name] = int(m.group(1))
+    assert len(found) == 36 and not any(found.values()), found
 
 
 def test_gather_backend_on_the_card(cuda):

@@ -489,11 +489,14 @@ def test_group_plan_invariants(name):
     its group, its shared planes on consecutive scratch rows in block-row
     order, the group's rows distinct and below the largest group's; the
     plan fits the kernel parameter's arrays. Codes beyond the limits take
-    no plan."""
+    no plan: full messages for G > 1 (min-sum's G = 1 takes the wide
+    word, sum-product's full messages)."""
     qc = cached_code(name).qc
     if not mq._within_limits(qc):
         assert mq.design(qc, "min-sum", "layered", 2) == "full"
         assert mq.design(qc, "sum-product", "layered", 2) == "full"
+        assert mq.design(qc, "min-sum", "layered", 1) == "compressed-wide"
+        assert mq.design(qc, "sum-product", "layered", 1) == "full"
         return
     planes, group_c, _ = qc_plan(qc)
     z = qc.z
@@ -580,7 +583,9 @@ def test_group_serial_routing(name):
     G in 2..mb on a code within the limits to the _gs entry points (G = 1
     and G that covers a one-row group stay serial-C); a code beyond the
     limits (qc1944_r23, rows of degree 8-9) keeps the full-message
-    kernels. The scratch counts the largest group's shared planes only."""
+    kernels for G > 1, and at G = 1 takes the wide word's _cw kernel
+    (min-sum) or the full messages (sum-product). The scratch counts the
+    largest group's shared planes only."""
     qc = cached_code(name).qc
     fits = name != "qc1944_r23"
     for rule in RULES:
@@ -597,6 +602,9 @@ def test_group_serial_routing(name):
                     base = mq.kernel_name(rule, "layered", es, q, w)
                     assert entry == base + ("_gs" if fits else "") + sfx
         assert mq.design(qc, rule, "layered", 1) != "group"
+        if not fits:
+            assert mq.design(qc, rule, "layered", 1) == (
+                "compressed-wide" if rule == "min-sum" else "full")
     if fits:
         assert mq.compressed_state(qc, "min-sum", "layered", 4)
         assert mq.sumproduct_registers(qc, "sum-product", "layered", 4)

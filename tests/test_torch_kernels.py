@@ -78,19 +78,22 @@ def unpack_plan(qc):
 def emulate_kernel(llr, qc, iterations, alpha, beta, clamp, layered,
                    early_stop=False, check_every=1, method="min-sum",
                    msg_qbits=None, msg_qclip=20.0, compressed=False,
-                   dtype=torch.float32, weights=None):
+                   dtype=torch.float32, weights=None, word_bits=8):
     """The kernels' decode for a (B, n) LLR batch; returns the posterior
     in the log(Pr1/Pr0) convention and the (B,) iterations each codeword
     ran (``iterations`` for the fixed forms). Each codeword is one CTA:
     under early stop it votes on its syndrome at entry and after every
     ``check_every``-th iteration and leaves the loop when it holds.
-    ``compressed``: the min-sum flooding loop on the compressed check
-    state (:func:`emulate_flooding_cs`), which also takes the storage
-    ``dtype`` and edge-flavor ``weights``."""
+    ``compressed``: the min-sum serial-C or flooding loop on the
+    compressed check state (:func:`emulate_flooding_cs`), which also
+    takes the storage ``dtype``, edge-flavor ``weights`` and the word's
+    sign bits ``word_bits`` (8 for the _cs kernels, 24 for the _cw
+    kernels' wide word)."""
     if compressed:
         return emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
                                    early_stop, check_every, msg_qbits,
-                                   msg_qclip, dtype, weights)
+                                   msg_qclip, dtype, weights, layered,
+                                   word_bits)
     f32 = np.float32
     row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
     ab = mq._ab_table(alpha, beta, iterations)
@@ -220,19 +223,33 @@ def unsat_count(post, qc):
 
 def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
                         early_stop=False, check_every=1, msg_qbits=None,
-                        msg_qclip=20.0, dtype=torch.float32, weights=None):
+                        msg_qclip=20.0, dtype=torch.float32, weights=None,
+                        layered=False, word_bits=8):
     """The compressed min-sum flooding kernels (csrc/minsum_qc.cu:
     flood_checks_cs, flood_rebuild_cs) in NumPy, vectorized over a block's
     z checks or variables and the batch. A check keeps T(min1), T(min2) as
-    stored codes (f32 and bf16: the value; int8: the integer on the grid),
-    its exclusive-sign bits and the slot of its first minimum. Each
-    iteration rebuilds a check's old messages from that state (the sign
-    applied to the code: −0 survives in f32 and bf16, an int8 zero lifts
-    to +0), forms each v2c through the message storage, writes the new
-    state, then rebuilds every posterior as (wl·) LLR + Σ (w·) message in
-    check-sorted order, rounded once to the posterior's storage."""
+    stored codes (f32 and bf16: the value; int8: the integer on the grid)
+    and one word: its exclusive-sign bits (bits 0 to ``word_bits`` − 1)
+    and the slot of its first minimum above them, packed as the kernels
+    pack it (``word_bits`` 8: the _cs kernels' 16-bit word; 24: the _cw
+    kernels' 32-bit wide word). Each iteration rebuilds a check's old
+    messages from that state (the sign applied to the code: −0 survives in
+    f32 and bf16, an int8 zero lifts to +0), forms each v2c through the
+    message storage, writes the new state, then rebuilds every posterior
+    as (wl·) LLR + Σ (w·) message in check-sorted order, rounded once to
+    the posterior's storage, reading each entry's slot from the flooding
+    plan's packed sign bit and index field (flood_add). ``layered``: the
+    serial-C kernels instead (check_update_cs, rebuild_cs): block row by
+    block row, each slot's v2c from the posterior, the posterior written
+    as store(pv + (w·)(y − old)) with y the unrounded new message (int8:
+    the stored one), and the weighted forms' posterior rebuilt with the
+    next row of weights after each iteration."""
     f32 = np.float32
     row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
+    sign_mask = (1 << word_bits) - 1
+    idx_mask = (7 if word_bits == 8 else 31) << word_bits
+    # FloodPlan's column entries: the slot's sign bit and its index field
+    cz = flood_plan(qc, word_bits)[3][:, 2]
     ab = mq._ab_table(alpha, beta, iterations)
     z, mb, nb = qc.z, qc.mb, qc.nb
     r_all = np.arange(z)
@@ -268,14 +285,18 @@ def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
     row_of = np.repeat(np.arange(mb), np.diff(row_ptr))
     slot_of = np.arange(len(col)) - row_ptr[row_of]
 
-    def message(state, i, e):
-        """(z, B) messages of slot e of block row i's checks."""
-        m1, m2, signs, first = (s[i] for s in state)
-        code = np.where(first == e, m2, m1)
-        code = np.where((signs >> e) & 1 == 1, -code, code)
+    def signed(m1, m2, word, e):
+        """The stored messages of slot e from magnitude codes and words."""
+        code = np.where(word >> word_bits == e, m2, m1)
+        code = np.where((word >> e) & 1 == 1, -code, code)
         if dtype == torch.int8:
             code = code + f32(0)  # the negated zero code is the code 0
-        return lift(code).astype(f32)
+        return code
+
+    def message(state, i, e):
+        """(z, B) messages of slot e of block row i's checks."""
+        m1, m2, word = (s[i] for s in state)
+        return lift(signed(m1, m2, word, e)).astype(f32)
 
     def checks(state, post, it):
         a, b = ab[it]
@@ -286,12 +307,18 @@ def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
             min2 = np.full(shape, 1e30, f32)
             first = np.full(shape, -1)
             negs = np.zeros(shape, np.int64)
+            pvs, olds = [], []
             for e, p in enumerate(range(row_ptr[i], row_ptr[i + 1])):
-                m = message(state, i, e)
+                m = old = message(state, i, e)
                 if wm is not None:
                     m = wm[it, p][:, None] * m
                 pv = post[col[p] * z + (r_all + shift[p]) % z]
-                v = lift(code_of(pv - m)).astype(f32)
+                if layered:
+                    v = (pv - m).astype(f32)
+                else:
+                    v = lift(code_of(pv - m)).astype(f32)
+                pvs.append(pv)
+                olds.append(old)
                 negs |= (v < 0).astype(np.int64) << e
                 av = np.abs(v)
                 lt1 = av < min1
@@ -307,12 +334,27 @@ def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
                     y = np.minimum(np.maximum(np.rint(y / qstep) * qstep,
                                               -f32(msg_qclip)),
                                    f32(msg_qclip))
-                return code_of(y.astype(f32))
+                return y.astype(f32)
 
             parity = np.bitwise_count(negs.astype(np.uint64)) & 1
-            signs = (negs ^ np.where(parity == 1, 0xFF, 0)) & 0xFF
-            new[0][i], new[1][i] = t(min1), t(min2)
-            new[2][i], new[3][i] = signs, np.maximum(first, 0)
+            signs = (negs ^ np.where(parity == 1, sign_mask, 0)) & sign_mask
+            word = signs | (np.maximum(first, 0) << word_bits)
+            t1, t2 = t(min1), t(min2)
+            new[0][i], new[1][i] = code_of(t1), code_of(t2)
+            new[2][i] = word
+            if not layered:
+                continue
+            # serial-C: the slots' changes folded into the posterior at once
+            for e, p in enumerate(range(row_ptr[i], row_ptr[i + 1])):
+                if dtype == torch.int8:
+                    y = lift(signed(new[0][i], new[1][i], word, e))
+                else:
+                    y = signed(t1, t2, word, e)
+                d = (y - olds[e]).astype(f32)
+                if wm is not None:
+                    d = wm[it, p][:, None] * d
+                post[col[p] * z + (r_all + shift[p]) % z] = st_post(
+                    pvs[e] + d)
         return new
 
     def rebuild(state, lv, row):
@@ -321,9 +363,18 @@ def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
             acc = lv[j * z:(j + 1) * z]
             if wl is not None:
                 acc = wl[row, j][:, None] * acc
-            for p in col_planes[col_ptr[j]:col_ptr[j + 1]]:
+            for e in range(col_ptr[j], col_ptr[j + 1]):
+                p = col_planes[e]
                 r = (r_all - shift[p]) % z
-                m = message(state, row_of[p], slot_of[p])[r]
+                m1, m2, word = (s[row_of[p]][r] for s in state)
+                # flood_add: the entry's index field and sign bit
+                second = ((word ^ cz[e]) & idx_mask) == 0
+                neg = (word & cz[e] & sign_mask) != 0
+                code = np.where(second, m2, m1)
+                code = np.where(neg, -code, code)
+                if dtype == torch.int8:
+                    code = code + f32(0)
+                m = lift(code).astype(f32)
                 acc = acc + (m if wm is None else wm[row, p][r][:, None] * m)
             post[j * z:(j + 1) * z] = st_post(acc)
         return post
@@ -331,8 +382,7 @@ def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
     B = llr.shape[0]
     lv = st_post(-llr.T)  # (n, B), the LLR as the posterior holds it
     zero = np.zeros((mb, z, B), f32) + code_of(np.zeros(1, f32))
-    state = [zero, zero.copy(), np.zeros((mb, z, B), np.int64),
-             np.zeros((mb, z, B), np.int64)]
+    state = [zero, zero.copy(), np.zeros((mb, z, B), np.int64)]
     post = lv.copy() if wm is None else rebuild(state, lv, 0)
     iters = np.full(B, iterations)
     out = np.zeros_like(post)
@@ -342,7 +392,8 @@ def emulate_flooding_cs(llr, qc, iterations, alpha, beta, clamp,
         if r >= 0:
             for k in range(K):
                 state = checks(state, post, r * K + k)
-                post = rebuild(state, lv, r * K + k + 1)
+                if not layered or wm is not None:
+                    post = rebuild(state, lv, r * K + k + 1)
         if not early_stop:
             continue
         ok = unsat_count(post, qc) == 0  # the CTAs that leave the loop
@@ -381,15 +432,16 @@ def test_plan_table_rebuilds_H(name):
 
 
 def test_smem_bytes_wifi1944():
-    # full messages with the plan (sum-product group-serial, G = 2, on a
+    # full messages with the plan (group-serial, G = 2, of both rules on a
     # code beyond the limits: qc1944_r23, rows of degree 8-9): plan 9 +
     # 3·65 + 25 = 229 ints (232 padded), 65·81 message and 1944 posterior
     # f32 and the f32 scratch of 2·9 planes, each region on a 16-byte
     # boundary (the messages' 21,060 B take 21,072)
     r23 = get_code("qc1944_r23").qc
-    assert mq.smem_bytes(r23, 2, method="sum-product",
-                         schedule="layered") == 4 * 232 + 21_072 + \
-        4 * 1944 + 4 * 18 * 81
+    for rule in ("sum-product", "min-sum"):
+        assert mq.smem_bytes(r23, 2, method=rule,
+                             schedule="layered") == 4 * 232 + 21_072 + \
+            4 * 1944 + 4 * 18 * 81
     # wifi1944 group-serial (the _gs kernels): no plan (the kernel's
     # parameter holds it) and the scratch of the largest group's shared
     # planes only, 8 at G = 2 and 22 at G = 4: sum-product's messages,
@@ -575,17 +627,21 @@ def cached_code(name):
     return get_code(name)
 
 
-def flood_plan(qc):
+def flood_plan(qc, word_bits=8):
     """The launcher's FloodPlan (csrc/minsum_qc.cu, bp_qc_launch) from the
     wrapper's plan table: row_ptr; per plane (col·z, shift, row·z, slot);
-    col_ptr; per column entry (row·z, shift, slot bits, plane)."""
+    col_ptr; per column entry (row·z, shift, slot bits, plane), the slot
+    bits the entry's sign bit and its slot in the word's index field
+    (above ``word_bits`` sign bits: 8 for the narrow word, 24 for the
+    wide one)."""
     row_ptr, col, shift, col_ptr, col_planes = unpack_plan(qc)
     z = qc.z
     row_of = np.repeat(np.arange(qc.mb), np.diff(row_ptr))
     slot = np.arange(len(col)) - row_ptr[row_of]
     plane = np.stack([col * z, shift, row_of * z, slot], 1)
     cols = np.stack([plane[col_planes, 2], plane[col_planes, 1],
-                     (1 << slot[col_planes]) | (slot[col_planes] << 8),
+                     (1 << slot[col_planes])
+                     | (slot[col_planes] << word_bits),
                      col_planes], 1)
     return row_ptr, plane, col_ptr, cols
 
@@ -865,8 +921,10 @@ def test_sumproduct_registers_selection(name, fits):
     sum-product decode on a code within the register arrays' 8 slots and
     the parameter plan's limits, flooding and serial-C (G = 1) on the _sr
     kernels, group-serial (G > 1) on the _gs kernels; the codes beyond
-    keep the full-message kernels at every G, min-sum its compressed state
-    (_cs, and _gs for G > 1) within them."""
+    keep the full-message kernels at every G. Min-sum keeps its compressed
+    state (_cs, and _gs for G > 1) within the limits and, beyond them by
+    the row degree alone, its wide word for flooding and G = 1 (_cw),
+    full messages for G > 1."""
     qc = cached_code(name).qc
     for sched, G in (("flooding", 1), ("layered", 1), ("layered", 2),
                      ("layered", 4)):
@@ -881,12 +939,15 @@ def test_sumproduct_registers_selection(name, fits):
         assert entry == f"sumproduct_qc_{sched}" + mq.DESIGNS[want][1] \
             + "_i8"
         assert mq.design(qc, "min-sum", sched, G) == (
-            ("group" if group else "compressed") if fits else "full")
+            ("group" if group else "compressed") if fits
+            else ("full" if group else "compressed-wide"))
     assert mq.entry_point(qc, "sum-product", "layered", True, True) == (
         "sumproduct_qc_layered_es_msgq" + ("_sr" if fits else ""))
     assert mq.entry_point(qc, "sum-product", "flooding", weighted=True,
                           dtype=torch.bfloat16) == (
         "sumproduct_qc_flooding_w" + ("_sr" if fits else "") + "_bf16")
+    assert mq.entry_point(qc, "min-sum", "layered", True, True) == (
+        "minsum_qc_layered_es_msgq" + ("_cs" if fits else "_cw"))
 
 
 def test_launch_table_keys_the_method():

@@ -243,7 +243,8 @@ def test_smem_bytes_per_storage_type():
     a 2-byte word a check, flooding without the plan and with the LLRs
     beside the posterior, in its storage type. A code beyond the limits
     (qc1944_r23) keeps the full messages and the plan for G > 1, with the
-    scratch of a group's planes."""
+    scratch of a group's planes; its min-sum flooding and serial-C keep
+    the compressed state with a 4-byte word a check (the wide word)."""
     sp = dict(method="sum-product", schedule="layered")
     ms = dict(method="min-sum", schedule="layered")
     fl = dict(method="min-sum", schedule="flooding")
@@ -300,12 +301,18 @@ def test_smem_bytes_per_storage_type():
     assert mq.smem_bytes(big, 12, **ms) > mq._SMEM_LIMIT
     assert mq.smem_bytes(big, 12, torch.bfloat16, **ms) <= mq._SMEM_LIMIT
     assert mq.smem_bytes(big, 5, **ms) <= mq._SMEM_LIMIT
-    # the compressed state's limits: rows of degree 8 take it, 9 not
+    # the compressed state's limits: rows of degree 8 take its 2-byte word,
+    # 9 its 4-byte wide word (qc1944_r23: 648 checks, 2,592 B of words;
+    # serial-C with the plan's 928 B, flooding with the LLRs instead)
     r23 = get_code("qc1944_r23").qc
     for kw in (ms, fl):
         assert mq.compressed_state(get_code("wifi648").qc, **kw)
-        assert not mq.compressed_state(r23, **kw)
-        assert mq.smem_bytes(r23, **kw) == mq.smem_bytes(r23, **sp)
+        assert mq.compressed_state(r23, **kw)
+        assert mq.design(r23, **kw) == "compressed-wide"
+    assert not mq.compressed_state(r23, layered_group=2, **ms)
+    assert mq.smem_bytes(r23, 2, **ms) == mq.smem_bytes(r23, 2, **sp)
+    assert mq.smem_bytes(r23, **ms) == 928 + 648 * 8 + 648 * 4 + 7776
+    assert mq.smem_bytes(r23, **fl) == 648 * 8 + 648 * 4 + 2 * 7776
     assert not mq.compressed_state(qc, "sum-product", "flooding")
     assert not mq.sumproduct_registers(r23, "sum-product", "flooding")
 
