@@ -111,8 +111,12 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    TPU sweeps' configuration of qc1944_r23, r34 and r56
    (``docs/artifacts/20260821_qc1944_r*_sweep_tpu.json``: layered-20
    min-sum, ``es_mode='freeze'``, clamp 20, the wide word's
-   ``minsum_qc_layered_es_cw``) at one waterfall point each, its BLER held
-   within 4σ of the artifact's and the entry point it launched printed;
+   ``minsum_qc_layered_es_cw``), built by ``sweep_configs`` from the
+   flags those sweeps ran with, their Eb/N0 grid ``--snr 1:4.5:8
+   --snr-unit eb`` (each Es/N0 point within 1e-9 of the artifact's, the
+   link configuration the artifact's), at one waterfall point each, its
+   BLER held within 4σ of the artifact's and the entry point it launched
+   printed;
    one point of the error-floor campaign on qc1944_r56
    (``docs/artifacts/20260821-115110_error_floor_qc1944_r56.json``: 6.25
    dB, all-zero codewords, BPSK, 8 × 32768 frames through ``bp_decode``),
@@ -133,6 +137,30 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    3 and 6 dB, 8 steps a point, each coded BER within 4σ + 10% of
    ``BASELINE.md`` table A; the ``small-cpu`` preset at 2 dB and the
    ``reference`` preset at 6 dB;
+3g. the dense backend, pair-flavor weights and the sweep's outputs:
+   ``bp_decode(backend='dense')`` beside the gather backend on ref6432
+   (sum-product-ref-3, clamp 20) and peg128_64 (min-sum-10) at batch
+   32768 and on the native PEG code ``make_regular_ldpc(4096, 2048, 3,
+   seed=7, backend='native')`` (Ec = 14336 > 1024 padded edges: the
+   factored routing; min-sum-20) at batch 8192, all on the BPSK channel
+   of all-zero codewords at 2.0 dB: hard bits equal wherever |posterior|
+   > 1e-3, posteriors within 1e-3 relative + 1e-5 absolute in every
+   codeword both decode (on peg4096 in all but one in a thousand of
+   them), the frame errors equal; the dense posteriors with
+   TF32 on (``torch.backends.cuda.matmul.allow_tf32``, shown to change a
+   plain float32 product) equal to those with it off; early-stop freeze
+   iterations equal to the gather backend's, and the bits of every
+   codeword that stopped before the budget (the others' bits their fixed
+   decode's); ms per decode of each backend; pair-flavor weights on peg128_64 (random in [0.7, 1.3]:
+   ``auto`` equal to ``backend='gather'``; identity: hard bits equal to the
+   unweighted decode wherever |posterior| > 1e-3, posteriors within the
+   tolerance) and on wifi1944 (``auto`` on the card goes to the gather
+   backend and launches no kernel); one ``python -m ldpc_sims_tpu_torch
+   sweep --profile`` (wifi1944 flooding-20, batch 32768, one point, 2
+   steps), its ``metrics.jsonl`` holding ``sweep-step``, ``sweep-point``
+   and ``sweep-phases`` with ``compile+first-step``, its ``registry.jsonl``
+   a ``sweep`` record, its Chrome trace naming ``minsum_qc_flooding_cs``
+   (its top kernels printed);
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -171,7 +199,9 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    sum-product forms no main path launches
    (per-edge weights, 4-bit messages, bf16 and int8 storage, each
    schedule), each equal to the plain version, printed with their
-   bounds; the min-sum and sum-product rows print the earlier
+   bounds (and the plain version's time, beside the flooding storage
+   forms and the sum-product ones); the min-sum and sum-product rows
+   print the earlier
    full-message designs' recorded times beside theirs, and the SASS
    loops of both designs of each kernel, serial-C and flooding (and the
    wide word's), give their shared-memory instructions an edge and each
@@ -203,6 +233,8 @@ SCHEDULES = os.path.join(ROOT, "docs", "artifacts",
                          "minsum_trained_schedules.json")
 TOL = 1e-4  # posterior tolerance, absolute and relative
 HARD_MARGIN = 1e-3  # hard bits compared where |posterior| exceeds this
+# two backends' posteriors, as tests/test_torch_gather.py holds them
+GATHER_RTOL, GATHER_ATOL = 1e-3, 1e-5
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # H100 SXM f32 outside the tensor cores: 67 TFLOP/s counts a fused
 # multiply-add as 2; none of the decode's operations is one, so it issues
@@ -292,6 +324,10 @@ FULL_MESSAGE_GROUP_MS = {1: 10.083, 2: 36.089, 3: 25.985, 4: 25.212,
 # narrow word (rows of degree 9-18: the wide word's _cw kernels) and the
 # waterfall point each is held to
 HIGH_RATE = {"qc1944_r23": 3, "qc1944_r34": 4, "qc1944_r56": 5}
+# the flags those sweeps ran with, on their Eb/N0 grid
+HIGH_RATE_FLAGS = ("--method", "min-sum", "--schedule", "layered", "--iters",
+                   "20", "--clamp", "20", "--early-stop", "--es-mode",
+                   "freeze", "--snr", "1:4.5:8", "--snr-unit", "eb")
 HIGH_RATE_SWEEP = os.path.join(ROOT, "docs", "artifacts",
                                "20260821_{}_sweep_tpu.json")
 # one point of the error-floor campaign on qc1944_r56
@@ -1027,6 +1063,193 @@ def drive(label, code, cfg, sweep, need, card, coded_below=True,
     return res, counts, ev, rate
 
 
+def hold_posteriors(label: str, got, want, per_mille: int = 0) -> None:
+    """Hold one backend's posteriors (batch, n) against another's on
+    all-zero codewords: hard bits equal wherever |want| > HARD_MARGIN,
+    the frame errors equal, and within GATHER_RTOL relative + GATHER_ATOL
+    absolute in every codeword both decode but ``per_mille`` in a thousand
+    of them (min-sum amplifies last-bit differences in codewords that do
+    not converge, and in a long code also in some that converge late)."""
+    import torch
+
+    sure = want.abs() > HARD_MARGIN
+    hard_bad = int(((got > 0) != (want > 0))[sure].sum())
+    fe_got, fe_want = (got > 0).any(1), (want > 0).any(1)
+    out = ((got - want).abs()
+           > GATHER_ATOL + GATHER_RTOL * want.abs()).any(1)
+    bad = int((out & ~fe_got & ~fe_want).sum())
+    print(f"  {label}: max |diff| {float((got - want).abs().max())!r}, "
+          f"hard-bit mismatches {hard_bad}, frame errors {int(fe_got.sum())}"
+          f" / {int(fe_want.sum())} of {got.shape[0]}, codewords out of "
+          f"tolerance {bad} decoded + {int((out & fe_want).sum())} in "
+          "frame error", flush=True)
+    decoded = int((~fe_got & ~fe_want).sum())
+    if (hard_bad or bad > per_mille * decoded / 1000
+            or not torch.equal(fe_got, fe_want)):
+        fail(f"{label}: differs")
+
+
+def tf32_engaged() -> None:
+    """Fail unless TF32 is on: a float32 product of random matrices must
+    then differ from the same product in float64 by more than float32's
+    rounding does."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    a = torch.randn((512, 512), generator=gen, device="cuda")
+    err = float(((a @ a).double() - a.double() @ a.double()).abs().max())
+    if err < 1e-3:
+        fail(f"TF32 did not engage (max |diff| {err})")
+
+
+def dense_vs_gather(code, batch: int, card: str, per_mille: int = 0,
+                    **kw) -> None:
+    """bp_decode(backend='dense') beside backend='gather' on the BPSK
+    channel of all-zero codewords at 2.0 dB: posteriors (within the
+    tolerance in all decoded codewords but ``per_mille`` in a thousand)
+    with TF32 off and on, early-stop freeze bits and iterations, ms per
+    decode."""
+    import torch
+
+    from ldpc_sims_tpu_torch.kernels.compare import floor_llrs
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.ops import bp_decode
+
+    label = f"{code.name} {kw['method']}-{kw['iterations']}"
+    llr = floor_llrs(code, batch, 2.0, 31)
+    mq.reset_launch_counts()
+    post = {b: bp_decode(llr, code, backend=b, output="posterior", **kw)
+            for b in ("dense", "gather")}
+    hold_posteriors(f"{label} dense against gather (batch {batch})",
+                    post["dense"], post["gather"], per_mille)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_engaged()
+        on = bp_decode(llr, code, backend="dense", output="posterior", **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"  {label} dense with TF32 on: posteriors equal to TF32 off: "
+          f"{torch.equal(on, post['dense'])}", flush=True)
+    if not torch.equal(on, post["dense"]):
+        fail(f"{label}: the dense decode changed with TF32 on")
+    # early stop: a codeword that stops before the budget must stop at the
+    # same iteration with the same bits; one that runs the budget ran the
+    # fixed decode, so its bits must be that decode's (held above)
+    es = {b: bp_decode(llr, code, backend=b, output="hard_iters",
+                       early_stop=True, **kw) for b in ("dense", "gather")}
+    (db, di), (gb, gi) = es["dense"], es["gather"]
+    stopped = gi < kw["iterations"]
+    own = all(torch.equal(es[b][0][~stopped],
+                          (post[b][~stopped] > 0).to(torch.int8))
+              for b in es)
+    print(f"  {label} early stop: iterations equal {torch.equal(di, gi)}, "
+          f"bits equal in the {int(stopped.sum())} codewords that stopped "
+          f"{torch.equal(db[stopped], gb[stopped])}, the others' bits their "
+          f"fixed decode's {own}, bits equal everywhere "
+          f"{torch.equal(db, gb)}, mean iterations "
+          f"{float(gi.float().mean())!r}", flush=True)
+    if not (torch.equal(di, gi) and torch.equal(db[stopped], gb[stopped])
+            and own):
+        fail(f"{label}: the dense early stop differs from gather's")
+    if any(mq.LAUNCHES.values()):
+        fail(f"{label}: a non-QC decode launched {dict(mq.LAUNCHES)}")
+    ms = {b: cuda_time_ms(lambda b=b: bp_decode(llr, code, backend=b, **kw),
+                          reps=3, warmup=1) for b in ("dense", "gather")}
+    print(f"  {label} at batch {batch}: dense {ms['dense']!r} ms, gather "
+          f"{ms['gather']!r} ms a decode [{card}]", flush=True)
+
+
+def pair_weights(code, qc_code, card: str) -> None:
+    """Pair-flavor weights: random ones decode on the gather backend under
+    auto; the identity decodes as the unweighted; on a QC code auto still
+    goes to gather and launches no kernel."""
+    import numpy as np
+    import torch
+
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.kernels.compare import floor_llrs
+    from ldpc_sims_tpu_torch.ops import bp_decode, init_neural_bp_weights
+
+    kw = dict(iterations=10, method="min-sum", output="posterior")
+    llr = floor_llrs(code, 32768, 2.0, 33)
+    ident = init_neural_bp_weights(code, 10, flavor="pair")
+    rng = np.random.default_rng(34)
+    rand = {k: rng.uniform(0.7, 1.3, tuple(v.shape)).astype(np.float32)
+            for k, v in ident.items()}
+    got = bp_decode(llr, code, weights=rand, **kw)
+    want = bp_decode(llr, code, weights=rand, backend="gather", **kw)
+    if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+        fail("random pair weights: auto differs from backend='gather'")
+    print(f"  {code.name} random pair weights in [0.7, 1.3]: auto equal to "
+          "gather, finite", flush=True)
+    hold_posteriors(f"{code.name} identity pair weights against unweighted",
+                    bp_decode(llr, code, weights=ident, **kw),
+                    bp_decode(llr, code, **kw))
+    mq.reset_launch_counts()
+    qllr = floor_llrs(qc_code, 256, 2.0, 35)
+    qw = init_neural_bp_weights(qc_code, 2, flavor="pair")
+    post = bp_decode(qllr, qc_code, iterations=2, weights=qw,
+                     output="posterior")
+    ref = bp_decode(qllr, qc_code, iterations=2, weights=qw,
+                    backend="gather", output="posterior")
+    if any(mq.LAUNCHES.values()) or not torch.equal(post, ref):
+        fail(f"{qc_code.name} pair weights: auto did not take the gather "
+             f"backend (launches {dict(mq.LAUNCHES)})")
+    print(f"  {qc_code.name} pair weights: auto took the gather backend, no "
+          f"kernel launched [{card}]", flush=True)
+
+
+def sweep_outputs(card: str) -> None:
+    """One short ``python -m ldpc_sims_tpu_torch sweep --profile``: its
+    metrics, registry record and Chrome trace."""
+    import tempfile
+
+    from ldpc_sims_tpu_torch.cli.main import main as cli_main
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+
+    with tempfile.TemporaryDirectory() as out:
+        mq.reset_launch_counts()
+        # batch x k = 31.85M info bits a step: 2 steps reach --max-bits
+        cli_main(["sweep", "--code", "wifi1944", "--method", "min-sum",
+                  "--iters", "20", "--clamp", "0", "--batch", "32768",
+                  "--snr", "1.5", "--max-bits", "4e7", "--target-errors",
+                  str(10**9), "--profile", "--out", out])
+        launched = dict(mq.ENTRY_LAUNCHES)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        with open(os.path.join(out, "registry.jsonl")) as f:
+            runs = [json.loads(line) for line in f]
+        trace, = [d for d in os.listdir(out) if d.endswith("_trace")]
+        with open(os.path.join(out, trace, "trace.json")) as f:
+            trace_events = json.load(f)["traceEvents"]
+    names = [e["event"] for e in events]
+    print(f"  sweep --profile: launched {launched}; metrics events {names}; "
+          f"phases {events[-1]}; registry {runs}", flush=True)
+    if names != ["sweep-step", "sweep-step", "sweep-point", "sweep-phases"]:
+        fail(f"sweep --profile: metrics.jsonl holds {names}")
+    if "compile+first-step" not in events[-1]:
+        fail(f"sweep --profile: phases {events[-1]}")
+    if len(runs) != 1 or runs[0]["kind"] != "sweep":
+        fail(f"sweep --profile: registry.jsonl holds {runs}")
+    if launched != {"minsum_qc_flooding_cs": 2}:
+        fail(f"sweep --profile: launched {launched}")
+    kernels = {}
+    for e in trace_events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + e.get("dur", 0)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    total = sum(kernels.values())
+    print(f"  trace: {len(trace_events)} events, {len(kernels)} kernels, "
+          f"kernel time {total / 1e3:.3f} ms [{card}]", flush=True)
+    for name, us in top:
+        print(f"    {us / 1e3:9.3f} ms {us / total:6.1%}  {name[:70]}",
+              flush=True)
+    if not any("minsum_qc_flooding_cs" in k for k in kernels):
+        fail("sweep --profile: the trace names no minsum_qc_flooding_cs")
+
+
 def main() -> None:
     import torch
 
@@ -1046,7 +1269,7 @@ def main() -> None:
         build_parser,
         sweep_configs,
     )
-    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.codes import get_code, make_regular_ldpc
     from ldpc_sims_tpu_torch.convert import load_trained_schedule
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
     from ldpc_sims_tpu_torch.kernels.compare import floor_llrs
@@ -1807,15 +2030,27 @@ def main() -> None:
     launches[SP_G4_ROW] = counts["sumproduct_qc_layered"]
     per_step[SP_G4_ROW] = counts["sumproduct_qc_layered"] / ev.mc_steps
     # the committed TPU sweeps of qc1944_r23, r34 and r56 (rows of degree
-    # 9-18: the full-message kernels), their configuration at one
-    # waterfall point each, the BLER within 4σ of the artifact's
+    # 9-18: the wide word's kernels), built from the flags they ran with
+    # on their Eb/N0 grid, at one waterfall point each, the BLER within 4σ
+    # of the artifact's
     high_llr = {}
     for cname, k in HIGH_RATE.items():
         with open(HIGH_RATE_SWEEP.format(cname)) as f:
             art = json.load(f)
-        hcode = get_code(cname)
-        hcfg = LinkConfig(**art["link"])
-        snr = art["snrdb"][k]
+        hcode, hcfg, hsweep, _, _ = sweep_configs(build_parser().parse_args(
+            ["sweep", "--code", cname, *HIGH_RATE_FLAGS]))
+        link_art = {key: v for key, v in dataclasses.asdict(hcfg).items()
+                    if key in art["link"]}
+        if link_art != art["link"]:
+            fail(f"{cname}: sweep_configs gives the link {link_art}, not the "
+                 f"artifact's {art['link']}")
+        off = max(abs(x - y) for x, y in zip(hsweep.snrdb, art["snrdb"]))
+        print(f"  {cname}: --snr-unit eb grid {hsweep.snrdb} against the "
+              f"artifact's Es/N0 points, max |diff| {off!r} dB", flush=True)
+        if len(hsweep.snrdb) != len(art["snrdb"]) or off > 1e-9:
+            fail(f"{cname}: the --snr-unit eb grid {hsweep.snrdb} is not the "
+                 f"artifact's {art['snrdb']} within 1e-9")
+        snr = hsweep.snrdb[k]
         row = f"minsum_qc_layered_es@{cname}"
         res, counts, ev, rate = drive(
             f"{cname} layered-20 es freeze", hcode, hcfg,
@@ -1969,6 +2204,28 @@ def main() -> None:
               LinkConfig(**p["link"]),
               dataclasses.replace(SweepConfig(**p["sweep"]), snrdb=(snr,)),
               [], card)
+
+    # -- phase 3g: the dense backend, pair weights, the sweep's outputs ---
+    print("== phase 3g: the dense backend beside gather, pair-flavor weights, "
+          "sweep --profile", flush=True)
+    t3g = time.perf_counter()
+    dense_vs_gather(get_code("ref6432"), 32768, card, iterations=3,
+                    method="sum-product-ref", clamp=20.0)
+    peg128 = get_code("peg128_64")
+    dense_vs_gather(peg128, 32768, card, iterations=10, method="min-sum")
+    peg4096 = make_regular_ldpc(4096, 2048, 3, seed=7, backend="native")
+    g4096 = peg4096.graph
+    print(f"  native PEG {peg4096.name}: Ec = {g4096.n_checks * g4096.dc}, "
+          f"n·Ec = {g4096.n_vars * g4096.n_checks * g4096.dc}", flush=True)
+    if g4096.n_checks * g4096.dc <= 1024:
+        fail(f"{peg4096.name} does not take the factored routing")
+    # min-sum-20 on n = 4096: up to one decoded codeword in a thousand
+    # outside the tolerance (2 of 6771 on an NVIDIA H100 80GB HBM3)
+    dense_vs_gather(peg4096, 8192, card, per_mille=1, iterations=20,
+                    method="min-sum")
+    pair_weights(peg128, w1944, card)
+    sweep_outputs(card)
+    print(f"  phase 3g took {time.perf_counter() - t3g:.1f} s", flush=True)
 
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
@@ -2399,11 +2656,13 @@ def main() -> None:
                 decode_roll(llr, qc, output="posterior", **kw))],
               f"flooding-20 {sfx} at batch {batch}")
         ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 20)
+        plain_ms = cuda_time_ms(lambda: decode_roll(llr, qc, **kw), 2, 1)
         b_ms, b_by = bound(io_bytes, batch * E * (
             edge_ops(**fl) + 20 * 2 * (cv[f"ld_{k}"] + cv[f"st_{k}"])))
         print(f"  minsum_qc_flooding@{sfx} "
               f"({mq.entry_point(qc, 'min-sum', 'flooding', dtype=dt)}): "
-              f"{ms!r} ms (bound {b_ms!r} ms, {b_by}) [{card}]", flush=True)
+              f"{ms!r} ms (plain {plain_ms!r} ms, bound {b_ms!r} ms, "
+              f"{b_by}) [{card}]", flush=True)
     kb, ku = mq.bp_qc_cuda(llr, qc, output="hard_unsat", **fl)
     pb, pu = decode_roll(llr, qc, output="hard_unsat", **fl)
     exact([(kb, pb), (ku, pu)], f"flooding-20 hard_unsat at batch {batch}")
@@ -2489,7 +2748,7 @@ def main() -> None:
                   f"({entry}): {ms!r} ms (bound {b_ms!r} ms, {b_by}, share "
                   f"{b_ms / ms:.3f}) [{card}]", flush=True)
     # the sum-product forms that no main path launches, printed with their
-    # bounds: per-edge weights (12 iterations, flooding-12's random
+    # plain version's time and their bounds: per-edge weights (12 iterations, flooding-12's random
     # weights), 4-bit messages, bf16 and int8 storage (20 iterations), each
     # schedule, each exactly equal to the plain version; the weights add
     # their multiplies as weighted_ops counts them, the quantization its
@@ -2519,14 +2778,16 @@ def main() -> None:
                     decode_roll(llr, qc, output="posterior", **kw))],
                   f"{name} at batch {batch}")
             ms = cuda_time_ms(lambda: mq.bp_qc_cuda(llr, qc, **kw), 10)
+            plain_ms = cuda_time_ms(lambda: decode_roll(llr, qc, **kw), 2, 1)
             nbytes = io_bytes + (4 * 13 * (E + n) if label == "_w" else 0)
             b_ms, b_by = bound(nbytes, batch * ops, batch * sfu)
             entry = mq.entry_point(qc, "sum-product", sched,
                                    quantized="msg_qbits" in kw,
                                    weighted="weights" in kw,
                                    dtype=kw.get("dtype", torch.float32))
-            print(f"  {name} ({entry}): {ms!r} ms (bound {b_ms!r} ms, "
-                  f"{b_by}, share {b_ms / ms:.3f}) [{card}]", flush=True)
+            print(f"  {name} ({entry}): {ms!r} ms (plain {plain_ms!r} ms, "
+                  f"bound {b_ms!r} ms, {b_by}, share {b_ms / ms:.3f}) "
+                  f"[{card}]", flush=True)
     # the shared-memory instructions of min-sum, serial-C and flooding,
     # both designs each. Serial-C: the full-message edge loops are unrolled
     # by 4 (a pass-1 loop of 4 loads an edge, a pass-2 loop of 4 loads and 2

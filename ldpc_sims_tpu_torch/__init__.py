@@ -10,13 +10,16 @@ caller passes ``device='cpu'``.
 Subpackages
 -----------
 codes      LDPC code library (NumPy copies of the JAX package's).
-ops        BP decode dispatch and its plain PyTorch version, encoder,
-           PHY chain, link step.
+ops        BP decode dispatch (the cuda, roll, dense and gather backends),
+           syndromes, encoder, PHY chain, link step.
 kernels    CUDA BP decode kernels (flooding, layered, group-serial;
            min-sum, sum-product; weighted; early stop; f32, bf16 and
            int8 message storage) and their launch tuner (``tune``).
 parallel   The Monte-Carlo sweep engine on one device.
-utils      Phase timers, device selection, decoder-weight loading.
+native     The C++ PEG builder, built with g++ on first use.
+utils      Metrics, phase timers, profiler traces, the run registry,
+           device selection, decoder-weight loading.
+plotting   BER/BLER/WMSE figures (matplotlib, imported on use).
 cli        ``python -m ldpc_sims_tpu_torch sweep ...``.
 examples   ``bigcode``: the 5G-class codes at full width on the card.
 """

@@ -18,6 +18,9 @@
     python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
         --schedule layered --iters 20 --clamp 0 --batch 32768 \\
         --layered-group 4
+    python -m ldpc_sims_tpu_torch sweep --code qc1944_r23 --method min-sum \\
+        --schedule layered --iters 20 --early-stop --batch 32768 \\
+        --snr-unit eb --snr 1:4.5:8 --profile --plot
 
 The defaults are the JAX CLI's (``ldpc_sims_tpu/cli/main.py:656-672,
 723-724``): the reference chain, ref6432 over QPSK/OFDM-32 with 3
@@ -29,7 +32,14 @@ package's and every preset runs: ``small-cpu``, ``wifi648-sweep``,
 width, tagged ``_msgq{b}``), ``ofdm-qam16`` and ``reference``.
 ``--weights-ckpt`` and ``--schedule-ckpt`` read ``.npz`` files
 (``utils.load_decoder_weights``) and apply to a preset too, as in the JAX
-CLI. The other subcommands are not ported yet (ROADMAP A12).
+CLI. ``--snr-unit eb`` reads ``--snr`` as Eb/N0 (a preset ignores it, as
+in the JAX CLI). Every sweep appends its events (``sweep-step``,
+``sweep-point``, ``sweep-phases``, ``es-auto``) to ``metrics.jsonl`` and
+one ``sweep`` record to ``registry.jsonl`` under ``--out``, as the JAX
+CLI does; ``--profile`` writes a ``torch.profiler`` Chrome trace to
+``{stamp}_trace{tag}/`` and ``--plot`` the BER/BLER figure to
+``{stamp}_ber{tag}.png`` (it needs matplotlib, and stops before the sweep
+without it). The other subcommands are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -106,6 +116,19 @@ def _parse_snr(spec: str) -> tuple[float, ...]:
         lo, hi, n = spec.split(":")
         return tuple(np.linspace(float(lo), float(hi), int(n)).tolist())
     return tuple(float(s) for s in spec.split(","))
+
+
+def _snr_grid(args, code) -> tuple[float, ...]:
+    """The --snr grid in symbol-SNR dB; '--snr-unit eb' converts it from
+    Eb/N0 with the code's rate and the modulation's bits a symbol."""
+    from ldpc_sims_tpu_torch.ops.chain import BITS_PER_SYMBOL
+
+    grid = _parse_snr(args.snr)
+    if args.snr_unit == "eb":
+        off = 10.0 * float(np.log10(code.rate
+                                    * BITS_PER_SYMBOL[args.modulation]))
+        grid = tuple(s + off for s in grid)
+    return grid
 
 
 def _parse_ab(spec: str) -> float | tuple[float, ...]:
@@ -194,7 +217,7 @@ def sweep_configs(args):
             bp_layered_group=args.layered_group,
         )
         sweep = SweepConfig(
-            snrdb=_parse_snr(args.snr), batch_cw=args.batch,
+            snrdb=_snr_grid(args, code), batch_cw=args.batch,
             target_frame_errors=args.target_errors,
             max_info_bits=args.max_bits, steps_per_sync=args.steps_per_sync,
             seed=args.seed,
@@ -206,8 +229,22 @@ def sweep_configs(args):
 
 def cmd_sweep(args) -> None:
     from ldpc_sims_tpu_torch.parallel import run_sweep
+    from ldpc_sims_tpu_torch.utils import (
+        MetricsLogger,
+        profile_trace,
+        record_run,
+    )
 
+    if args.plot:  # stop now, not after a long sweep
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit(
+                "--plot needs matplotlib, which is not installed here; "
+                "run without --plot (the curves file holds the numbers)"
+            ) from None
     code, link, sweep, grids, weights = sweep_configs(args)
+    metrics = MetricsLogger(os.path.join(args.out, "metrics.jsonl"))
     os.makedirs(args.out, exist_ok=True)
     stamp = time.strftime("%Y%m%d-%H%M%S")
     for qb in grids:
@@ -220,8 +257,14 @@ def cmd_sweep(args) -> None:
             manifest = root + (tag if len(grids) > 1 else "") + ext
         else:
             manifest = os.path.join(args.out, f"{stamp}_sweep{tag}.json")
-        result = run_sweep(code, link_q, sweep, weights=weights,
-                           manifest_path=manifest, device=args.device)
+        trace_dir = (os.path.join(args.out, f"{stamp}_trace{tag}")
+                     if args.profile else None)
+        with profile_trace(trace_dir):
+            result = run_sweep(code, link_q, sweep, weights=weights,
+                               manifest_path=manifest, metrics=metrics,
+                               device=args.device)
+        if trace_dir:
+            print(f"profiler trace -> {trace_dir}")
         out = {
             "code": code.name,
             "preset": args.preset,
@@ -231,7 +274,20 @@ def cmd_sweep(args) -> None:
         path = os.path.join(args.out, f"{stamp}_curves{tag}.json")
         with open(path, "w") as f:
             json.dump(out, f, indent=1)
+        record_run("sweep", args.out, code=code.name, curves=path,
+                   manifest=manifest, msg_qbits=qb)
         print(f"curves -> {path}")
+        if args.plot:
+            from ldpc_sims_tpu_torch.plotting import plot_ber_curves
+
+            fig = plot_ber_curves(
+                {"snrdb": result.snrdb, "coded_ber": result.coded_ber,
+                 "coded_bler": result.coded_bler,
+                 "uncoded_ber": result.uncoded_ber},
+                os.path.join(args.out, f"{stamp}_ber{tag}.png"),
+                title=f"{code.name}{tag}",
+            )
+            print(f"figure -> {fig}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -304,7 +360,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "ms_beta) freeze into static per-iteration "
                          "--bp-alpha/--bp-beta")
     sp.add_argument("--snr", default="0:10:11",
-                    help="symbol SNR grid in dB: 'lo:hi:n' or 'a,b,c'")
+                    help="SNR grid in dB: 'lo:hi:n' or 'a,b,c'")
+    sp.add_argument("--snr-unit", default="es", choices=["es", "eb"],
+                    help="interpret --snr as symbol SNR (es) or Eb/N0 (eb)")
     sp.add_argument("--batch", type=int, default=4096)
     sp.add_argument("--target-errors", type=int, default=100)
     sp.add_argument("--max-bits", type=float, default=1e8)
@@ -315,6 +373,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resume/accumulate manifest (default: new file "
                          "in --out)")
     sp.add_argument("--out", default="outputs")
+    sp.add_argument("--plot", action="store_true",
+                    help="write the BER/BLER figure under --out (needs "
+                         "matplotlib)")
+    sp.add_argument("--profile", action="store_true",
+                    help="wrap the sweep in a torch.profiler trace "
+                         "(written under --out)")
     sp.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain version")
     sp.set_defaults(fn=cmd_sweep)

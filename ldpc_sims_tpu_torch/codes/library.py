@@ -170,14 +170,19 @@ def make_regular_ldpc(
     constructor at all (its one matrix came from an external web tool,
     ``bp/parity.py:1``); this fills the (128,64)-and-friends configs.
 
-    ``backend='native'`` (the C++ builder of the JAX package) is not
-    ported yet; the registry codes use the Python backend only.
+    ``backend='native'`` uses the C++ builder
+    (:mod:`ldpc_sims_tpu_torch.native`, a copy of the JAX package's, built
+    with g++ on first use): much faster for large n, but a *different*
+    (equally valid) graph for the same seed, since its PRNG differs; the
+    registry codes stay on the Python backend.
     """
     if backend == "native":
-        raise NotImplementedError(
-            "make_regular_ldpc(backend='native') needs the native/ ctypes "
-            "PEG loader, not ported yet (ROADMAP A1)"
-        )
+        from ldpc_sims_tpu_torch.native import peg_construct_native
+
+        H = peg_construct_native(n, m, col_deg, seed)
+        if gf2.rank(H) != m:
+            raise ValueError("PEG produced rank-deficient H; change seed")
+        return LdpcCode(name=f"peg{n}_{n - m}", H=H)
     rng = np.random.default_rng(seed)
     adj_v: list[list[int]] = [[] for _ in range(n)]  # var -> checks
     adj_c: list[list[int]] = [[] for _ in range(m)]  # check -> vars

@@ -21,18 +21,35 @@ per-codeword early stop. Backends:
   (``ldpc_sims_tpu/ops/bp_roll.py:180``); int8 is kernel-only, as in JAX.
   Gradients flow through it.
 * ``'gather'``: JAX's gather backend (``ldpc_sims_tpu/ops/bp.py:756-911``)
-  for any :class:`LdpcCode`: flooding BP on the Tanner graph's padded slot
-  layouts (``TannerGraph.to_var_space``/``to_check_space``/``c_mask``/
-  ``v_mask``) with the batch first, all three methods, edge-flavor and
-  ``ms_*`` weights, ``es_mode='freeze'``, f32 or bf16 arithmetic; no
-  layered schedule, as in JAX. Plain PyTorch on any device: JAX decodes
-  non-QC codes in plain XLA too, with no Pallas kernel.
+  for any code or bare :class:`TannerGraph`: flooding BP on the Tanner
+  graph's padded slot layouts (``TannerGraph.to_var_space``/
+  ``to_check_space``/``c_mask``/``v_mask``) with the batch first, all
+  three methods, edge-flavor, pair-flavor (``w_pair``) and ``ms_*``
+  weights, ``es_mode='freeze'``, f32 or bf16 arithmetic; no layered
+  schedule, as in JAX. Plain PyTorch on any device: JAX decodes non-QC
+  codes in plain XLA too, with no Pallas kernel.
+* ``'dense'``: JAX's dense backend (``ldpc_sims_tpu/ops/bp.py:686-755``),
+  the same flooding BP with the variable update as products with the
+  graph's 0/1 routing matrices: one Ec×Ec product ``W_v``
+  (``TannerGraph.dense_routing``) up to Ec = m·dc = 1024 padded edges,
+  beyond it the factored ``L_exp @ (M_fin @ x + lv) − x``
+  (``TannerGraph.factored_routing``), refused above n·Ec = 2^26; its
+  early stop checks syndromes by a product with H. JAX asks for these
+  products at ``Precision.HIGHEST`` or through ``_dot_split``, because a
+  one-pass bf16 product shifts hard bits; the port computes each product
+  exactly, in float64 (a 0/1 matrix times float32 values sums a few
+  terms exactly there), and rounds it once to the message type. So TF32
+  (``torch.backends.cuda.matmul``), which would round the operands,
+  never touches it, and its result does not depend on the order in which
+  the GEMM sums. Plain ``torch.matmul``, as JAX's are plain XLA products.
 * ``'auto'``: every non-QC code goes to ``'gather'``, on the CPU and on
-  the card. JAX picks its dense backend up to m·dc ≤ 1024 padded edges
-  and routes around a TPU compiler crash beyond it
+  the card. JAX's ``auto`` picks its dense backend up to m·dc ≤ 1024
+  padded edges and routes around a TPU compiler crash beyond it
   (``ldpc_sims_tpu/ops/bp.py:538-554``); neither reason holds on a GPU,
   and dense and gather compute the same function up to the order of
-  their sums. A QC code goes to ``'cuda'`` for a CUDA tensor and for the
+  their sums (``backend='dense'`` asks for the dense one). Pair-flavor
+  weights go to ``'gather'``, as in JAX. A QC code goes to ``'cuda'`` for
+  a CUDA tensor and for the
   forms only the kernels' module implements (requeue, probe, a check
   stride above 1, ``layered_group > 1``), else to ``'roll'``; so on a CPU
   tensor bf16 decodes in bf16 arithmetic and int8 raises ``ValueError``,
@@ -40,9 +57,9 @@ per-codeword early stop. Backends:
   the kernels' storage, as JAX's TPU ``auto`` takes the Pallas kernel's.
   ``sum-product-ref`` has no kernel: a QC code decodes it on ``'roll'``.
 
-What the JAX function does beyond that raises ``NotImplementedError``
-naming its ROADMAP item (the dense backend, pair-flavor weights, a bare
-``TannerGraph``: A4); nothing falls back silently.
+A bare :class:`TannerGraph` has no QC structure, so it takes the non-QC
+routes, as in JAX. :func:`syndrome`, :func:`syndrome_from_bits_nb` and
+:func:`decode_to_bits` are JAX's helpers of the same names.
 """
 
 from __future__ import annotations
@@ -51,6 +68,7 @@ import numpy as np
 import torch
 
 from ldpc_sims_tpu_torch.codes.library import LdpcCode
+from ldpc_sims_tpu_torch.codes.tanner import TannerGraph
 from ldpc_sims_tpu_torch.convert import decoder_weights_from_numpy
 from ldpc_sims_tpu_torch.ops.bp_roll import (
     EDGE_KEYS,
@@ -65,32 +83,43 @@ from ldpc_sims_tpu_torch.ops.bp_roll import (
 
 __all__ = [
     "bp_decode",
+    "decode_to_bits",
     "freeze_minsum_weights",
     "init_minsum_weights",
     "init_neural_bp_weights",
     "pack_decoder_weights",
+    "syndrome",
+    "syndrome_from_bits_nb",
 ]
 
+_DENSE_MAX_PADDED_EDGES = 1024  # beyond this the Ec×Ec product gets large
+# the factored routing's cap on n·Ec elements a routing matrix (JAX's
+# ldpc_sims_tpu/ops/bp.py:74)
+_FACTORED_MAX_ELEMS = 1 << 26
 
-def init_neural_bp_weights(code: LdpcCode, iterations: int,
+
+def init_neural_bp_weights(graph: TannerGraph | LdpcCode, iterations: int,
                            flavor: str = "edge") -> dict[str, torch.Tensor]:
-    """All-ones edge-flavor neural-BP weights (= plain BP), in JAX's
-    layout: ``w_msg`` (iterations, n, dv) with check-sorted variable
-    slots, ``w_llr`` (iterations, n), ``w_msg_final`` (n, dv) and
-    ``w_llr_final`` (n,). The pair flavor (JAX's gather backend) is not
-    ported yet (ROADMAP A4)."""
-    if flavor == "pair":
-        raise NotImplementedError(
-            "pair-flavor neural-BP weights are not ported yet (ROADMAP A4)")
-    if flavor != "edge":
+    """All-ones neural-BP weights (= plain BP), in JAX's layout.
+
+    ``flavor='edge'``: ``w_msg`` (iterations, n, dv) with check-sorted
+    variable slots, ``w_llr`` (iterations, n), ``w_msg_final`` (n, dv)
+    and ``w_llr_final`` (n,). ``flavor='pair'`` adds ``w_pair``
+    (iterations, n, dv, dv): entry [t, v, j, i] scales incoming slot i's
+    message inside outgoing slot j's exclusive sum (the diagonal is
+    ignored); the gather backend's, as in JAX."""
+    if flavor not in ("edge", "pair"):
         raise ValueError(f"unknown flavor {flavor!r}")
-    g = code.graph
-    return {
+    g = graph.graph if isinstance(graph, LdpcCode) else graph
+    w = {
         "w_llr": torch.ones((iterations, g.n_vars)),
         "w_msg_final": torch.ones((g.n_vars, g.dv)),
         "w_llr_final": torch.ones((g.n_vars,)),
         "w_msg": torch.ones((iterations, g.n_vars, g.dv)),
     }
+    if flavor == "pair":
+        w["w_pair"] = torch.ones((iterations, g.n_vars, g.dv, g.dv))
+    return w
 
 
 def init_minsum_weights(iterations: int) -> dict[str, torch.Tensor]:
@@ -122,7 +151,8 @@ def pack_decoder_weights(weights: dict | None, code: LdpcCode,
     (:func:`..convert.decoder_weights_from_numpy`), and a complete
     edge-flavor set is packed into the kernels' tables, which
     :func:`bp_decode` takes under the key ``'tables'`` in place of the
-    four arrays. The sweep engine calls it once per sweep, so no step
+    four arrays (not with ``w_pair``, which decodes on the gather
+    backend). The sweep engine calls it once per sweep, so no step
     converts or packs the 163k weights of a 6-iteration wifi1944 decoder
     again.
     """
@@ -133,7 +163,7 @@ def pack_decoder_weights(weights: dict | None, code: LdpcCode,
           if k in weights}
     out = decoder_weights_from_numpy(weights, device)
     out.update({k: _floats(v) for k, v in ms.items()})
-    if EDGE_KEYS <= set(out) and code.qc is not None:
+    if EDGE_KEYS <= set(out) and "w_pair" not in out and code.qc is not None:
         edge = {k: out.pop(k) for k in EDGE_KEYS}
         out["tables"] = pack_edge_weights(edge, code.qc, iterations, device)
     return out
@@ -149,30 +179,173 @@ def _take(x: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
     return torch.cat([x, pad], -1).index_select(-1, idx)
 
 
-def _decode_gather(llr: torch.Tensor, g, *, iterations: int, method: str,
-                   alpha, beta, ms_w, clamp, msg_qbits, msg_qclip, weights,
-                   early_stop: bool, output: str, dtype) -> torch.Tensor:
-    """JAX's ``backend='gather'`` (``ldpc_sims_tpu/ops/bp.py:756-911``):
-    flooding BP on the Tanner graph's slot layouts, messages (B, m, dc)
-    in check space, with the batch first. A variable update gathers the
-    messages into variable space (B, n, dv), sums them with the (weighted)
-    LLR and gathers the exclusive sums back; ``sum-product-ref`` takes
-    its exclusive sum from prefix and suffix sums. Every operation runs
-    in ``dtype`` (f32 or bf16), as in JAX. ``output``: 'hard',
-    'posterior' (log Pr1/Pr0), 'hard_iters'; early stop freezes each
-    codeword at its first syndrome-satisfying state."""
+def _index(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+
+def _checks_parity(bits: torch.Tensor, g: TannerGraph) -> torch.Tensor:
+    """(B, n) bits → (B, m) int32 parity of each check, by the gather of
+    :func:`syndrome_from_bits_nb` with the batch first."""
+    to_check = _index(g.to_check_space, bits.device)
+    cs = _take(bits.to(torch.int32).repeat_interleave(g.dv, -1), to_check, 0)
+    return cs.reshape(bits.shape[0], g.n_checks, g.dc).sum(
+        -1, dtype=torch.int32) & 1
+
+
+def syndrome_from_bits_nb(bits_nb: torch.Tensor,
+                          g: TannerGraph) -> torch.Tensor:
+    """Syndrome from bits in JAX's (n, B) layout → (m, B) int32 parity of
+    each check: each variable's bit repeated over its dv slots, gathered
+    into check space and summed (JAX ``ops/bp.py:912-925``)."""
+    return _checks_parity(bits_nb.T, g).T
+
+
+def _parity_product(bits: torch.Tensor, Ht: torch.Tensor) -> torch.Tensor:
+    """(B, n) 0/1 bits times the (n, m) float32 Hᵀ, & 1. A product of 0s
+    and 1s is exact in float32 and in TF32, and float32 sums integers
+    below 2^24 exactly in any order, so the parity is exact for rows of
+    fewer than 2^24 ones (torch has no integer matmul on CUDA)."""
+    return (bits.to(torch.float32) @ Ht).to(torch.int32) & 1
+
+
+def syndrome(bits: torch.Tensor, H: np.ndarray) -> torch.Tensor:
+    """(B, n) hard bits → (B, m) int32 syndrome, JAX's ``bits @ Hᵀ & 1``
+    (``ops/bp.py:928-937``), on the bits' device."""
+    Ht = torch.as_tensor(np.asarray(H).T, dtype=torch.float32,
+                         device=bits.device)
+    return _parity_product(bits, Ht)
+
+
+def _decode_graph(llr: torch.Tensor, g: TannerGraph, *, backend: str,
+                  iterations: int, method: str, alpha, beta, ms_w, clamp,
+                  msg_qbits, msg_qclip, weights, early_stop: bool,
+                  output: str, dtype) -> torch.Tensor:
+    """JAX's dense and gather backends (``ldpc_sims_tpu/ops/bp.py:
+    686-911``) with the batch first: flooding BP with messages (B, m, dc)
+    in check space.
+
+    ``'gather'``: a variable update gathers the messages into variable
+    space (B, n, dv), sums them with the (weighted) LLR and gathers the
+    exclusive sums back; ``sum-product-ref`` takes its exclusive sum from
+    prefix and suffix sums, pair weights (``w_pair``) their exclusive
+    weighted mix. ``'dense'``: the variable update as exact products with
+    the 0/1 routing matrices (module docs), the edge weights moved once
+    from variable-space slots to check space (JAX's ``w_to_cs``), early
+    stop by the product with H. Every other operation runs in ``dtype``
+    (f32 or bf16), as in JAX. ``output``: 'hard', 'posterior' (log
+    Pr1/Pr0), 'hard_iters'; early stop freezes each codeword at its first
+    syndrome-satisfying state."""
     n, m, dc, dv = g.n_vars, g.n_checks, g.dc, g.dv
     B = llr.shape[0]
+    Ec = m * dc
     dev = llr.device
-    to_var = torch.from_numpy(g.to_var_space.astype(np.int64)).to(dev)
-    to_check = torch.from_numpy(g.to_check_space.astype(np.int64)).to(dev)
-    v_mask = torch.from_numpy(np.asarray(g.v_mask, bool)).to(dev)
     c_mask = torch.from_numpy(np.asarray(g.c_mask, bool)).to(dev)
     Lv = (-llr).to(dtype)  # internal log(Pr0/Pr1)
     ref_mode = method == "sum-product-ref"
     if weights is not None:
         weights = {k: torch.as_tensor(v, device=dev).to(dtype)
                    for k, v in weights.items()}
+
+    if backend == "dense":
+        # small codes: one Ec×Ec product (W_v); beyond Ec = 1024 the exact
+        # factorization W_v = L_exp @ M_fin − I on valid slots, two
+        # rectangular products with O(n·Ec) constants
+        factored = Ec > _DENSE_MAX_PADDED_EDGES
+        if factored and n * Ec > _FACTORED_MAX_ELEMS:
+            raise ValueError(
+                f"code too large for factored dense routing (n·Ec = "
+                f"{n * Ec} > {_FACTORED_MAX_ELEMS}); decode with "
+                "backend='gather'")
+        routing = g.factored_routing if factored else g.dense_routing
+        # float64 constants: every routing product below is exact
+        L_exp = torch.from_numpy(routing["L_exp"]).to(dev).double()  # Ec×n
+        W_v = (None if factored
+               else torch.from_numpy(routing["W_v"]).to(dev).double())
+        H = np.zeros((m, n), np.float32)
+        H[g.edge_check, g.edge_var] = 1.0
+        Ht = torch.from_numpy(H.T.copy()).to(dev)
+
+        def route(x, A):
+            """``x @ A`` exactly, rounded once to ``dtype``."""
+            return (x.double() @ A).to(dtype)
+
+        # variable-space weight slots → check-space edge order, once
+        vslot = _index(np.minimum(g.to_check_space, n * dv - 1), dev)
+        cs_valid = torch.from_numpy(g.to_check_space < n * dv).to(dev)
+
+        def w_to_cs(w):
+            flat = w.reshape(*w.shape[:-2], n * dv).index_select(-1, vslot)
+            return torch.where(cs_valid, flat, 0.0)
+
+        if weights is not None:
+            w_msg_cs = w_to_cs(weights["w_msg"])
+            w_fin_cs = w_to_cs(weights["w_msg_final"])
+
+        def var_to_check(c2v, it):
+            x = c2v.reshape(B, Ec)
+            lv = Lv
+            if weights is not None:
+                x = w_msg_cs[it] * x
+                lv = weights["w_llr"][it] * Lv
+            if factored:
+                tot = route(x, L_exp) + lv
+                v2c = route(tot, L_exp.T) - x
+            else:
+                v2c = route(x, W_v) + route(lv, L_exp.T)  # W_v symmetric
+            return torch.where(c_mask, v2c.reshape(B, m, dc), _BIG)
+
+        def posterior(c2v):
+            x = c2v.reshape(B, Ec)
+            lv = Lv
+            if weights is not None:
+                x = w_fin_cs * x
+                lv = weights["w_llr_final"] * Lv
+            return lv + route(x, L_exp)
+
+        def satisfied(c2v):
+            """(B,) bool: the hard decisions satisfy every check."""
+            bits = posterior(c2v) < 0
+            return (_parity_product(bits, Ht) == 0).all(-1)
+
+    else:
+        to_var = _index(g.to_var_space, dev)
+        to_check = _index(g.to_check_space, dev)
+        v_mask = torch.from_numpy(np.asarray(g.v_mask, bool)).to(dev)
+        pair = weights is not None and "w_pair" in weights
+        if pair:  # slot j's own message stays out of its mix (the diagonal)
+            offdiag = (1.0 - torch.eye(dv, device=dev)).to(dtype)
+
+        def to_var_space(c2v):
+            return _take(c2v.reshape(B, Ec), to_var, 0.0).reshape(B, n, dv)
+
+        def var_to_check(c2v, it):
+            vm = to_var_space(c2v)
+            lv = Lv
+            if weights is not None:
+                vm = vm * weights["w_msg"][it]
+                lv = weights["w_llr"][it] * Lv
+            vm = torch.where(v_mask, vm, 0.0)
+            if pair:
+                wp = weights["w_pair"][it] * offdiag  # (n, dv out, dv in)
+                v2c_v = lv[..., None] + torch.einsum("vji,bvi->bvj", wp, vm)
+            elif ref_mode:
+                v2c_v = lv[..., None] + _exclusive_sum(vm, -1)
+            else:
+                v2c_v = (lv + vm.sum(-1))[..., None] - vm
+            return _take(v2c_v.reshape(B, n * dv), to_check,
+                         _BIG).reshape(B, m, dc)
+
+        def posterior(c2v):
+            vm = to_var_space(c2v)
+            lv = Lv
+            if weights is not None:
+                vm = vm * weights["w_msg_final"]
+                lv = weights["w_llr_final"] * Lv
+            return lv + torch.where(v_mask, vm, 0.0).sum(-1)
+
+        def satisfied(c2v):
+            """(B,) bool: the hard decisions satisfy every check."""
+            return (_checks_parity(posterior(c2v) < 0, g) == 0).all(-1)
 
     def per_iteration(v):
         if isinstance(v, torch.Tensor) or isinstance(v, (tuple, np.ndarray)):
@@ -185,31 +358,6 @@ def _decode_gather(llr: torch.Tensor, g, *, iterations: int, method: str,
     if msg_qbits is not None:
         qstep = torch.tensor(2.0 * msg_qclip / (2**msg_qbits - 1),
                              device=dev).to(dtype)
-
-    def to_var_space(c2v):
-        return _take(c2v.reshape(B, m * dc), to_var, 0.0).reshape(B, n, dv)
-
-    def var_to_check(c2v, it):
-        vm = to_var_space(c2v)
-        lv = Lv
-        if weights is not None:
-            vm = vm * weights["w_msg"][it]
-            lv = weights["w_llr"][it] * Lv
-        vm = torch.where(v_mask, vm, 0.0)
-        if ref_mode:
-            v2c_v = lv[..., None] + _exclusive_sum(vm, -1)
-        else:
-            v2c_v = (lv + vm.sum(-1))[..., None] - vm
-        return _take(v2c_v.reshape(B, n * dv), to_check,
-                     _BIG).reshape(B, m, dc)
-
-    def posterior(c2v):
-        vm = to_var_space(c2v)
-        lv = Lv
-        if weights is not None:
-            vm = vm * weights["w_msg_final"]
-            lv = weights["w_llr_final"] * Lv
-        return lv + torch.where(v_mask, vm, 0.0).sum(-1)
 
     def check_update(v2c, it):
         if method == "min-sum":
@@ -238,12 +386,6 @@ def _decode_gather(llr: torch.Tensor, g, *, iterations: int, method: str,
                             msg_qclip)
         return y
 
-    def satisfied(c2v):
-        """(B,) bool: the hard decisions satisfy every check."""
-        bits = (posterior(c2v) < 0).to(torch.int32)
-        cs = _take(bits.repeat_interleave(dv, -1), to_check, 0)
-        return ((cs.reshape(B, m, dc).sum(-1) & 1) == 0).all(-1)
-
     c2v = torch.zeros((B, m, dc), dtype=dtype, device=dev)
     iters = torch.full((B,), iterations, dtype=torch.int32, device=dev)
     if early_stop:
@@ -269,7 +411,7 @@ def _decode_gather(llr: torch.Tensor, g, *, iterations: int, method: str,
 
 def bp_decode(
     llr: torch.Tensor,
-    code: LdpcCode,
+    code: LdpcCode | TannerGraph,
     *,
     iterations: int = 20,
     method: str = "min-sum",
@@ -296,7 +438,9 @@ def bp_decode(
 
     Args:
       llr: (batch, n) channel LLRs, convention log(Pr1/Pr0).
-      code: a quasi-cyclic :class:`LdpcCode`.
+      code: an :class:`LdpcCode` (a QC one takes the roll and cuda
+        backends) or a bare :class:`TannerGraph` (the dense and gather
+        backends).
       iterations: BP iterations (fixed trip count).
       method: 'min-sum', 'sum-product' (stable log domain, the JAX roll
         backend's expm1/log1p form) or 'sum-product-ref' (the reference's
@@ -337,12 +481,15 @@ def bp_decode(
         dict runs the kernels on the card, with the ms arrays frozen to
         that table. Weights that need a gradient decode with
         ``backend='roll'``: the kernels carry none, and the ``cuda``
-        path raises rather than drop it. The gather backend takes the
-        edge-flavor and ``ms_*`` arrays; the pair flavor (``w_pair``) is
-        not ported yet (ROADMAP A4).
-      backend: 'auto' | 'cuda' | 'roll' | 'gather' (module docs).
-      schedule: 'flooding' | 'layered' (QC codes, not the gather
-        backend).
+        path raises rather than drop it. The dense and gather backends
+        take the edge-flavor and ``ms_*`` arrays; the pair flavor
+        (``w_pair``, :func:`init_neural_bp_weights`) decodes on the
+        gather backend only: ``auto`` goes there, any other backend
+        raises ``ValueError``, as in JAX.
+      backend: 'auto' | 'cuda' | 'roll' | 'dense' | 'gather' (module
+        docs).
+      schedule: 'flooding' | 'layered' (QC codes on the roll and cuda
+        backends).
       layered_group: block rows per serial group of the layered schedule
         (1 = serial-C; ``mb`` = one flooding iteration up to the order of
         the sums); above 1 the kernels' module only, as in JAX.
@@ -350,16 +497,17 @@ def bp_decode(
         their names. On the ``cuda`` backend the message storage of the
         Pallas kernel (:func:`.bp_roll.decode_roll`): bf16 messages,
         posterior and channel LLRs, or int8 messages on the 255-level
-        grid over ±``msg_qclip``, with f32 arithmetic. On the ``roll`` and
-        ``gather`` backends the arithmetic, as in JAX: bf16 computes every
-        operation in bf16; int8 raises ``ValueError``.
+        grid over ±``msg_qclip``, with f32 arithmetic. On the ``roll``,
+        ``dense`` and ``gather`` backends the arithmetic, as in JAX: bf16
+        computes every operation in bf16 (the dense routing products
+        exactly, then rounded to bf16); int8 raises ``ValueError``.
       threads: the flooding kernels' CTA size (JAX's ``tile``), a
         multiple of 32 in [32, 1024]; None takes the measured default
         (:func:`..kernels.minsum_qc.default_threads`). The ``roll``
         backend ignores it, as JAX's ignores ``tile``.
 
-    ``code`` is an :class:`LdpcCode`; a non-QC code decodes on the
-    gather backend (module docs).
+    A non-QC code or a bare graph decodes on the gather backend under
+    ``auto`` (module docs).
     """
     if method not in ("min-sum", "sum-product", "sum-product-ref"):
         raise ValueError(f"unknown method {method!r}")
@@ -419,23 +567,20 @@ def bp_decode(
                 f"per-iteration {nm} needs length {iterations}, got {len(v)}"
             )
     if weights is not None:
-        if "w_pair" in weights:
-            raise NotImplementedError(
-                "pair-flavor neural-BP weights (w_pair) are not ported yet "
-                "(ROADMAP A4)"
-            )
+        if "w_pair" in weights and backend != "gather":
+            if backend != "auto":
+                raise ValueError("pair-flavor weights need backend='gather'")
+            backend = "gather"
         weights = weights.get("tables", weights)
-    if not isinstance(code, LdpcCode):
-        raise NotImplementedError(
-            "bp_decode takes an LdpcCode; a bare TannerGraph is not ported "
-            "yet (ROADMAP A4)"
-        )
-    if backend == "dense":
-        raise NotImplementedError(
-            "backend='dense' is not ported yet (ROADMAP A4); the gather "
-            "backend computes the same function up to the order of its sums"
-        )
-    if schedule == "layered" and (code.qc is None or backend == "gather"):
+    if isinstance(code, LdpcCode):
+        qc, g = code.qc, code.graph
+    elif isinstance(code, TannerGraph):
+        qc, g = None, code
+    else:
+        raise TypeError("code must be an LdpcCode or a TannerGraph, got "
+                        f"{type(code).__name__}")
+    if schedule == "layered" and (qc is None
+                                  or backend in ("dense", "gather")):
         raise ValueError(
             "layered schedule requires a quasi-cyclic LdpcCode (roll or "
             "cuda backend)"
@@ -446,15 +591,15 @@ def bp_decode(
         early_stop and (es_mode != "freeze" or es_check_every != 1))
     on_card = llr.device.type == "cuda"
     if backend == "auto":
-        if code.qc is None:
+        if qc is None:
             backend = "gather"
         elif method == "sum-product-ref":
             backend = "roll"  # no kernel has the reference's rule
         else:
             backend = ("cuda" if on_card or needs_cuda else "roll")
-    if backend not in ("cuda", "roll", "gather"):
+    if backend not in ("cuda", "roll", "dense", "gather"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend in ("cuda", "roll") and code.qc is None:
+    if backend in ("cuda", "roll") and qc is None:
         raise ValueError(f"the {backend} backend requires a quasi-cyclic "
                          "LdpcCode")
     if layered_group != 1 and backend != "cuda":
@@ -502,19 +647,19 @@ def bp_decode(
     kw = dict(iterations=iterations, clamp=clamp, schedule=schedule,
               method=method, msg_qbits=msg_qbits, msg_qclip=msg_qclip,
               layered_group=layered_group, dtype=dtype, output=out_kind)
-    if backend == "gather":
+    if backend in ("dense", "gather"):
         if isinstance(weights, EdgeTables):
-            raise ValueError("the gather backend takes JAX's weight dict, "
-                             "not the kernels' packed tables")
-        out = _decode_gather(
-            llr, code.graph, iterations=iterations, method=method,
+            raise ValueError(f"the {backend} backend takes JAX's weight "
+                             "dict, not the kernels' packed tables")
+        out = _decode_graph(
+            llr, g, backend=backend, iterations=iterations, method=method,
             alpha=alpha, beta=beta, ms_w=ms_w, clamp=clamp,
             msg_qbits=msg_qbits, msg_qclip=msg_qclip, weights=weights,
             early_stop=early_stop, output=out_kind, dtype=dtype)
     elif backend == "roll":
         # JAX's roll backend computes a bf16 decode in bf16 arithmetic
         kw.update(dtype=torch.float32, arith=dtype)
-        out = decode_roll(llr, code.qc, alpha=alpha, beta=beta,
+        out = decode_roll(llr, qc, alpha=alpha, beta=beta,
                           early_stop=early_stop, weights=weights,
                           ms_weights=ms_w, **kw)
     else:
@@ -532,14 +677,14 @@ def bp_decode(
         kw.update(alpha=alpha, beta=beta, threads=threads)
         if early_stop and es_mode == "probe":
             out = mq.bp_qc_probe_requeue(
-                llr, code.qc, probe_iters=es_probe_iters,
+                llr, qc, probe_iters=es_probe_iters,
                 probe_alpha=es_probe_alpha, probe_beta=es_probe_beta, **kw)
         elif early_stop and es_mode == "requeue":
             out = mq.bp_qc_requeue(
-                llr, code.qc, probe_iters=es_probe_iters,
+                llr, qc, probe_iters=es_probe_iters,
                 es_check_every=es_check_every, **kw)
         else:
-            out = mq.bp_qc_cuda(llr, code.qc, early_stop=early_stop,
+            out = mq.bp_qc_cuda(llr, qc, early_stop=early_stop,
                                 es_check_every=es_check_every,
                                 weights=weights, **kw)
     if output == "soft":
@@ -549,3 +694,13 @@ def bp_decode(
                                dtype=torch.int32, device=llr.device)
     return out
 
+
+
+def decode_to_bits(llrs: torch.Tensor, code: LdpcCode | TannerGraph,
+                   bp_iterations: int, clamp_value: float = 20.0,
+                   method: str = "sum-product-ref") -> torch.Tensor:
+    """The reference's ``decode_bits`` (``ofdm/ofdm_functions.py:131-163``)
+    as JAX's ``decode_to_bits``: (batch, n) LLRs → int8 hard bits of one
+    :func:`bp_decode` call."""
+    return bp_decode(llrs, code, iterations=bp_iterations, method=method,
+                     clamp=clamp_value, output="hard")

@@ -12,6 +12,8 @@ quantizer and its two AGCs. Randomness comes from an explicit
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = [
@@ -30,6 +32,8 @@ __all__ = [
     "quantize_complex",
     "agc_global",
     "agc_per_symbol",
+    "ebn0db_to_snrdb",
+    "snrdb_to_ebn0db",
 ]
 
 _INV_SQRT2 = 0.7071067811865476
@@ -206,3 +210,15 @@ def agc_per_symbol(snr: torch.Tensor, agc_clip: float = 10.0,
     snr = torch.as_tensor(snr, dtype=torch.float32)
     sigma_rx = 0.5 * (1.0 + 1.0 / snr)  # 1/x: a reciprocal, exact as JAX's
     return _f32(agc_clip, snr.device) / sigma_rx * clip_ratio
+
+
+def ebn0db_to_snrdb(ebn0_db, rate: float, bits_per_symbol: int):
+    """Eb/N0 (dB) → symbol SNR Es/N0 (dB): Es = Eb · rate · bits/symbol.
+    Takes and returns a float or a tensor."""
+    return ebn0_db + 10.0 * math.log10(rate * bits_per_symbol)
+
+
+def snrdb_to_ebn0db(snrdb, rate: float, bits_per_symbol: int):
+    """Symbol SNR Es/N0 (dB) → Eb/N0 (dB), the inverse of
+    :func:`ebn0db_to_snrdb`."""
+    return snrdb - 10.0 * math.log10(rate * bits_per_symbol)

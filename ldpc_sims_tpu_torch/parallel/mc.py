@@ -198,7 +198,9 @@ def run_sweep(
                                steps_per_sync=sweep.steps_per_sync,
                                device=device)}
     warmed: set[str] = set()
-    timer = PhaseTimer()  # first step vs steady-state split
+    # the first step (its kernels loaded, and built on first use) vs the
+    # steady state
+    timer = PhaseTimer()
 
     state: dict[str, Any] = {"points": {}}
     if manifest_path and os.path.exists(manifest_path):
@@ -240,7 +242,8 @@ def run_sweep(
             else:  # calibration: warm each mode once, then time each
                 mode = next(m for m in steps if m not in timings)
             seed = stable_seed(point_seed, int(acc["steps"]))
-            phase = "first-step" if not timer.counts else "steady-step"
+            phase = ("compile+first-step" if not timer.counts
+                     else "steady-step")
             t0 = time.perf_counter()
             with timer.phase(phase):
                 out = steps[mode](seed, snrdb)

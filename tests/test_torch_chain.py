@@ -557,6 +557,8 @@ def test_package_imports_no_jax():
         "import sys, chip_smoke, ldpc_sims_tpu_torch\n"
         "import ldpc_sims_tpu_torch.cli.main, ldpc_sims_tpu_torch.convert\n"
         "import ldpc_sims_tpu_torch.kernels, ldpc_sims_tpu_torch.parallel\n"
+        "import ldpc_sims_tpu_torch.native, ldpc_sims_tpu_torch.plotting\n"
+        "import ldpc_sims_tpu_torch.utils.registry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "       or m.startswith('jax') or m == 'ldpc_sims_tpu'\n"
         "       or m.startswith('ldpc_sims_tpu.')]\n"

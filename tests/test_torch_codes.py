@@ -81,6 +81,20 @@ def test_trained_schedule_from_registry():
         load_trained_schedule(SCHEDULES, "wifi1944", 3)
 
 
-def test_native_peg_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        make_regular_ldpc(128, 64, 3, seed=1, backend="native")
+def test_native_peg_backend_not_ported(tmp_path, monkeypatch):
+    """The native PEG backend, which raised until it was ported: it builds
+    (tests/test_torch_native.py holds it to JAX's); with no compiler it
+    raises naming g++ and falls back to nothing."""
+    from ldpc_sims_tpu_torch import native
+
+    code = make_regular_ldpc(128, 64, 3, seed=1, backend="native")
+    assert code.name == "peg128_64" and (code.H.sum(axis=0) == 3).all()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    native._library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            make_regular_ldpc(128, 64, 3, seed=1, backend="native")
+    finally:
+        native._library.cache_clear()
+    assert not list(tmp_path.iterdir())

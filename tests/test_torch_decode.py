@@ -127,23 +127,43 @@ def test_freeze_minsum_weights():
 
 
 @pytest.mark.parametrize("kw, match", [
-    # a bare TannerGraph (JAX takes one) is A4
-    (dict(graph=True), "ROADMAP A4"),
     # the kernels carry no gradient: training through them is A10
     (dict(weights={"ms_alpha": torch.ones(4, requires_grad=True)},
           backend="cuda"), "ROADMAP A10"),
-    (dict(weights={"w_pair": np.ones(4)}), "ROADMAP A4"),
-    # the pair flavor is the gather backend's in JAX, not yet the port's
-    (dict(weights={"w_pair": np.ones(4)}, backend="gather"), "ROADMAP A4"),
-    (dict(backend="dense"), "ROADMAP A4"),
 ])
 def test_unported_features_raise(kw, match):
     code = get_code("wifi648")
     llr = torch.zeros((2, code.n))
-    if kw.pop("graph", False):
-        code = code.graph
     with pytest.raises(NotImplementedError, match=match):
         bp_decode(llr, code, iterations=4, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(graph=True),
+    dict(weights="pair"),
+    dict(weights="pair", backend="gather"),
+    dict(backend="dense"),
+], ids=["graph", "pair", "pair-gather", "dense"])
+def test_graph_pair_and_dense_decode(kw):
+    """A bare TannerGraph, pair-flavor weights and the dense backend,
+    which raised until they were ported: a noisy codeword decodes, each
+    within 1e-4 of the gather backend (identity pair weights are the
+    unweighted decode); the comparisons with JAX are in
+    tests/test_torch_dense.py."""
+    code = get_code("wifi648")
+    llr, cw = channel_llrs(code, 4, 5.0, seed=2)
+    assert ((llr > 0) != cw).any()
+    kw = dict(kw)
+    if kw.pop("graph", False):
+        code = code.graph
+    if kw.get("weights") == "pair":
+        kw["weights"] = init_neural_bp_weights(code, 6, flavor="pair")
+    out = bp_decode(torch.from_numpy(llr), code, iterations=6,
+                    output="posterior", **kw)
+    ref = bp_decode(torch.from_numpy(llr), code, iterations=6,
+                    backend="gather", output="posterior")
+    assert_posteriors_match(out.numpy(), ref.numpy())
+    np.testing.assert_array_equal((out > 0).numpy(), cw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -211,15 +231,20 @@ def test_early_stop_and_hard_iters_decode(kw):
 
 def test_non_qc_code_not_ported():
     """A non-QC code decodes on the gather backend (tests/
-    test_torch_gather.py holds it to JAX); its bare TannerGraph is not
-    ported (ROADMAP A4), nor a layered schedule, which JAX refuses."""
+    test_torch_gather.py holds it to JAX), and so does its bare
+    TannerGraph, equal to it; neither takes a layered schedule, which JAX
+    refuses, nor the QC backends."""
     code = get_code("ref6432")
     bits = bp_decode(torch.full((2, code.n), -4.0), code, iterations=3)
     assert bits.dtype == torch.int8 and not bits.any()
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        bp_decode(torch.zeros((2, code.n)), code.graph, iterations=3)
-    with pytest.raises(ValueError, match="quasi-cyclic"):
-        bp_decode(torch.zeros((2, code.n)), code, schedule="layered")
+    llr = torch.from_numpy(channel_llrs(code, 8, 2.0)[0])
+    assert torch.equal(bp_decode(llr, code.graph, iterations=3),
+                       bp_decode(llr, code, iterations=3))
+    for c in (code, code.graph):
+        with pytest.raises(ValueError, match="quasi-cyclic"):
+            bp_decode(torch.zeros((2, code.n)), c, schedule="layered")
+    with pytest.raises(ValueError, match="requires a quasi-cyclic"):
+        bp_decode(torch.zeros((2, code.n)), code.graph, backend="roll")
 
 
 @pytest.mark.parametrize("kw, match", [

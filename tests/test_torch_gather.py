@@ -1,7 +1,7 @@
 """The port's gather backend (non-QC codes) and its bf16 roll arithmetic
 against the JAX package.
 
-* The gather backend (``ops/bp.py:_decode_gather``) on ref6432 and
+* The gather backend (``ops/bp.py:_decode_graph``) on ref6432 and
   peg128_64 against JAX's ``auto`` (its dense backend on these codes) and
   JAX's ``backend='gather'``, 3 iterations on shared numpy LLRs:
   posteriors within rtol 1e-3 + atol 1e-5 (the dense backend routes with

@@ -166,7 +166,8 @@ def test_weights_gradient_through_the_plain_version():
     (dict(weights="ms", method="sum-product"), ValueError,
      "require method='min-sum'"),
     (dict(weights="ms3"), ValueError, r"ms_alpha must have shape \(2,\)"),
-    (dict(weights="pair"), NotImplementedError, "ROADMAP A4"),
+    (dict(weights="pair", backend="roll"), ValueError,
+     "pair-flavor weights need backend='gather'"),
     (dict(weights="partial"), ValueError, "edge flavor"),
 ], ids=["early-stop", "tuple-and-ms", "ms-sum-product", "ms-length",
         "pair", "partial"])
@@ -184,8 +185,11 @@ def test_weight_validation(call, exc, match):
     with pytest.raises(exc, match=match):
         bp_decode(torch.zeros((8, code.n)), code, iterations=2,
                   weights=weights, **call)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        init_neural_bp_weights(code, 2, flavor="pair")
+    pair = init_neural_bp_weights(code, 2, flavor="pair")
+    assert pair["w_pair"].shape == (2, code.n, code.graph.dv,
+                                    code.graph.dv)
+    with pytest.raises(ValueError, match="unknown flavor"):
+        init_neural_bp_weights(code, 2, flavor="bogus")
 
 
 def test_packed_tables_and_shape_errors():
