@@ -161,6 +161,21 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    and ``sweep-phases`` with ``compile+first-step``, its ``registry.jsonl``
    a ``sweep`` record, its Chrome trace naming ``minsum_qc_flooding_cs``
    (its top kernels printed);
+3h. ``evaluate`` as a user runs it: ``python -m ldpc_sims_tpu_torch
+   evaluate`` on wifi1944, QPSK/OFDM-32, min-sum flooding-20, ``--qbits 3``
+   (global AGC), batch 32768, at 1.5 and 2.0 dB, with ``--ckpt`` a
+   JAX-format checkpoint this phase writes of a seeded ``LLRestimator``
+   (and reads back equal first, bfloat16 and int64 leaves included): the
+   flooding kernel launched three times a point (Traditional, Quantized,
+   NN), the curves finite and printed, the Traditional and Quantized
+   BLER and BER within 4σ of ``run_sweep``'s on the same links; the
+   ``LLRestimator`` and ``LLRestimatorTanh`` forwards on 4096 rows, card
+   against CPU, within 1e-4 of the largest LLR, and the first's time at
+   the point's 995,328 rows; ``python -m torch.distributed.run
+   --standalone --nproc_per_node 1 -m ldpc_sims_tpu_torch sweep
+   --multihost`` (NCCL) with its counts equal to ``sweep``'s; one
+   ``scaling-probe`` row (32768 a rank); ``run_grid`` over two points
+   equal to each point's ``mc_step``;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -170,7 +185,9 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    sum-product kernels, at wifi1944 and again at the wifi648-sweep
    preset's shape (``name@wifi648``: wifi648 at 2.0 dB, batch 4096), and
    ``minsum_qc_flooding@msgq4`` (the quantized form, with the
-   quantized-minsum run's launches), bound by the f32 and
+   quantized-minsum run's launches), ``minsum_qc_flooding@evaluate`` (a
+   decode of each of an evaluate point's three LLR sets, with phase 3h's
+   launches, three a point), bound by the f32 and
    special-function-unit instructions counted in the SASS of their edge
    sequence; ``minsum_qc_layered_w`` (the K6 decoder),
    ``minsum_qc_flooding_w`` (flooding-12, random weights) and
@@ -261,6 +278,15 @@ SP_OPS_PER_EDGE_ITER = {"flooding": 5 + 1, "layered": 5 + 2}
 ES_AUTO_ROW = "minsum_qc_layered@es_auto"
 # the kernels line's row for the 4-bit quantized flooding kernel
 MSGQ_ROW = "minsum_qc_flooding@msgq4"
+# the kernels line's row for the flooding kernel's launches on the
+# evaluate path (three decodes a point: Traditional, Quantized, NN)
+EVAL_ROW = "minsum_qc_flooding@evaluate"
+# f32 operations of the NN estimator's forward a row at OFDM size 32: the
+# four products (64·64 + 64·512 + 2·512·512 + 512·64 multiply-adds, 2
+# each), at the H100 SXM's 67 TFLOP/s f32 outside the tensor cores (TF32
+# stays off)
+NN_OPS_PER_ROW = 2 * (64 * 64 + 64 * 512 + 2 * 512 * 512 + 512 * 64)
+F32_FMA_OPS_PER_S = 67e12
 # the four sum-product entry points, each with a row at wifi1944 (batch
 # 32768) and one at the wifi648-sweep preset's shape that launches it
 # (name@wifi648: wifi648 at 2.0 dB, batch 4096)
@@ -1250,6 +1276,224 @@ def sweep_outputs(card: str) -> None:
         fail("sweep --profile: the trace names no minsum_qc_flooding_cs")
 
 
+def evaluate_phase(card: str, name: str, batch: int) -> dict:
+    """Phase 3h: ``evaluate`` as a user runs it (a JAX-format checkpoint of
+    a seeded estimator), its curves against ``run_sweep``'s, the NN
+    forward card against CPU, the checkpoint round trip, ``sweep
+    --multihost`` on one NCCL rank against ``sweep``, ``scaling-probe``
+    and ``run_grid``. Returns the evaluate run's flooding launches and
+    one point's three LLR sets (for the kernels line)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3h_") as tmp:
+        return _evaluate_phase(card, name, batch, tmp)
+
+
+def _evaluate_phase(card: str, name: str, batch: int, tmp: str) -> dict:
+    import numpy as np
+    import torch
+
+    from ldpc_sims_tpu_torch.cli.main import main as cli_main
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.convert import llr_params_to_flax
+    from ldpc_sims_tpu_torch.evaluate import invert_tanh
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.models import LLRestimator, LLRestimatorTanh
+    from ldpc_sims_tpu_torch.ops.chain import LinkConfig, link_step
+    from ldpc_sims_tpu_torch.parallel import (
+        SweepConfig,
+        mc_step,
+        run_grid,
+        run_sweep,
+    )
+    from ldpc_sims_tpu_torch.parallel.mc import stable_seed
+    from ldpc_sims_tpu_torch.utils import load_checkpoint, save_checkpoint
+
+    code = get_code(name)
+    snrs = (1.5, 2.0)
+    f20 = LinkConfig(bp_iterations=20, bp_method="min-sum", clamp=None)
+    flags = ["--code", name, "--method", "min-sum", "--iters", "20",
+             "--clamp", "0", "--batch", str(batch)]
+    model = LLRestimator(32, generator=torch.Generator().manual_seed(5))
+
+    # the checkpoint round trip on this machine (no flax, no msgpack here)
+    t0 = time.perf_counter()
+    tree = {"params": llr_params_to_flax(model), "opt_state": None,
+            "extra": {"bf16": torch.arange(8, dtype=torch.bfloat16) / 7,
+                      "step": np.int64(3)}}
+    ckpt = save_checkpoint(os.path.join(tmp, "llr"), tree,
+                           {"model": "LLRestimator", "seed": 5})
+    back, mani = load_checkpoint(ckpt)
+    same = mani == {"model": "LLRestimator", "seed": 5} and back[
+        "opt_state"] is None and int(back["extra"]["step"]) == 3 and \
+        torch.equal(back["extra"]["bf16"], tree["extra"]["bf16"])
+    for layer, leaves in tree["params"]["params"].items():
+        for kind, a in leaves.items():
+            got = back["params"]["params"][layer][kind]
+            same &= got.dtype == a.dtype and np.array_equal(got, a)
+    nbytes = os.path.getsize(os.path.join(ckpt, "params.msgpack"))
+    print(f"  checkpoint round trip: {nbytes} B of params.msgpack written "
+          f"and read back equal: {same} ({time.perf_counter() - t0:.3f} s)",
+          flush=True)
+    if not same:
+        fail("the checkpoint read back differs from what was written")
+
+    # evaluate as a user runs it
+    out = os.path.join(tmp, "eval")
+    mq.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main(["evaluate", *flags, "--qbits", "3", "--snr",
+              ",".join(f"{x:g}" for x in snrs), "--ckpt", ckpt,
+              "--out", out])
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in mq.LAUNCHES.items() if v}
+    entries = dict(mq.ENTRY_LAUNCHES)
+    (path,) = [f for f in os.listdir(out) if f.endswith("_eval.json")]
+    with open(os.path.join(out, path)) as f:
+        curves = json.load(f)
+    print(f"  evaluate ({code.name}, QPSK/OFDM-32, min-sum flooding-20, "
+          f"3-bit ADC, global AGC, batch {batch}, LLRestimator): "
+          f"{wall:.3f} s for {len(snrs)} points, {wall / len(snrs):.3f} s "
+          f"a point (first use included); launches {launched}, entry "
+          f"points {entries} [{card}]", flush=True)
+    print(f"  evaluate curves: {json.dumps(curves)}", flush=True)
+    if launched != {"minsum_qc_flooding": 3 * len(snrs)}:
+        fail(f"evaluate launched {launched}, not minsum_qc_flooding three "
+             "times a point")
+    for k, v in curves.items():
+        if k != "code" and not all(math.isfinite(x) for x in v):
+            fail(f"evaluate: non-finite {k}")
+    with open(os.path.join(out, "registry.jsonl")) as f:
+        runs = [json.loads(line) for line in f]
+    if [r["kind"] for r in runs] != ["evaluate"] or runs[0]["ckpt"] != ckpt:
+        fail(f"evaluate: registry holds {runs}")
+
+    # its Traditional and Quantized curves against run_sweep's
+    steps = 4
+    sweep = SweepConfig(snrdb=snrs, batch_cw=batch,
+                        target_frame_errors=10**12,
+                        max_info_bits=steps * batch * code.k, seed=3)
+    for tag, cfg in (("", f20),
+                     ("_qllr", dataclasses.replace(f20, qbits=3))):
+        res = run_sweep(code, cfg, sweep, log=None, device="cuda")
+        for i, snr in enumerate(snrs):
+            n_e, n_s = batch, res.frames[i]
+            be, bs = curves["coded_bler" + tag][i], res.coded_bler[i]
+            ee, es = curves["coded_ber" + tag][i], res.coded_ber[i]
+            p = (be * n_e + bs * n_s) / (n_e + n_s)
+            s_bler = math.sqrt(p * (1 - p) * (1 / n_e + 1 / n_s))
+            # a frame's info-bit error fraction x is at most 1, so its
+            # variance is at most its mean: σ of the BER from the frames
+            q = (ee * n_e + es * n_s) / (n_e + n_s)
+            s_ber = math.sqrt(q * (1 / n_e + 1 / n_s))
+            name = "Traditional" if not tag else "Quantized"
+            print(f"  {name} @ {snr:g} dB: evaluate BER {ee!r} BLER {be!r} "
+                  f"({n_e} frames), run_sweep BER {es!r} BLER {bs!r} "
+                  f"({n_s:g} frames); 4σ {4 * s_ber!r}, {4 * s_bler!r} "
+                  f"[{card}]", flush=True)
+            if abs(be - bs) > 4 * s_bler or abs(ee - es) > 4 * s_ber:
+                fail(f"evaluate {name} @ {snr:g} dB is not within 4σ of "
+                     "run_sweep's")
+
+    # the NN forward, card against CPU, and its time at full size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    arrays = link_step(gen, snrs[0], code, dataclasses.replace(f20, qbits=3),
+                       batch, return_arrays=True)
+    sig = arrays["q_time"].reshape(-1, 32)
+    x = torch.cat([sig.real, sig.imag], dim=1)
+    xs = torch.cat([x, arrays["snr_sym"].reshape(-1, 1)], dim=1)
+    tanh_model = LLRestimatorTanh(
+        32, generator=torch.Generator().manual_seed(6))
+    for label, m, inp, post in (("LLRestimator", model, x, None),
+                                ("LLRestimatorTanh", tanh_model, xs,
+                                 invert_tanh)):
+        rows = inp[:4096]
+        with torch.no_grad():
+            on_card = m.to("cuda")(rows)
+            on_cpu = m.to("cpu")(rows.cpu())
+        if post is not None:
+            on_card, on_cpu = post(on_card), post(on_cpu)
+        diff = float((on_card.cpu() - on_cpu).abs().max())
+        top = float(on_cpu.abs().max())
+        print(f"  {label} forward on 4096 rows, card against CPU: max |diff| "
+              f"{diff!r}, max |LLR| {top!r} (limit 1e-4 x max |LLR|) "
+              f"[{card}]", flush=True)
+        if not diff <= 1e-4 * top or not math.isfinite(top):
+            fail(f"{label}: the card's forward differs from the CPU's")
+    model.to("cuda")
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: model(x), 5)
+    flops = x.shape[0] * NN_OPS_PER_ROW
+    print(f"  LLRestimator forward on {x.shape[0]} rows (one evaluate "
+          f"point at batch {batch}): {ms!r} ms, {flops / ms / 1e9:.1f} "
+          f"TFLOP/s, bound {flops / F32_FMA_OPS_PER_S * 1e3!r} ms (f32, "
+          f"TF32 {torch.backends.cuda.matmul.allow_tf32}) [{card}]",
+          flush=True)
+    with torch.no_grad():
+        nn = model(x).reshape(-1, code.n)
+    eval_llrs = {"trad": arrays["llrs"], "quant": arrays["qllrs"],
+                 "nn": nn}
+
+    # sweep --multihost on one NCCL rank equals sweep, count for count
+    grid = ["--snr", ",".join(f"{x:g}" for x in snrs), "--max-bits",
+            str(2 * batch * code.k), "--target-errors", str(10**12)]
+    outs = {}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "ldpc_sims_tpu_torch", "sweep",
+         "--multihost", *flags, *grid, "--out",
+         os.path.join(tmp, "multihost")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    t_mh = time.perf_counter() - t0
+    backend = [ln for ln in proc.stdout.splitlines()
+               if ln.startswith("distributed:")]
+    print(f"  sweep --multihost (torch.distributed.run, 1 rank): rc "
+          f"{proc.returncode}, {t_mh:.1f} s; {backend}", flush=True)
+    if proc.returncode != 0 or not backend or "nccl" not in backend[0]:
+        fail(f"sweep --multihost: {proc.stdout[-2000:]}"
+             f"{proc.stderr[-2000:]}")
+    cli_main(["sweep", *flags, *grid, "--out", os.path.join(tmp, "plain")])
+    for tag in ("multihost", "plain"):
+        d = os.path.join(tmp, tag)
+        (m,) = [f for f in os.listdir(d) if f.endswith("_sweep.json")]
+        with open(os.path.join(d, m)) as f:
+            pts = json.load(f)["points"]
+        outs[tag] = {p: {k: v for k, v in c.items()
+                         if k not in ("wall_s",)} for p, c in pts.items()}
+    print(f"  sweep --multihost counts {outs['multihost']}; sweep "
+          f"{outs['plain']}", flush=True)
+    if outs["multihost"] != outs["plain"]:
+        fail("sweep --multihost on one rank differs from sweep")
+
+    # scaling-probe on the one card: one row
+    out = os.path.join(tmp, "probe")
+    cli_main(["scaling-probe", *flags[:-2], "--devices", "1,2,4,8",
+              "--per-dev-cw", str(batch), "--out", out])
+    (path,) = os.listdir(out)
+    with open(os.path.join(out, path)) as f:
+        probe = json.load(f)
+    print(f"  scaling-probe: devices {probe['devices']}, bits/s "
+          f"{probe['bits_per_s']}, host_frac {probe['host_frac']} "
+          f"[{card}]", flush=True)
+    if probe["devices"] != [1] or not probe["bits_per_s"][0] > 0:
+        fail(f"scaling-probe: {probe}")
+
+    # run_grid: each point the mc_step of its derived seed
+    got = run_grid(code, f20, snrs, batch, seed=9, device="cuda")
+    step = mc_step(code, f20, batch, device="cuda")
+    for p, snr in enumerate(snrs):
+        want = step(stable_seed(9, p), snr)
+        row = {k: int(got[k][p]) for k in want}
+        print(f"  run_grid @ {snr:g} dB: {row}", flush=True)
+        if row != {k: int(v) for k, v in want.items()}:
+            fail(f"run_grid @ {snr:g} dB differs from its mc_step")
+    return {"launches": launched["minsum_qc_flooding"],
+            "points": len(snrs), "llrs": eval_llrs}
+
+
 def main() -> None:
     import torch
 
@@ -1326,7 +1570,7 @@ def main() -> None:
             iterations=20, schedule="flooding"), "wifi648 flooding-20"),
     ]
     max_err = {name: 0.0 for name in (
-        *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW,
+        *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW, EVAL_ROW,
         *(f"{k}@wifi648" for k in SP_KERNELS))}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
@@ -2227,6 +2471,15 @@ def main() -> None:
     sweep_outputs(card)
     print(f"  phase 3g took {time.perf_counter() - t3g:.1f} s", flush=True)
 
+    # -- phase 3h: evaluate, checkpoints, the mesh on torch.distributed ---
+    print("== phase 3h: evaluate with a JAX-format checkpoint, the NN "
+          "forward, sweep --multihost, scaling-probe, run_grid", flush=True)
+    t3h = time.perf_counter()
+    ev3h = evaluate_phase(card, "wifi1944", batch)
+    launches[EVAL_ROW] = ev3h["launches"]
+    per_step[EVAL_ROW] = ev3h["launches"] / ev3h["points"]  # a point
+    print(f"  phase 3h took {time.perf_counter() - t3h:.1f} s", flush=True)
+
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
@@ -2286,6 +2539,23 @@ def main() -> None:
         kernels.append(row(name, ms, plain_ms, bound(
             batch * n * (4 + 1), batch * E * edge_ops(**kw)),
             mq.entry_point(w1944.qc, "min-sum", kw["schedule"])))
+
+    # the flooding kernel on the evaluate path: one decode of each of a
+    # point's three LLR sets (Traditional, Quantized, NN) at 1.5 dB
+    kw = timed["minsum_qc_flooding"]
+    ms = plain_ms = 0.0
+    for tag, x in ev3h["llrs"].items():
+        x = x.contiguous()
+        max_err[EVAL_ROW] = max(max_err[EVAL_ROW], compare(
+            mq.bp_qc_cuda(x, w1944.qc, output="posterior", **kw),
+            decode_roll(x, w1944.qc, output="posterior", **kw),
+            f"{EVAL_ROW} ({tag} LLRs) at batch {batch}"))
+        ms += cuda_time_ms(lambda: mq.bp_qc_cuda(x, w1944.qc, **kw), 10) / 3
+        plain_ms += cuda_time_ms(
+            lambda: decode_roll(x, w1944.qc, **kw), 1, warmup=1) / 3
+    kernels.append(row(EVAL_ROW, ms, plain_ms, bound(
+        batch * n * (4 + 1), batch * E * edge_ops(**kw)),
+        mq.entry_point(w1944.qc, "min-sum", "flooding")))
 
     # the early-stop kernels at 2.5 dB, bound by the iterations they ran
     for sched in ("flooding", "layered"):

@@ -15,12 +15,16 @@ ops        BP decode dispatch (the cuda, roll, dense and gather backends),
 kernels    CUDA BP decode kernels (flooding, layered, group-serial;
            min-sum, sum-product; weighted; early stop; f32, bf16 and
            int8 message storage) and their launch tuner (``tune``).
-parallel   The Monte-Carlo sweep engine on one device.
+models     The neural LLR estimators (``torch.nn``).
+evaluate   BER/BLER/WMSE evaluation sweeps (Traditional, Quantized, NN).
+parallel   Process meshes on torch.distributed and the sharded
+           Monte-Carlo engine (sweeps, grids, the scaling probe).
 native     The C++ PEG builder, built with g++ on first use.
-utils      Metrics, phase timers, profiler traces, the run registry,
-           device selection, decoder-weight loading.
+utils      Checkpoints in the JAX package's format (its own msgpack
+           codec), metrics, phase timers, profiler traces, the run
+           registry, device selection, decoder-weight loading.
 plotting   BER/BLER/WMSE figures (matplotlib, imported on use).
-cli        ``python -m ldpc_sims_tpu_torch sweep ...``.
+cli        ``python -m ldpc_sims_tpu_torch sweep|evaluate|scaling-probe``.
 examples   ``bigcode``: the 5G-class codes at full width on the card.
 """
 

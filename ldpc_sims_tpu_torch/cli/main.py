@@ -1,4 +1,5 @@
-"""Command-line interface: the ``sweep`` subcommand of the JAX package's CLI.
+"""Command-line interface: the ``sweep``, ``evaluate`` and ``scaling-probe``
+subcommands of the JAX package's CLI.
 
     python -m ldpc_sims_tpu_torch sweep --preset reference
     python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
@@ -21,6 +22,13 @@
     python -m ldpc_sims_tpu_torch sweep --code qc1944_r23 --method min-sum \\
         --schedule layered --iters 20 --early-stop --batch 32768 \\
         --snr-unit eb --snr 1:4.5:8 --profile --plot
+    python -m ldpc_sims_tpu_torch evaluate --code wifi1944 --method min-sum \\
+        --iters 20 --clamp 0 --qbits 3 --snr 1.5,2.0 --batch 32768 \\
+        --ckpt outputs/model/<dir>
+    python -m ldpc_sims_tpu_torch scaling-probe --code wifi1944 \\
+        --method min-sum --iters 20 --clamp 0 --per-dev-cw 32768
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m ldpc_sims_tpu_torch sweep --multihost --code wifi1944 ...
 
 The defaults are the JAX CLI's (``ldpc_sims_tpu/cli/main.py:656-672,
 723-724``): the reference chain, ref6432 over QPSK/OFDM-32 with 3
@@ -30,16 +38,23 @@ batch 4096, on the card; non-QC codes decode on the gather backend.
 package's and every preset runs: ``small-cpu``, ``wifi648-sweep``,
 ``quantized-minsum`` (one sweep, manifest and curves file per message
 width, tagged ``_msgq{b}``), ``ofdm-qam16`` and ``reference``.
-``--weights-ckpt`` and ``--schedule-ckpt`` read ``.npz`` files
-(``utils.load_decoder_weights``) and apply to a preset too, as in the JAX
-CLI. ``--snr-unit eb`` reads ``--snr`` as Eb/N0 (a preset ignores it, as
+``--weights-ckpt`` and ``--schedule-ckpt`` read ``.npz`` files and
+checkpoint directories (``utils.load_decoder_weights``) and apply to a
+preset too, as in the JAX CLI. ``--snr-unit eb`` reads ``--snr`` as Eb/N0 (a preset ignores it, as
 in the JAX CLI). Every sweep appends its events (``sweep-step``,
 ``sweep-point``, ``sweep-phases``, ``es-auto``) to ``metrics.jsonl`` and
 one ``sweep`` record to ``registry.jsonl`` under ``--out``, as the JAX
 CLI does; ``--profile`` writes a ``torch.profiler`` Chrome trace to
 ``{stamp}_trace{tag}/`` and ``--plot`` the BER/BLER figure to
 ``{stamp}_ber{tag}.png`` (it needs matplotlib, and stops before the sweep
-without it). The other subcommands are not ported yet (ROADMAP A12).
+without it). ``sweep --multihost`` joins the process group ``torchrun``
+sets up (one rank a GPU, NCCL; Gloo on the CPU) and sweeps on the world's
+mesh, rank 0 writing every file. ``evaluate`` draws the Traditional,
+Quantized (``--qbits``) and, with ``--ckpt`` (a JAX-format checkpoint
+directory whose manifest names the estimator), NN curves on the same
+bits into ``{stamp}_eval.json`` with a registry record; ``scaling-probe``
+writes ``{stamp}_scaling.json``. The other subcommands are not ported yet
+(ROADMAP A10-A12).
 """
 
 from __future__ import annotations
@@ -179,6 +194,34 @@ def _apply_schedule_ckpt(args, link):
     return dataclasses.replace(link, alpha=alpha, beta=beta)
 
 
+def _link_cfg_from_args(args):
+    """The link flags every subcommand shares (``_add_common``)."""
+    from ldpc_sims_tpu_torch.ops.chain import LinkConfig
+
+    return LinkConfig(
+        modulation=args.modulation,
+        ofdm_size=args.ofdm_size,
+        bp_iterations=args.iters,
+        bp_method=args.method,
+        bp_schedule=args.schedule,
+        alpha=args.bp_alpha,
+        beta=args.bp_beta,
+        clamp=args.clamp if args.clamp > 0 else None,
+        qbits=args.qbits if args.qbits > 0 else None,
+        clip_ratio=10 ** (args.clipdb / 10.0),
+        agc=args.agc,
+        early_stop=args.early_stop,
+        es_mode=args.es_mode,
+        es_check_every=args.es_check_every,
+        es_probe_iters=args.es_probe_iters,
+        es_probe_alpha=(_parse_ab(args.es_probe_alpha)
+                        if args.es_probe_alpha else None),
+        es_probe_beta=(_parse_ab(args.es_probe_beta)
+                       if args.es_probe_beta else None),
+        bp_layered_group=args.layered_group,
+    )
+
+
 def sweep_configs(args):
     """What ``sweep`` runs for parsed ``args``: (code, LinkConfig,
     SweepConfig, the msg_qbits grid, the decoder weights or None)."""
@@ -194,28 +237,7 @@ def sweep_configs(args):
         grids = p.get("msg_qbits_grid", (None,))
     else:
         code = get_code(args.code)
-        link = LinkConfig(
-            modulation=args.modulation,
-            ofdm_size=args.ofdm_size,
-            bp_iterations=args.iters,
-            bp_method=args.method,
-            bp_schedule=args.schedule,
-            alpha=args.bp_alpha,
-            beta=args.bp_beta,
-            clamp=args.clamp if args.clamp > 0 else None,
-            qbits=args.qbits if args.qbits > 0 else None,
-            clip_ratio=10 ** (args.clipdb / 10.0),
-            agc=args.agc,
-            early_stop=args.early_stop,
-            es_mode=args.es_mode,
-            es_check_every=args.es_check_every,
-            es_probe_iters=args.es_probe_iters,
-            es_probe_alpha=(_parse_ab(args.es_probe_alpha)
-                            if args.es_probe_alpha else None),
-            es_probe_beta=(_parse_ab(args.es_probe_beta)
-                           if args.es_probe_beta else None),
-            bp_layered_group=args.layered_group,
-        )
+        link = _link_cfg_from_args(args)
         sweep = SweepConfig(
             snrdb=_snr_grid(args, code), batch_cw=args.batch,
             target_frame_errors=args.target_errors,
@@ -227,15 +249,9 @@ def sweep_configs(args):
     return code, link, sweep, grids, _decoder_weights_from_args(args)
 
 
-def cmd_sweep(args) -> None:
-    from ldpc_sims_tpu_torch.parallel import run_sweep
-    from ldpc_sims_tpu_torch.utils import (
-        MetricsLogger,
-        profile_trace,
-        record_run,
-    )
-
-    if args.plot:  # stop now, not after a long sweep
+def _need_matplotlib(args) -> None:
+    """--plot: stop now, not after a long run, when matplotlib is absent."""
+    if getattr(args, "plot", False):
         try:
             import matplotlib  # noqa: F401
         except ImportError:
@@ -243,8 +259,40 @@ def cmd_sweep(args) -> None:
                 "--plot needs matplotlib, which is not installed here; "
                 "run without --plot (the curves file holds the numbers)"
             ) from None
+
+
+def cmd_sweep(args) -> None:
+    from ldpc_sims_tpu_torch.parallel import (
+        make_mesh,
+        maybe_distributed_init,
+        run_sweep,
+    )
+    from ldpc_sims_tpu_torch.utils import (
+        MetricsLogger,
+        profile_trace,
+        record_run,
+    )
+
+    _need_matplotlib(args)
+    distributed = False
+    if args.multihost:
+        # one process a GPU, launched by torchrun (python -m
+        # torch.distributed.run), which sets WORLD_SIZE, RANK, MASTER_ADDR
+        distributed = maybe_distributed_init()
+        if distributed:
+            import torch.distributed as dist
+
+            print(f"distributed: backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, rank {dist.get_rank()}",
+                  flush=True)
+        else:
+            print("--multihost: no torchrun environment (WORLD_SIZE, RANK, "
+                  "MASTER_ADDR); sweeping on this process alone", flush=True)
+    # rank 0 writes the files; every rank sweeps its shard
+    leader = make_mesh().is_leader
     code, link, sweep, grids, weights = sweep_configs(args)
-    metrics = MetricsLogger(os.path.join(args.out, "metrics.jsonl"))
+    metrics = (MetricsLogger(os.path.join(args.out, "metrics.jsonl"))
+               if leader else None)
     os.makedirs(args.out, exist_ok=True)
     stamp = time.strftime("%Y%m%d-%H%M%S")
     for qb in grids:
@@ -258,11 +306,13 @@ def cmd_sweep(args) -> None:
         else:
             manifest = os.path.join(args.out, f"{stamp}_sweep{tag}.json")
         trace_dir = (os.path.join(args.out, f"{stamp}_trace{tag}")
-                     if args.profile else None)
+                     if args.profile and leader else None)
         with profile_trace(trace_dir):
             result = run_sweep(code, link_q, sweep, weights=weights,
                                manifest_path=manifest, metrics=metrics,
                                device=args.device)
+        if not leader:
+            continue
         if trace_dir:
             print(f"profiler trace -> {trace_dir}")
         out = {
@@ -288,17 +338,115 @@ def cmd_sweep(args) -> None:
                 title=f"{code.name}{tag}",
             )
             print(f"figure -> {fig}")
+    if distributed:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="ldpc_sims_tpu_torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("sweep", help="Monte-Carlo BER/BLER sweep")
+def load_llr_model(ckpt: str, ofdm_size: int):
+    """The estimator of a JAX-format checkpoint directory (its manifest's
+    ``model``, default ``LLRestimator``) with the checkpoint's weights:
+    (module, with_snr_feature, tanh_model)."""
+    from ldpc_sims_tpu_torch import models
+    from ldpc_sims_tpu_torch.convert import llr_state_dict_from_flax
+    from ldpc_sims_tpu_torch.utils import load_checkpoint
+
+    tree, mani = load_checkpoint(ckpt)
+    name = mani.get("model", "LLRestimator")
+    if name not in models.__all__:
+        raise SystemExit(f"{ckpt}: unknown model {name!r}; expected one of "
+                         f"{models.__all__}")
+    model = getattr(models, name)(ofdm_size)
+    model.load_state_dict(llr_state_dict_from_flax(tree["params"]))
+    return model, name != "LLRestimator", name == "LLRestimatorTanh"
+
+
+def cmd_evaluate(args) -> None:
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.evaluate import EvalConfig, evaluate_sweep
+    from ldpc_sims_tpu_torch.utils.registry import find_runs, record_run
+
+    _need_matplotlib(args)
+    code = get_code(args.code)
+    link = _link_cfg_from_args(args)
+    model = None
+    snr_feature = tanh = False
+    if args.ckpt:
+        model, snr_feature, tanh = load_llr_model(args.ckpt, args.ofdm_size)
+    ec = EvalConfig(
+        snrdb=_snr_grid(args, code), num_codewords=args.batch,
+        with_snr_feature=snr_feature, tanh_model=tanh, seed=args.seed,
+    )
+    link = _apply_schedule_ckpt(args, link)
+    curves = evaluate_sweep(code, link, ec, model=model,
+                            weights=_decoder_weights_from_args(args),
+                            device=args.device)
+    os.makedirs(args.out, exist_ok=True)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    path = os.path.join(args.out, f"{stamp}_eval.json")
+    with open(path, "w") as f:
+        json.dump({"code": code.name, **curves}, f, indent=1)
+    parents = find_runs(out_dir=args.out, ckpt=args.ckpt) if args.ckpt else []
+    record_run("evaluate", args.out, code=code.name, curves=path,
+               ckpt=args.ckpt or None,
+               parent=parents[-1]["id"] if parents else None)
+    print(f"curves -> {path}")
+    if args.plot:
+        from ldpc_sims_tpu_torch.plotting import plot_ber_curves, plot_wmse
+
+        print("figure ->",
+              plot_ber_curves(curves,
+                              os.path.join(args.out, f"{stamp}_ber.png")))
+        if "wmse_nn" in curves or "wmse_qllr" in curves:
+            print("figure ->",
+                  plot_wmse(curves,
+                            os.path.join(args.out, f"{stamp}_wmse.png")))
+
+
+def cmd_scaling_probe(args) -> None:
+    """Weak-scaling throughput/efficiency probe over the world's ranks
+    (one process, or those torchrun launched)."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.parallel import (
+        make_mesh,
+        maybe_distributed_init,
+        scaling_probe,
+    )
+
+    distributed = maybe_distributed_init()
+    code = get_code(args.code)
+    link = _link_cfg_from_args(args)
+    counts = tuple(int(c) for c in args.devices.split(","))
+    probe = scaling_probe(
+        code, link, per_dev_cw=args.per_dev_cw, device_counts=counts,
+        steps=args.steps, snrdb=args.snrdb, seed=args.seed,
+        device=args.device,
+    )
+    if make_mesh().is_leader:
+        os.makedirs(args.out, exist_ok=True)
+        path = os.path.join(
+            args.out, f"{time.strftime('%Y%m%d-%H%M%S')}_scaling.json"
+        )
+        with open(path, "w") as f:
+            json.dump(probe, f, indent=1)
+        for i, nd in enumerate(probe["devices"]):
+            print(
+                f"devices={nd}: {probe['bits_per_s'][i]:.3e} bits/s, "
+                f"efficiency={probe['efficiency'][i]:.2f}, "
+                f"host overhead={probe['host_frac'][i] * 100:.1f}%"
+            )
+        print(f"probe -> {path}")
+    if distributed:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _add_common(sp: argparse.ArgumentParser) -> None:
+    """The JAX CLI's shared flags (code, link, decoder, checkpoints, seed,
+    output) and the port's --device."""
     sp.add_argument("--code", default="ref6432")
-    sp.add_argument("--preset", choices=sorted(PRESETS),
-                    help="a whole configuration of the JAX package's "
-                         "table (the code, link and sweep flags are then "
-                         "ignored)")
     sp.add_argument("--modulation", default="qpsk",
                     choices=["bpsk", "qpsk", "qam16"])
     sp.add_argument("--ofdm-size", type=int, default=32)
@@ -307,18 +455,16 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["min-sum", "sum-product", "sum-product-ref"],
                     help="check rule (sum-product-ref: the reference's "
                          "tanh-product rule)")
-    sp.add_argument("--schedule", default="flooding",
-                    choices=["flooding", "layered"])
     sp.add_argument("--bp-alpha", default="1.0", type=_parse_ab,
                     help="min-sum normalization: a float or a "
                          "comma-separated per-iteration list")
     sp.add_argument("--bp-beta", default="0.0", type=_parse_ab,
                     help="min-sum offset: a float or a per-iteration list")
+    sp.add_argument("--schedule", default="flooding",
+                    choices=["flooding", "layered"],
+                    help="layered = serial-C scheduling (QC codes only)")
     sp.add_argument("--clamp", type=float, default=20.0,
                     help="c2v message clamp (<=0 disables clamping)")
-    sp.add_argument("--msg-qbits", type=int, default=0,
-                    help="quantize each c2v message to 2^b - 1 levels over "
-                         "+-20 (0 = none)")
     sp.add_argument("--qbits", type=int, default=0,
                     help="ADC quantizer bits (0 = ideal ADC)")
     sp.add_argument("--clipdb", type=float, default=0.0,
@@ -338,9 +484,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "then a fixed full-budget pass over the "
                          "stragglers; auto: the sweep times fixed against "
                          "probe per SNR point and keeps the faster)")
-    sp.add_argument("--es-check-every", type=int, default=1,
-                    help="syndrome-check stride under --early-stop (must "
-                         "divide --iters)")
     sp.add_argument("--es-probe-iters", type=int, default=4,
                     help="probe budget for --es-mode requeue/probe/auto")
     sp.add_argument("--es-probe-alpha", default="", type=str,
@@ -348,40 +491,82 @@ def build_parser() -> argparse.ArgumentParser:
                          "(comma list; empty = --bp-alpha)")
     sp.add_argument("--es-probe-beta", default="", type=str,
                     help="probe-pass beta schedule (see --es-probe-alpha)")
+    sp.add_argument("--es-check-every", type=int, default=1,
+                    help="syndrome-check stride under --early-stop (must "
+                         "divide --iters)")
     sp.add_argument("--layered-group", type=int, default=1,
                     help="rows per serial group of the layered schedule "
                          "(1 = serial-C; cuda only)")
-    sp.add_argument("--weights-ckpt", default="",
-                    help="trained decoder-weight pytree (.npz); the sweep "
-                         "decodes with exactly these weights (per-edge "
-                         "neural BP, ms pytrees)")
-    sp.add_argument("--schedule-ckpt", default="",
-                    help="train-minsum checkpoint (.npz) whose (ms_alpha, "
-                         "ms_beta) freeze into static per-iteration "
-                         "--bp-alpha/--bp-beta")
-    sp.add_argument("--snr", default="0:10:11",
-                    help="SNR grid in dB: 'lo:hi:n' or 'a,b,c'")
     sp.add_argument("--snr-unit", default="es", choices=["es", "eb"],
                     help="interpret --snr as symbol SNR (es) or Eb/N0 (eb)")
+    sp.add_argument("--weights-ckpt", default="",
+                    help="trained decoder-weight pytree (.npz or a "
+                         "train-minsum/train_neural_bp checkpoint dir); "
+                         "every decode uses exactly these weights")
+    sp.add_argument("--schedule-ckpt", default="",
+                    help="train-minsum checkpoint (.npz or dir) whose "
+                         "(ms_alpha, ms_beta) freeze into static "
+                         "per-iteration --bp-alpha/--bp-beta")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--out", default="outputs")
+    sp.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu' for the plain version")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="ldpc_sims_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("sweep", help="Monte-Carlo BER/BLER sweep")
+    _add_common(sp)
+    sp.add_argument("--preset", choices=sorted(PRESETS),
+                    help="a whole configuration of the JAX package's "
+                         "table (the code, link and sweep flags are then "
+                         "ignored)")
+    sp.add_argument("--snr", default="0:10:11",
+                    help="SNR grid in dB: 'lo:hi:n' or 'a,b,c'")
     sp.add_argument("--batch", type=int, default=4096)
     sp.add_argument("--target-errors", type=int, default=100)
     sp.add_argument("--max-bits", type=float, default=1e8)
     sp.add_argument("--steps-per-sync", type=int, default=1,
                     help="MC steps per host read of the counts")
-    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--msg-qbits", type=int, default=0,
+                    help="quantize each c2v message to 2^b - 1 levels over "
+                         "+-20 (0 = none)")
+    sp.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun set up (one "
+                         "rank a GPU, NCCL) and sweep on the world's mesh")
     sp.add_argument("--manifest", default="",
                     help="resume/accumulate manifest (default: new file "
                          "in --out)")
-    sp.add_argument("--out", default="outputs")
     sp.add_argument("--plot", action="store_true",
                     help="write the BER/BLER figure under --out (needs "
                          "matplotlib)")
     sp.add_argument("--profile", action="store_true",
                     help="wrap the sweep in a torch.profiler trace "
                          "(written under --out)")
-    sp.add_argument("--device", default="cuda",
-                    help="'cuda' (default) or 'cpu' for the plain version")
     sp.set_defaults(fn=cmd_sweep)
+
+    sp = sub.add_parser("evaluate", help="evaluate curves (opt. with NN)")
+    _add_common(sp)
+    sp.add_argument("--ckpt", default="",
+                    help="LLR-estimator checkpoint directory (the JAX "
+                         "package's format; its manifest names the model)")
+    sp.add_argument("--snr", default="0:10:11")
+    sp.add_argument("--batch", type=int, default=4096)
+    sp.add_argument("--plot", action="store_true",
+                    help="write the BER/BLER and WMSE figures under --out "
+                         "(needs matplotlib)")
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("scaling-probe",
+                        help="weak-scaling throughput/efficiency probe")
+    _add_common(sp)
+    sp.add_argument("--devices", default="1,2,4,8")
+    sp.add_argument("--per-dev-cw", type=int, default=512)
+    sp.add_argument("--steps", type=int, default=3)
+    sp.add_argument("--snrdb", type=float, default=3.0)
+    sp.set_defaults(fn=cmd_scaling_probe)
     return ap
 
 

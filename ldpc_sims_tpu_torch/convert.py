@@ -1,4 +1,5 @@
-"""Carry codes and trained schedules across from the JAX package's arrays.
+"""Carry codes, trained schedules and LLR-estimator weights across from
+the JAX package's arrays.
 
 Everything here takes plain NumPy arrays or the committed JSON registry,
 so the port needs nothing of the JAX package to read them.
@@ -16,6 +17,8 @@ from ldpc_sims_tpu_torch.codes.library import LdpcCode, QcStructure
 __all__ = [
     "code_from_numpy",
     "decoder_weights_from_numpy",
+    "llr_params_to_flax",
+    "llr_state_dict_from_flax",
     "load_trained_schedule",
     "minsum_schedule_from_numpy",
 ]
@@ -69,3 +72,42 @@ def load_trained_schedule(path: str, code_name: str,
             f"no trained layered-{K} schedule for {code_name!r} in {path}"
         ) from None
     return minsum_schedule_from_numpy(entry["alpha"], entry["beta"])
+
+
+def llr_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """A flax LLR-estimator param tree → the port's state dict.
+
+    ``params`` is ``model.init``'s output (``{"params": {...}}``) or the
+    inner dict, its leaves NumPy (or anything ``np.asarray`` takes). Each
+    flax ``Dense`` named ``layer`` becomes ``layer.weight`` (its
+    ``kernel`` (in, out) transposed to (out, in)) and ``layer.bias``.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    out = {}
+    for layer, leaves in params.items():
+        unknown = set(leaves) - {"kernel", "bias"}
+        if unknown or "kernel" not in leaves:
+            raise ValueError(f"flax layer {layer!r} holds {sorted(leaves)}; "
+                             "expected a Dense's kernel (and bias)")
+        out[f"{layer}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(leaves["kernel"], np.float32).T))
+        if "bias" in leaves:
+            out[f"{layer}.bias"] = torch.from_numpy(
+                np.asarray(leaves["bias"], np.float32).copy())
+    return out
+
+
+def llr_params_to_flax(module: torch.nn.Module) -> dict:
+    """The inverse of :func:`llr_state_dict_from_flax`: a port estimator's
+    weights as flax's variables ``{"params": {layer: {"kernel", "bias"}}}``
+    of NumPy float32 arrays, the tree the JAX package's ``model.apply``
+    and its checkpoints hold."""
+    layers: dict[str, dict] = {}
+    for key, t in module.state_dict().items():
+        layer, kind = key.rsplit(".", 1)
+        a = t.detach().to("cpu", torch.float32).numpy()
+        layers.setdefault(layer, {})[
+            "kernel" if kind == "weight" else "bias"] = (
+            np.ascontiguousarray(a.T) if kind == "weight" else a.copy())
+    return {"params": layers}

@@ -34,6 +34,8 @@ __all__ = [
     "agc_per_symbol",
     "ebn0db_to_snrdb",
     "snrdb_to_ebn0db",
+    "weighted_mse",
+    "bit_errors",
 ]
 
 _INV_SQRT2 = 0.7071067811865476
@@ -222,3 +224,16 @@ def snrdb_to_ebn0db(snrdb, rate: float, bits_per_symbol: int):
     """Symbol SNR Es/N0 (dB) → Eb/N0 (dB), the inverse of
     :func:`ebn0db_to_snrdb`."""
     return snrdb - 10.0 * math.log10(rate * bits_per_symbol)
+
+
+def weighted_mse(llr_est: torch.Tensor, llr: torch.Tensor,
+                 epsilon: float = 0.001) -> torch.Tensor:
+    """mean((est − llr)² / (|llr| + ε)) (``ofdm_functions.py:80-81``)."""
+    return torch.mean((llr_est - llr) ** 2 / (torch.abs(llr) + epsilon))
+
+
+def bit_errors(bits_est: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Total differing bits (``compute_ber`` numerator,
+    ``ofdm_functions.py:83-84``), int32 as in the JAX package."""
+    return torch.sum(torch.abs(bits_est.to(torch.int32)
+                               - bits.to(torch.int32)), dtype=torch.int32)

@@ -280,8 +280,13 @@ def test_mc_step_chunk_and_guard():
     assert int(out["frames"]) == 24 and out["frames"].dtype == torch.int32
     with pytest.raises(ValueError, match="overflows int32"):
         mc_step(code, SMALL, 2**20, steps_per_sync=2048, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        mc_step(code, SMALL, 8, mesh=object(), device="cpu")
+    # a one-rank mesh runs, and draws the mesh-less stream
+    from ldpc_sims_tpu_torch.parallel import make_mesh
+
+    meshed = mc_step(code, SMALL, 8, steps_per_sync=3, mesh=make_mesh(),
+                     device="cpu")(11, 2.0)
+    assert {k: int(v) for k, v in meshed.items()} == {
+        k: int(v) for k, v in out.items()}
 
 
 class Events:
@@ -551,16 +556,19 @@ def test_cli_early_stop_flags(tmp_path):
 
 
 def test_package_imports_no_jax():
-    """ldpc_sims_tpu_torch and chip_smoke load no jax* module and nothing
-    of ldpc_sims_tpu."""
+    """ldpc_sims_tpu_torch and chip_smoke load no jax*, flax or msgpack
+    module and nothing of ldpc_sims_tpu."""
     code = (
         "import sys, chip_smoke, ldpc_sims_tpu_torch\n"
         "import ldpc_sims_tpu_torch.cli.main, ldpc_sims_tpu_torch.convert\n"
         "import ldpc_sims_tpu_torch.kernels, ldpc_sims_tpu_torch.parallel\n"
         "import ldpc_sims_tpu_torch.native, ldpc_sims_tpu_torch.plotting\n"
         "import ldpc_sims_tpu_torch.utils.registry\n"
+        "import ldpc_sims_tpu_torch.evaluate, ldpc_sims_tpu_torch.models\n"
+        "import ldpc_sims_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "       or m.startswith('jax') or m == 'ldpc_sims_tpu'\n"
+        "       or m.split('.')[0] in ('flax', 'msgpack')\n"
         "       or m.startswith('ldpc_sims_tpu.')]\n"
         "print(bad)\n"
         "assert not bad, bad\n"

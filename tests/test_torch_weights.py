@@ -240,8 +240,22 @@ def test_load_decoder_weights_errors(tmp_path):
     np.savez(bad, dense_0=np.ones(3))
     with pytest.raises(ValueError, match="expected decoder-weight keys"):
         load_decoder_weights(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        load_decoder_weights(str(tmp_path))
+    # a checkpoint directory loads (the JAX package's format: the
+    # decoder keys under "params"); an LLR model's directory is refused
+    from ldpc_sims_tpu_torch.utils import save_checkpoint
+
+    ms = {"ms_alpha": np.float32([0.8, 0.9]),
+          "ms_beta": np.float32([0.1, 0.0])}
+    ckpt = save_checkpoint(str(tmp_path / "ms"), {"params": ms,
+                                                  "opt_state": None})
+    w = load_decoder_weights(ckpt)
+    assert set(w) == set(ms)
+    for k in ms:
+        np.testing.assert_array_equal(w[k], ms[k])
+    llr = save_checkpoint(str(tmp_path / "llr"), {"params": {"params": {
+        "final": {"kernel": np.ones((2, 2), np.float32)}}}})
+    with pytest.raises(ValueError, match="expected decoder-weight keys"):
+        load_decoder_weights(llr)
 
 
 def test_link_step_with_weights_matches_jax():
