@@ -176,6 +176,30 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    --multihost`` (NCCL) with its counts equal to ``sweep``'s; one
    ``scaling-probe`` row (32768 a rank); ``run_grid`` over two points
    equal to each point's ``mc_step``;
+3i. training on the card: ``python -m ldpc_sims_tpu_torch train-minsum``
+   as ``docs/artifacts/20260820_minsum_trained.json`` ran it (wifi1944
+   layered-10, no clamp, 1.25-2.5 dB, 120 adam steps at batch 256), its
+   gradient decodes launching no kernel and the mean of its last 10 losses
+   below 0.6 × its first 10's; its checkpoint through ``sweep
+   --schedule-ckpt`` at layered-10 beside plain layered-10 (phase 3's
+   points, steps and seed), ``minsum_qc_layered`` launched once a step with
+   the trained α/β table and the trained coded BER at 1.5 dB below a third
+   of plain's (the artifact's numbers printed beside), and the
+   decoded-BER probe with the trained ms arrays on ``minsum_qc_layered``
+   (one launch); the roll training
+   step's time and a profile of it (its idle share); ``train_neural_bp``
+   with the K6 recipe cut to 16 steps (per-edge layered-6, no clamp,
+   1.25-3.5 dB, adam at 0.002, batch 192) and probes of 32768 frames at
+   2.0 and 2.5 dB, each probe decode on ``minsum_qc_layered_w`` and
+   nothing else launched, a first probe at the all-ones init within 4σ of
+   plain layered-6 through ``bp_decode``; ``train_llr`` at the CLI's
+   defaults on ref6432 on the card and on the CPU from one dataset and one
+   CPU-drawn init, params within 1e-3 of max|param| and losses within
+   1e-4 relative; ``train-llr`` and ``generate-data``; ``train-joint`` as
+   ``docs/artifacts/20260820_joint_before_after.json`` ran it (ref6432,
+   3-bit ADC, 3 iterations, clamp 20, 5 dB, adam at 2e-5, batch 2048) for
+   3 epochs, its losses and holdout BER finite and its checkpoint's key
+   tree JAX's (``optax.multi_transform`` over two adams);
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -200,7 +224,11 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    kernel's recorded time) and the error-floor point's
    ``minsum_qc_flooding@qc1944_r56`` (flooding-20) and
    ``minsum_qc_layered@qc1944_r56`` (layered-10), with the launches of
-   their phase 3d run;
+   their phase 3d run; the trained decoders of phase 3i,
+   ``minsum_qc_layered@train-minsum`` (the trained layered-10 schedule at
+   1.5 dB) and ``minsum_qc_layered_w@train-probe`` (the probe's decode:
+   the trained per-edge layered-6 on its BPSK channel at 2.0 dB), with
+   the launches of their phase 3i runs;
    then the times of both drivers; then the storage rows with the launches
    of phase 3e: ``minsum_qc_layered@bf16`` and ``@int8`` (trained
    layered-8 on wifi1944, beside ``minsum_qc_layered``), and at batch
@@ -281,6 +309,33 @@ MSGQ_ROW = "minsum_qc_flooding@msgq4"
 # the kernels line's row for the flooding kernel's launches on the
 # evaluate path (three decodes a point: Traditional, Quantized, NN)
 EVAL_ROW = "minsum_qc_flooding@evaluate"
+# the kernels line's rows for the trained decoders of phase 3i: the
+# train-minsum schedule's sweep (layered-10 with its α/β table) and the
+# neural-BP trainer's decoded-BER probe (per-edge layered-6)
+TRAIN_MINSUM_ROW = "minsum_qc_layered@train-minsum"
+TRAIN_PROBE_ROW = "minsum_qc_layered_w@train-probe"
+# phase 3i's recipes: train-minsum as docs/artifacts/
+# 20260820_minsum_trained.json ran it (wifi1944 layered-10, no clamp, Es/N0
+# 1.25-2.5 dB, 120 adam steps at 0.02, batch 256) and that artifact's
+# info-bit BER at 1.5 dB, trained and plain; the K6 recipe of
+# docs/artifacts/20260821-102413_edge_layered1944_K6.json (per-edge
+# layered-6, no clamp, 1.25-3.5 dB, adam at 0.002, batch 192) cut from
+# 1500 steps to 2 epochs of 8 batches; train-joint as
+# docs/artifacts/20260820_joint_before_after.json ran it (ref6432, 3-bit
+# ADC, 3 iterations, clamp 20, 5 dB, adam at 2e-5, batch 2048, minibatch
+# 512) cut from 40 epochs to 3
+MINSUM_TRAIN_FLAGS = [
+    "train-minsum", "--code", "wifi1944", "--schedule", "layered",
+    "--iters", "10", "--clamp", "0", "--snr-low", "1.25", "--snr-high",
+    "2.5", "--steps", "120", "--batch", "256", "--lr", "0.02",
+    "--optimizer", "adam"]
+MINSUM_TRAINED_BER = {"trained": 0.006859853671838701,
+                      "plain": 0.0461899395183977}
+K6_RECIPE = dict(lr=0.002, batch=192, snr=(1.25, 3.5), batches=8, epochs=2)
+JOINT_TRAIN_FLAGS = [
+    "train-joint", "--qbits", "3", "--iters", "3", "--clamp", "20",
+    "--snrdb", "5", "--optimizer", "adam", "--lr", "2e-5", "--batch",
+    "2048", "--epochs", "3"]
 # f32 operations of the NN estimator's forward a row at OFDM size 32: the
 # four products (64·64 + 64·512 + 2·512·512 + 512·64 multiply-adds, 2
 # each), at the H100 SXM's 67 TFLOP/s f32 outside the tensor cores (TF32
@@ -530,16 +585,13 @@ def bler_within_4sigma(label: str, bler: float, frames: float, ref) -> None:
         fail(f"{label}: BLER {bler} is not within 4σ of {p_ref}")
 
 
-def edge_instruction_counts() -> dict:
-    """f32, MUFU and all instructions of the sum-product edge sequence
-    (lt, the exclusive sum, the magnitude), of the message quantization
-    and of the storage helpers' loads and stores (against ``probe_copy``,
-    the same load and store with no conversion), from the SASS of probe
-    kernels built from the decode source with its flags (the f32
-    translation unit); each function is counted up to its first EXIT, so
-    the rare slow paths (the division's) are left out."""
-    import re
-    import shutil
+def start_edge_probe():
+    """Start building the probe kernels of :func:`edge_instruction_counts`
+    from the decode source with its flags (the f32 translation unit): one
+    ``nvcc`` in the background, ~45 s, so it overlaps phases 2-3. Returns
+    the process and the cubin; the process is killed at exit if a phase
+    fails before phase 4 waits for it."""
+    import atexit
 
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 
@@ -549,9 +601,29 @@ def edge_instruction_counts() -> dict:
     src.write_text(f'#include "{mq.SOURCE}"\n' + EDGE_PROBE)
     flags = [f for f in mq.NVCC_FLAGS if f not in (
         "-Xptxas", "-v", "-Xcompiler", "-fPIC")]
-    subprocess.run([mq._nvcc(), *flags, "-DQC_STORAGE=0", "-cubin", "-o",
-                    str(cubin), str(src)], check=True, capture_output=True,
-                   timeout=300)
+    proc = subprocess.Popen(
+        [mq._nvcc(), *flags, "-DQC_STORAGE=0", "-cubin", "-o", str(cubin),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, cubin
+
+
+def edge_instruction_counts(probe) -> dict:
+    """f32, MUFU and all instructions of the sum-product edge sequence
+    (lt, the exclusive sum, the magnitude), of the message quantization
+    and of the storage helpers' loads and stores (against ``probe_copy``,
+    the same load and store with no conversion), from the SASS of the
+    probe kernels :func:`start_edge_probe` builds; each function is
+    counted up to its first EXIT, so the rare slow paths (the division's)
+    are left out."""
+    import re
+    import shutil
+
+    proc, cubin = probe
+    _, err = proc.communicate(timeout=300)
+    if proc.returncode:
+        fail(f"the edge probe kernels did not build: {err[-2000:]}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
                           capture_output=True, text=True,
@@ -1494,6 +1566,288 @@ def _evaluate_phase(card: str, name: str, batch: int, tmp: str) -> dict:
             "points": len(snrs), "llrs": eval_llrs}
 
 
+def training_phase(card: str, sweep) -> dict:
+    """Phase 3i: training on the card. ``train-minsum`` as a user runs it
+    and its schedule through ``sweep --schedule-ckpt`` beside plain
+    layered-10 (``sweep``: phase 3's points, steps and seed), the roll
+    training step's time and idle share, ``train_neural_bp`` with its
+    probe on the ``_w`` kernel, ``train_llr`` card against CPU with the
+    ``train-llr`` and ``generate-data`` subcommands, ``train-joint`` and
+    its checkpoint's key tree. Returns what phase 4's rows need: the
+    launches, the trained α/β and edge weights."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3i_") as tmp:
+        return _training_phase(card, sweep, tmp)
+
+
+def _key_tree(tree):
+    """A checkpoint tree's keys, its leaves replaced by their dtype."""
+    if isinstance(tree, dict):
+        return {k: _key_tree(v) for k, v in tree.items()}
+    return str(getattr(tree, "dtype", type(tree).__name__))
+
+
+def _training_phase(card: str, sweep, tmp: str) -> dict:
+    import numpy as np
+    import torch
+
+    from ldpc_sims_tpu_torch.cli.main import (
+        build_parser,
+        sweep_configs,
+    )
+    from ldpc_sims_tpu_torch.cli.main import main as cli_main
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.kernels.compare import floor_llrs
+    from ldpc_sims_tpu_torch.models import LLRestimator
+    from ldpc_sims_tpu_torch.ops import bp_decode
+    from ldpc_sims_tpu_torch.ops.bp import (
+        init_minsum_weights,
+        init_neural_bp_weights,
+    )
+    from ldpc_sims_tpu_torch.ops.chain import LinkConfig
+    from ldpc_sims_tpu_torch.training import (
+        TrainConfig,
+        decoded_ber_probe,
+        make_llr_dataset,
+        train_llr,
+        train_neural_bp,
+    )
+    from ldpc_sims_tpu_torch.training.trainer import (
+        minsum_batch,
+        minsum_step,
+    )
+    from ldpc_sims_tpu_torch.utils import load_checkpoint, load_runs
+
+    w1944 = get_code("wifi1944")
+    batch = sweep.batch_cw
+    out = {}
+
+    # (a) train-minsum as the artifact's recipe, on the plain version
+    t0 = time.perf_counter()
+    runs = os.path.join(tmp, "minsum")
+    mq.reset_launch_counts()
+    cli_main(MINSUM_TRAIN_FLAGS + ["--out", runs])
+    t_train = time.perf_counter() - t0
+    if sum(mq.LAUNCHES.values()):
+        fail(f"train-minsum launched kernels in its gradient decodes: "
+             f"{ {k: v for k, v in mq.LAUNCHES.items() if v} }")
+    ckpt = load_runs(runs)[-1]["ckpt"]
+    _, mani = load_checkpoint(ckpt)
+    loss = mani["loss"]
+    first, last = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
+    print(f"  train-minsum: {len(loss)} steps in {t_train:.1f} s, BCE mean "
+          f"of the first 10 {first!r}, of the last 10 {last!r} (ratio "
+          f"{last / first:.3f}; the artifact's first/last step 0.04887 / "
+          f"0.01664) [{card}]", flush=True)
+    if not last < 0.6 * first:
+        fail(f"train-minsum: the last 10 steps' BCE {last} is not below "
+             f"0.6 x the first 10's {first}")
+    base = ["sweep", "--code", "wifi1944", "--method", "min-sum",
+            "--schedule", "layered", "--iters", "10", "--clamp", "0"]
+    _, t_cfg, _, _, _ = sweep_configs(build_parser().parse_args(
+        base + ["--schedule-ckpt", ckpt]))
+    _, p_cfg, _, _, _ = sweep_configs(build_parser().parse_args(base))
+    if t_cfg.alpha != tuple(mani["alpha"]) or t_cfg.beta != tuple(
+            mani["beta"]):
+        fail("sweep --schedule-ckpt did not take the trained schedule")
+    res_t, counts, ev, rate_t = drive(
+        "trained layered-10 (train-minsum)", w1944, t_cfg, sweep,
+        ["minsum_qc_layered"], card)
+    out["minsum_launches"] = counts["minsum_qc_layered"]
+    out["minsum_per_step"] = counts["minsum_qc_layered"] / ev.mc_steps
+    if out["minsum_per_step"] != 1:
+        fail(f"trained layered-10: {counts} over {ev.mc_steps} mc_steps, "
+             "not one minsum_qc_layered a step")
+    res_p, _, _, rate_p = drive("plain layered-10", w1944, p_cfg, sweep,
+                                ["minsum_qc_layered"], card)
+    for snr, bt, bp in zip(res_t.snrdb, res_t.coded_ber, res_p.coded_ber):
+        ref = (f"; the artifact's {MINSUM_TRAINED_BER['trained']!r} "
+               f"against {MINSUM_TRAINED_BER['plain']!r}"
+               if snr == 1.5 else "")
+        print(f"  @ {snr:g} dB: coded BER trained layered-10 {bt!r}, plain "
+              f"layered-10 {bp!r} ({bp / max(bt, 1e-300):.2f}x{ref}) "
+              f"[{card}]", flush=True)
+        if snr == 1.5 and not bt < bp / 3:
+            fail(f"trained layered-10 @ 1.5 dB: coded BER {bt} is not below "
+                 f"a third of plain layered-10's {bp}")
+    out["alpha"], out["beta"] = t_cfg.alpha, t_cfg.beta
+    # the decoded-BER probe with the trained ms arrays (tensors that need a
+    # gradient, as the trainer holds them): the α/β table of
+    # minsum_qc_layered, one launch a point
+    ms = {k: torch.tensor(v, device="cuda", requires_grad=True)
+          for k, v in (("ms_alpha", mani["alpha"]),
+                       ("ms_beta", mani["beta"]))}
+    probe = decoded_ber_probe(w1944, (1.5,), batch=batch, device="cuda",
+                              iterations=10, method="min-sum",
+                              schedule="layered", clamp=None)
+    mq.reset_launch_counts()
+    ber = probe(ms, 14)[1.5]
+    counts = {k: v for k, v in mq.LAUNCHES.items() if v}
+    print(f"  probe with the trained ms arrays @ 1.5 dB (BPSK, all n bits): "
+          f"BER {ber!r}, launches {counts} [{card}]", flush=True)
+    if counts != {"minsum_qc_layered": 1}:
+        fail(f"the probe with ms weights launched {counts}, not "
+             "minsum_qc_layered once")
+    # the roll training step alone: CUDA-synchronized wall over 5 steps,
+    # then one under the profiler for its device time and idle share
+    w = {k: v.cuda().requires_grad_()
+         for k, v in init_minsum_weights(10).items()}
+    opt = TrainConfig(optimizer="adam", learning_rate=0.02).make_optimizer(
+        w.values())
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    kw = dict(iterations=10, schedule="layered", clamp=None)
+
+    def step(seed, snrdb):
+        llr = minsum_batch(gen, w1944, 256, 1.25, 2.5)
+        return {"loss": minsum_step(w, opt, w1944, llr, **kw)}
+
+    step(0, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(0, 0.0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"  roll training step (wifi1944 layered-10, batch 256, adam): "
+          f"{step_ms!r} ms a step [{card}]", flush=True)
+    profile_step(step, "roll training step", card,
+                 what="train-minsum step (wifi1944 layered-10, batch 256)")
+    out["step_ms"] = step_ms
+
+    # (b) train_neural_bp, the K6 recipe: its probes on the _w kernel, the
+    # first one (the all-ones init) against plain layered-6
+    t0 = time.perf_counter()
+    r = K6_RECIPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    llrs = minsum_batch(gen, w1944, r["batches"] * r["batch"],
+                        *r["snr"]).cpu().numpy()
+    lay6 = dict(iterations=6, method="min-sum", clamp=None,
+                schedule="layered")
+    probe = decoded_ber_probe(w1944, (2.0, 2.5), batch=batch, device="cuda",
+                              **lay6)
+    init = {k: v.cuda() for k, v in init_neural_bp_weights(w1944, 6).items()}
+    mq.reset_launch_counts()
+    first = probe(init, 12)
+    edge, info = train_neural_bp(
+        w1944, llrs, np.zeros(llrs.shape, np.int8),
+        TrainConfig(learning_rate=r["lr"], num_epochs=r["epochs"],
+                    batch_size=r["batch"], eval_every=1),
+        probe_snr_db=(2.0, 2.5), probe_batch=batch, device="cuda",
+        log=lambda m: print("  " + m, flush=True), **lay6)
+    counts = {k: v for k, v in mq.LAUNCHES.items() if v}
+    n_probe = 2 * (1 + len(info["probe"]))
+    print(f"  train_neural_bp: {len(info['loss'])} steps and "
+          f"{len(info['probe']) + 1} probes in "
+          f"{time.perf_counter() - t0:.1f} s; launches {counts} [{card}]",
+          flush=True)
+    if counts != {"minsum_qc_layered_w": n_probe}:
+        fail(f"train_neural_bp: launches {counts}, expected "
+             f"minsum_qc_layered_w {n_probe} times (each probe decode) and "
+             "nothing else")
+    if not all(math.isfinite(v) for v in info["loss"]):
+        fail(f"train_neural_bp: non-finite BCE {info['loss']}")
+    out["probe_launches"] = n_probe
+    out["edge"] = edge
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for snrdb, ber in first.items():
+        bits = bp_decode(floor_llrs(w1944, batch, snrdb, gen), w1944,
+                         iterations=6, schedule="layered")
+        e = bits.sum(1, dtype=torch.int64).double()
+        plain = float(e.mean()) / w1944.n
+        tol = 4 * math.sqrt(2) * float(e.std()) / (
+            math.sqrt(batch) * w1944.n)
+        print(f"  first probe @ {snrdb:g} dB (all-ones weights, "
+              f"minsum_qc_layered_w): BER {ber!r} against plain layered-6 "
+              f"{plain!r} (4 sigma {tol!r}); last probe "
+              f"{info['probe'][-1]['ber'][snrdb]!r} [{card}]", flush=True)
+        if abs(ber - plain) > tol:
+            fail(f"the first probe @ {snrdb:g} dB: BER {ber} is not within "
+                 f"4 sigma ({tol}) of plain layered-6's {plain}")
+
+    # (c) train_llr at the CLI's defaults on the card and on the CPU, from
+    # one dataset and one CPU-drawn initialisation
+    t0 = time.perf_counter()
+    ref = get_code("ref6432")
+    x, y = make_llr_dataset(torch.Generator(device="cuda").manual_seed(0),
+                            ref, LinkConfig(bp_iterations=1), 4096,
+                            snrdb=5.0)
+    tc = TrainConfig()
+    t1 = time.perf_counter()
+    m_card, i_card = train_llr(LLRestimator(32), x, y, tc, log=None,
+                               device="cuda")
+    t_card = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    m_cpu, i_cpu = train_llr(LLRestimator(32), x, y, tc, log=None,
+                             device="cpu")
+    t_cpu = time.perf_counter() - t1
+    worst = 0.0
+    for (k, a), b in zip(m_card.state_dict().items(),
+                         m_cpu.state_dict().values()):
+        d = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        worst = max(worst, d)
+    lc, lg = np.asarray(i_cpu["train_loss"]), np.asarray(i_card["train_loss"])
+    rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    print(f"  train_llr (ref6432, 4096 codewords, 100 epochs, batch 4096, "
+          f"sgd 0.01): card {t_card:.2f} s, CPU {t_cpu:.2f} s; loss "
+          f"{float(lg[0])!r} -> {float(lg[-1])!r}; params card against CPU "
+          f"within "
+          f"{worst!r} of max|param|, losses within {rel!r} relative "
+          f"[{card}]", flush=True)
+    if worst > 1e-3 or rel > 1e-4:
+        fail(f"train_llr card against CPU: params {worst} (limit 1e-3 of "
+             f"max|param|), losses {rel} (limit 1e-4 relative)")
+    runs = os.path.join(tmp, "llr")
+    cli_main(["train-llr", "--out", runs])
+    cli_main(["generate-data", "--out", runs])
+    if not any(f.endswith("_data.npz") for f in os.listdir(runs)):
+        fail("generate-data wrote no dataset")
+    if load_checkpoint(load_runs(runs)[-1]["ckpt"])[1].get(
+            "model") != "LLRestimator":
+        fail("train-llr's checkpoint manifest does not name its model")
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) train-joint as the before/after study ran it, a few epochs
+    t0 = time.perf_counter()
+    runs = os.path.join(tmp, "joint")
+    cli_main(JOINT_TRAIN_FLAGS + ["--out", runs])
+    tree, mani = load_checkpoint(load_runs(runs)[-1]["ckpt"])
+    hold = mani["holdout"]
+    if not (all(math.isfinite(v) for v in mani["train_loss"]) and hold
+            and all(math.isfinite(h["ber"]) and math.isfinite(h["loss"])
+                    for h in hold)):
+        fail(f"train-joint: non-finite loss or holdout BER: "
+             f"{mani['train_loss']}, {hold}")
+    keys = _key_tree(tree)
+    dense = {"kernel": "float32", "bias": "float32"}
+    llr_tree = {"fft_layer": {"kernel": "float32"}, "hidden3": dense,
+                "hidden4": dense, "hidden5": dense, "final": dense}
+    bp = {f"bp_w_{k}": "float32"
+          for k in ("llr", "llr_final", "msg", "msg_final")}
+    params = {"LLRest": llr_tree, **bp}
+
+    def adam(masked):
+        moments = {k: ({} if k in masked else v) for k, v in params.items()}
+        return {"inner_state": {"0": {"count": "int32",
+                                      "mu": {"params": moments},
+                                      "nu": {"params": moments}},
+                                "1": {}}}
+
+    # flax's serialization of optax.multi_transform over two adams, the
+    # llr label on LLRest and the bp label on the rest (masked nodes {})
+    want = {"params": {"params": params}, "opt_state": {"inner_states": {
+        "bp": adam({"LLRest"}), "llr": adam(set(bp))}}}
+    if keys != want:
+        fail(f"train-joint's checkpoint key tree is not JAX's: {keys}")
+    shape = tuple(tree["params"]["params"]["bp_w_msg"].shape)
+    print(f"  train-joint (ref6432, 3-bit ADC, 3 iterations, adam 2e-5, "
+          f"batch 2048): losses {mani['train_loss']}, holdout {hold}; "
+          f"checkpoint in JAX's key tree (bp_w_msg {shape}) in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1534,6 +1888,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lib, report = mq.build()
     mq._library()  # load it now, so a bad build fails here
+    edge_probe = start_edge_probe()  # phase 4's SASS probe, in the background
     print(f"built {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in report.splitlines():
@@ -1571,6 +1926,7 @@ def main() -> None:
     ]
     max_err = {name: 0.0 for name in (
         *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW, EVAL_ROW,
+        TRAIN_MINSUM_ROW, TRAIN_PROBE_ROW,
         *(f"{k}@wifi648" for k in SP_KERNELS))}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
@@ -2480,6 +2836,17 @@ def main() -> None:
     per_step[EVAL_ROW] = ev3h["launches"] / ev3h["points"]  # a point
     print(f"  phase 3h took {time.perf_counter() - t3h:.1f} s", flush=True)
 
+    # -- phase 3i: training on the card ------------------------------------
+    print("== phase 3i: train-minsum, train_neural_bp, train_llr card "
+          "against CPU, train-joint", flush=True)
+    t3i = time.perf_counter()
+    tr3i = training_phase(card, sweep)
+    launches[TRAIN_MINSUM_ROW] = tr3i["minsum_launches"]
+    per_step[TRAIN_MINSUM_ROW] = tr3i["minsum_per_step"]
+    launches[TRAIN_PROBE_ROW] = tr3i["probe_launches"]
+    per_step[TRAIN_PROBE_ROW] = 2  # a probe decodes at its two SNRs
+    print(f"  phase 3i took {time.perf_counter() - t3i:.1f} s", flush=True)
+
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
@@ -2623,7 +2990,7 @@ def main() -> None:
     # the sum-product kernels (fixed at 1.5 dB, early stop at 2.5 dB) and
     # the 4-bit quantized flooding kernel at 1.5 dB, bound by the f32 and
     # MUFU instructions of their edge sequence in the SASS
-    ins = edge_instruction_counts()
+    ins = edge_instruction_counts(edge_probe)
     sp_f32, sp_mufu, sp_all = ins["probe_sp_edge"]
     q_f32, q_mufu, _ = ins["probe_msgq"]
     print(f"  SASS per edge: sum-product sequence {sp_f32} f32 + {sp_mufu} "
@@ -2733,6 +3100,30 @@ def main() -> None:
                                qc, "min-sum", kw["schedule"],
                                weighted="weights" in kw,
                                layered_group=kw.get("layered_group", 1))))
+    # the trained decoders of phase 3i: train-minsum's schedule
+    # (layered-10, its α/β table) at 1.5 dB, and the neural-BP probe's
+    # decode (the trained per-edge layered-6) on its BPSK channel at 2.0 dB
+    ta, tb = tr3i["alpha"], tr3i["beta"]
+    x20 = floor_llrs(w1944, batch, 2.0, 15)
+    probe_tables = pack_decoder_weights(tr3i["edge"], w1944, 6,
+                                        "cuda")["tables"]
+    for name, x, kw, nbytes, ops in (
+            (TRAIN_MINSUM_ROW, llr,
+             dict(iterations=10, schedule="layered", alpha=ta, beta=tb),
+             io_bytes, batch * E * edge_ops("layered", 10, ta, tb)),
+            (TRAIN_PROBE_ROW, x20,
+             dict(iterations=6, schedule="layered", weights=probe_tables),
+             io_bytes + 4 * 7 * (E + n),
+             batch * weighted_ops("layered", 6, E, n))):
+        max_err[name] = max(max_err[name], compare(
+            mq.bp_qc_cuda(x, qc, output="posterior", **kw),
+            decode_roll(x, qc, output="posterior", **kw),
+            f"{name} at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(x, qc, **kw), 20)
+        plain_ms = cuda_time_ms(lambda: decode_roll(x, qc, **kw), 3, 1)
+        kernels.append(row(name, ms, plain_ms, bound(nbytes, ops),
+                           mq.entry_point(qc, "min-sum", "layered",
+                                          weighted="weights" in kw)))
     # sum-product layered-20 at G = 4, bound as the sum-product rows
     kw = dict(iterations=20, schedule="layered", method="sum-product",
               layered_group=4)

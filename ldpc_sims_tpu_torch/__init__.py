@@ -15,7 +15,11 @@ ops        BP decode dispatch (the cuda, roll, dense and gather backends),
 kernels    CUDA BP decode kernels (flooding, layered, group-serial;
            min-sum, sum-product; weighted; early stop; f32, bf16 and
            int8 message storage) and their launch tuner (``tune``).
-models     The neural LLR estimators (``torch.nn``).
+models     The neural LLR estimators and the joint LLR→BP model
+           (``torch.nn``).
+training   The trainers (LLR estimators, the joint model, per-edge
+           neural-BP weights, per-iteration min-sum schedules) and their
+           datasets, on ``torch.optim``.
 evaluate   BER/BLER/WMSE evaluation sweeps (Traditional, Quantized, NN).
 parallel   Process meshes on torch.distributed and the sharded
            Monte-Carlo engine (sweeps, grids, the scaling probe).
@@ -24,7 +28,8 @@ utils      Checkpoints in the JAX package's format (its own msgpack
            codec), metrics, phase timers, profiler traces, the run
            registry, device selection, decoder-weight loading.
 plotting   BER/BLER/WMSE figures (matplotlib, imported on use).
-cli        ``python -m ldpc_sims_tpu_torch sweep|evaluate|scaling-probe``.
+cli        ``python -m ldpc_sims_tpu_torch sweep|evaluate|scaling-probe|
+           train-llr|train-joint|train-minsum|generate-data``.
 examples   ``bigcode``: the 5G-class codes at full width on the card.
 """
 

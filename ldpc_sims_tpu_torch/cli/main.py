@@ -1,4 +1,5 @@
-"""Command-line interface: the ``sweep``, ``evaluate`` and ``scaling-probe``
+"""Command-line interface: the ``sweep``, ``evaluate``, ``scaling-probe``,
+``train-llr``, ``train-joint``, ``train-minsum`` and ``generate-data``
 subcommands of the JAX package's CLI.
 
     python -m ldpc_sims_tpu_torch sweep --preset reference
@@ -29,6 +30,14 @@ subcommands of the JAX package's CLI.
         --method min-sum --iters 20 --clamp 0 --per-dev-cw 32768
     python -m torch.distributed.run --nproc_per_node 4 \\
         -m ldpc_sims_tpu_torch sweep --multihost --code wifi1944 ...
+    python -m ldpc_sims_tpu_torch train-llr --qbits 3 --snr-low 0 \\
+        --snr-high 10
+    python -m ldpc_sims_tpu_torch train-joint --qbits 3 --iters 3 \\
+        --snrdb 5 --optimizer adam --lr 2e-5 --batch 2048
+    python -m ldpc_sims_tpu_torch train-minsum --code wifi1944 \\
+        --schedule layered --iters 10 --clamp 0 --snr-low 1.25 \\
+        --snr-high 2.5 --steps 120 --batch 256
+    python -m ldpc_sims_tpu_torch generate-data --num-codewords 4096
 
 The defaults are the JAX CLI's (``ldpc_sims_tpu/cli/main.py:656-672,
 723-724``): the reference chain, ref6432 over QPSK/OFDM-32 with 3
@@ -53,8 +62,15 @@ mesh, rank 0 writing every file. ``evaluate`` draws the Traditional,
 Quantized (``--qbits``) and, with ``--ckpt`` (a JAX-format checkpoint
 directory whose manifest names the estimator), NN curves on the same
 bits into ``{stamp}_eval.json`` with a registry record; ``scaling-probe``
-writes ``{stamp}_scaling.json``. The other subcommands are not ported yet
-(ROADMAP A10-A12).
+writes ``{stamp}_scaling.json``. ``train-llr``, ``train-joint`` and
+``train-minsum`` train on the device (the gradient decodes on the plain
+version) and write their checkpoints in the JAX package's layout under
+``--out/model/`` with a registry record (``train-minsum`` prints the
+trained schedule as ``--bp-alpha``/``--bp-beta`` lines, and ``sweep
+--schedule-ckpt`` reads its checkpoint); ``generate-data`` writes
+``{stamp}_data.npz``. The other subcommands (``train-grid``,
+``evaluate-grid``, ``evaluate-joint``, ``noise-study``, ``code-info``) are
+not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -194,11 +210,12 @@ def _apply_schedule_ckpt(args, link):
     return dataclasses.replace(link, alpha=alpha, beta=beta)
 
 
-def _link_cfg_from_args(args):
-    """The link flags every subcommand shares (``_add_common``)."""
+def _link_cfg_from_args(args, **over):
+    """The link flags every subcommand shares (``_add_common``), with
+    ``over`` replacing fields (the JAX CLI's overrides)."""
     from ldpc_sims_tpu_torch.ops.chain import LinkConfig
 
-    return LinkConfig(
+    fields = dict(
         modulation=args.modulation,
         ofdm_size=args.ofdm_size,
         bp_iterations=args.iters,
@@ -220,6 +237,8 @@ def _link_cfg_from_args(args):
                        if args.es_probe_beta else None),
         bp_layered_group=args.layered_group,
     )
+    fields.update(over)
+    return LinkConfig(**fields)
 
 
 def sweep_configs(args):
@@ -354,9 +373,10 @@ def load_llr_model(ckpt: str, ofdm_size: int):
 
     tree, mani = load_checkpoint(ckpt)
     name = mani.get("model", "LLRestimator")
-    if name not in models.__all__:
+    estimators = ("LLRestimator", "LLRestimatorWithSNR", "LLRestimatorTanh")
+    if name not in estimators:
         raise SystemExit(f"{ckpt}: unknown model {name!r}; expected one of "
-                         f"{models.__all__}")
+                         f"{list(estimators)}")
     model = getattr(models, name)(ofdm_size)
     model.load_state_dict(llr_state_dict_from_flax(tree["params"]))
     return model, name != "LLRestimator", name == "LLRestimatorTanh"
@@ -441,6 +461,155 @@ def cmd_scaling_probe(args) -> None:
         import torch.distributed as dist
 
         dist.destroy_process_group()
+
+
+def _generator(args):
+    """The dataset's generator: ``--seed`` on ``--device``."""
+    import torch
+
+    from ldpc_sims_tpu_torch.utils import resolve_device
+
+    return torch.Generator(device=resolve_device(args.device)).manual_seed(
+        args.seed)
+
+
+def cmd_train_llr(args) -> None:
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.models import (
+        LLRestimator,
+        LLRestimatorTanh,
+        LLRestimatorWithSNR,
+    )
+    from ldpc_sims_tpu_torch.training import (
+        TrainConfig,
+        make_llr_dataset,
+        train_llr,
+    )
+    from ldpc_sims_tpu_torch.utils import load_checkpoint, record_run
+
+    code = get_code(args.code)
+    snr_cond = args.snr_high > args.snr_low
+    link = _link_cfg_from_args(
+        args, bp_iterations=1, snr_per_symbol=snr_cond,
+        snrdb_low=args.snr_low, snrdb_high=args.snr_high,
+    )
+    x, y = make_llr_dataset(
+        _generator(args), code, link, args.num_codewords,
+        snrdb=args.snrdb, with_snr_feature=snr_cond, tanh_targets=args.tanh,
+    )
+    if args.tanh:
+        model = LLRestimatorTanh(args.ofdm_size)
+    elif snr_cond:
+        model = LLRestimatorWithSNR(args.ofdm_size)
+    else:
+        model = LLRestimator(args.ofdm_size)
+    tc = TrainConfig(
+        learning_rate=args.lr, num_epochs=args.epochs,
+        batch_size=args.batch, seed=args.seed, optimizer=args.optimizer,
+    )
+    init = None
+    if args.warm_start:  # a checkpoint's flax variables {"params": ...}
+        init = load_checkpoint(args.warm_start)[0]["params"]
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    ckpt = os.path.join(
+        args.out, "model",
+        f"{stamp}_llr_qbits={args.qbits}_clipdb={args.clipdb}"
+        f"_snr={args.snr_low}-{args.snr_high}_lr={args.lr}",
+    )
+    train_llr(
+        model, x, y, tc, init_params=init, ckpt_dir=ckpt,
+        manifest={
+            "model": type(model).__name__, "code": code.name,
+            "qbits": args.qbits, "clipdb": args.clipdb,
+            "snrdb": args.snrdb, "snr_low": args.snr_low,
+            "snr_high": args.snr_high, "tanh": args.tanh,
+        },
+        device=args.device,
+    )
+    record_run("train-llr", args.out, code=code.name, ckpt=ckpt,
+               qbits=args.qbits, clipdb=args.clipdb, snrdb=args.snrdb,
+               snr_low=args.snr_low, snr_high=args.snr_high,
+               warm_start=args.warm_start or None)
+    print(f"checkpoint -> {ckpt}")
+
+
+def cmd_train_joint(args) -> None:
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.models import Joint
+    from ldpc_sims_tpu_torch.training import (
+        TrainConfig,
+        make_joint_dataset,
+        train_joint,
+    )
+    from ldpc_sims_tpu_torch.utils import record_run
+
+    code = get_code(args.code)
+    link = _link_cfg_from_args(args, bp_iterations=1)
+    x, bits = make_joint_dataset(_generator(args), code, link,
+                                 args.num_codewords, snrdb=args.snrdb)
+    model = Joint(code_name=args.code, ofdm_size=args.ofdm_size,
+                  iterations=args.iters, clamp=args.clamp)
+    tc = TrainConfig(learning_rate=args.lr, num_epochs=args.epochs,
+                     batch_size=args.batch, seed=args.seed,
+                     optimizer=args.optimizer)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    ckpt = os.path.join(args.out, "model", f"{stamp}_joint_snr={args.snrdb}")
+    train_joint(model, x, bits, tc, ckpt_dir=ckpt,
+                manifest={"model": "Joint", "code": code.name,
+                          "snrdb": args.snrdb},
+                device=args.device)
+    record_run("train-joint", args.out, code=code.name, ckpt=ckpt,
+               snrdb=args.snrdb)
+    print(f"checkpoint -> {ckpt}")
+
+
+def cmd_train_minsum(args) -> None:
+    """Train per-iteration (α, β) min-sum weights; print the frozen
+    schedule as ``--bp-alpha``/``--bp-beta`` comma lists."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.training import (
+        TrainConfig,
+        train_minsum_weights,
+    )
+    from ldpc_sims_tpu_torch.utils import record_run
+
+    code = get_code(args.code)
+    tc = TrainConfig(learning_rate=args.lr, seed=args.seed,
+                     optimizer=args.optimizer)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    ckpt = os.path.join(
+        args.out, "model",
+        f"{stamp}_minsum_{args.code}_it={args.iters}_{args.schedule}",
+    )
+    _, info = train_minsum_weights(
+        code, tc, iterations=args.iters, schedule=args.schedule,
+        snr_db=(args.snr_low, args.snr_high), steps=args.steps,
+        batch=args.batch, clamp=args.clamp if args.clamp > 0 else None,
+        ckpt_dir=ckpt, device=args.device,
+    )
+    record_run("train-minsum", args.out, code=code.name, ckpt=ckpt,
+               alpha=info["alpha"], beta=info["beta"])
+    alpha = ",".join(f"{x:.4f}" for x in info["alpha"])
+    beta = ",".join(f"{x:.4f}" for x in info["beta"])
+    print(f"checkpoint -> {ckpt}")
+    print(f"--bp-alpha {alpha}")
+    print(f"--bp-beta {beta}")
+
+
+def cmd_generate_data(args) -> None:
+    """The LLR dataset to ``{stamp}_data.npz`` under ``--out``."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.training import make_llr_dataset
+
+    code = get_code(args.code)
+    link = _link_cfg_from_args(args, bp_iterations=1)
+    x, y = make_llr_dataset(_generator(args), code, link,
+                            args.num_codewords, snrdb=args.snrdb)
+    os.makedirs(args.out, exist_ok=True)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    path = os.path.join(args.out, f"{stamp}_data.npz")
+    np.savez_compressed(path, input_samples=x, output_samples=y)
+    print(f"dataset -> {path}  x{x.shape} y{y.shape}")
 
 
 def _add_common(sp: argparse.ArgumentParser) -> None:
@@ -567,6 +736,51 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--steps", type=int, default=3)
     sp.add_argument("--snrdb", type=float, default=3.0)
     sp.set_defaults(fn=cmd_scaling_probe)
+
+    sp = sub.add_parser("train-llr", help="train an LLR estimator")
+    _add_common(sp)
+    sp.add_argument("--snrdb", type=float, default=5.0)
+    sp.add_argument("--snr-low", type=float, default=0.0)
+    sp.add_argument("--snr-high", type=float, default=0.0)
+    sp.add_argument("--tanh", action="store_true")
+    sp.add_argument("--lr", type=float, default=0.01)
+    sp.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
+    sp.add_argument("--epochs", type=int, default=100)
+    sp.add_argument("--batch", type=int, default=4096)
+    sp.add_argument("--num-codewords", type=int, default=4096)
+    sp.add_argument("--warm-start", default="")
+    sp.set_defaults(fn=cmd_train_llr)
+
+    sp = sub.add_parser("train-joint", help="train the joint model")
+    _add_common(sp)
+    sp.add_argument("--snrdb", type=float, default=5.0)
+    sp.add_argument("--lr", type=float, default=0.001)
+    sp.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
+    sp.add_argument("--epochs", type=int, default=50)
+    sp.add_argument("--batch", type=int, default=4096)
+    sp.add_argument("--num-codewords", type=int, default=4096)
+    sp.set_defaults(fn=cmd_train_joint)
+
+    sp = sub.add_parser(
+        "train-minsum",
+        help="train per-iteration normalized/offset min-sum weights "
+             "(the frozen schedule runs in the kernels' alpha/beta table)",
+    )
+    _add_common(sp)
+    sp.add_argument("--snr-low", type=float, default=1.0)
+    sp.add_argument("--snr-high", type=float, default=3.0)
+    sp.add_argument("--steps", type=int, default=200)
+    sp.add_argument("--batch", type=int, default=512)
+    sp.add_argument("--lr", type=float, default=0.02)
+    sp.add_argument("--optimizer", default="adam",
+                    choices=["sgd", "adam"])
+    sp.set_defaults(fn=cmd_train_minsum)
+
+    sp = sub.add_parser("generate-data", help="write a dataset .npz")
+    _add_common(sp)
+    sp.add_argument("--snrdb", type=float, default=5.0)
+    sp.add_argument("--num-codewords", type=int, default=4096)
+    sp.set_defaults(fn=cmd_generate_data)
     return ap
 
 

@@ -1,5 +1,5 @@
-"""Carry codes, trained schedules and LLR-estimator weights across from
-the JAX package's arrays.
+"""Carry codes, trained schedules, model weights and optimizer state
+across from the JAX package's arrays.
 
 Everything here takes plain NumPy arrays or the committed JSON registry,
 so the port needs nothing of the JAX package to read them.
@@ -17,10 +17,14 @@ from ldpc_sims_tpu_torch.codes.library import LdpcCode, QcStructure
 __all__ = [
     "code_from_numpy",
     "decoder_weights_from_numpy",
+    "joint_params_to_flax",
+    "joint_state_dict_from_flax",
     "llr_params_to_flax",
     "llr_state_dict_from_flax",
     "load_trained_schedule",
     "minsum_schedule_from_numpy",
+    "optimizer_state_from_flax",
+    "optimizer_state_to_flax",
 ]
 
 
@@ -103,11 +107,151 @@ def llr_params_to_flax(module: torch.nn.Module) -> dict:
     weights as flax's variables ``{"params": {layer: {"kernel", "bias"}}}``
     of NumPy float32 arrays, the tree the JAX package's ``model.apply``
     and its checkpoints hold."""
-    layers: dict[str, dict] = {}
-    for key, t in module.state_dict().items():
-        layer, kind = key.rsplit(".", 1)
+    return _flax_tree(module.state_dict())
+
+
+def joint_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """A flax ``Joint`` param tree → the port's :class:`..models.Joint`
+    state dict: the ``LLRest`` subtree as :func:`llr_state_dict_from_flax`
+    under ``LLRest.``, and each ``bp_w_*`` array as it is."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out = {f"LLRest.{k}": v
+           for k, v in llr_state_dict_from_flax(params["LLRest"]).items()}
+    for name, leaf in params.items():
+        if name != "LLRest":
+            out[name] = torch.from_numpy(np.asarray(leaf, np.float32).copy())
+    return out
+
+
+def joint_params_to_flax(module: torch.nn.Module) -> dict:
+    """The inverse of :func:`joint_state_dict_from_flax`: a port ``Joint``
+    as flax's variables ``{"params": {"LLRest": {...}, "bp_w_*": ...}}``
+    of NumPy float32 arrays."""
+    return _flax_tree(module.state_dict())
+
+
+def _flax_leaf(name: str) -> tuple[tuple[str, ...], bool]:
+    """A parameter's path in the flax tree and whether it is transposed:
+    ``a.b.weight`` → (a, b, kernel), transposed; ``a.b.bias`` → (a, b,
+    bias); a bare parameter (``bp_w_msg``) keeps its name."""
+    parts = name.split(".")
+    if len(parts) > 1 and parts[-1] == "weight":
+        return (*parts[:-1], "kernel"), True
+    return tuple(parts), False
+
+
+def _flax_tree(named: dict[str, torch.Tensor]) -> dict:
+    """``{name: tensor}`` → flax's nested ``{"params": ...}`` of NumPy."""
+    tree: dict = {}
+    for name, t in named.items():
+        path, transpose = _flax_leaf(name)
         a = t.detach().to("cpu", torch.float32).numpy()
-        layers.setdefault(layer, {})[
-            "kernel" if kind == "weight" else "bias"] = (
-            np.ascontiguousarray(a.T) if kind == "weight" else a.copy())
-    return {"params": layers}
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(a.T) if transpose else a.copy()
+    return {"params": tree}
+
+
+def _flax_lookup(tree: dict, name: str) -> np.ndarray:
+    path, transpose = _flax_leaf(name)
+    node = tree["params"]
+    for key in path:
+        node = node[key]
+    a = np.asarray(node, np.float32)
+    return np.ascontiguousarray(a.T) if transpose else a
+
+
+def _optimizer_kind(opt: torch.optim.Optimizer) -> str:
+    if isinstance(opt, torch.optim.Adam):
+        return "adam"
+    if isinstance(opt, torch.optim.SGD):
+        return "sgd"
+    raise TypeError(f"no optax layout for {type(opt).__name__}; the "
+                    "trainers use torch.optim.SGD and torch.optim.Adam")
+
+
+def _chain_state(opt, named: dict, members: set) -> dict:
+    """optax's chain state for ``members`` of ``named``, as flax's
+    ``to_state_dict`` lays it out: ``sgd`` = (EmptyState, EmptyState) →
+    ``{"0": {}, "1": {}}``; ``adam`` = (ScaleByAdamState(count, mu, nu),
+    EmptyState) with ``count`` int32 and ``mu``/``nu`` param-shaped trees,
+    each top-level subtree outside ``members`` a masked node (``{}``)."""
+    if _optimizer_kind(opt) == "sgd":
+        return {"0": {}, "1": {}}
+    count = 0
+    moments = {}
+    for key, src in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        vals = {}
+        for name in members:
+            state = opt.state.get(named[name], {})
+            vals[name] = state.get(src, torch.zeros_like(named[name]))
+            if "step" in state:
+                count = max(count, int(state["step"]))
+        tree = _flax_tree(vals)["params"]
+        for name in named:  # masked top-level subtrees
+            tree.setdefault(name.split(".")[0], {})
+        moments[key] = {"params": tree}
+    return {"0": {"count": np.asarray(count, np.int32), **moments}, "1": {}}
+
+
+def _group_members(opt, named: dict, groups) -> dict[str, set]:
+    """label → the names of the parameters in its param group."""
+    out = {}
+    for label, index in groups.items():
+        ids = {id(p) for p in opt.param_groups[index]["params"]}
+        out[label] = {n for n, p in named.items() if id(p) in ids}
+    return out
+
+
+def optimizer_state_to_flax(opt: torch.optim.Optimizer,
+                            module: torch.nn.Module,
+                            groups: dict[str, int] | None = None) -> dict:
+    """A ``torch.optim.SGD``/``Adam`` state → the tree flax's serializer
+    writes for the same optax optimizer over ``module``'s flax params.
+
+    ``groups`` None: ``optax.sgd``/``optax.adam`` over every parameter.
+    ``groups`` ``{label: param-group index}``: ``optax.multi_transform``
+    with one such transform a label (the joint recipe's ``llr``/``bp``),
+    ``{"inner_states": {label: {"inner_state": chain state}}}``, each
+    label's moments masked outside its group. Adam's ``count`` is int32
+    there; torch's ``step`` is a float.
+    """
+    named = dict(module.named_parameters())
+    if groups is None:
+        return _chain_state(opt, named, set(named))
+    members = _group_members(opt, named, groups)
+    return {"inner_states": {
+        label: {"inner_state": _chain_state(opt, named, members[label])}
+        for label in groups}}
+
+
+def optimizer_state_from_flax(opt: torch.optim.Optimizer,
+                              module: torch.nn.Module, tree: dict,
+                              groups: dict[str, int] | None = None) -> None:
+    """The inverse of :func:`optimizer_state_to_flax`: load an optax
+    ``opt_state`` (as ``load_checkpoint`` returns it, or as the JAX
+    package writes it) into ``opt``'s state for ``module``'s parameters.
+    SGD holds no state; Adam takes ``exp_avg``/``exp_avg_sq`` and a float
+    ``step``."""
+    if _optimizer_kind(opt) == "sgd":
+        return
+    named = dict(module.named_parameters())
+    if groups is None:
+        parts = [(tree, set(named))]
+    else:
+        members = _group_members(opt, named, groups)
+        parts = [(tree["inner_states"][label]["inner_state"],
+                  members[label]) for label in groups]
+    for chain, names in parts:
+        adam = chain["0"]
+        for name in names:
+            p = named[name]
+            opt.state[p] = {
+                "step": torch.tensor(float(np.asarray(adam["count"]))),
+                "exp_avg": torch.from_numpy(_flax_lookup(
+                    adam["mu"], name).copy()).to(p.device),
+                "exp_avg_sq": torch.from_numpy(_flax_lookup(
+                    adam["nu"], name).copy()).to(p.device),
+            }

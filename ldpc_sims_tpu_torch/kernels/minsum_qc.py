@@ -61,9 +61,11 @@ import torch
 
 from ldpc_sims_tpu_torch.codes.library import QcStructure
 from ldpc_sims_tpu_torch.ops.bp_roll import (
+    NO_GRADIENT,
     EdgeTables,
     decode_roll,
     msg_qstep,
+    needs_gradient,
     pack_edge_weights,
     qc_plan,
     storage_dtype,
@@ -554,20 +556,16 @@ def _device_tables(qc: QcStructure, alpha, beta, iterations: int,
     return plan, ab
 
 
-def _check_weights(weights, early_stop: bool, done_in) -> None:
+def _check_weights(llr, weights, early_stop: bool, done_in) -> None:
     """JAX's early-stop check of kernel weights (the packer checks their
-    flavor), and the port's: the kernels carry no gradient, so weights
-    that need one raise rather than lose it."""
-    if weights is None:
-        return
-    if early_stop or done_in is not None:
+    flavor), and the port's: the kernels carry no gradient, so LLRs or
+    weights that need one raise rather than lose it."""
+    tensors = () if weights is None else (
+        weights if isinstance(weights, EdgeTables) else weights.values())
+    if needs_gradient(llr, *tensors):
+        raise NotImplementedError(NO_GRADIENT)
+    if weights is not None and (early_stop or done_in is not None):
         raise ValueError("neural-BP weights with early stop is unsupported")
-    tensors = weights if isinstance(weights, EdgeTables) else weights.values()
-    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the decode kernels carry no gradient: decoder weights that "
-            "need one decode with backend='roll' (training through the "
-            "kernels is not ported, ROADMAP A10)")
 
 
 def bp_qc_cuda(
@@ -601,7 +599,8 @@ def bp_qc_cuda(
     ±``msg_qclip``. ``weights``: edge-flavor neural-BP weights (JAX's
     dict, packed here, or :class:`EdgeTables` packed once by the caller)
     for the ``_w`` entry points; not with early stop or ``done_in``, and
-    not with tensors that need a gradient (the kernels carry none).
+    not with tensors that need a gradient (the kernels carry none:
+    :data:`NO_GRADIENT`), nor may ``llr`` need one.
     ``schedule`` 'flooding' or 'layered'; ``layered_group``: block rows
     per serial group of the layered schedule (1 = serial-C). ``output``:
     'hard' (int8 bits), 'posterior' (f32, log(Pr1/Pr0)), 'hard_unsat' ((bits,
@@ -655,7 +654,7 @@ def bp_qc_cuda(
         raise ValueError("per-iteration alpha/beta require min-sum")
     if layered_group < 1 or (layered_group > 1 and schedule != "layered"):
         raise ValueError("layered_group needs schedule='layered'")
-    _check_weights(weights, early_stop, done_in)
+    _check_weights(llr, weights, early_stop, done_in)
     dtype = storage_dtype(dtype)
     if threads is not None and schedule == "layered":
         raise ValueError("threads sets the flooding forms' CTA size; a "

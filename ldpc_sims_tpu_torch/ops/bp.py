@@ -56,6 +56,14 @@ per-codeword early stop. Backends:
   as JAX's CPU ``auto`` does, while on a CUDA tensor bf16 and int8 take
   the kernels' storage, as JAX's TPU ``auto`` takes the Pallas kernel's.
   ``sum-product-ref`` has no kernel: a QC code decodes it on ``'roll'``.
+  No kernel carries a gradient either: while autograd records
+  (``torch.is_grad_enabled()``) and the LLRs or a weight tensor require a
+  gradient, a QC code decodes on ``'roll'`` and keeps the graph; an
+  explicit ``'cuda'`` raises ``NotImplementedError``. JAX's ``auto`` keeps every soft or posterior
+  output off its Pallas kernel (``ldpc_sims_tpu/ops/bp.py:353-366``); the
+  port's keeps them on the kernels unless a gradient is needed (ROADMAP
+  C10), so the trainers' decodes run the plain version and a trained
+  decoder's hard-output decodes run the kernels.
 
 A bare :class:`TannerGraph` has no QC structure, so it takes the non-QC
 routes, as in JAX. :func:`syndrome`, :func:`syndrome_from_bits_nb` and
@@ -72,11 +80,13 @@ from ldpc_sims_tpu_torch.codes.tanner import TannerGraph
 from ldpc_sims_tpu_torch.convert import decoder_weights_from_numpy
 from ldpc_sims_tpu_torch.ops.bp_roll import (
     EDGE_KEYS,
+    NO_GRADIENT,
     EdgeTables,
     _exclusive_sign,
     _exclusive_sum,
     _ref_excl,
     decode_roll,
+    needs_gradient,
     pack_edge_weights,
     storage_dtype,
 )
@@ -365,6 +375,8 @@ def _decode_graph(llr: torch.Tensor, g: TannerGraph, *, backend: str,
             b = beta if ms_b is None else ms_b[it]
             mag = v2c.abs()
             min1, idx = mag.min(-1, keepdim=True)  # the first minimum
+            if needs_gradient(mag):  # JAX's even split over tied minima
+                min1 = mag.amin(-1, keepdim=True)
             first = torch.arange(dc, device=dev) == idx
             min2 = torch.where(first, _BIG, mag).amin(-1, keepdim=True)
             exmin = torch.where(first, min2, min1)
@@ -479,10 +491,10 @@ def bp_decode(
         because traced arrays cannot be baked into its Pallas kernel; the
         port's kernels read α/β from a table at run time, so here such a
         dict runs the kernels on the card, with the ms arrays frozen to
-        that table. Weights that need a gradient decode with
-        ``backend='roll'``: the kernels carry none, and the ``cuda``
-        path raises rather than drop it. The dense and gather backends
-        take the edge-flavor and ``ms_*`` arrays; the pair flavor
+        that table. Weights (or LLRs) that need a gradient decode on
+        ``'roll'`` under ``auto``: the kernels carry none, and the
+        ``cuda`` path raises rather than drop it. The dense and gather
+        backends take the edge-flavor and ``ms_*`` arrays; the pair flavor
         (``w_pair``, :func:`init_neural_bp_weights`) decodes on the
         gather backend only: ``auto`` goes there, any other backend
         raises ``ValueError``, as in JAX.
@@ -590,11 +602,18 @@ def bp_decode(
     needs_cuda = layered_group != 1 or (
         early_stop and (es_mode != "freeze" or es_check_every != 1))
     on_card = llr.device.type == "cuda"
+    # an input autograd must differentiate: the kernels carry no gradient
+    grad_tensors = [] if weights is None else list(
+        weights if isinstance(weights, EdgeTables) else weights.values())
+    if ms_w is not None:
+        grad_tensors += ms_w.values()
+    needs_grad = needs_gradient(llr, *grad_tensors)
     if backend == "auto":
         if qc is None:
             backend = "gather"
-        elif method == "sum-product-ref":
-            backend = "roll"  # no kernel has the reference's rule
+        elif method == "sum-product-ref" or needs_grad:
+            # no kernel has the reference's rule or a gradient
+            backend = "roll"
         else:
             backend = ("cuda" if on_card or needs_cuda else "roll")
     if backend not in ("cuda", "roll", "dense", "gather"):
@@ -666,13 +685,9 @@ def bp_decode(
         # imported here: the kernels' module imports this package's bp_roll
         from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 
+        if needs_grad:
+            raise NotImplementedError(NO_GRADIENT)
         if ms_w is not None:  # the kernels' α/β table
-            if any(isinstance(v, torch.Tensor) and v.requires_grad
-                   for v in ms_w.values()):
-                raise NotImplementedError(
-                    "the decode kernels carry no gradient: ms_alpha/ms_beta "
-                    "that need one decode with backend='roll' (training "
-                    "through the kernels is not ported, ROADMAP A10)")
             alpha, beta = _floats(ms_w["alpha"]), _floats(ms_w["beta"])
         kw.update(alpha=alpha, beta=beta, threads=threads)
         if early_stop and es_mode == "probe":

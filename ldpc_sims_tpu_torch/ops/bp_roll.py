@@ -51,11 +51,13 @@ from ldpc_sims_tpu_torch.codes.library import QcStructure
 
 __all__ = [
     "EDGE_KEYS",
+    "NO_GRADIENT",
     "STORAGE_DTYPES",
     "EdgeTables",
     "decode_roll",
     "message_storage",
     "msg_qstep",
+    "needs_gradient",
     "pack_edge_weights",
     "qc_plan",
     "storage_dtype",
@@ -241,6 +243,21 @@ def pack_edge_weights(weights, qc: QcStructure, iterations: int,
     )
 
 
+# why the kernels refuse an input that needs a gradient
+NO_GRADIENT = (
+    "the decode kernels carry no gradient, as the JAX package's Pallas "
+    "kernel carries none: LLRs or decoder weights that need one decode "
+    "with backend='roll' (or 'gather' for a non-QC code), which "
+    "backend='auto' takes for them")
+
+
+def needs_gradient(*tensors) -> bool:
+    """True when autograd is recording and one of ``tensors`` (None and
+    non-tensors allowed) requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def _exclusive_sign(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Exclusive sign product over ``dim`` as a negative-count parity.
 
@@ -278,6 +295,10 @@ def _minsum_excl(x: torch.Tensor, alpha, beta) -> torch.Tensor:
     ``exsign · max(exmin − β, 0) · α``."""
     a = x.abs()
     min1, idx = a.min(0, keepdim=True)  # first index of the minimum
+    if needs_gradient(a):
+        # the same value, with JAX's subgradient: jnp.min splits it evenly
+        # over tied minima, where min's values send it to one index
+        min1 = a.amin(0, keepdim=True)
     onehot = torch.arange(x.shape[0], device=x.device).view(-1, 1, 1) == idx
     min2 = torch.where(onehot, _BIG, a).amin(0, keepdim=True)
     exmin = torch.where(onehot, min2, min1)

@@ -69,15 +69,11 @@ class LinkConfig:
         return n // BITS_PER_SYMBOL[self.modulation]
 
 
-def _check_ported(cfg: LinkConfig) -> None:
+def _check_config(cfg: LinkConfig) -> None:
     if cfg.modulation not in BITS_PER_SYMBOL:
         raise ValueError(f"unknown modulation {cfg.modulation!r}")
     if cfg.qbits is not None and cfg.agc not in ("global", "per-symbol"):
         raise ValueError(f"unknown agc {cfg.agc!r}")
-    if cfg.snr_per_symbol:
-        raise NotImplementedError(
-            "snr_per_symbol is not ported yet (ROADMAP A10)"
-        )
 
 
 def link_step(
@@ -91,20 +87,26 @@ def link_step(
 ) -> dict[str, torch.Tensor]:
     """Simulate ``batch_cw`` codewords through the full chain at ``snrdb``.
 
-    Draws the info bits, then the channel noise, from ``gen``; runs on
-    ``gen.device``. Returns raw error counts and denominators (0-d int32
-    tensors): uncoded/coded bit errors and frame errors. Coded BER counts
+    Draws the info bits, then (with ``cfg.snr_per_symbol``) the SNRs,
+    then the channel noise, from ``gen``; runs on ``gen.device``. Returns
+    raw error counts and denominators (0-d int32 tensors): uncoded/coded
+    bit errors and frame errors. Coded BER counts
     the info bits ``[:, :k]``, BLER the full codeword. With ``cfg.qbits``
     the receiver's ADC quantizes the time samples (CP included) after the
     ``cfg.agc`` gain control and the decoder takes the LLRs of the
     quantized samples; the uncoded BER still counts the ideal ADC's LLRs,
-    as in the JAX package. ``weights``: decoder weights for ``bp_decode``
+    as in the JAX package. ``cfg.snr_per_symbol`` gives each OFDM symbol
+    its own SNR, uniform in dB over ``[cfg.snrdb_low, cfg.snrdb_high]``,
+    which its noise, its subcarriers' LLRs and the per-symbol AGC take
+    (``snrdb`` is then ignored), as in the JAX package's random-SNR
+    family. ``weights``: decoder weights for ``bp_decode``
     (JAX's dict, or :func:`..ops.bp.pack_decoder_weights`'s, which the
     sweep engine makes once). With ``return_arrays=True`` also returns the
-    LLRs, coded bits and time samples (and the quantized LLRs and samples
-    with ``qbits``).
+    LLRs, coded bits, time samples and the linear SNR of each OFDM symbol
+    (``snr_sym``, rows × symbols a row), and the quantized LLRs and
+    samples with ``qbits``.
     """
-    _check_ported(cfg)
+    _check_config(cfg)
     n, k = code.n, code.k
     bps = BITS_PER_SYMBOL[cfg.modulation]
     sym_per_cw = n // bps
@@ -128,15 +130,26 @@ def link_step(
     if cfg.cyclic_prefix:
         tx_time = phy.add_cyclic_prefix(tx_time, cfg.cyclic_prefix)
 
-    snr = 10.0 ** (torch.as_tensor(snrdb, dtype=torch.float32, device=dev)
-                   / 10.0)
-    rx_time = phy.awgn(gen, tx_time, snr)
+    n_ofdm = tx_time.shape[1]
+    if cfg.snr_per_symbol:
+        # one SNR an OFDM symbol, uniform in dB over [low, high]
+        u = torch.rand((rows, n_ofdm), generator=gen, device=dev)
+        snrdb_sym = cfg.snrdb_low + (cfg.snrdb_high - cfg.snrdb_low) * u
+        snr = 10.0 ** (snrdb_sym / 10.0)  # (rows, n_ofdm)
+        snr_bc = snr[..., None]
+        # each subcarrier's LLR takes its OFDM symbol's SNR
+        snr_llr = snr.repeat_interleave(cfg.ofdm_size, dim=1)
+    else:
+        snr = 10.0 ** (torch.as_tensor(snrdb, dtype=torch.float32,
+                                       device=dev) / 10.0)
+        snr_bc = snr_llr = snr
+    rx_time = phy.awgn(gen, tx_time, snr_bc)
 
     def demod_and_llr(samples):
         if cfg.cyclic_prefix:
             samples = phy.remove_cyclic_prefix(samples, cfg.cyclic_prefix)
         rx_sym = phy.ofdm_demodulate(samples)  # (rows, g·S)
-        return _LLR[cfg.modulation](rx_sym, snr).reshape(batch_cw, n)
+        return _LLR[cfg.modulation](rx_sym, snr_llr).reshape(batch_cw, n)
 
     llrs = demod_and_llr(rx_time)
     decode_llrs = llrs
@@ -147,7 +160,7 @@ def link_step(
                                           cfg.legacy_clip)
         else:  # per OFDM symbol, from the known SNR
             factor = phy.agc_per_symbol(
-                snr.expand(rows, tx_time.shape[1]), cfg.agc_clip,
+                snr.expand(rows, n_ofdm), cfg.agc_clip,
                 cfg.clip_ratio)[..., None]
             q = phy.quantize_complex(rx_time * factor, cfg.qbits,
                                      cfg.agc_clip, cfg.legacy_clip)
@@ -195,7 +208,7 @@ def link_step(
 
         out.update(llrs=llrs, coded=coded, rx_time=strip(rx_time),
                    tx_time=strip(tx_time),
-                   snr_sym=snr.expand(rows, tx_time.shape[1]))
+                   snr_sym=snr.expand(rows, n_ofdm))
         if cfg.qbits is not None:
             out.update(qllrs=decode_llrs, q_time=strip(q_time))
     return out

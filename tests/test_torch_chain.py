@@ -209,12 +209,19 @@ def test_link_step_quantized_adc_decodes(agc, snrdb):
 
 
 @pytest.mark.parametrize("over, match", [
-    (dict(snr_per_symbol=True), "ROADMAP A10"),
+    # ported with the trainers: one SNR an OFDM symbol, uniform in dB
+    (dict(snr_per_symbol=True, snrdb_low=1.0, snrdb_high=4.0), (1.0, 4.0)),
 ])
 def test_link_step_unported_raise(over, match):
     cfg = LinkConfig(bp_method="min-sum", **over)
-    with pytest.raises(NotImplementedError, match=match):
-        link_step(torch.Generator(), 3.0, get_code("wifi648"), cfg, 8)
+    out = link_step(torch.Generator().manual_seed(3), 3.0,
+                    get_code("wifi648"), cfg, 8, return_arrays=True)
+    lo, hi = (10 ** (v / 10) for v in match)
+    snr = out["snr_sym"]
+    assert snr.shape == out["rx_time"].shape[:2]
+    assert float(snr.min()) >= lo and float(snr.max()) <= hi
+    assert len(torch.unique(snr)) == snr.numel()  # drawn, not broadcast
+    assert torch.isfinite(out["llrs"]).all()
 
 
 @pytest.mark.parametrize("argv", [

@@ -396,10 +396,19 @@ def test_weighted_kernel_with_trained_k6_and_ms_table(cuda):
     ref = decode_roll(x, code.qc, alpha=a, beta=b, weights=edge, **kw)
     assert torch.equal(got, packed)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    # weights that need a gradient: auto decodes on the plain version and
+    # keeps the graph, launching no kernel; backend='cuda' refuses them
     grad = {k: torch.as_tensor(v, device=cuda).requires_grad_()
             for k, v in edge.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        bp_decode(x, code, weights=grad, **kw)
+    mq.reset_launch_counts()
+    post = bp_decode(x, code, weights=grad, **kw)
+    post.sum().backward()
+    assert sum(mq.LAUNCHES.values()) == 0
+    assert all(torch.isfinite(v.grad).all() for v in grad.values())
+    torch.testing.assert_close(post.detach(), decode_roll(
+        x, code.qc, weights=edge, **kw), rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="carry no gradient"):
+        bp_decode(x, code, weights=grad, backend="cuda", **kw)
 
 
 @pytest.mark.parametrize("group", [2, 3, 12])
@@ -828,3 +837,25 @@ def test_gather_backend_on_the_card(cuda):
     torch.testing.assert_close(card, host, rtol=1e-3, atol=1e-5)
     sure = host.abs() > 1e-4
     assert torch.equal((card > 0)[sure], (host > 0)[sure])
+
+
+@pytest.mark.parametrize("method", ["min-sum", "sum-product"])
+def test_auto_with_gradient_decodes_on_the_plain_version(cuda, method):
+    """LLRs that need a gradient: ``auto`` decodes on the roll backend and
+    keeps the graph (no kernel launched), ``backend='cuda'`` raises, and
+    under ``torch.no_grad()`` ``auto`` launches the kernel again."""
+    code = get_code("wifi648")
+    x = mixed_llrs(code, 37, cuda, seed=21).requires_grad_()
+    kw = dict(iterations=4, schedule="layered", method=method)
+    mq.reset_launch_counts()
+    p1 = bp_decode(x, code, output="soft", **kw)
+    (-torch.log(1.0 - p1 + 1e-7)).mean().backward()
+    assert sum(mq.LAUNCHES.values()) == 0
+    assert torch.isfinite(x.grad).all() and float(x.grad.abs().sum()) > 0
+    with pytest.raises(NotImplementedError, match="carry no gradient"):
+        bp_decode(x, code, backend="cuda", **kw)
+    with torch.no_grad():
+        got = bp_decode(x, code, output="posterior", **kw)
+    assert mq.LAUNCHES[mq.KERNELS[method, "layered", False, False]] == 1
+    torch.testing.assert_close(got, decode_roll(
+        x.detach(), code.qc, output="posterior", **kw), rtol=1e-4, atol=1e-4)

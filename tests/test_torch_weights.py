@@ -153,9 +153,17 @@ def test_weights_gradient_through_the_plain_version():
     post.sum().backward()
     assert all(torch.isfinite(v.grad).all() for v in w.values())
     assert float(w["w_llr"].grad.abs().sum()) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="carry no gradient"):
         bp_decode(torch.from_numpy(llr), code, iterations=2, weights=w,
                   backend="cuda")
+    # LLRs that need a gradient too; under no_grad the kernels' path runs
+    x = torch.from_numpy(llr).requires_grad_()
+    with pytest.raises(NotImplementedError, match="carry no gradient"):
+        bp_decode(x, code, iterations=2, backend="cuda")
+    with torch.no_grad():
+        assert torch.equal(
+            bp_decode(x, code, iterations=2, weights=w, backend="cuda"),
+            bp_decode(x, code, iterations=2, weights=w, backend="roll"))
 
 
 @pytest.mark.parametrize("call, exc, match", [
