@@ -200,6 +200,28 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    3-bit ADC, 3 iterations, clamp 20, 5 dB, adam at 2e-5, batch 2048) for
    3 epochs, its losses and holdout BER finite and its checkpoint's key
    tree JAX's (``optax.multi_transform`` over two adams);
+3j. the rest of the library and the CLI: ``train-grid`` then
+   ``evaluate-grid`` on ref6432 (qbits 3, clipdb 0, 0/3/6 dB, training
+   cut to 2 epochs, the CLI's decoder defaults) at 65536 codewords, the
+   Traditional and quantized columns within 4/√(frames in error),
+   relative, of ``docs/artifacts/20260820_grid_sgd_family.json``, and a
+   resumed ``train-grid`` that trains no cell; the same flow on wifi1944
+   with ``--method min-sum --iters 20`` at batch 32768, failing unless
+   ``minsum_qc_flooding`` launched three times a cell;
+   ``ldpc_sims_tpu_torch.examples.de_thresholds`` on qc1944_r56 (8192
+   samples, batch 8192): the 20-iteration min-sum threshold and the
+   measured 1e-3 crossing within 0.15 dB of
+   ``docs/artifacts/20260821-112609_de_thresholds.json``'s 5.469 and
+   5.762, the DE wall time printed; the error-floor campaign
+   (``examples/error_floor_campaign``) on wifi1944 at 2.5 dB, batch 32768,
+   64 steps, every schedule of the committed registry, flooding-20's and
+   edge-layered-6's FER within 4/√(frames in error) of
+   ``docs/artifacts/20260821-113932_error_floor.json``, nothing under
+   ``docs/artifacts/`` changed; ``noise-study``, ``evaluate-joint`` (a
+   seeded ``Joint``, 3-bit ADC) and ``code-info --code wifi648 --de``
+   once each; ``examples/joint_before_after`` with its joint training
+   cut from 40 epochs to 3, its curves finite and printed beside
+   ``docs/artifacts/20260820_joint_before_after.json``'s;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -228,7 +250,15 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    ``minsum_qc_layered@train-minsum`` (the trained layered-10 schedule at
    1.5 dB) and ``minsum_qc_layered_w@train-probe`` (the probe's decode:
    the trained per-edge layered-6 on its BPSK channel at 2.0 dB), with
-   the launches of their phase 3i runs;
+   the launches of their phase 3i runs; phase 3j's
+   ``minsum_qc_flooding@evaluate-grid`` (a decode of each of a wifi1944
+   cell's three LLR sets, three launches a cell),
+   ``minsum_qc_flooding@error-floor``, ``minsum_qc_layered@error-floor``
+   and ``minsum_qc_layered_w@error-floor`` (timed as flooding-20,
+   layered-10 and edge-layered-6 on the campaign's frames, with the
+   launches of every schedule of its run) and
+   ``minsum_qc_flooding@de-crossing`` (qc1944_r56 flooding-20 at batch
+   8192 at the measured crossing, the waterfall's launches);
    then the times of both drivers; then the storage rows with the launches
    of phase 3e: ``minsum_qc_layered@bf16`` and ``@int8`` (trained
    layered-8 on wifi1944, beside ``minsum_qc_layered``), and at batch
@@ -265,7 +295,9 @@ line of standard output is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -314,6 +346,33 @@ EVAL_ROW = "minsum_qc_flooding@evaluate"
 # neural-BP trainer's decoded-BER probe (per-edge layered-6)
 TRAIN_MINSUM_ROW = "minsum_qc_layered@train-minsum"
 TRAIN_PROBE_ROW = "minsum_qc_layered_w@train-probe"
+# the kernels line's rows for phase 3j: the flooding kernel on the
+# evaluate-grid path (three decodes a cell), the campaign's three kernels
+# on the error-floor path and the flooding kernel in the DE example's
+# measured waterfall
+GRID_ROW = "minsum_qc_flooding@evaluate-grid"
+FLOOR_ROWS = {"minsum_qc_flooding": ("minsum_qc_flooding@error-floor",
+                                     "flooding-20"),
+              "minsum_qc_layered": ("minsum_qc_layered@error-floor",
+                                    "layered-10"),
+              "minsum_qc_layered_w": ("minsum_qc_layered_w@error-floor",
+                                      "edge-layered-6")}
+DE_ROW = "minsum_qc_flooding@de-crossing"
+# phase 3j's anchors: the committed ref6432 family's grid (65536 codewords
+# a cell, qbits 3, clipdb 0), the DE thresholds' record and the error-floor
+# campaign's record on wifi1944, with the schedules held at its point
+GRID_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                             "20260820_grid_sgd_family.json")
+GRID_SNRS = (0.0, 3.0, 6.0)
+DE_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                           "20260821-112609_de_thresholds.json")
+DE_CODE = "qc1944_r56"
+FLOOR_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                              "20260821-113932_error_floor.json")
+EF_SNR = 2.5
+EF_HELD = ("flooding-20", "edge-layered-6")
+JOINT_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                              "20260820_joint_before_after.json")
 # phase 3i's recipes: train-minsum as docs/artifacts/
 # 20260820_minsum_trained.json ran it (wifi1944 layered-10, no clamp, Es/N0
 # 1.25-2.5 dB, 120 adam steps at 0.02, batch 256) and that artifact's
@@ -1566,6 +1625,334 @@ def _evaluate_phase(card: str, name: str, batch: int, tmp: str) -> dict:
             "points": len(snrs), "llrs": eval_llrs}
 
 
+def library_phase(card: str) -> dict:
+    """Phase 3j: the rest of the library and the CLI. ``train-grid`` then
+    ``evaluate-grid`` on ref6432 against the committed grid artifact and on
+    wifi1944 min-sum flooding-20 (the flooding kernel three times a cell),
+    a resumed ``train-grid``; the DE threshold example on qc1944_r56; the
+    error-floor campaign on wifi1944 at 2.5 dB; ``noise-study``,
+    ``evaluate-joint``, ``code-info --de`` and the joint before/after
+    example. Returns the launches and the inputs of the kernels line's
+    rows."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3j_") as tmp:
+        return _library_phase(card, tmp)
+
+
+def _within_frames(label: str, got: float, want: float, frames: float,
+                   card: str) -> None:
+    """Hold an error rate to a reference within 4/√(frames in error),
+    relative."""
+    tol = 4 / math.sqrt(max(frames, 1.0))
+    rel = abs(got - want) / want if want else float(got != 0.0)
+    print(f"  {label}: {got!r} against {want!r} (relative difference "
+          f"{rel:.4f}, limit 4/sqrt({frames:.0f}) = {tol:.4f}) [{card}]",
+          flush=True)
+    if not rel <= tol:
+        fail(f"{label}: {got} is not within 4/sqrt(frames in error) of "
+             f"{want}")
+
+
+def _read_one(directory: str, suffix: str) -> dict:
+    (name,) = [f for f in os.listdir(directory) if f.endswith(suffix)]
+    with open(os.path.join(directory, name)) as f:
+        return json.load(f)
+
+
+def _library_phase(card: str, tmp: str) -> dict:
+    import numpy as np
+    import torch
+
+    from ldpc_sims_tpu_torch.cli.main import main as cli_main
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.convert import (
+        joint_params_to_flax,
+        llr_state_dict_from_flax,
+    )
+    from ldpc_sims_tpu_torch.examples import de_thresholds
+    from ldpc_sims_tpu_torch.examples import error_floor_campaign as efc
+    from ldpc_sims_tpu_torch.grid import GRID_KEYS
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+    from ldpc_sims_tpu_torch.models import Joint, LLRestimator
+    from ldpc_sims_tpu_torch.ops.chain import LinkConfig, link_step
+    from ldpc_sims_tpu_torch.utils import (
+        find_runs,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    out = {}
+
+    def launched() -> dict:
+        return {k: v for k, v in mq.LAUNCHES.items() if v}
+
+    # (a) the ref6432 family as the committed grid ran it (the CLI's
+    # decoder defaults: sum-product-ref-3, clamp 20, on the gather
+    # backend), training cut to 2 epochs: its Traditional and quantized
+    # columns do not depend on the estimators
+    with open(GRID_ARTIFACT) as f:
+        art = json.load(f)
+    fam = os.path.join(tmp, "ref")
+    grid = ["train-grid", "--code", "ref6432", "--snr",
+            ",".join(f"{s:g}" for s in GRID_SNRS), "--qbits-grid", "3",
+            "--clipdb-grid", "0", "--epochs", "2", "--family", "ref",
+            "--out", fam]
+    t0 = time.perf_counter()
+    cli_main(grid)
+    t_train = time.perf_counter() - t0
+    cells = len(find_runs("train-llr", fam, family="ref"))
+    t0 = time.perf_counter()
+    cli_main(grid)  # resumed: every cell exists
+    t_resume = time.perf_counter() - t0
+    if len(find_runs("train-llr", fam, family="ref")) != cells or cells != (
+            2 * len(GRID_SNRS)):
+        fail(f"train-grid: {cells} cells, then "
+             f"{len(find_runs('train-llr', fam, family='ref'))} after the "
+             "resume")
+    n = art["num_codewords"]
+    t0 = time.perf_counter()
+    cli_main(["evaluate-grid", "--code", "ref6432", "--family", "ref",
+              "--batch", str(n), "--out", fam])
+    t_eval = time.perf_counter() - t0
+    got = _read_one(fam, "_grid_ref.json")
+    print(f"  train-grid ref6432 ({cells} cells, 2 epochs): {t_train:.1f} s; "
+          f"resumed: {t_resume:.2f} s, no cell trained; evaluate-grid at "
+          f"{n} codewords: {t_eval:.1f} s [{card}]", flush=True)
+    for i, snr in enumerate(GRID_SNRS):
+        j = art["snrdb"].index(snr)
+        for col, fcol in (("coded_ber", "coded_bler"),
+                          ("coded_ber_qllr", "coded_bler_qllr")):
+            frames = 0.5 * n * (got[fcol][i][0][0] + art[fcol][j][0][0])
+            _within_frames(f"evaluate-grid ref6432 {col} @ {snr:g} dB",
+                           got[col][i][0][0], art[col][j][0][0], frames,
+                           card)
+        if not all(math.isfinite(got[k][i][0][0])
+                   for k in ("coded_ber_nn", "wmse_nn", "wmse_qllr")):
+            fail(f"evaluate-grid ref6432 @ {snr:g} dB: non-finite NN columns")
+
+    # (b) the wifi1944 family, decoded by min-sum flooding-20
+    fam = os.path.join(tmp, "w1944")
+    flags = ["--code", "wifi1944", "--method", "min-sum", "--iters", "20"]
+    snrs = (1.5, 2.0, 2.5)
+    t0 = time.perf_counter()
+    cli_main(["train-grid", *flags, "--snr", ",".join(map(str, snrs)),
+              "--qbits-grid", "3", "--clipdb-grid", "0", "--epochs", "2",
+              "--family", "w", "--out", fam])
+    t_train = time.perf_counter() - t0
+    batch = 32768
+    mq.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main(["evaluate-grid", *flags, "--family", "w", "--batch",
+              str(batch), "--out", fam])
+    t_eval = time.perf_counter() - t0
+    counts, entries = launched(), dict(mq.ENTRY_LAUNCHES)
+    got = _read_one(fam, "_grid_w.json")
+    print(f"  train-grid wifi1944 (6 cells, 2 epochs): {t_train:.1f} s; "
+          f"evaluate-grid at batch {batch}: {t_eval:.2f} s for "
+          f"{len(snrs)} cells; launches {counts}, entry points {entries} "
+          f"[{card}]", flush=True)
+    for k in ("coded_ber", "coded_ber_qllr", "coded_ber_nn"):
+        print(f"  evaluate-grid wifi1944 {k}: "
+              f"{[c[0][0] for c in got[k]]}", flush=True)
+    if counts != {"minsum_qc_flooding": 3 * len(snrs)}:
+        fail(f"evaluate-grid launched {counts}, not minsum_qc_flooding "
+             "three times a cell")
+    trad = [c[0][0] for c in got["coded_ber"]]
+    if not all(math.isfinite(x) for k in GRID_KEYS for c in got[k]
+               for x in c[0]) or not trad[0] > trad[-1]:
+        fail(f"evaluate-grid wifi1944: {got}")
+    # a cell's three LLR sets (Traditional, Quantized, NN) at 2.0 dB, for
+    # the kernels line's row
+    code = get_code("wifi1944")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    arrays = link_step(gen, 2.0, code, LinkConfig(
+        bp_method="min-sum", bp_iterations=20, qbits=3), batch,
+        return_arrays=True)
+    (cell,) = find_runs("train-llr", fam, family="w", stage="quantized",
+                        snrdb=2.0)
+    model = LLRestimator(32)
+    model.load_state_dict(llr_state_dict_from_flax(
+        load_checkpoint(cell["ckpt"])[0]["params"]))
+    sig = arrays["q_time"].reshape(-1, 32)
+    with torch.no_grad():
+        nn = model.to("cuda")(torch.cat([sig.real, sig.imag], dim=1))
+    out["grid"] = {"launches": counts["minsum_qc_flooding"],
+                   "cells": len(snrs),
+                   "llrs": {"trad": arrays["llrs"], "quant": arrays["qllrs"],
+                            "nn": nn.reshape(-1, code.n)}}
+
+    # (c) density evolution and the measured waterfall on qc1944_r56
+    with open(DE_ARTIFACT) as f:
+        de_art = json.load(f)["codes"][DE_CODE]
+    de_out = os.path.join(tmp, "de.json")
+    env = dict(DE_CODES=DE_CODE, DE_OUT=de_out)
+    mq.reset_launch_counts()
+    with _environ(env):
+        de_thresholds.main()
+    counts, entries = launched(), dict(mq.ENTRY_LAUNCHES)
+    with open(de_out) as f:
+        ent = json.load(f)["codes"][DE_CODE]
+    print(f"  de_thresholds {DE_CODE} (8192 samples): DE wall "
+          f"{ent['de_wall_s']} s for the three thresholds, th(min-sum, 20) "
+          f"{ent['th_minsum_20it_db']} dB (artifact "
+          f"{de_art['th_minsum_20it_db']}), th(min-sum) "
+          f"{ent['th_minsum_db']} ({de_art['th_minsum_db']}), "
+          f"th(sum-product) {ent['th_sumproduct_db']} "
+          f"({de_art['th_sumproduct_db']}); measured 1e-3 crossing "
+          f"{ent['measured_1e3_crossing_db']} dB "
+          f"({de_art['measured_1e3_crossing_db']}) in "
+          f"{ent['measure_wall_s']} s, gap {ent['gap_db']}, consistent "
+          f"{ent['consistent']}; launches {counts}, entry points {entries} "
+          f"[{card}]", flush=True)
+    for key in ("th_minsum_20it_db", "measured_1e3_crossing_db"):
+        if not abs(ent[key] - de_art[key]) <= 0.15:
+            fail(f"de_thresholds {DE_CODE} {key}: {ent[key]} is not within "
+                 f"0.15 dB of {de_art[key]}")
+    if list(counts) != ["minsum_qc_flooding"] or not ent["consistent"]:
+        fail(f"de_thresholds: launched {counts}, consistent "
+             f"{ent['consistent']}")
+    out["de"] = {"launches": counts["minsum_qc_flooding"],
+                 "snr": ent["measured_1e3_crossing_db"]}
+
+    # (d) the error-floor campaign on wifi1944 at 2.5 dB, every schedule
+    # of the committed registry, 2 chunks of 32 steps at batch 32768
+    with open(FLOOR_ARTIFACT) as f:
+        floor_art = {(p["schedule"], p["snr_db"]): p
+                     for p in json.load(f)["points"]}
+    rec_path = os.path.join(tmp, "floor.json")
+    steps = 64
+    env = dict(EF_CODE="wifi1944", EF_SNRS=f"{EF_SNR}", EF_BATCH=str(batch),
+               EF_CHUNK_STEPS="32",
+               EF_TARGET_BITS=str(steps * batch * code.k), EF_OUT=rec_path)
+    artifacts_before = _artifact_digests()
+    mq.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _environ(env):
+        efc.main()
+    t_floor = time.perf_counter() - t0
+    counts, entries = launched(), dict(mq.ENTRY_LAUNCHES)
+    with open(rec_path) as f:
+        rec = json.load(f)
+    print(f"  error-floor campaign wifi1944 @ {EF_SNR:g} dB, "
+          f"{len(rec['points'])} schedules x {steps} steps of {batch}: "
+          f"{t_floor:.1f} s; launches {counts}, entry points {entries} "
+          f"[{card}]", flush=True)
+    for p in rec["points"]:
+        print(f"    {p['schedule']}: FER {p['fler']!r} ({p['frame_errs']} of "
+              f"{p['frames']}), BER {p['ber']!r}, {p['wall_s']:.2f} s",
+              flush=True)
+    print(f"    verdicts: { {k: [v['floor_ok'] for v in vs] for k, vs in rec['verdicts'].items()} }",
+          flush=True)
+    for name in EF_HELD:
+        (p,) = [q for q in rec["points"] if q["schedule"] == name]
+        ref = floor_art[name, EF_SNR]
+        # frames in error: this run's and the reference's at its exposure
+        _within_frames(f"error floor {name} FER @ {EF_SNR:g} dB",
+                       p["fler"], ref["fler"],
+                       0.5 * (p["frame_errs"] + ref["fler"] * p["frames"]),
+                       card)
+    if _artifact_digests() != artifacts_before:
+        fail("the error-floor campaign wrote under docs/artifacts/")
+    if not os.path.exists(os.path.splitext(rec_path)[0]
+                          + "_schedules.json"):
+        fail("the error-floor campaign wrote no registry copy")
+    for k in ("minsum_qc_flooding", "minsum_qc_layered",
+              "minsum_qc_layered_w"):
+        if not counts.get(k):
+            fail(f"the error-floor campaign launched no {k}: {counts}")
+    out["floor"] = {"counts": counts, "steps": steps,
+                    "schedules": dict(efc.schedules_from_registry(
+                        "wifi1944", json.load(open(SCHEDULES)),
+                        os.path.dirname(SCHEDULES), torch.device("cuda")))}
+
+    # (e) noise-study, evaluate-joint and code-info --de, once each
+    ns = os.path.join(tmp, "noise")
+    mq.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main(["noise-study", "--out", ns])
+    recs = _read_one(ns, "_noise_study.json")
+    print(f"  noise-study (ref6432, 0/5/10 dB x qbits 1/3/5, 512 codewords): "
+          f"{time.perf_counter() - t0:.2f} s; std "
+          f"{[round(r['std'], 4) for r in recs]}, launches {launched()} "
+          f"[{card}]", flush=True)
+    if len(recs) != 9 or not all(math.isfinite(r["std"]) for r in recs):
+        fail(f"noise-study: {recs}")
+    model = Joint(code_name="ref6432", iterations=3,
+                  generator=torch.Generator().manual_seed(8))
+    ckpt = save_checkpoint(os.path.join(tmp, "joint"),
+                           {"params": joint_params_to_flax(model),
+                            "opt_state": None}, {"model": "Joint"})
+    ej = os.path.join(tmp, "joint_eval")
+    t0 = time.perf_counter()
+    cli_main(["evaluate-joint", "--qbits", "3", "--ckpt", ckpt, "--out", ej])
+    curves = _read_one(ej, "_joint_eval.json")
+    print(f"  evaluate-joint (ref6432, 3-bit ADC, 0:6:4 dB, 1024 codewords, "
+          f"a seeded Joint): {time.perf_counter() - t0:.2f} s; "
+          f"{ {k: v for k, v in curves.items() if k != 'code'} } [{card}]",
+          flush=True)
+    if not all(math.isfinite(x) for k, v in curves.items() if k != "code"
+               for x in v) or not curves["ber_classic"][-1] < curves[
+                   "ber_classic"][0]:
+        fail(f"evaluate-joint: {curves}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["code-info", "--code", "wifi648", "--de"])
+    rep = json.loads(buf.getvalue())
+    print(f"  code-info --code wifi648 --de: {time.perf_counter() - t0:.1f} "
+          f"s; cycles {rep['qc']['cycles_4']}/{rep['qc']['cycles_6']}, DE "
+          f"thresholds {rep['de_threshold_db']} [{card}]", flush=True)
+    th = rep["de_threshold_db"]
+    if not th["sum-product"] < th["min-sum"] < 3.0:
+        fail(f"code-info --de: {rep}")
+
+    # (f) the joint before/after example, its joint training cut from 40
+    # epochs to 3 (the other stages at the example's sizes)
+    from ldpc_sims_tpu_torch.examples import joint_before_after
+
+    with open(JOINT_ARTIFACT) as f:
+        jart = json.load(f)
+    t0 = time.perf_counter()
+    jrec = joint_before_after.run(torch.device("cuda"), joint_epochs=3)
+    print(f"  joint_before_after (joint training 3 of 40 epochs): "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    for k in ("ber_classic", "ber_quantized_llr", "ber_joint_before",
+              "ber_joint_after"):
+        print(f"    {k} at {jrec['snrdb']} dB: {jrec[k]} (artifact "
+              f"{jart[k]})", flush=True)
+        if not all(math.isfinite(x) for x in jrec[k]):
+            fail(f"joint_before_after: non-finite {k}")
+    if not jrec["ber_classic"][-1] < jrec["ber_classic"][0]:
+        fail(f"joint_before_after: classic BER {jrec['ber_classic']}")
+    return out
+
+
+@contextlib.contextmanager
+def _environ(env: dict):
+    """``os.environ`` with ``env`` set, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _artifact_digests() -> dict:
+    import hashlib
+
+    d = os.path.join(ROOT, "docs", "artifacts")
+    return {f: hashlib.sha256(open(os.path.join(d, f), "rb").read())
+            .hexdigest() for f in sorted(os.listdir(d))
+            if os.path.isfile(os.path.join(d, f))}
+
+
 def training_phase(card: str, sweep) -> dict:
     """Phase 3i: training on the card. ``train-minsum`` as a user runs it
     and its schedule through ``sweep --schedule-ckpt`` beside plain
@@ -1926,7 +2313,8 @@ def main() -> None:
     ]
     max_err = {name: 0.0 for name in (
         *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW, EVAL_ROW,
-        TRAIN_MINSUM_ROW, TRAIN_PROBE_ROW,
+        TRAIN_MINSUM_ROW, TRAIN_PROBE_ROW, GRID_ROW, DE_ROW,
+        *(r for r, _ in FLOOR_ROWS.values()),
         *(f"{k}@wifi648" for k in SP_KERNELS))}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
@@ -2847,6 +3235,22 @@ def main() -> None:
     per_step[TRAIN_PROBE_ROW] = 2  # a probe decodes at its two SNRs
     print(f"  phase 3i took {time.perf_counter() - t3i:.1f} s", flush=True)
 
+    # -- phase 3j: the rest of the library and the CLI ---------------------
+    print("== phase 3j: train-grid/evaluate-grid, density evolution, the "
+          "error-floor campaign, noise-study, evaluate-joint, code-info",
+          flush=True)
+    t3j = time.perf_counter()
+    lib3j = library_phase(card)
+    launches[GRID_ROW] = lib3j["grid"]["launches"]
+    per_step[GRID_ROW] = 3  # a cell: Traditional, Quantized, NN
+    for kname, (rname, _) in FLOOR_ROWS.items():
+        launches[rname] = lib3j["floor"]["counts"][kname]
+        per_step[rname] = lib3j["floor"]["counts"][kname] / lib3j[
+            "floor"]["steps"]  # a campaign step (every schedule)
+    launches[DE_ROW] = lib3j["de"]["launches"]
+    per_step[DE_ROW] = 1  # a decode
+    print(f"  phase 3j took {time.perf_counter() - t3j:.1f} s", flush=True)
+
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
@@ -3124,6 +3528,65 @@ def main() -> None:
         kernels.append(row(name, ms, plain_ms, bound(nbytes, ops),
                            mq.entry_point(qc, "min-sum", "layered",
                                           weighted="weights" in kw)))
+    # phase 3j's rows. The flooding kernel on an evaluate-grid cell's three
+    # LLR sets (wifi1944 flooding-20, clamp 20, 2.0 dB, a trained cell's
+    # estimator), with the evaluate-grid run's launches
+    kw = dict(iterations=20, schedule="flooding", clamp=20.0)
+    ms = plain_ms = 0.0
+    for tag, x in lib3j["grid"]["llrs"].items():
+        x = x.contiguous()
+        max_err[GRID_ROW] = max(max_err[GRID_ROW], compare(
+            mq.bp_qc_cuda(x, qc, output="posterior", **kw),
+            decode_roll(x, qc, output="posterior", **kw),
+            f"{GRID_ROW} ({tag} LLRs) at batch {batch}"))
+        ms += cuda_time_ms(lambda: mq.bp_qc_cuda(x, qc, **kw), 10) / 3
+        plain_ms += cuda_time_ms(
+            lambda: decode_roll(x, qc, **kw), 1, warmup=1) / 3
+    kernels.append(row(GRID_ROW, ms, plain_ms, bound(
+        io_bytes, batch * E * edge_ops(**kw)),
+        mq.entry_point(qc, "min-sum", "flooding")))
+    # the error-floor campaign's kernels on its first step's frames at 2.5
+    # dB, each timed in the schedule named beside it (flooding-20,
+    # layered-10, the committed per-edge layered-6 with its α/β), with the
+    # launches of every schedule of the campaign's run
+    from ldpc_sims_tpu_torch.examples.error_floor_campaign import point_llrs
+
+    xe = point_llrs(w1944, EF_SNR, 0, 0, batch, "cuda")
+    for kname, (name, sched) in FLOOR_ROWS.items():
+        kw = {k: v for k, v in lib3j["floor"]["schedules"][sched].items()
+              if k != "backend"}
+        nbytes, ops = io_bytes, batch * E * edge_ops(
+            kw["schedule"], kw["iterations"], kw.get("alpha", 1.0),
+            kw.get("beta", 0.0))
+        if "weights" in kw:
+            kw["weights"] = kw["weights"]["tables"]
+            nbytes += 4 * 7 * (E + n)
+            ops = batch * weighted_ops("layered", kw["iterations"], E, n,
+                                       kw["alpha"], kw["beta"])
+        max_err[name] = max(max_err[name], compare(
+            mq.bp_qc_cuda(xe, qc, output="posterior", **kw),
+            decode_roll(xe, qc, output="posterior", **kw),
+            f"{name} ({sched}) at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xe, qc, **kw), 10)
+        plain_ms = cuda_time_ms(lambda: decode_roll(xe, qc, **kw), 2, 1)
+        kernels.append(row(name, ms, plain_ms, bound(nbytes, ops),
+                           mq.entry_point(qc, "min-sum", kw["schedule"],
+                                          weighted="weights" in kw)))
+    # the flooding kernel in the DE example's measured waterfall: qc1944_r56
+    # flooding-20 at batch 8192 at the measured crossing
+    dcode = get_code(DE_CODE)
+    dqc, kw = dcode.qc, dict(iterations=20, schedule="flooding")
+    xd = floor_llrs(dcode, 8192, lib3j["de"]["snr"], 45)
+    Ed = len(qc_plan(dqc)[0]) * dqc.z
+    max_err[DE_ROW] = compare(
+        mq.bp_qc_cuda(xd, dqc, output="posterior", **kw),
+        decode_roll(xd, dqc, output="posterior", **kw),
+        f"{DE_ROW} at batch 8192")
+    ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xd, dqc, **kw), 20)
+    plain_ms = cuda_time_ms(lambda: decode_roll(xd, dqc, **kw), 2, 1)
+    kernels.append(row(DE_ROW, ms, plain_ms, bound(
+        8192 * dcode.n * 5, 8192 * Ed * edge_ops(**kw)),
+        mq.entry_point(dqc, "min-sum", "flooding")))
     # sum-product layered-20 at G = 4, bound as the sum-product rows
     kw = dict(iterations=20, schedule="layered", method="sum-product",
               layered_group=4)

@@ -9,7 +9,9 @@ caller passes ``device='cpu'``.
 
 Subpackages
 -----------
-codes      LDPC code library (NumPy copies of the JAX package's).
+codes      LDPC code library (NumPy copies of the JAX package's), code
+           analysis (``analyze``) and protograph density evolution
+           (``de``).
 ops        BP decode dispatch (the cuda, roll, dense and gather backends),
            syndromes, encoder, PHY chain, link step.
 kernels    CUDA BP decode kernels (flooding, layered, group-serial;
@@ -28,9 +30,16 @@ utils      Checkpoints in the JAX package's format (its own msgpack
            codec), metrics, phase timers, profiler traces, the run
            registry, device selection, decoder-weight loading.
 plotting   BER/BLER/WMSE figures (matplotlib, imported on use).
+grid       The per-SNR model-family chain (``train_grid``) and its grid
+           evaluation (``evaluate_grid``).
+diagnostics  The quantization-noise study and the joint model's
+           cross-check.
 cli        ``python -m ldpc_sims_tpu_torch sweep|evaluate|scaling-probe|
-           train-llr|train-joint|train-minsum|generate-data``.
-examples   ``bigcode``: the 5G-class codes at full width on the card.
+           train-llr|train-joint|train-grid|train-minsum|evaluate-grid|
+           noise-study|evaluate-joint|generate-data|code-info``.
+examples   ``bigcode`` (the 5G-class codes at full width on the card),
+           ``error_floor_campaign``, ``de_thresholds``,
+           ``joint_before_after``.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
-"""Command-line interface: the ``sweep``, ``evaluate``, ``scaling-probe``,
-``train-llr``, ``train-joint``, ``train-minsum`` and ``generate-data``
-subcommands of the JAX package's CLI.
+"""Command-line interface: the twelve subcommands of the JAX package's CLI
+(``sweep``, ``evaluate``, ``scaling-probe``, ``train-llr``,
+``train-joint``, ``train-grid``, ``train-minsum``, ``evaluate-grid``,
+``noise-study``, ``evaluate-joint``, ``generate-data``, ``code-info``).
 
     python -m ldpc_sims_tpu_torch sweep --preset reference
     python -m ldpc_sims_tpu_torch sweep --code wifi1944 --method min-sum \\
@@ -38,6 +39,12 @@ subcommands of the JAX package's CLI.
         --schedule layered --iters 10 --clamp 0 --snr-low 1.25 \\
         --snr-high 2.5 --steps 120 --batch 256
     python -m ldpc_sims_tpu_torch generate-data --num-codewords 4096
+    python -m ldpc_sims_tpu_torch train-grid --snr 0,3,6 --qbits-grid 3 \\
+        --clipdb-grid 0 --family fam
+    python -m ldpc_sims_tpu_torch evaluate-grid --family fam --batch 65536
+    python -m ldpc_sims_tpu_torch noise-study --snr 0,5,10
+    python -m ldpc_sims_tpu_torch evaluate-joint --qbits 3 --ckpt <dir>
+    python -m ldpc_sims_tpu_torch code-info --code qc1944_r56 --de
 
 The defaults are the JAX CLI's (``ldpc_sims_tpu/cli/main.py:656-672,
 723-724``): the reference chain, ref6432 over QPSK/OFDM-32 with 3
@@ -68,9 +75,13 @@ version) and write their checkpoints in the JAX package's layout under
 ``--out/model/`` with a registry record (``train-minsum`` prints the
 trained schedule as ``--bp-alpha``/``--bp-beta`` lines, and ``sweep
 --schedule-ckpt`` reads its checkpoint); ``generate-data`` writes
-``{stamp}_data.npz``. The other subcommands (``train-grid``,
-``evaluate-grid``, ``evaluate-joint``, ``noise-study``, ``code-info``) are
-not ported yet (ROADMAP A11).
+``{stamp}_data.npz``. ``train-grid`` trains the per-SNR model family
+(resumable by ``--family``) and ``evaluate-grid`` evaluates it into
+``{stamp}_grid_{family}.json``, both in the JAX package's checkpoint and
+registry formats; ``noise-study`` writes ``{stamp}_noise_study.json`` and
+``evaluate-joint`` ``{stamp}_joint_eval.json``; ``code-info`` prints a
+code's analysis (``--de``: its DE thresholds) as JSON. All twelve JAX
+subcommands exist, each with JAX's flags and the port's ``--device``.
 """
 
 from __future__ import annotations
@@ -612,6 +623,169 @@ def cmd_generate_data(args) -> None:
     print(f"dataset -> {path}  x{x.shape} y{y.shape}")
 
 
+def cmd_train_grid(args) -> None:
+    """The per-SNR model-family chain (unquantized → quantized warm
+    starts), resumable by --family; its manifest to
+    ``{family}_family.json``."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.grid import train_grid
+    from ldpc_sims_tpu_torch.training import TrainConfig
+
+    code = get_code(args.code)
+    tc = TrainConfig(
+        learning_rate=args.lr, num_epochs=args.epochs,
+        batch_size=args.batch, seed=args.seed,
+        eval_every=args.eval_every, optimizer=args.optimizer,
+    )
+    tcq = dataclasses.replace(
+        tc, learning_rate=args.quant_lr if args.quant_lr > 0 else args.lr
+    )
+    manifest = train_grid(
+        code,
+        train_cfg_quantized=tcq,
+        snrdb_grid=_parse_snr(args.snr),
+        qbits_grid=tuple(int(q) for q in args.qbits_grid.split(",") if q),
+        clipdb_grid=tuple(
+            float(c) for c in args.clipdb_grid.split(",") if c
+        ),
+        train_cfg=tc,
+        ofdm_size=args.ofdm_size,
+        num_codewords=args.num_codewords,
+        out_dir=args.out,
+        family=args.family or None,
+        seed=args.seed,
+        device=args.device,
+    )
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"{manifest['family']}_family.json")
+    with open(path, "w") as f:
+        json.dump(manifest, f, indent=1)
+    print(f"family '{manifest['family']}' manifest -> {path}")
+
+
+def cmd_evaluate_grid(args) -> None:
+    """Every checkpoint of a trained family at its own (snr, qbits,
+    clipdb) cell, to ``{stamp}_grid_{family}.json`` with a registry
+    record."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.grid import evaluate_grid
+    from ldpc_sims_tpu_torch.utils.registry import record_run
+
+    _need_matplotlib(args)
+    code = get_code(args.code)
+    link = _link_cfg_from_args(args, qbits=None)
+    grid = evaluate_grid(
+        code, args.family, link_base=link, ofdm_size=args.ofdm_size,
+        num_codewords=args.batch, out_dir=args.out, stage=args.stage,
+        seed=args.seed, device=args.device,
+    )
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    path = os.path.join(args.out, f"{stamp}_grid_{args.family}.json")
+    with open(path, "w") as f:
+        json.dump(grid, f, indent=1)
+    record_run("evaluate-grid", args.out, code=code.name,
+               family=args.family, curves=path)
+    print(f"grid -> {path}")
+    if args.plot:
+        from ldpc_sims_tpu_torch.plotting import plot_grid
+
+        fig = plot_grid(
+            grid, os.path.join(args.out, f"{stamp}_grid_{args.family}.png"),
+            title=f"{code.name} family {args.family}",
+        )
+        print(f"figure -> {fig}")
+
+
+def cmd_code_info(args) -> None:
+    """Analyze a registry code or an imported QC shift table / alist:
+    degrees, the QC cycle spectrum (girth evidence) and, with --de, the DE
+    thresholds (on --device); the report as JSON on stdout."""
+    from ldpc_sims_tpu_torch.codes.analyze import code_report
+
+    if args.base_file:
+        from ldpc_sims_tpu_torch.codes.qc_construct import load_qc_base
+
+        code = load_qc_base(args.base_file)
+    elif args.alist:
+        from ldpc_sims_tpu_torch.codes import load_alist
+
+        code = load_alist(args.alist)
+    else:
+        from ldpc_sims_tpu_torch.codes import get_code
+
+        code = get_code(args.code)
+    rep = code_report(code, de=args.de, device=args.device)
+    print(json.dumps(rep, indent=1))
+
+
+def cmd_noise_study(args) -> None:
+    """The quantization-noise statistics grid to
+    ``{stamp}_noise_study.json``. As in the JAX CLI, the study runs its
+    own per-symbol AGC and clean clip: --agc, --clipdb, --modulation,
+    --iters and the decoder flags do not reach it."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.diagnostics import quantization_noise_study
+
+    code = get_code(args.code)
+    records = quantization_noise_study(
+        args.seed,
+        code,
+        snrdb_grid=_parse_snr(args.snr),
+        qbits_grid=tuple(int(q) for q in args.qbits_grid.split(",")),
+        clip_ratio_grid=tuple(
+            10 ** (float(c) / 10.0) for c in args.clipdb_grid.split(",")
+        ),
+        num_codewords=args.batch,
+        ofdm_size=args.ofdm_size,
+        device=args.device,
+    )
+    os.makedirs(args.out, exist_ok=True)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    path = os.path.join(args.out, f"{stamp}_noise_study.json")
+    with open(path, "w") as f:
+        json.dump(records, f, indent=1)
+    for r in records:
+        print(
+            f"snr={r['snrdb']:5.1f} qbits={r['qbits']} "
+            f"clip={r['clip_ratio']:.2f}: std={r['std']:.4f} "
+            f"max|e|={r['max_abs']:.4f}"
+        )
+    print(f"records -> {path}")
+
+
+def cmd_evaluate_joint(args) -> None:
+    """A trained joint model against classic BP on the analytic and on
+    the quantized LLRs, on the same bits, to ``{stamp}_joint_eval.json``.
+    The classic decodes are sum-product whatever --method says, as in the
+    JAX CLI."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.diagnostics import evaluate_joint
+    from ldpc_sims_tpu_torch.models import Joint
+    from ldpc_sims_tpu_torch.utils import load_checkpoint
+
+    code = get_code(args.code)
+    link = _link_cfg_from_args(args)
+    model = Joint(code_name=args.code, ofdm_size=args.ofdm_size,
+                  iterations=args.iters, clamp=args.clamp)
+    tree, _ = load_checkpoint(args.ckpt)
+    curves = evaluate_joint(
+        model, tree["params"], code, link,
+        snrdb_grid=_parse_snr(args.snr), num_codewords=args.batch,
+        seed=args.seed, device=args.device,
+    )
+    os.makedirs(args.out, exist_ok=True)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    path = os.path.join(args.out, f"{stamp}_joint_eval.json")
+    with open(path, "w") as f:
+        json.dump({"code": code.name, **curves}, f, indent=1)
+    print(f"curves -> {path}")
+
+
+def _add_device(sp: argparse.ArgumentParser) -> None:
+    sp.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu' for the plain version")
+
+
 def _add_common(sp: argparse.ArgumentParser) -> None:
     """The JAX CLI's shared flags (code, link, decoder, checkpoints, seed,
     output) and the port's --device."""
@@ -678,8 +852,7 @@ def _add_common(sp: argparse.ArgumentParser) -> None:
                          "per-iteration --bp-alpha/--bp-beta")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--out", default="outputs")
-    sp.add_argument("--device", default="cuda",
-                    help="'cuda' (default) or 'cpu' for the plain version")
+    _add_device(sp)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -762,6 +935,30 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_train_joint)
 
     sp = sub.add_parser(
+        "train-grid",
+        help="train the per-SNR model family (unquantized → quantized "
+             "warm-start chain); resumable by --family",
+    )
+    _add_common(sp)
+    sp.add_argument("--snr", default="0:10:11")
+    sp.add_argument("--qbits-grid", default="1,3,5")
+    sp.add_argument("--clipdb-grid", default="0,5")
+    sp.add_argument("--lr", type=float, default=0.01)
+    sp.add_argument("--quant-lr", type=float, default=0.0,
+                    help="stage-2 learning rate (<=0: same as --lr; the "
+                         "reference uses 0.1)")
+    sp.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
+    sp.add_argument("--epochs", type=int, default=100)
+    sp.add_argument("--eval-every", type=int, default=10,
+                    help="epochs per device-resident training chunk "
+                         "(one eval and host read per chunk)")
+    sp.add_argument("--batch", type=int, default=4096)
+    sp.add_argument("--num-codewords", type=int, default=4096)
+    sp.add_argument("--family", default="",
+                    help="family id (reuse to resume an interrupted grid)")
+    sp.set_defaults(fn=cmd_train_grid)
+
+    sp = sub.add_parser(
         "train-minsum",
         help="train per-iteration normalized/offset min-sum weights "
              "(the frozen schedule runs in the kernels' alpha/beta table)",
@@ -776,11 +973,65 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["sgd", "adam"])
     sp.set_defaults(fn=cmd_train_minsum)
 
+    sp = sub.add_parser(
+        "evaluate-grid",
+        help="evaluate every checkpoint of a trained family at its own "
+             "(snr, qbits, clipdb) cell",
+    )
+    _add_common(sp)
+    sp.add_argument("--family", required=True)
+    sp.add_argument("--stage", default="quantized",
+                    choices=["quantized", "unquantized"])
+    sp.add_argument("--batch", type=int, default=4096)
+    sp.add_argument("--plot", action="store_true",
+                    help="write the grid figure under --out (needs "
+                         "matplotlib)")
+    sp.set_defaults(fn=cmd_evaluate_grid)
+
+    sp = sub.add_parser(
+        "noise-study",
+        help="quantization-noise statistics grid (per-symbol AGC and a "
+             "clean clip, as in the JAX CLI: --agc, --clipdb, "
+             "--modulation and --iters do not reach it)",
+    )
+    _add_common(sp)
+    sp.add_argument("--snr", default="0,5,10")
+    sp.add_argument("--qbits-grid", default="1,3,5")
+    sp.add_argument("--clipdb-grid", default="0")
+    sp.add_argument("--batch", type=int, default=512)
+    sp.set_defaults(fn=cmd_noise_study)
+
+    sp = sub.add_parser(
+        "evaluate-joint",
+        help="joint vs classic vs quantized decode (the classic decodes "
+             "are sum-product whatever --method says, as in the JAX CLI)",
+    )
+    _add_common(sp)
+    sp.add_argument("--ckpt", required=True)
+    sp.add_argument("--snr", default="0:6:4")
+    sp.add_argument("--batch", type=int, default=1024)
+    sp.set_defaults(fn=cmd_evaluate_joint)
+
     sp = sub.add_parser("generate-data", help="write a dataset .npz")
     _add_common(sp)
     sp.add_argument("--snrdb", type=float, default=5.0)
     sp.add_argument("--num-codewords", type=int, default=4096)
     sp.set_defaults(fn=cmd_generate_data)
+
+    sp = sub.add_parser(
+        "code-info",
+        help="analyze a code: degrees, QC cycle spectrum, DE threshold "
+             "(validates imported standard shift tables / alists)",
+    )
+    sp.add_argument("--code", default="ref6432")
+    sp.add_argument("--base-file", default="",
+                    help="QC shift-table text file (load_qc_base format)")
+    sp.add_argument("--alist", default="", help="alist file to analyze")
+    sp.add_argument("--de", action="store_true",
+                    help="also compute min-sum/sum-product DE thresholds "
+                         "(sampled density evolution, on --device)")
+    _add_device(sp)
+    sp.set_defaults(fn=cmd_code_info)
     return ap
 
 

@@ -12,6 +12,7 @@ from ldpc_sims_tpu_torch.utils.metrics import (  # noqa: F401
     MetricsLogger,
     PhaseTimer,
     profile_trace,
+    stable_fold_in,
 )
 from ldpc_sims_tpu_torch.utils.registry import (  # noqa: F401
     find_runs,

@@ -1,6 +1,6 @@
-"""Structured metrics: JSONL events, phase timers and profiler traces
-(the port of ``utils/metrics.py``: ``MetricsLogger``, ``PhaseTimer``,
-``profile_trace``)."""
+"""Structured metrics: JSONL events, phase timers, profiler traces and
+process-stable seed folding (the port of ``utils/metrics.py``:
+``MetricsLogger``, ``PhaseTimer``, ``profile_trace``, ``stable_fold_in``)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,50 @@ import contextlib
 import json
 import os
 import time
+import zlib
 from typing import Any
 
-__all__ = ["MetricsLogger", "PhaseTimer", "profile_trace"]
+import numpy as np
+
+__all__ = [
+    "MetricsLogger",
+    "PhaseTimer",
+    "fold_seed",
+    "fold_tag",
+    "profile_trace",
+    "stable_fold_in",
+]
+
+
+def fold_tag(*parts) -> int:
+    """The integer the JAX package's ``stable_fold_in`` folds into its key:
+    ``zlib.crc32("|".join(repr(p) for p in parts)) & 0x7FFFFFFF``."""
+    tag = "|".join(repr(p) for p in parts)
+    return zlib.crc32(tag.encode()) & 0x7FFFFFFF
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A 63-bit generator seed from a base seed and a folded integer (the
+    port's ``jax.random.fold_in``): NumPy's ``SeedSequence([seed, data])``,
+    the same in every process and on every machine."""
+    state = np.random.SeedSequence([int(seed), int(data)]).generate_state(
+        1, np.uint64)
+    return int(state[0]) & (2**63 - 1)
+
+
+def stable_fold_in(seed: int, *parts) -> int:
+    """``seed`` folded with a process-stable hash of ``parts``: the seed of
+    a ``torch.Generator`` for one cell of a study.
+
+    The JAX package folds :func:`fold_tag`'s crc32 into a PRNG key; the
+    port folds the same integer into its integer seed (:func:`fold_seed`).
+    Python's ``hash()`` of a str-bearing value changes with
+    PYTHONHASHSEED, the crc32 does not. ``parallel.mc.stable_seed`` is
+    process-stable too, but hashes the parts' reprs with blake2b and takes
+    no base seed apart from them: the two draw different streams for the
+    same parts, so a cell keyed one way never reuses the other's.
+    """
+    return fold_seed(seed, fold_tag(*parts))
 
 
 class MetricsLogger:

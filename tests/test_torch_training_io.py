@@ -12,9 +12,9 @@ package (CPU).
   JAX's formulas on the same arrays within 1e-5; the drawn SNRs lie in
   range; ``make_llr_dataset(with_snr_feature=True)`` gives 65 columns,
   the feature in [1, 10].
-* The four subcommands' parsers: JAX's dests, defaults and choices; each
-  runs at a tiny size with ``--device cpu``, and their checkpoints read
-  in both packages.
+* All twelve subcommands' parsers: JAX's dests, defaults, choices and
+  ``required``; the four training subcommands run at a tiny size with
+  ``--device cpu``, and their checkpoints read in both packages.
 * ``decoded_ber_probe``: its SNR keys, BERs in [0, 0.5], the trained
   tensors' ``.grad`` untouched; ``train_neural_bp`` and
   ``train_minsum_weights`` end to end with probes.
@@ -225,24 +225,36 @@ def test_llr_dataset_with_snr_feature():
     np.testing.assert_allclose(yt, np.tanh(y), rtol=1e-6, atol=1e-6)
 
 
-SUBCOMMANDS = ["train-llr", "train-joint", "train-minsum", "generate-data"]
+# all twelve subcommands of the JAX CLI
+SUBCOMMANDS = ["sweep", "train-llr", "train-joint", "train-grid",
+               "train-minsum", "evaluate-grid", "evaluate", "noise-study",
+               "evaluate-joint", "scaling-probe", "generate-data",
+               "code-info"]
+
+
+def _subparsers(parser):
+    return next(a for a in parser._actions
+                if isinstance(a, type(parser._subparsers._group_actions[
+                    0]))).choices
 
 
 @pytest.mark.parametrize("cmd", SUBCOMMANDS)
 def test_subcommand_parsers_match_jax(cmd):
+    """JAX's dests, defaults, choices, option strings and ``required``;
+    only the port's ``--device`` (default the card) is extra."""
     from ldpc_sims_tpu.cli.main import build_parser as jax_build_parser
     from ldpc_sims_tpu_torch.cli.main import build_parser
 
     def actions(parser):
-        sub = next(a for a in parser._actions
-                   if isinstance(a, type(parser._subparsers._group_actions[
-                       0]))).choices[cmd]
-        return {a.dest: (a.default, a.choices, a.option_strings)
-                for a in sub._actions if a.dest != "help"}
+        return {a.dest: (a.default, a.choices, a.option_strings, a.required)
+                for a in _subparsers(parser)[cmd]._actions
+                if a.dest != "help"}
 
     ours, theirs = actions(build_parser()), actions(jax_build_parser())
     assert ours.pop("device")[0] == "cuda"
     assert ours == theirs
+    assert sorted(_subparsers(build_parser())) == sorted(
+        _subparsers(jax_build_parser())) == sorted(SUBCOMMANDS)
 
 
 def test_subcommands_run_on_the_cpu(tmp_path):
