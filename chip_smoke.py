@@ -222,6 +222,32 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    once each; ``examples/joint_before_after`` with its joint training
    cut from 40 epochs to 3, its curves finite and printed beside
    ``docs/artifacts/20260820_joint_before_after.json``'s;
+3k. the training and study examples through their ``run()``
+   (``ldpc_sims_tpu_torch.examples``), their training cut
+   (``EXAMPLE_CUTS``) and their evaluations at the JAX scripts' budget
+   (31 steps of 32768 paired BPSK frames a point), each failing unless
+   it launched exactly its evaluations' and probes' kernels (the
+   gradient decodes none): ``quantized_llr_study`` at 4096 codewords
+   and 300 epochs, its Traditional coded BER at 0 and 6 dB within 4σ +
+   10% of ``BASELINE.md`` table A; ``tanh_family`` at 60 of 600 epochs,
+   the arms' estimator-independent columns equal and, pooled over the
+   six points, within the larger of 4/√(frames in error) and 4σ of
+   ``docs/artifacts/20260821-054923_tanh_family.json``;
+   ``train_minsum_1944`` (32 of 120 steps) with plain and sum-product
+   layered-10 and flooding-20 at 1.5, 1.75 and 2.0 dB held so to
+   ``20260820_minsum_trained.json`` (σ from this run's per-frame counts)
+   and the trained layered-10 below plain at 1.5 dB;
+   ``train_minsum_short`` (K = 6, 8; 16 steps a K), flooding-20 at 1.75
+   and 2.25 dB held to ``20260820_minsum_short.json``;
+   ``train_minsum_tail7`` (16 of 3000 steps), its flooding-20 control
+   held to the K6 record's; ``train_edge_1944`` (16 of 300 steps),
+   flooding-12 and flooding-20 held to ``20260821-063306_edge1944.json``;
+   ``train_edge_layered_1944`` (16 of 1500 steps, ``EL_JOINT``),
+   flooding-20, plain layered-6 and trained layered-8 held to
+   ``20260821-104318_edge_layered1944_K6.json`` at 1.75 and 2.25 dB
+   (2.75 and 3.25 dB recorded), its registry copy read back by the
+   campaign's ``schedules_from_registry``; nothing under
+   ``docs/artifacts/`` changed;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
    each kernel's bound: one row per kernel with the launches of its own
@@ -258,7 +284,13 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    layered-10 and edge-layered-6 on the campaign's frames, with the
    launches of every schedule of its run) and
    ``minsum_qc_flooding@de-crossing`` (qc1944_r56 flooding-20 at batch
-   8192 at the measured crossing, the waterfall's launches);
+   8192 at the measured crossing, the waterfall's launches); phase 3k's
+   ``sumproduct_qc_layered@train-minsum-1944`` (sum-product layered-10),
+   ``minsum_qc_layered@tail7`` (the tuned layered-7 table),
+   ``minsum_qc_flooding_w@train-edge`` (the trained flooding-12 weights)
+   and ``minsum_qc_layered_w@train-edge-layered`` (the trained layered-6
+   weights with their α/β table), each on the examples' BPSK frames at
+   2.0 dB with the launches of its example's run;
    then the times of both drivers; then the storage rows with the launches
    of phase 3e: ``minsum_qc_layered@bf16`` and ``@int8`` (trained
    layered-8 on wifi1944, beside ``minsum_qc_layered``), and at batch
@@ -373,6 +405,48 @@ EF_SNR = 2.5
 EF_HELD = ("flooding-20", "edge-layered-6")
 JOINT_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
                               "20260820_joint_before_after.json")
+# phase 3k: the training and study examples, each held to its committed
+# record (paired BPSK frames, all-zero codewords; each arm's BER within the
+# larger of 4/√(frames in error) and 4σ of the difference of two estimates
+# at the same exposure, σ the standard error from this run's per-frame
+# counts), and the kernels line's row of each new path: the example, its
+# kernel and the row
+EXAMPLE_ROWS = {
+    "train_minsum_1944": ("sumproduct_qc_layered",
+                          "sumproduct_qc_layered@train-minsum-1944"),
+    "train_minsum_tail7": ("minsum_qc_layered", "minsum_qc_layered@tail7"),
+    "train_edge_1944": ("minsum_qc_flooding_w",
+                        "minsum_qc_flooding_w@train-edge"),
+    "train_edge_layered_1944": ("minsum_qc_layered_w",
+                                "minsum_qc_layered_w@train-edge-layered"),
+}
+MINSUM_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                               "20260820_minsum_trained.json")
+SHORT_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                              "20260820_minsum_short.json")
+EDGE_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                             "20260821-063306_edge1944.json")
+EDGE_LAYERED_ARTIFACT = os.path.join(
+    ROOT, "docs", "artifacts", "20260821-104318_edge_layered1944_K6.json")
+TANH_ARTIFACT = os.path.join(ROOT, "docs", "artifacts",
+                             "20260821-054923_tanh_family.json")
+# the tanh family's estimator-independent columns and the frame count that
+# bounds each: the coded columns by their own BLER's frames in error, the
+# uncoded one by every frame
+TANH_HELD = {"uncoded_ber": None, "coded_ber": "coded_bler",
+             "coded_bler": "coded_bler", "coded_ber_qllr": "coded_bler_qllr",
+             "coded_bler_qllr": "coded_bler_qllr"}
+# the record's sum-product layered-10 at 2.0 dB came from the JAX package's
+# Pallas kernel, whose arithmetic (ldpc_sims_tpu/kernels/minsum_qc.py:62-78,
+# :333-343) rounds log(1 − e^−a) to 0 for a ≳ 16.6 in f32, where the exact
+# rule (the JAX roll backend's and the port's) keeps −e^−a: more bit errors
+# a failing frame. There the port's BER is held at or below the record's,
+# and the plain decode with the Pallas arithmetic two-sided to it
+SP_SATURATED = ("sumproduct_layered10", "2.0")
+# the training cuts (roll steps of ~0.4 s each on the card; PERF.md §4)
+EXAMPLE_CUTS = dict(ms_train_steps=32, short_train_steps=16, t7_steps=16,
+                    edge_steps=16, el_steps=16, tanh_epochs=60,
+                    quantized_codewords=4096, quantized_epochs=300)
 # phase 3i's recipes: train-minsum as docs/artifacts/
 # 20260820_minsum_trained.json ran it (wifi1944 layered-10, no clamp, Es/N0
 # 1.25-2.5 dB, 120 adam steps at 0.02, batch 256) and that artifact's
@@ -1929,6 +2003,304 @@ def _library_phase(card: str, tmp: str) -> dict:
     return out
 
 
+def examples_phase(card: str) -> dict:
+    """Phase 3k: the seven training and study examples through their
+    ``run()`` on the card, their training cut (``EXAMPLE_CUTS``), each held
+    to its committed record; nothing under ``docs/artifacts/`` changes.
+    Returns each example's launches and what phase 4's rows need."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3k_") as tmp:
+        return _examples_phase(card, tmp)
+
+
+def _held(label: str, got: float, want: float, frames: float, se,
+          card: str) -> None:
+    """Hold an error rate to a committed one within the larger of
+    4/√(frames in error) and 4σ of the difference of two estimates at the
+    same exposure (σ = √2 × this run's standard error ``se``, from its
+    per-frame counts; None: √2 × want/√frames), relative."""
+    frames = max(frames, 1.0)
+    sig = (math.sqrt(2) * se / want if se is not None
+           else math.sqrt(2 / frames))
+    tol = max(4 / math.sqrt(frames), 4 * sig)
+    rel = abs(got - want) / want
+    print(f"  {label}: {got!r} against {want!r} (relative difference "
+          f"{rel:.4f}; 4/sqrt({frames:.0f}) = {4 / math.sqrt(frames):.4f}, "
+          f"4 sigma = {4 * sig:.4f}) [{card}]", flush=True)
+    if not rel <= tol:
+        fail(f"{label}: {got} is not within {tol:.4f} (relative) of {want}")
+
+
+def pallas_sumproduct_excl(x, serial: bool = True):
+    """The exclusive sum-product of ``ops/bp_roll.py:_sumproduct_excl`` in
+    the JAX Pallas kernel's arithmetic (ldpc_sims_tpu/kernels/
+    minsum_qc.py:62-78, :333-343): |x| capped at 80, log(1 − e^−a) by a
+    six-term series below 0.2 and directly above (floored at 1e-30),
+    log(1 + e^x) for log1p."""
+    import torch
+
+    from ldpc_sims_tpu_torch.ops.bp_roll import _exclusive_sign
+
+    def log1mexp(a):
+        direct = torch.clamp_min(1.0 - torch.exp(-a), 1e-30)
+        series = a * (1.0 - a / 2 * (1.0 - a / 3 * (1.0 - a / 4 * (
+            1.0 - a / 5 * (1.0 - a / 6)))))
+        return torch.log(torch.where(a > 0.2, direct,
+                                     torch.clamp_min(series, 1e-30)))
+
+    a = torch.clamp(x.abs(), 1e-12, 80.0)
+    lt = log1mexp(a) - torch.log(1.0 + torch.exp(-a))
+    s = torch.clamp_max(lt.sum(0, keepdim=True) - lt, -1e-12)
+    mag = torch.log(1.0 + torch.exp(s)) - log1mexp(-s)
+    return _exclusive_sign(x) * mag
+
+
+def _examples_phase(card: str, tmp: str) -> dict:
+    import numpy as np
+    import torch
+
+    from ldpc_sims_tpu_torch.examples import (
+        quantized_llr_study,
+        tanh_family,
+        train_edge_1944,
+        train_edge_layered_1944,
+        train_minsum_1944,
+        train_minsum_short,
+        train_minsum_tail7,
+    )
+    import ldpc_sims_tpu_torch.ops.bp_roll as br
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.examples import error_floor_campaign as efc
+    from ldpc_sims_tpu_torch.examples.paired import count_errors
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+
+    dev = torch.device("cuda")
+    cut = EXAMPLE_CUTS
+    artifacts_before = _artifact_digests()
+    out = {"launches": {}}
+
+    def load(path):
+        with open(path) as f:
+            return json.load(f)
+
+    def timed(name, fn):
+        mq.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in mq.LAUNCHES.items() if v}
+        out["launches"][name] = counts
+        print(f"  {name}: {wall:.1f} s; launches {counts}, entry points "
+              f"{dict(mq.ENTRY_LAUNCHES)} [{card}]", flush=True)
+        return res, counts
+
+    def expect(name, counts, want):
+        if counts != want:
+            fail(f"{name} launched {counts}, not {want}: a gradient decode "
+                 "on a kernel, or an evaluation off them")
+
+    # (a) quantized_llr_study at its docstring's size: the Traditional
+    # column against BASELINE.md table A (4σ + 10%, as phase 3f)
+    curves, counts = timed("quantized_llr_study", lambda: (
+        quantized_llr_study.run(dev, num_codewords=cut["quantized_codewords"],
+                                epochs=cut["quantized_epochs"])))
+    expect("quantized_llr_study", counts, {})
+    bits = 4096 * 32
+    for snr in (0.0, 6.0):
+        i = curves["snrdb"].index(snr)
+        got, exp = curves["coded_ber"][i], TABLE_A[snr]
+        tol = 4 * math.sqrt(exp * (1 - exp) / bits) + 0.1 * exp
+        print(f"  quantized_llr_study Traditional @ {snr:g} dB: {got!r} "
+              f"against table A's {exp!r} (4σ + 10% = {tol!r}); NN "
+              f"{curves['coded_ber_nn'][i]!r}, Quantized "
+              f"{curves['coded_ber_qllr'][i]!r} [{card}]", flush=True)
+        if abs(got - exp) > tol:
+            fail(f"quantized_llr_study @ {snr:g} dB: {got} not within "
+                 f"4σ + 10% of {exp}")
+    if not all(math.isfinite(x) for k, v in curves.items() for x in v):
+        fail(f"quantized_llr_study: non-finite curves {curves}")
+
+    # (b) tanh_family, 60 of 600 epochs: both arms' estimator-independent
+    # columns equal, and against the record, pooled over the six points
+    # (one channel: the SNR is drawn per symbol, the grid's is unused)
+    rec, counts = timed("tanh_family", lambda: tanh_family.run(
+        dev, os.path.join(tmp, "tanh"), epochs=cut["tanh_epochs"]))
+    expect("tanh_family", counts, {})
+    art = load(TANH_ARTIFACT)["arms"]["plain"]["curves"]
+    plain, tanh = (rec["arms"][a]["curves"] for a in ("plain", "tanh"))
+    for col in tanh_family.SHARED_COLUMNS:
+        if plain[col] != tanh[col]:
+            fail(f"tanh_family: the arms' {col} differ")
+    n_pts = len(plain["snrdb"])
+    for col, fcol in TANH_HELD.items():
+        frames = n_pts * 4096 * (1.0 if fcol is None
+                                 else sum(plain[fcol]) / n_pts)
+        _held(f"tanh_family {col} (6 points pooled)",
+              sum(plain[col]) / n_pts, sum(art[col]) / n_pts, frames, None,
+              card)
+    for tag in ("plain", "tanh"):
+        c = rec["arms"][tag]["curves"]
+        nn = {k: c[k] for k in ("coded_ber_nn", "wmse_nn", "wmse_nn_flipped")
+              if k in c}
+        print(f"    {tag}: final loss {rec['arms'][tag]['final_train_loss']!r}"
+              f", {nn}", flush=True)
+        if not all(math.isfinite(x) for v in c.values() for x in v):
+            fail(f"tanh_family {tag}: non-finite curves")
+
+    # (c) train_minsum_1944, 32 of 120 training steps, the evaluation at
+    # the JAX budget (31 steps of 32768 a point and arm)
+    rec, counts = timed("train_minsum_1944", lambda: train_minsum_1944.run(
+        dev, train_steps=cut["ms_train_steps"]))
+    steps = 31
+    expect("train_minsum_1944", counts, {
+        "minsum_qc_layered": 2 * 3 * steps + 2 * 7,
+        "sumproduct_qc_layered": 3 * steps, "minsum_qc_flooding": 3 * steps})
+    art = load(MINSUM_ARTIFACT)["ber"]
+    trained = "minsum_trained_layered10"
+    for arm in ("minsum_plain_layered10", "sumproduct_layered10",
+                "minsum_plain_flooding20"):
+        for snr in ("1.5", "1.75", "2.0"):
+            st = rec["stats"][arm][snr]
+            if (arm, snr) != SP_SATURATED:
+                _held(f"train_minsum_1944 {arm} @ {snr} dB",
+                      rec["ber"][arm][snr], art[arm][snr], st["frame_errs"],
+                      st["ber_se"], card)
+                continue
+            got, want = rec["ber"][arm][snr], art[arm][snr]
+            tol = max(4 / math.sqrt(max(st["frame_errs"], 1)),
+                      4 * math.sqrt(2) * st["ber_se"] / want)
+            print(f"  train_minsum_1944 {arm} @ {snr} dB: {got!r}, at most "
+                  f"the record's {want!r} (+ {tol:.4f} relative), whose "
+                  f"Pallas kernel saturates [{card}]", flush=True)
+            if not got <= want * (1 + tol):
+                fail(f"train_minsum_1944 {arm} @ {snr} dB: {got} above the "
+                     f"record's {want}")
+            # the same frames through the plain decode in the Pallas
+            # kernel's arithmetic: the record's number
+            exact = br._sumproduct_excl
+            br._sumproduct_excl = pallas_sumproduct_excl
+            try:
+                t0 = time.perf_counter()
+                c = count_errors(get_code("wifi1944"), dict(
+                    iterations=10, schedule="layered", method="sum-product",
+                    backend="roll"), float(snr), steps, 32768,
+                    train_minsum_1944.KEY, dev, info_bits=True)
+            finally:
+                br._sumproduct_excl = exact
+            print(f"    the plain decode in the Pallas arithmetic: BER "
+                  f"{c.ber!r} ({c.bit_errs} errors in {c.frame_errs} frames, "
+                  f"against {st['frame_errs']} frames of the exact rule; "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+            _held(f"train_minsum_1944 {arm} @ {snr} dB, Pallas arithmetic",
+                  c.ber, want, c.frame_errs, c.ber_se, card)
+    print(f"    trained layered-10: BER {rec['ber'][trained]} (record, 120 "
+          f"steps: {art[trained]}), BCE {rec['train']['loss_first']!r} -> "
+          f"{rec['train']['loss_last']!r}; ms a step {rec['throughput']}",
+          flush=True)
+    if not (rec["ber"][trained]["1.5"]
+            < rec["ber"]["minsum_plain_layered10"]["1.5"]):
+        fail("train_minsum_1944: the trained layered-10 is not below plain "
+             "layered-10 at 1.5 dB")
+    out["minsum_1944"] = {"alpha": rec["alpha"], "beta": rec["beta"]}
+
+    # (d) train_minsum_short, 16 of 120 training steps a K
+    (rec, schedules), counts = timed(
+        "train_minsum_short", lambda: train_minsum_short.run(
+            dev, train_steps=cut["short_train_steps"]))
+    expect("train_minsum_short", counts, {
+        "minsum_qc_flooding": 2 * steps + 7,
+        "minsum_qc_layered": 2 * (2 * steps + 7)})
+    art = load(SHORT_ARTIFACT)["arms"]["flooding20"]["ber"]
+    for snr in ("1.75", "2.25"):
+        st = rec["arms"]["flooding20"]["stats"][snr]
+        _held(f"train_minsum_short flooding20 @ {snr} dB",
+              rec["arms"]["flooding20"]["ber"][snr], art[snr],
+              st["frame_errs"], st["ber_se"], card)
+    for K in (6, 8):
+        arm = rec["arms"][f"trained_layered{K}"]
+        print(f"    trained layered-{K}: BER {arm['ber']}, parity "
+              f"{arm['parity_vs_flooding20']}, {arm['timing']}", flush=True)
+    print(f"    registry entries: {sorted(schedules)}", flush=True)
+
+    # the guard's control of tail7 and edge-layered: flooding-20's coded
+    # bit errors at 1.75 and 2.25 dB (key 55), 31 steps of 32768
+    el_art = load(EDGE_LAYERED_ARTIFACT)["ber"]
+
+    def held_errs(label, errs, stats, arm):
+        for snr in ("1.75", "2.25"):
+            st = stats[snr]
+            _held(f"{label} {arm} @ {snr} dB", errs[snr] / st["coded_bits"],
+                  el_art[arm][snr]["ber"], st["frame_errs"], st["ber_se"],
+                  card)
+
+    # (e) train_minsum_tail7, 16 of 3000 steps
+    rec, counts = timed("train_minsum_tail7", lambda: train_minsum_tail7.run(
+        dev, steps=cut["t7_steps"]))
+    n_probe = cut["t7_steps"] * 3  # a probe every step: 16 // 10 < 2
+    expect("train_minsum_tail7", counts, {
+        "minsum_qc_flooding": 4 * steps,
+        "minsum_qc_layered": 4 * steps + n_probe})
+    held_errs("train_minsum_tail7 control", rec["guard_errs"]["ctrl"],
+              rec["guard_stats"]["ctrl"], "flooding-20")
+    print(f"    errors {rec['guard_errs']}, verdict {rec['verdict']} "
+          f"(2.75 and 3.25 dB recorded, not held); BCE {rec['bce']}",
+          flush=True)
+    out["tail7"] = {"alpha": rec["alpha"], "beta": rec["beta"]}
+
+    # (f) train_edge_1944, 16 of 300 steps
+    (rec, weights), counts = timed(
+        "train_edge_1944", lambda: train_edge_1944.run(
+            dev, steps=cut["edge_steps"]))
+    expect("train_edge_1944", counts, {
+        "minsum_qc_flooding": 4 * steps, "minsum_qc_flooding_w": 2 * steps})
+    art = load(EDGE_ARTIFACT)["ber"]
+    for arm in ("flooding-12 plain", "flooding-20 plain"):
+        for snr in ("1.75", "2.25"):
+            st = rec["stats"][arm][snr]
+            _held(f"train_edge_1944 {arm} @ {snr} dB", rec["ber"][arm][snr],
+                  art[arm][snr], st["frame_errs"], st["ber_se"], card)
+    print(f"    flooding-12 per-edge: {rec['ber']['flooding-12 per-edge']} "
+          f"(16 steps; the record's 300: "
+          f"{art['flooding-12 per-edge']}); BCE {rec['bce']}", flush=True)
+    out["edge"] = weights
+
+    # (g) train_edge_layered_1944 (EL_JOINT), 16 of 1500 steps, its record,
+    # npz and registry copy under a temporary directory
+    el_out = os.path.join(tmp, "el", "edge_layered.json")
+    rec, counts = timed(
+        "train_edge_layered_1944", lambda: train_edge_layered_1944.run(
+            dev, el_out, steps=cut["el_steps"]))
+    n_probe = cut["el_steps"] * 3
+    expect("train_edge_layered_1944", counts, {
+        "minsum_qc_flooding": 4 * steps,
+        "minsum_qc_layered": 2 * 4 * steps + 4 * 32,
+        "minsum_qc_layered_w": 4 * steps + n_probe + 4 * 32})
+    res = rec["ber"]
+    for arm in ("flooding-20", "layered-6 plain", "trained-layered-8"):
+        held_errs("train_edge_layered_1944", {s: p["errs"] for s, p in
+                                              res[arm].items()},
+                  res[arm], arm)
+    for arm, pts in res.items():
+        print(f"    {arm}: errors " + ", ".join(
+            f"{s} dB {p['errs']} ({p['frame_errs']} frames)"
+            for s, p in pts.items()), flush=True)
+    print(f"    verdict {rec['parity_vs_flooding20']}; pipe rates "
+          f"{rec['pipe_bits_per_s']} info bits/s; BCE {rec['bce']}",
+          flush=True)
+    copy = os.path.splitext(el_out)[0] + "_schedules.json"
+    names = [n for n, _ in efc.schedules_from_registry(
+        "wifi1944", load(copy), os.path.dirname(el_out), dev)]
+    if "edge-layered-6" not in names:
+        fail(f"the edge-layered registry copy gives {names}")
+    with np.load(os.path.splitext(el_out)[0] + ".npz") as z:
+        out["edge_layered"] = {k: z[k] for k in z.files}
+    if _artifact_digests() != artifacts_before:
+        fail("an example wrote under docs/artifacts/")
+    print("  docs/artifacts/ unchanged", flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def _environ(env: dict):
     """``os.environ`` with ``env`` set, restored after."""
@@ -2315,6 +2687,7 @@ def main() -> None:
         *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW, EVAL_ROW,
         TRAIN_MINSUM_ROW, TRAIN_PROBE_ROW, GRID_ROW, DE_ROW,
         *(r for r, _ in FLOOR_ROWS.values()),
+        *(r for _, r in EXAMPLE_ROWS.values()),
         *(f"{k}@wifi648" for k in SP_KERNELS))}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
@@ -3251,6 +3624,17 @@ def main() -> None:
     per_step[DE_ROW] = 1  # a decode
     print(f"  phase 3j took {time.perf_counter() - t3j:.1f} s", flush=True)
 
+    # -- phase 3k: the training and study examples -------------------------
+    print("== phase 3k: quantized_llr_study, tanh_family, train_minsum_1944, "
+          "train_minsum_short, train_minsum_tail7, train_edge_1944, "
+          "train_edge_layered_1944", flush=True)
+    t3k = time.perf_counter()
+    ex3k = examples_phase(card)
+    for example, (kname, rname) in EXAMPLE_ROWS.items():
+        launches[rname] = ex3k["launches"][example][kname]
+        per_step[rname] = 1  # a decode
+    print(f"  phase 3k took {time.perf_counter() - t3k:.1f} s", flush=True)
+
     # -- phase 4: kernel timing --------------------------------------------
     print("== phase 4: kernel timing at batch 32768 (CUDA events)",
           flush=True)
@@ -3587,6 +3971,45 @@ def main() -> None:
     kernels.append(row(DE_ROW, ms, plain_ms, bound(
         8192 * dcode.n * 5, 8192 * Ed * edge_ops(**kw)),
         mq.entry_point(dqc, "min-sum", "flooding")))
+    # phase 3k's rows: each kernel on its example's path with the example's
+    # trained parameters, on the examples' paired BPSK frames at 2.0 dB:
+    # train_minsum_1944's sum-product layered-10, tail7's layered-7 table,
+    # train_edge_1944's trained flooding-12 weights and the edge-layered
+    # decoder's layered-6 weights with their α/β table
+    xk = floor_llrs(w1944, batch, 2.0, 61)
+    t7a, t7b = (tuple(ex3k["tail7"][k]) for k in ("alpha", "beta"))
+    el_packed = pack_decoder_weights(ex3k["edge_layered"], w1944, 6, "cuda")
+    ela, elb = el_packed["ms_alpha"], el_packed["ms_beta"]
+    per = SP_OPS_PER_EDGE_ITER["layered"] + sp_f32
+    for example, kw, nbytes, ops, sfu_ops in (
+            ("train_minsum_1944",
+             dict(iterations=10, schedule="layered", method="sum-product"),
+             io_bytes, batch * 10 * E * per, batch * 10 * E * sp_mufu),
+            ("train_minsum_tail7",
+             dict(iterations=7, schedule="layered", alpha=t7a, beta=t7b),
+             io_bytes, batch * E * edge_ops("layered", 7, t7a, t7b), 0),
+            ("train_edge_1944",
+             dict(iterations=12, schedule="flooding",
+                  weights=pack_decoder_weights(ex3k["edge"], w1944, 12,
+                                               "cuda")["tables"]),
+             io_bytes + 4 * 13 * (E + n),
+             batch * weighted_ops("flooding", 12, E, n), 0),
+            ("train_edge_layered_1944",
+             dict(iterations=6, schedule="layered", alpha=ela, beta=elb,
+                  weights=el_packed["tables"]),
+             io_bytes + 4 * 7 * (E + n),
+             batch * weighted_ops("layered", 6, E, n, ela, elb), 0)):
+        name = EXAMPLE_ROWS[example][1]
+        method = kw.get("method", "min-sum")
+        max_err[name] = max(max_err[name], compare(
+            mq.bp_qc_cuda(xk, qc, output="posterior", **kw),
+            decode_roll(xk, qc, output="posterior", **kw),
+            f"{name} at batch {batch}"))
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xk, qc, **kw), 10)
+        plain_ms = cuda_time_ms(lambda: decode_roll(xk, qc, **kw), 2, 1)
+        kernels.append(row(name, ms, plain_ms, bound(nbytes, ops, sfu_ops),
+                           mq.entry_point(qc, method, kw["schedule"],
+                                          weighted="weights" in kw)))
     # sum-product layered-20 at G = 4, bound as the sum-product rows
     kw = dict(iterations=20, schedule="layered", method="sum-product",
               layered_group=4)

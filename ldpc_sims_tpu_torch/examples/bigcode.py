@@ -52,19 +52,19 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def pipe_rate(code, batch: int, pipe: int, **kw) -> dict:
+def pipe_rate(code, batch: int, pipe: int, device="cuda", **kw) -> dict:
     """ms per decode and decoded info bits/s of ``pipe`` back-to-back
-    decodes of fresh random LLRs (one synchronization), the median of 3
-    timed repetitions after one warm-up (``bp_decode`` arguments
-    ``kw``)."""
-    gen = torch.Generator(device="cuda")
+    decodes of fresh random LLRs on ``device`` (one synchronization), the
+    median of 3 timed repetitions after one warm-up (``bp_decode``
+    arguments ``kw``)."""
+    gen = torch.Generator(device=device)
 
     def run_pipe(s: int) -> None:
         gen.manual_seed(s)
-        acc = torch.zeros((), dtype=torch.int64, device="cuda")
+        acc = torch.zeros((), dtype=torch.int64, device=device)
         for _ in range(pipe):
             llr = torch.randn((batch, code.n), generator=gen,
-                              device="cuda") * 2.0 - 4.0
+                              device=device) * 2.0 - 4.0
             acc += bp_decode(llr, code, method="min-sum", **kw).sum(
                 dtype=torch.int64)
         int(acc)  # the one synchronization

@@ -52,12 +52,14 @@ import numpy as np
 import torch
 
 from ldpc_sims_tpu_torch.codes import get_code
+from ldpc_sims_tpu_torch.examples.paired import bpsk_llrs
 from ldpc_sims_tpu_torch.ops.bp import bp_decode, pack_decoder_weights
 from ldpc_sims_tpu_torch.parallel.mc import stable_seed
 from ldpc_sims_tpu_torch.utils.device import resolve_device
 
 __all__ = ["floor_verdicts", "fold_registry", "main", "point_llrs",
-           "run_point", "schedules_from_registry", "settings"]
+           "relocate_registry", "run_point", "schedules_from_registry",
+           "settings"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -96,12 +98,8 @@ def point_llrs(code, snr_db: float, pidx: int, step: int, batch: int,
     """The frames of step ``step`` at point ``pidx``: all-zero codewords,
     BPSK ``r = 1 + σ·n`` with ``σ = snr^-½``, LLR (log Pr1/Pr0) = −2r/σ²,
     drawn from ``stable_seed(SEED, pidx, step)`` on ``dev``."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(stable_seed(SEED, pidx, step))
-    sigma = (10.0 ** (snr_db / 10.0)) ** -0.5
-    r = 1.0 + sigma * torch.randn((batch, code.n), generator=gen,
-                                  device=dev)
-    return -2.0 * r / (sigma * sigma)
+    return bpsk_llrs(code, snr_db, stable_seed(SEED, pidx, step), batch,
+                     dev)
 
 
 def schedules_from_registry(name: str, reg: dict, reg_dir: str, dev
@@ -152,6 +150,21 @@ def schedules_from_registry(name: str, reg: dict, reg_dir: str, dev
              es_mode="probe", es_probe_iters=4, backend="cuda"),
     ))
     return schedules
+
+
+def relocate_registry(reg: dict, reg_dir: str, new_dir: str) -> dict:
+    """``reg``, whose ``.npz`` paths are relative to ``reg_dir``, for a
+    copy in ``new_dir``: each ``weights_npz`` rewritten relative to
+    ``new_dir``, so :func:`schedules_from_registry` reads the copy as it
+    reads ``reg``; a new dict."""
+    reg = json.loads(json.dumps(reg))
+    for node in reg.values():
+        for ent in (node.get("edge_layered", {}).values()
+                    if isinstance(node, dict) else ()):
+            ent["weights_npz"] = os.path.relpath(
+                os.path.join(os.path.abspath(reg_dir), ent["weights_npz"]),
+                os.path.abspath(new_dir))
+    return reg
 
 
 def run_point(code, name: str, decode_kw: dict, snr_db: float, pidx: int,

@@ -20,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["peg_construct_native"]
+__all__ = ["native_available", "peg_construct_native"]
 
 SOURCE = Path(__file__).resolve().parent / "peg.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -46,6 +46,16 @@ def build() -> Path:
                 f"{res.returncode}:\n{res.stderr}")
         os.replace(tmp, lib)  # atomic: concurrent builds agree
     return lib
+
+
+def native_available() -> bool:
+    """Whether the PEG library is built, or builds now, under
+    ``build/native/``: false when g++ is absent or fails; never raises."""
+    try:
+        build()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 @functools.cache

@@ -563,19 +563,23 @@ def test_cli_early_stop_flags(tmp_path):
 
 
 def test_package_imports_no_jax():
-    """ldpc_sims_tpu_torch and chip_smoke load no jax*, flax or msgpack
-    module and nothing of ldpc_sims_tpu."""
+    """chip_smoke and every module of ldpc_sims_tpu_torch (found with
+    pkgutil.walk_packages, the examples included; ``__main__`` runs the
+    CLI) load no jax*, optax, flax or msgpack module and nothing of
+    ldpc_sims_tpu."""
     code = (
-        "import sys, chip_smoke, ldpc_sims_tpu_torch\n"
-        "import ldpc_sims_tpu_torch.cli.main, ldpc_sims_tpu_torch.convert\n"
-        "import ldpc_sims_tpu_torch.kernels, ldpc_sims_tpu_torch.parallel\n"
-        "import ldpc_sims_tpu_torch.native, ldpc_sims_tpu_torch.plotting\n"
-        "import ldpc_sims_tpu_torch.utils.registry\n"
-        "import ldpc_sims_tpu_torch.evaluate, ldpc_sims_tpu_torch.models\n"
-        "import ldpc_sims_tpu_torch.utils.checkpoint\n"
+        "import importlib, pkgutil, sys, chip_smoke, ldpc_sims_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    ldpc_sims_tpu_torch.__path__, 'ldpc_sims_tpu_torch.')\n"
+        "    if not m.name.endswith('__main__')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "print(len(mods), file=sys.stderr)\n"
+        "assert 'ldpc_sims_tpu_torch.examples.train_edge_layered_1944' in "
+        "mods\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'jax'\n"
         "       or m.startswith('jax') or m == 'ldpc_sims_tpu'\n"
-        "       or m.split('.')[0] in ('flax', 'msgpack')\n"
+        "       or m.split('.')[0] in ('optax', 'flax', 'msgpack')\n"
         "       or m.startswith('ldpc_sims_tpu.')]\n"
         "print(bad)\n"
         "assert not bad, bad\n"
@@ -584,6 +588,7 @@ def test_package_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip() == "[]"
+    assert int(res.stderr.strip().splitlines()[-1]) > 40
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

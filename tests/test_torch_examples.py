@@ -10,6 +10,8 @@
 * ``de_thresholds`` on wifi648 (few samples, batch 16): its record's
   keys and verdict, written where ``DE_OUT`` says.
 * ``joint_before_after`` at its smallest size: its record's keys.
+* Every example's ``main()`` refuses a missing card unless asked for the
+  CPU.
 """
 
 import hashlib
@@ -171,13 +173,24 @@ def test_joint_before_after_smallest(monkeypatch, tmp_path):
     assert len(rec["train_loss_first_last"]) == 2
 
 
-def test_examples_refuse_a_missing_card(monkeypatch):
+@pytest.mark.parametrize("name, var", [
+    ("error_floor_campaign", "EF_DEVICE"), ("de_thresholds", "DE_DEVICE"),
+    ("joint_before_after", "JB_DEVICE"), ("quantized_llr_study", None),
+    ("tanh_family", "TANH_DEVICE"), ("train_minsum_1944", "MS_DEVICE"),
+    ("train_minsum_short", "MS_DEVICE"), ("train_minsum_tail7", "T7_DEVICE"),
+    ("train_edge_1944", "EDGE_DEVICE"),
+    ("train_edge_layered_1944", "EL_DEVICE"),
+])
+def test_examples_refuse_a_missing_card(monkeypatch, name, var):
+    """Without a card each example's main() raises before any work, unless
+    its device variable (``quantized_llr_study``: its ``device``
+    argument) says cpu."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from ldpc_sims_tpu_torch.examples import de_thresholds
+    import importlib
 
-    monkeypatch.delenv("EF_DEVICE", raising=False)
-    monkeypatch.delenv("DE_DEVICE", raising=False)
-    for main in (efc.main, de_thresholds.main):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            main()
+    mod = importlib.import_module(f"ldpc_sims_tpu_torch.examples.{name}")
+    if var is not None:
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main()
