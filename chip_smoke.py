@@ -11,7 +11,11 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    check's slots in registers (the _sr kernels), each of the 36
    group-serial kernels (the _gs kernels) and each of the 36 min-sum
    kernels on the compressed state's wide word (the _cw kernels) has a 0 B
-   stack frame, printing their registers;
+   stack frame, printing their registers, and unless the 18 serial-C
+   sum-product kernels on the wide rows (_rw) and the 36 group-serial
+   kernels there (_gw) were built, printing their registers and stack
+   frames (a _gw or _rw row of phase 4 whose kernel has a stack frame
+   fails unless it runs faster than the full-message kernel it replaces);
 2. hold each kernel against its plain PyTorch version on the card at
    batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75, β=0.1,
    clamp 20), the registry's trained layered-8 on wifi1944 and wifi648
@@ -53,8 +57,11 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    above the minimum: the inputs a compressed check state could get
    wrong) on wifi1944 and wifi648 (serial-C on the _cs kernels, G > 1 on
    the _gs kernels), at G = 1 on qc648_r23, qc648_r56, qc1944_r23 and
-   qc1944_r56 (rows of degree 8-9 and 17-18: the wide word's _cw kernels)
-   and at G = 4 on qc1944_r23 (full messages), and every min-sum flooding
+   qc1944_r56 (rows of degree 8-9 and 17-18: the wide word's _cw kernels),
+   at G = 2, 3, 4 and mb on qc648_r23, qc648_r56, qc1944_r34 and
+   qc1944_r56 (the wide word's _gw kernels) and at G = 4 on a code with a
+   row of degree 10, which no wide body has (qc1944_r34's base with one
+   circulant dropped: full messages), and every min-sum flooding
    form (the same forms, no drivers) at the three types on wifi1944,
    wifi648, qc8448_r12 (the compressed state) and the four high-rate codes
    (the wide word), each exactly equal, each decode failing unless it
@@ -63,9 +70,12 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    weighted; with and without 4-bit messages; both schedules) and both
    drivers at f32, bf16 and int8 on wifi1944, wifi648 and qc8448_r12,
    which take the _sr kernels, on wifi1944 and wifi648 at G = 2, 3, 4
-   and mb, which take the _gs kernels, and on qc1944_r23 at G = 1 and 2,
-   which keeps the full-message kernels, on channel LLRs with 64 rows
-   saturated at |LLR| = 60, each exactly equal;
+   and mb, which take the _gs kernels, on qc648_r23, qc648_r56, qc1944_r34
+   and qc1944_r56 at G = 1 (serial-C on the _rw kernels, flooding on the
+   full-message kernels those codes keep for it) and 2, 4 and mb (the _gw
+   kernels), and on the degree-10 code at G = 1 and 2, which keeps the
+   full-message kernels, on channel LLRs with 64 rows saturated at |LLR| =
+   60, each exactly equal;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -121,7 +131,16 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    (``docs/artifacts/20260821-115110_error_floor_qc1944_r56.json``: 6.25
    dB, all-zero codewords, BPSK, 8 × 32768 frames through ``bp_decode``),
    flooding-20's and layered-10's FER each within 4σ of the artifact's, on
-   the _cw entry points;
+   the _cw entry points; and the forms the _gw and _rw kernels took over
+   from the full messages on qc1944_r34 and r56, each through
+   ``run_sweep`` at its code's TPU-sweep point (Eb/N0 3.0 and 3.5 dB,
+   batch 32768, 2-3 steps), failing unless it launched its _gw or _rw
+   entry point: min-sum layered-20 at G = 4 and 2, layered-20 G = 4 with
+   ``es_mode='freeze'``, layered-6 G = 4 with random per-edge weights,
+   sum-product layered-20 with ``es_mode='auto'``, layered-20 with
+   ``es_mode='freeze'`` and layered-20 G = 4; the G = 4 BLER between
+   min-sum layered-20's and flooding-20's on the same frames within 4σ,
+   sum-product's at or below min-sum layered-20's within 4σ;
 3e. the bigcode scale run (``ldpc_sims_tpu_torch.examples.bigcode``) at
    full width on qc8448_r12 and qc12288_r12, batch 16384, its pipe cut
    from 16 to 4 decodes: the rates of flooding-20 f32 and layered-10 at
@@ -272,7 +291,10 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    kernel's recorded time) and the error-floor point's
    ``minsum_qc_flooding@qc1944_r56`` (flooding-20) and
    ``minsum_qc_layered@qc1944_r56`` (layered-10), with the launches of
-   their phase 3d run; the trained decoders of phase 3i,
+   their phase 3d run; the seven forms the _gw and _rw kernels took over
+   on qc1944_r34 and r56 (``WIDE_ROWS``: kernels/compare.py's rows, beside
+   the full-message kernels' recorded times), with the launches of their
+   phase 3d runs; the trained decoders of phase 3i,
    ``minsum_qc_layered@train-minsum`` (the trained layered-10 schedule at
    1.5 dB) and ``minsum_qc_layered_w@train-probe`` (the probe's decode:
    the trained per-edge layered-6 on its BPSK channel at 2.0 dB), with
@@ -316,7 +338,8 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    launch tuner (``kernels/tune.py``). Each row of the ``kernels`` line
    names the CUDA entry point its launches ran (``entry``; ``_cs`` on the
    compressed check state, ``_cw`` on its wide word, ``_sr`` with the
-   sum-product slots in registers, ``_gs`` group-serial), and each
+   sum-product slots in registers, ``_gs`` group-serial, ``_rw`` and
+   ``_gw`` the last two on the wide rows), and each
    main-path run prints its
    launches per entry point.
 
@@ -614,7 +637,60 @@ FULL_MESSAGE_MS = {
     "minsum_qc_layered_es@qc1944_r56": 4.342,
     "minsum_qc_flooding@qc1944_r56": 12.479,
     "minsum_qc_layered@qc1944_r56": 5.085,
+    # the forms the _gw and _rw kernels replaced on the high-rate codes (and
+    # sum-product flooding, which keeps the full-message kernel there,
+    # 35.931 ms):
+    # the old turns of `python -m ldpc_sims_tpu_torch.kernels.compare` of
+    # commit 9be01e8 (the full-message kernels)
+    "minsum_qc_layered@qc1944_r34-g4": 17.799,
+    "minsum_qc_layered@qc1944_r34-g2": 20.874,
+    "minsum_qc_layered_es@qc1944_r56-g4": 8.758,
+    "minsum_qc_layered_w@qc1944_r34-g4": 8.861,
+    "sumproduct_qc_layered@qc1944_r56": 38.687,
+    "sumproduct_qc_layered_es@qc1944_r34": 10.243,
+    "sumproduct_qc_layered@qc1944_r34-g4": 44.729,
 }
+# the forms the _gw and _rw kernels took over from the full-message
+# kernels on the high-rate codes: the rows of kernels/compare.py (batch
+# 32768, hard bits, no clamp, QPSK/OFDM-32 at each code's TPU-sweep
+# point), their kernel form and decode, and the phase 3d run that drives
+# each through run_sweep (its `sweep` flags beside --schedule layered
+# --clamp 0, its Eb/N0 point; weights: random per-edge weights)
+WIDE_ROWS = {
+    "minsum_qc_layered@qc1944_r34-g4": (
+        "qc1944_r34", dict(iterations=20, layered_group=4),
+        ("--method", "min-sum", "--iters", "20", "--layered-group", "4")),
+    "minsum_qc_layered@qc1944_r34-g2": (
+        "qc1944_r34", dict(iterations=20, layered_group=2),
+        ("--method", "min-sum", "--iters", "20", "--layered-group", "2")),
+    "minsum_qc_layered_es@qc1944_r56-g4": (
+        "qc1944_r56", dict(iterations=20, layered_group=4, early_stop=True),
+        ("--method", "min-sum", "--iters", "20", "--layered-group", "4",
+         "--early-stop", "--es-mode", "freeze")),
+    "minsum_qc_layered_w@qc1944_r34-g4": (
+        "qc1944_r34", dict(iterations=6, layered_group=4, weights=True),
+        ("--method", "min-sum", "--iters", "6", "--layered-group", "4")),
+    "sumproduct_qc_layered@qc1944_r56": (
+        "qc1944_r56", dict(iterations=20, method="sum-product"),
+        ("--method", "sum-product", "--iters", "20", "--early-stop",
+         "--es-mode", "auto")),
+    "sumproduct_qc_layered_es@qc1944_r34": (
+        "qc1944_r34", dict(iterations=20, method="sum-product",
+                           early_stop=True),
+        ("--method", "sum-product", "--iters", "20", "--early-stop",
+         "--es-mode", "freeze")),
+    "sumproduct_qc_layered@qc1944_r34-g4": (
+        "qc1944_r34", dict(iterations=20, method="sum-product",
+                           layered_group=4),
+        ("--method", "sum-product", "--iters", "20", "--layered-group",
+         "4")),
+}
+# each high-rate code's TPU-sweep point in Eb/N0 (its Es/N0 in
+# kernels/compare.py's HIGH_RATE_SWEEP)
+WIDE_EBN0 = {"qc1944_r34": 3.0, "qc1944_r56": 3.5}
+# the two runs held to min-sum layered-20 on the same frames
+G4_WIDE_ROW = "minsum_qc_layered@qc1944_r34-g4"
+SP_WIDE_ROW = "sumproduct_qc_layered@qc1944_r56"
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
 
@@ -866,7 +942,8 @@ def adversarial(schedule, cases, storage_rows, max_err) -> None:
     or sum can tell apart). ``cases``: (code, group sizes) pairs; on a code
     within the compressed state's limits G = 1 runs the _cs kernels, G > 1
     the _gs kernels; on a code beyond them by its row degree alone G = 1
-    (and flooding) the wide word's _cw kernels, G > 1 the full messages.
+    (and flooding) the wide word's _cw kernels, G > 1 its _gw kernels; on
+    a code with a row of a degree no wide body has, the full messages.
     Fails if a decode launches another design."""
     import torch
 
@@ -883,13 +960,14 @@ def adversarial(schedule, cases, storage_rows, max_err) -> None:
                             device="cuda").float()
         skip = torch.arange(B, device="cuda") % 3 == 0
         w = random_edge_weights(code, 4, seed=72)
-        fits = mq._within_limits(qc)
+        rows = ("" if mq._within_limits(qc) else
+                "-wide" if mq._within_limits(qc, wide=True) else None)
         for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
             for G in groups:
                 state = mq.entry_point(qc, "min-sum", schedule, dtype=dt,
                                        layered_group=G)
-                want = ("compressed" if G == 1 else "group") if fits else (
-                    "compressed-wide" if G == 1 else "full")
+                want = "full" if rows is None else (
+                    ("compressed" if G == 1 else "group") + rows)
                 if mq.design(qc, "min-sum", schedule, G) != want:
                     fail(f"{code.name} {schedule} G={G}: launches {state}, "
                          f"not the {want} design")
@@ -970,8 +1048,10 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
     f32, bf16 and int8 on channel LLRs with 64 rows saturated at |LLR| =
     60, each exactly equal to the plain version, for each (code, group,
     entry point suffix) of ``cases``: ``_sr`` (a check's slots in
-    registers), ``_gs`` (group-serial) or ``""`` (the full-message kernels
-    a code beyond the limits keeps)."""
+    registers), ``_gs`` (group-serial), their forms on the wide rows
+    ``_rw`` (serial-C) and ``_gw``, or ``""`` (the full-message kernels a
+    code with a row of a degree no wide body has keeps, and the wide rows'
+    flooding), or a dict of them by schedule."""
     import torch
 
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
@@ -984,14 +1064,16 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
         llr[:64] = torch.where(llr[:64] > 0, 60.0, -60.0)
         skip = torch.arange(B, device="cuda") % 3 == 0
         w = random_edge_weights(code, 4, seed=82)
+        wants = want if isinstance(want, dict) else dict.fromkeys(
+            ("flooding", "layered"), want)
         for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
             for sched in ("flooding", "layered") if G == 1 else ("layered",):
                 st = dict(schedule=sched, method="sum-product", dtype=dt,
                           msg_qclip=20.0, layered_group=G)
                 entry = mq.entry_point(qc, "sum-product", sched, dtype=dt,
                                        layered_group=G)
-                if entry != mq.kernel_name("sum-product", sched) + want + \
-                        mq.STORAGE[dt][1]:
+                if entry != mq.kernel_name("sum-product", sched) + \
+                        wants[sched] + mq.STORAGE[dt][1]:
                     fail(f"{code.name} G={G} {sched}: launches {entry}")
                 for qb in (None, 4):
                     at = f"{code.name} {sched} {sfx} G={G} msg_qbits={qb}"
@@ -1057,6 +1139,22 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
                   f"{code.name} {sfx} G={G} sum-product bp_qc_probe_requeue")
             print(f"  {code.name} {sfx} G={G}: sum-product drivers equal",
                   flush=True)
+
+
+def degree10_code():
+    """qc1944_r34's base (z = 81) with the circulant of its second block
+    row's first column dropped: a row of degree 10 beside rows of 11 and
+    12, a degree no body of the wide rows has, so every form decodes on the
+    full-message kernels. Its checks decode channel or integer LLRs: no
+    encoder is needed."""
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.codes.qc_construct import qc_from_base
+
+    base = [list(r) for r in get_code("qc1944_r34").qc.base]
+    if sum(s >= 0 for s in base[1]) != 11 or base[1][0] < 0:
+        fail("qc1944_r34's second block row is not the degree-11 row")
+    base[1][0] = -1
+    return qc_from_base(base, 81, "qc1944_r34_d10")
 
 
 def external_unsat(bits, code):
@@ -2666,6 +2764,19 @@ def main() -> None:
                   flush=True)
         if len(ks) != 36 or any(stack != 0 for stack, _ in ks.values()):
             fail(f"the 36 {sfx} kernels need 0 B stack frames: {ks}")
+    # the sum-product and group-serial kernels on the wide rows: a body of
+    # up to 18 slots a check in registers; a stack frame is allowed where
+    # the kernel beats the full-message one (phase 4)
+    wide_stack = {}
+    for sfx, built in (("_rw", 18), ("_gw", 36)):
+        ks = {k: v for k, v in ptxas_entries(report).items() if sfx in k}
+        for k, (stack, regs) in sorted(ks.items()):
+            print(f"  {k}: {stack} B stack frame, {regs} registers",
+                  flush=True)
+            wide_stack[k.split("P")[0].lstrip("_Z0123456789")] = stack
+        if len(ks) != built:
+            fail(f"the {built} {sfx} kernels were not all built: "
+                 f"{sorted(ks)}")
 
     # -- phase 2: kernels vs plain versions on the card --------------------
     print("== phase 2: kernels vs plain versions (batch 4096)", flush=True)
@@ -2687,7 +2798,7 @@ def main() -> None:
         *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW, EVAL_ROW,
         TRAIN_MINSUM_ROW, TRAIN_PROBE_ROW, GRID_ROW, DE_ROW,
         *(r for r, _ in FLOOR_ROWS.values()),
-        *(r for _, r in EXAMPLE_ROWS.values()),
+        *(r for _, r in EXAMPLE_ROWS.values()), *WIDE_ROWS,
         *(f"{k}@wifi648" for k in SP_KERNELS))}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
@@ -3059,26 +3170,35 @@ def main() -> None:
     # -- phase 2f: adversarial input for the compressed check state ------
     print("== phase 2f: every serial-C, group-serial and flooding min-sum "
           "form on integer LLRs vs plain versions", flush=True)
-    # rows of degree 8-9, 17-18: the wide word's _cw kernels (qc1944_r23 at
-    # G = 4 on the full messages it keeps)
-    r23 = get_code("qc1944_r23")
+    # rows of degree 8-9, 11-12, 17-18: the wide word's _cw kernels (G =
+    # 1) and _gw kernels (G > 1); a row of degree 10: full messages
+    t2f = time.perf_counter()
+    r23, r34 = get_code("qc1944_r23"), get_code("qc1944_r34")
     wide = [get_code(c) for c in ("qc648_r23", "qc648_r56")] + [
         r23, get_code("qc1944_r56")]
+    wide_g = [wide[0], wide[1], r34, wide[3]]
+    d10 = degree10_code()
     adversarial("layered", [(c, (1, 2, 3, 4, c.qc.mb)) for c in (w1944, w648)]
-                + [(c, (1, 4) if c is r23 else (1,)) for c in wide],
-                storage_rows, max_err)
+                + [(c, (1,)) for c in wide]
+                + [(c, sorted({2, 3, 4, c.qc.mb})) for c in wide_g]
+                + [(d10, (4,))], storage_rows, max_err)
     adversarial("flooding", [(c, (1,)) for c in (
         w1944, w648, get_code("qc8448_r12"), *wide)], storage_rows, max_err)
+    print(f"  phase 2f took {time.perf_counter() - t2f:.1f} s", flush=True)
 
     # -- phase 2g: sum-product with a check's slots in registers -----------
     print("== phase 2g: every sum-product form on the kernels with a check's "
           "slots in registers, serial-C, flooding and group-serial (and on "
           "the full-message kernels a code beyond the limits keeps) vs plain "
           "versions", flush=True)
+    t2g = time.perf_counter()
     sumproduct_registers(
         [(c, 1, "_sr") for c in (w1944, w648, get_code("qc8448_r12"))]
         + [(c, G, "_gs") for c in (w1944, w648) for G in (2, 3, 4, c.qc.mb)]
-        + [(r23, 1, ""), (r23, 2, "")], storage_rows, max_err)
+        + [(c, 1, {"flooding": "", "layered": "_rw"}) for c in wide_g]
+        + [(c, G, "_gw") for c in wide_g for G in sorted({2, 4, c.qc.mb})]
+        + [(d10, 1, ""), (d10, 2, "")], storage_rows, max_err)
+    print(f"  phase 2g took {time.perf_counter() - t2g:.1f} s", flush=True)
 
     # -- phase 3: the main path at full width -----------------------------
     print("== phase 3: run_sweep at wifi1944, QPSK, OFDM-32, batch 32768",
@@ -3450,6 +3570,71 @@ def main() -> None:
               f"of {8 * batch} [{card}]", flush=True)
         bler_within_4sigma(f"{FLOOR_CODE} {label} FER @ {FLOOR_SNR:g} dB",
                            fe / (8 * batch), 8 * batch, (ref_fer, ref_frames))
+
+    # the group-serial min-sum and the sum-product forms on the wide rows
+    # (the _gw and _rw kernels), each through run_sweep at full width at
+    # its code's TPU-sweep point, the counters set to 0 just before and
+    # read just after each run: qc1944_r34 layered-20 G = 4 beside
+    # layered-20 and flooding-20 (the _cw kernels) on the same seeds, its
+    # BLER between theirs within 4σ (a group-serial sweep updates the
+    # posterior less often than serial-C and more often than flooding: on
+    # 6 block rows G = 4 is two groups, and its BLER is not serial-C's);
+    # qc1944_r56 sum-product layered-20 es auto beside min-sum layered-20,
+    # its BLER at or below min-sum's within 4σ; and the other forms of
+    # WIDE_ROWS, 2 steps each
+    t3w = time.perf_counter()
+    for wrow, (cname, want, flags) in WIDE_ROWS.items():
+        kname = wrow.split("@")[0]
+        wsched = "flooding" if "flooding" in kname else "layered"
+        wcode, wcfg, wsw, _, _ = sweep_configs(build_parser().parse_args(
+            ["sweep", "--code", cname, "--schedule", wsched, "--clamp", "0",
+             "--snr", str(WIDE_EBN0[cname]), "--snr-unit", "eb", *flags]))
+        entry = mq.entry_point(
+            wcode.qc, wcfg.bp_method, wsched, "_es" in kname, False,
+            "_w" in kname, layered_group=want.get("layered_group", 1))
+        steps = 3 if wrow in (G4_WIDE_ROW, SP_WIDE_ROW) else 2
+        wsweep = dataclasses.replace(sweep, snrdb=wsw.snrdb,
+                                     max_info_bits=steps * batch * wcode.k)
+        w = (random_edge_weights(wcode, 6, seed=53) if "_w" in kname
+             else None)
+        res, counts, ev, _ = drive(f"{wrow} ({' '.join(flags)})", wcode,
+                                   wcfg, wsweep, [kname], card, weights=w)
+        if set(ev.entries) != {entry} or not entry.endswith(("_gw", "_rw")):
+            fail(f"{wrow}: launched {ev.entries}, not the wide rows' {entry}")
+        launches[wrow] = counts[kname]
+        per_step[wrow] = counts[kname] / ev.mc_steps
+        if wrow in (G4_WIDE_ROW, SP_WIDE_ROW):
+            # the same frames through min-sum layered-20 and, beside G = 4,
+            # flooding-20 (the _cw kernels); 4σ of each difference
+            got, frames = res.coded_bler[0], res.frames[0]
+            ref = {}
+            for sched in ("layered", "flooding")[:1 + (wrow == G4_WIDE_ROW)]:
+                ms_cfg = dataclasses.replace(
+                    wcfg, bp_method="min-sum", bp_schedule=sched,
+                    bp_layered_group=1, early_stop=False)
+                kms = mq.kernel_name("min-sum", sched)
+                r, _, ev, _ = drive(f"{cname} min-sum {sched}-20", wcode,
+                                    ms_cfg, wsweep, [kms], card)
+                if set(ev.entries) != {kms + "_cw"}:
+                    fail(f"{cname} min-sum {sched}-20 launched {ev.entries}")
+                pool = (got + r.coded_bler[0]) / 2
+                ref[sched] = (r.coded_bler[0], 4 * math.sqrt(
+                    max(pool * (1 - pool), 1e-300) * 2 / frames))
+            print(f"  {wrow.split('@')[0]} on {cname} @ {WIDE_EBN0[cname]:g} "
+                  f"dB Eb/N0 ({entry}): BLER {got!r} on {frames:g} frames; "
+                  f"min-sum on the same frames (BLER, 4σ): {ref} [{card}]",
+                  flush=True)
+            base, band = ref["layered"]
+            if wrow == G4_WIDE_ROW and not (
+                    base - band <= got <= sum(ref["flooding"])):
+                fail(f"{wrow}: BLER {got} is not between layered-20's "
+                     f"{base} and flooding-20's {ref['flooding'][0]} within "
+                     "4σ")
+            if wrow == SP_WIDE_ROW and got - base > band:
+                fail(f"{wrow}: sum-product BLER {got} is above min-sum's "
+                     f"{base} by more than 4σ")
+    print(f"  the wide rows' runs took {time.perf_counter() - t3w:.1f} s",
+          flush=True)
 
     # -- phase 3e: the bigcode scale run ----------------------------------
     print("== phase 3e: the bigcode run at full width (qc8448_r12, "
@@ -4073,6 +4258,70 @@ def main() -> None:
         kernels.append(row(name, ms, plain_ms, bound(
             batch * fcode.n * 5, batch * Ef * edge_ops(**kw)),
             mq.entry_point(fqc, "min-sum", kw["schedule"])))
+    # the wide rows' group-serial min-sum and sum-product forms (the _gw and
+    # _rw kernels) at the rows of kernels/compare.py, each exactly equal
+    # to the plain version (sum-product's posteriors within the
+    # tolerance), with the launches of its phase 3d run, beside the
+    # full-message kernel's time; the early-stop rows bound by the
+    # iterations they ran. A kernel with a stack frame fails unless it runs
+    # faster than the full-message kernel.
+    from ldpc_sims_tpu_torch.kernels.compare import HIGH_RATE_SWEEP as TPU_AT
+
+    for name, (cname, want, _) in WIDE_ROWS.items():
+        wcode = get_code(cname)
+        wqc, nw = wcode.qc, wcode.n
+        Ew = len(qc_plan(wqc)[0]) * wqc.z
+        xw = channel_llrs(wcode, batch, TPU_AT[cname], seed=15)
+        kw = dict(want, schedule=want.get("schedule", "layered"))
+        sp = kw.get("method") == "sum-product"
+        es = kw.get("early_stop", False)
+        nbytes, extra = batch * nw * 5, 0
+        if kw.pop("weights", False):
+            kw["weights"] = pack_decoder_weights(random_edge_weights(
+                wcode, 6, seed=53), wcode, 6, "cuda")["tables"]
+            nbytes += 4 * 7 * (Ew + nw)  # the weight tables, read once
+        if es:
+            kb, ki = mq.bp_qc_cuda(xw, wqc, output="hard_iters", **kw)
+            pb, pi = decode_roll(xw, wqc, output="hard_iters", **kw)
+            max_err[name] = exact([(kb, pb), (ki, pi)],
+                                  f"{name} at batch {batch}")
+        elif sp:
+            max_err[name] = compare(
+                mq.bp_qc_cuda(xw, wqc, output="posterior", **kw),
+                decode_roll(xw, wqc, output="posterior", **kw),
+                f"{name} at batch {batch}")
+        else:
+            max_err[name] = exact(
+                [(mq.bp_qc_cuda(xw, wqc, output="posterior", **kw),
+                  decode_roll(xw, wqc, output="posterior", **kw))],
+                f"{name} at batch {batch}")
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(xw, wqc, **kw), 10)
+        plain_ms = cuda_time_ms(lambda: decode_roll(xw, wqc, **kw), 2, 1)
+        sched, its = kw["schedule"], kw["iterations"]
+        ran = int(ki.sum()) if es else batch * its
+        if es:
+            nbytes += batch * 4  # the iteration counts
+            extra = (batch + ran) * Ew * OPS_PER_EDGE_CHECK
+            print(f"  {name}: mean iterations {ran / batch:.4f} of {its}",
+                  flush=True)
+        if sp:
+            per = SP_OPS_PER_EDGE_ITER[sched] + sp_f32
+            bnd = bound(nbytes, ran * Ew * per + extra, ran * Ew * sp_mufu)
+        elif "weights" in kw:
+            bnd = bound(nbytes, batch * weighted_ops(sched, its, Ew, nw))
+        else:
+            bnd = bound(nbytes, ran * Ew * edge_ops(sched, 1) + extra)
+        entry = mq.entry_point(wqc, kw.get("method", "min-sum"), sched, es,
+                               False, "weights" in kw,
+                               layered_group=kw.get("layered_group", 1))
+        kernels.append(row(name, ms, plain_ms, bnd, entry))
+        print(f"  {name}: share of the bound {bnd[0] / ms:.3f}, "
+              f"{FULL_MESSAGE_MS[name] / ms:.3f}x the full-message kernel",
+              flush=True)
+        if wide_stack.get(entry) and not ms < FULL_MESSAGE_MS[name]:
+            fail(f"{name}: {entry} has a {wide_stack[entry]} B stack frame "
+                 f"and runs {ms} ms, not below the full-message "
+                 f"{FULL_MESSAGE_MS[name]} ms")
     # the drivers against plain compositions of their passes, at 2.5 dB
     # (where the probe overflows) and 3.0 dB (its compact path), each
     # bound by the iterations and checks its passes ran

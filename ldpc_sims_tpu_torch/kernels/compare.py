@@ -9,9 +9,15 @@ and times each row below with CUDA events on inputs made from fixed
 seeds: the same inputs for both checkouts. A row's time is the mean of
 its two turns of a checkout. Each turn also hashes every row's output,
 and the run fails unless both checkouts give the same bytes for every
-row. Prints the card, one JSON line per turn and a last JSON line
-``{"rows": {name: {"old_ms", "new_ms", "ratio"}}, ...}``; exits 1 without
-a card. ``COMPARE_ROWS`` (comma-separated row names) times those rows
+row. Each turn also reports every entry point of its build: its SASS
+instructions (``cuobjdump -sass``) and ptxas's registers and stack frame.
+Prints the card, one JSON line per turn and a last JSON line
+``{"rows": {name: {"old_ms", "new_ms", "ratio"}}, "sass": {entry point:
+{"old", "new"}}, "sass_differ": [...], "ptxas_new": {...}, ...}``
+(``sass`` the entry points of both builds, ``sass_differ`` those whose
+size differs by more than 1%, ``ptxas_new`` the new build's (stack,
+registers) of its entry points the old build lacks); exits 1 without a
+card. ``COMPARE_ROWS`` (comma-separated row names) times those rows
 alone.
 
 The rows are the kernels' shapes on the main path and the bigcode run:
@@ -31,7 +37,10 @@ configuration of qc1944_r23, r34 and r56 (layered-20 early stop, clamp
 campaign's three decoders (flooding-20, layered-10, the probe driver with
 4 probe iterations and 20 in all) on qc1944_r34/r56 and qc648_r34/r56 at
 its first SNR (all-zero codewords, BPSK, LLR = −2r/σ²), and flooding-20
-and layered-20 on qc1944_r56 at bf16 and int8.
+and layered-20 on qc1944_r56 at bf16 and int8; on qc1944_r34 and r56 at
+their TPU sweeps' points, min-sum layered-20 at G = 4 and 2 and with early
+stop at G = 4, layered-6 with random weights at G = 4, and sum-product
+layered-20, flooding-20, layered-20 with early stop and at G = 4.
 """
 
 from __future__ import annotations
@@ -155,6 +164,12 @@ def time_rows(root: str) -> dict:
     high = {c: get_code(c) for c in HIGH_RATE_SWEEP}
     x_high = {c: _channel_llrs(high[c], batch, s, seed=15)
               for c, s in HIGH_RATE_SWEEP.items()}
+    g34 = high["qc1944_r34"].graph
+    w34 = {k: rng.uniform(0.7, 1.3, s).astype(np.float32) for k, s in (
+        ("w_msg", (6, g34.n_vars, g34.dv)), ("w_llr", (6, g34.n_vars)),
+        ("w_msg_final", (g34.n_vars, g34.dv)),
+        ("w_llr_final", (g34.n_vars,)))}
+    w34p = pack_decoder_weights(w34, high["qc1944_r34"], 6, "cuda")["tables"]
     floor = {c: get_code(c) for c in ERROR_FLOOR_SNR}
     x_floor = {c: floor_llrs(floor[c], batch, s, 91)
                for c, s in ERROR_FLOOR_SNR.items()}
@@ -291,6 +306,27 @@ def time_rows(root: str) -> dict:
         **{f"minsum_qc_layered@qc1944_r56-l20{sfx}": (lambda kw=kw: cuda(
             x_floor["qc1944_r56"], floor["qc1944_r56"].qc, **lay20, **kw))
            for sfx, kw in (("", {}), *((f"-{k}", v) for k, v in st.items()))},
+        # the group-serial min-sum and the sum-product forms on the
+        # high-rate codes, at the TPU sweeps' points
+        **{f"minsum_qc_layered@qc1944_r34-g{G}": (lambda G=G: cuda(
+            x_high["qc1944_r34"], high["qc1944_r34"].qc, layered_group=G,
+            **lay20)) for G in (4, 2)},
+        "minsum_qc_layered_es@qc1944_r56-g4": lambda: cuda(
+            x_high["qc1944_r56"], high["qc1944_r56"].qc, layered_group=4,
+            early_stop=True, output="hard_iters", **lay20),
+        "minsum_qc_layered_w@qc1944_r34-g4": lambda: cuda(
+            x_high["qc1944_r34"], high["qc1944_r34"].qc, iterations=6,
+            schedule="layered", layered_group=4, weights=w34p),
+        **{f"sumproduct_qc_{s}@qc1944_r56": (lambda s=s: cuda(
+            x_high["qc1944_r56"], high["qc1944_r56"].qc, iterations=20,
+            schedule=s, method="sum-product"))
+           for s in ("layered", "flooding")},
+        "sumproduct_qc_layered_es@qc1944_r34": lambda: cuda(
+            x_high["qc1944_r34"], high["qc1944_r34"].qc, method="sum-product",
+            early_stop=True, output="hard_iters", **lay20),
+        "sumproduct_qc_layered@qc1944_r34-g4": lambda: cuda(
+            x_high["qc1944_r34"], high["qc1944_r34"].qc, method="sum-product",
+            layered_group=4, **lay20),
         # the wifi648-sweep preset's code and SNR
         **{f"sumproduct_qc_{s}{es}@wifi648-{b}": (
             lambda s=s, es=es, x=x648[b]: cuda(
@@ -316,6 +352,39 @@ def time_rows(root: str) -> dict:
     return out
 
 
+def entry_points(lib: str, report: str) -> dict:
+    """{entry point: [SASS instructions, stack frame bytes, registers]} of
+    a built library, from ``cuobjdump -sass`` and ptxas's -v report. An
+    entry point is named by its mangled name up to its first parameter:
+    the rest names the plan structs' anonymous namespace, whose mangling
+    differs between two builds of the source."""
+    import re
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True,
+                          timeout=600).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        out[block.split()[0].split("PKf")[0]] = [
+            len(re.findall(r"/\*[0-9a-f]{4,}\*/\s", block)), None, None]
+    name = stack = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, stack = m.group(1).split("PKf")[0], None
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name is not None:
+            stack = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][1:] = [stack, int(m.group(1))]
+            name = None
+    return out
+
+
 def _turn() -> None:
     import torch
 
@@ -328,7 +397,12 @@ def _turn() -> None:
                          f"the package under {root}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    print(json.dumps({"root": root, "rows": time_rows(root)}), flush=True)
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+
+    lib, report = mq.build()
+    print(json.dumps({"root": root, "rows": time_rows(root),
+                      "entries": entry_points(str(lib), report)}),
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -351,6 +425,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     turns = {old: [], new: []}
+    entries = {}
     for root in (old, new, new, old):
         env = dict(os.environ, COMPARE_ROOT=root, PYTHONPATH=root)
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -362,6 +437,7 @@ def main(argv=None) -> int:
         line = res.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         turns[root].append(json.loads(line)["rows"])
+        entries[root] = json.loads(line)["entries"]
     summary, differ = {}, []
     for name in turns[new][0]:
         o = [t[name][0] for t in turns[old]]
@@ -373,8 +449,16 @@ def main(argv=None) -> int:
                          "new_ms": statistics.mean(n),
                          "ratio": statistics.mean(o) / statistics.mean(n),
                          "old_turns": o, "new_turns": n}
-    print(json.dumps({"card": card, "rows": summary,
-                      "outputs_differ": differ}), flush=True)
+    both = sorted(set(entries[old]) & set(entries[new]))
+    sass = {k: {"old": entries[old][k][0], "new": entries[new][k][0]}
+            for k in both}
+    print(json.dumps({
+        "card": card, "rows": summary, "outputs_differ": differ,
+        "sass": sass,
+        "sass_differ": [k for k, v in sass.items()
+                        if abs(v["new"] - v["old"]) > 0.01 * v["old"]],
+        "ptxas_new": {k: v[1:] for k, v in entries[new].items()
+                      if k not in entries[old]}}), flush=True)
     return 1 if differ else 0
 
 

@@ -68,7 +68,10 @@
 // with a name_cs kernel have a fourth, name_cw, on the compressed state's
 // wide word (36 more), which the launcher takes for flooding and group 1
 // on a code beyond the limits by its row degree alone (rows of degree
-// 8-18: the rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes).
+// 8-18: the rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes). On the same
+// codes the six serial-C name_sr forms have a name_rw kernel (18 more) and
+// the twelve name_gs forms a name_gw kernel (36 more): the same designs
+// with each row's slots unrolled to its degree, min-sum on the wide word.
 //
 // Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
 // or 2; the three objects are built in parallel and linked into one
@@ -239,9 +242,25 @@
 // slot is guarded and no register array is larger than the row. The
 // flooding plan's column entries carry the slot's sign bit and the slot
 // in the wide word's index field (slot << 24; the narrow word's slot << 8
-// would put a slot of 8 or more into the index field). The other kernel
-// forms on these codes (group-serial min-sum and every sum-product form)
-// keep the full messages.
+// would put a slot of 8 or more into the index field).
+//
+// The other forms on the wide rows (the _gw and _rw kernels). The
+// group-serial forms of both rules (_gw) are the _gs kernels with each
+// check's slots in a body of its row's degree, dispatched once a warp's
+// task by by_degree over CwDegrees, min-sum on the wide word (gs_check_cs
+// takes the word as a template parameter, as check_update_cs does), and
+// sum-product's serial-C forms (_rw) are the _sr kernels with the same
+// bodies, one dispatch a block row. A degree-18 body would keep 54 values
+// a check in registers (72 weighted); these bodies keep only the v2c and
+// read each slot's old message, posterior and weight again in pass 2
+// (kReload), which cut the registers of the sum-product serial-C kernel
+// from 179 to 141 and made it faster than the full messages. Sum-product
+// flooding on these rows keeps the full-message kernel: with the slots in
+// registers it ran 1.04-1.07x slower at every CTA size (80 registers a
+// thread, the flooding check's 18 lt values live across its calls).
+// PERF.md has ptxas's registers and stack frame of every entry point and
+// their times against the full-message kernels they replace, which a code
+// with a row of another degree still takes.
 //
 // Flooding min-sum on the compressed state. A flooding check reads only
 // its own old messages, so its new state overwrites its old one in place;
@@ -453,6 +472,12 @@ constexpr int kDesignSr = 2;
 constexpr int kDesignGs = 3;
 // the compressed min-sum check state on its wide word (the _cw kernels)
 constexpr int kDesignCw = 4;
+// the group-serial sweep of both rules on the wide rows (the _gw kernels:
+// min-sum on the wide word, sum-product with its slots in registers)
+constexpr int kDesignGw = 5;
+// sum-product serial-C with a check's slots in registers on the wide rows
+// (the _rw kernels)
+constexpr int kDesignRw = 6;
 // whether the flooding _sr kernels keep the LLRs in shared memory (else
 // each rebuild reads them again through L2; PERF.md times both)
 constexpr bool kSrFloodLlrShared = true;
@@ -475,9 +500,11 @@ template <int kT>
 inline int smem_bytes(int z, int mb, int nb, int P, int scratch_planes,
                       int design, bool layered, bool compressed) {
   using S = Storage<kT>;
-  const bool sr = design == kDesignSr, gs = design == kDesignGs;
+  const bool sr = design == kDesignSr || design == kDesignRw;
+  const bool gs = design == kDesignGs || design == kDesignGw;
   const int msg = static_cast<int>(sizeof(typename S::Msg));
-  const int word = design == kDesignCw ? 4 : 2;  // CsState's Word
+  // CsState's Word
+  const int word = design == kDesignCw || design == kDesignGw ? 4 : 2;
   const int state = compressed
                         ? align16(mb * z * 2 * msg) + align16(mb * z * word)
                         : align16(P * z * msg);
@@ -1159,18 +1186,25 @@ __device__ __forceinline__ void flood_rebuild_cs(
 // reads the state once and each slot's posterior once; pass 2 folds a
 // private slot's change into the posterior at once, as store(pv + d), and
 // writes a shared slot's d to its scratch row at its variable's offset;
-// then the new state once.
-template <int kDeg, bool kQuant, bool kW, int kT>
+// then the new state once. S: the word; on the wide word (the _gw kernels,
+// up to 18 slots) pass 1 keeps no slot in registers, and pass 2 rebuilds
+// each old message from the old state and reads each weight and private
+// posterior again, the same values (no other check of the group writes
+// them), so more warps share an SM.
+template <int kDeg, bool kQuant, bool kW, int kT, typename S = CsNarrow>
 __device__ __forceinline__ void gs_check_cs(
     const GroupPlan& gp, MagPair<typename Storage<kT>::Msg>* mag,
-    uint16_t* word, typename Storage<kT>::Post* post, float* delta,
+    typename S::Word* word, typename Storage<kT>::Post* post, float* delta,
     const float* __restrict__ w, int z, int c, int r, int p0,
     const Rule& u) {
   using Msg = typename Storage<kT>::Msg;
   using Post = typename Storage<kT>::Post;
+  static_assert(kDeg <= S::kMaxDeg, "more slots than the word's");
+  constexpr bool kReload = S::kIsWide;
+  constexpr int kKept = kReload ? 1 : kDeg;  // the slots pass 1 keeps
   const MagPair<Msg> os = mag[c];
   const unsigned ow = word[c];
-  float pv[kDeg], old[kDeg], wv[kW ? kDeg : 1];
+  float pv[kKept], old[kKept], wv[kW ? kKept : 1];
   float min1 = kBig, min2 = kBig;
   int idx = -1;
   unsigned negs = 0;  // bit e: the v2c of slot e is < 0
@@ -1179,14 +1213,21 @@ __device__ __forceinline__ void gs_check_cs(
     const int4 pl = gp.plane[p0 + e];
     int q = r + pl.y;
     if (q >= z) q -= z;
-    old[e] = cs_message<CsNarrow>(os, ow, e, u.sstep);
-    float m = old[e];
-    if constexpr (kW) {
-      wv[e] = __ldg(w + (p0 + e) * z + r);
-      m = wv[e] * m;
+    float v;
+    if constexpr (kReload) {
+      float m = cs_message<S>(os, ow, e, u.sstep);
+      if constexpr (kW) m = __ldg(w + (p0 + e) * z + r) * m;
+      v = lift(post[pl.x + q], 1.f) - m;
+    } else {
+      old[e] = cs_message<S>(os, ow, e, u.sstep);
+      float m = old[e];
+      if constexpr (kW) {
+        wv[e] = __ldg(w + (p0 + e) * z + r);
+        m = wv[e] * m;
+      }
+      pv[e] = lift(post[pl.x + q], 1.f);
+      v = pv[e] - m;
     }
-    pv[e] = lift(post[pl.x + q], 1.f);
-    const float v = pv[e] - m;
     negs |= (v < 0.f ? 1u : 0u) << e;
     // strict, so idx is the first minimum, as argmin
     const float a = fabsf(v);
@@ -1196,8 +1237,7 @@ __device__ __forceinline__ void gs_check_cs(
     idx = first ? e : idx;
   }
   float t1, t2;
-  const unsigned nw =
-      cs_finish<kQuant, CsNarrow>(min1, min2, idx, negs, u, t1, t2);
+  const unsigned nw = cs_finish<kQuant, S>(min1, min2, idx, negs, u, t1, t2);
   const MagPair<Msg> ns{store<Msg>(t1, u.sinv), store<Msg>(t2, u.sinv)};
 #pragma unroll
   for (int e = 0; e < kDeg; ++e) {
@@ -1205,24 +1245,33 @@ __device__ __forceinline__ void gs_check_cs(
     // change, as the TPU kernel does
     float y;
     if constexpr (kT == kInt8) {
-      y = cs_message<CsNarrow>(ns, nw, e, u.sstep);
+      y = cs_message<S>(ns, nw, e, u.sstep);
     } else {
-      const float t = e == static_cast<int>(nw >> kCsIdxShift) ? t2 : t1;
+      const float t = e == static_cast<int>(nw >> S::kIdxShift) ? t2 : t1;
       y = (nw >> e) & 1u ? -t : t;
     }
-    float d = y - old[e];
-    if constexpr (kW) d = wv[e] * d;
+    float d;
+    if constexpr (kReload) {
+      d = y - cs_message<S>(os, ow, e, u.sstep);
+      if constexpr (kW) d = __ldg(w + (p0 + e) * z + r) * d;
+    } else {
+      d = y - old[e];
+      if constexpr (kW) d = wv[e] * d;
+    }
     const int4 pl = gp.plane[p0 + e];
     int q = r + pl.y;
     if (q >= z) q -= z;
     const int sc = gp.scratch[p0 + e];
-    if (sc >= 0)
+    if (sc >= 0) {
       delta[sc + q] = d;
-    else
+    } else if constexpr (kReload) {
+      post[pl.x + q] = store<Post>(lift(post[pl.x + q], 1.f) + d, 1.f);
+    } else {
       post[pl.x + q] = store<Post>(pv[e] + d, 1.f);
+    }
   }
   mag[c] = ns;
-  word[c] = static_cast<uint16_t>(nw);
+  word[c] = static_cast<typename S::Word>(nw);
 }
 
 // gs_check_cs at the check's degree deg (at most kDeg): one uniform
@@ -1275,14 +1324,21 @@ struct Step {
 // kFold: kFoldNone (flooding), kFoldPost (serial-C) or kFoldGroup (the _gs
 // kernels: a shared slot writes its change to its scratch row in delta,
 // at its variable's offset, and a private one folds it at once).
-template <int kDeg, int kFold, bool kQuant, bool kW, int kT>
+// kReload (the bodies of the wide rows, up to 18 slots): pass 1 keeps only
+// the v2c in registers, and pass 2 reads each slot's old message,
+// posterior and weight again, the same values (nothing else writes them
+// between the passes), as the full-message kernel does; three registers a
+// slot fewer, so more warps share an SM.
+template <int kDeg, int kFold, bool kQuant, bool kW, int kT,
+          bool kReload = false>
 __device__ __forceinline__ void sp_check(
     const FloodPlan& fp, typename Storage<kT>::Msg* msg,
     typename Storage<kT>::Post* post, float* delta, const int* scratch,
     const float* __restrict__ w, int z, int r, int p0, const Rule& u) {
   using Msg = typename Storage<kT>::Msg;
   using Post = typename Storage<kT>::Post;
-  float pv[kDeg], old[kDeg], x[kDeg], wv[kW ? kDeg : 1];
+  constexpr int kKept = kReload ? 1 : kDeg;  // the slots pass 1 keeps
+  float pv[kKept], old[kKept], x[kDeg], wv[kW ? kKept : 1];
   unsigned negs = 0;  // bit e: the v2c of slot e is < 0
   const int m0 = p0 * z + r;  // slot e's message and weight: m0 + e*z
 #pragma unroll
@@ -1290,14 +1346,21 @@ __device__ __forceinline__ void sp_check(
     const int4 pl = fp.plane[p0 + e];
     int q = r + pl.y;
     if (q >= z) q -= z;
-    old[e] = lift(msg[m0 + e * z], u.sstep);
-    float m = old[e];
-    if constexpr (kW) {
-      wv[e] = __ldg(w + m0 + e * z);
-      m = wv[e] * m;
+    if constexpr (kReload) {
+      float m = lift(msg[m0 + e * z], u.sstep);
+      if constexpr (kW) m = __ldg(w + m0 + e * z) * m;
+      x[e] = lift(post[pl.x + q], 1.f) - m;
+    } else {
+      old[e] = lift(msg[m0 + e * z], u.sstep);
+      float m = old[e];
+      if constexpr (kW) {
+        wv[e] = __ldg(w + m0 + e * z);
+        m = wv[e] * m;
+      }
+      pv[e] = lift(post[pl.x + q], 1.f);
+      x[e] = pv[e] - m;
     }
-    pv[e] = lift(post[pl.x + q], 1.f);
-    float v = pv[e] - m;
+    float v = x[e];
     if constexpr (kFold == kFoldNone)
       v = lift(store<Msg>(v, u.sinv), u.sstep);
     negs |= (v < 0.f ? 1u : 0u) << e;
@@ -1330,20 +1393,32 @@ __device__ __forceinline__ void sp_check(
     const float sgn = (((negs >> e) & 1u) ^ odd) ? -1.f : 1.f;
     float y = postlude<kQuant>(sgn * x[e], u);
     const Msg stored = store<Msg>(y, u.sinv);
+    float o = 0.f;  // kReload: the slot's old message, read before the store
+    if constexpr (kReload && kFold != kFoldNone)
+      o = lift(msg[m0 + e * z], u.sstep);
     msg[m0 + e * z] = stored;
     if constexpr (kFold != kFoldNone) {
       // int8 folds what the stored message changes by; bf16 the unrounded
       // change, as the TPU kernel does
       if constexpr (kT == kInt8) y = lift(stored, u.sstep);
-      float d = y - old[e];
-      if constexpr (kW) d = wv[e] * d;
+      float d;
+      if constexpr (kReload) {
+        d = y - o;
+        if constexpr (kW) d = __ldg(w + m0 + e * z) * d;
+      } else {
+        d = y - old[e];
+        if constexpr (kW) d = wv[e] * d;
+      }
       const int4 pl = fp.plane[p0 + e];
       int q = r + pl.y;
       if (q >= z) q -= z;
-      if (kFold == kFoldGroup && scratch[p0 + e] >= 0)
+      if (kFold == kFoldGroup && scratch[p0 + e] >= 0) {
         delta[scratch[p0 + e] + q] = d;
-      else
+      } else if constexpr (kReload) {
+        post[pl.x + q] = store<Post>(lift(post[pl.x + q], 1.f) + d, 1.f);
+      } else {
         post[pl.x + q] = store<Post>(pv[e] + d, 1.f);
+      }
     }
   }
 }
@@ -1401,18 +1476,30 @@ __device__ __forceinline__ void rebuild_sr(
 // thread per check of a block row and a barrier a row (the weighted form
 // then rebuilds the posterior with the next row of weights), or the
 // flooding check pass with warps walking (block row, 32 checks), then the
-// rebuild. Ends with __syncthreads().
-template <bool kLayered, bool kQuant, bool kW, bool kLlrShared, int kT>
+// rebuild. kWide: the _rw kernels (serial-C), a check's slots unrolled to
+// its row's degree in the bodies of CwDegrees, one dispatch a block row
+// (uniform for the CTA). Ends with __syncthreads().
+template <bool kLayered, bool kQuant, bool kW, bool kLlrShared, int kT,
+          bool kWide = false>
 __device__ __forceinline__ void iterate_sr(
     const FloodPlan& fp, typename Storage<kT>::Msg* msg,
     typename Storage<kT>::Post* post, const typename Storage<kT>::Post* lv,
     const float* l, int z, int mb, int nb, WarpWalk wk, const Step& st) {
+  static_assert(kLayered || !kWide, "the _rw kernels are serial-C");
   if constexpr (kLayered) {
     for (int i = 0; i < mb; ++i) {
       const int p0 = fp.row_ptr[i], deg = fp.row_ptr[i + 1] - p0;
-      for (int r = threadIdx.x; r < z; r += blockDim.x)
-        sp_check_deg<kCsMaxDeg, kFoldPost, kQuant, kW, kT>(
-            deg, fp, msg, post, nullptr, nullptr, st.w, z, r, p0, st.u);
+      if constexpr (kWide) {
+        by_degree(CwDegrees{}, deg, [&](auto d) {
+          for (int r = threadIdx.x; r < z; r += blockDim.x)
+            sp_check<decltype(d)::value, kFoldPost, kQuant, kW, kT, true>(
+                fp, msg, post, nullptr, nullptr, st.w, z, r, p0, st.u);
+        });
+      } else {
+        for (int r = threadIdx.x; r < z; r += blockDim.x)
+          sp_check_deg<kCsMaxDeg, kFoldPost, kQuant, kW, kT>(
+              deg, fp, msg, post, nullptr, nullptr, st.w, z, r, p0, st.u);
+      }
       __syncthreads();
     }
     if constexpr (!kW) return;
@@ -1442,15 +1529,19 @@ __device__ __forceinline__ void iterate_sr(
 // where the group has no shared column block: its checks folded all their
 // changes). The weighted forms then rebuild the posterior with the next
 // iteration's weights. kCsState: min-sum on the compressed check state
-// (mag, word), else sum-product on the full messages (msg). Ends with
-// __syncthreads().
-template <bool kCsState, bool kQuant, bool kW, int kT>
+// (mag, word), else sum-product on the full messages (msg). kWide: the _gw
+// kernels, a check's slots unrolled to its row's degree in the bodies of
+// CwDegrees (one dispatch a warp's task), min-sum on the wide word. Ends
+// with __syncthreads().
+template <bool kCsState, bool kQuant, bool kW, int kT, bool kWide = false>
 __device__ __forceinline__ void iterate_gs(
     const GroupPlan& gp, typename Storage<kT>::Msg* msg,
-    MagPair<typename Storage<kT>::Msg>* mag, uint16_t* word,
-    typename Storage<kT>::Post* post, float* delta, const float* l, int z,
-    int mb, int nb, int group, WarpWalk wk, const Step& st) {
+    MagPair<typename Storage<kT>::Msg>* mag,
+    typename CsState<kWide>::Word* word, typename Storage<kT>::Post* post,
+    float* delta, const float* l, int z, int mb, int nb, int group,
+    WarpWalk wk, const Step& st) {
   using Post = typename Storage<kT>::Post;
+  using S = CsState<kWide>;
   for (int g = 0, g0 = 0; g0 < mb; ++g, g0 += group) {
     const int g1 = min(g0 + group, mb);
     WarpWalk c = wk;
@@ -1458,13 +1549,24 @@ __device__ __forceinline__ void iterate_gs(
       const int r = c.at();
       if (r >= z) continue;
       const int p0 = gp.row_ptr[c.b], deg = gp.row_ptr[c.b + 1] - p0;
-      if constexpr (kCsState)
+      if constexpr (kWide) {
+        by_degree(CwDegrees{}, deg, [&](auto d) {
+          if constexpr (kCsState)
+            gs_check_cs<decltype(d)::value, kQuant, kW, kT, S>(
+                gp, mag, word, post, delta, st.w, z, c.b * z + r, r, p0,
+                st.u);
+          else
+            sp_check<decltype(d)::value, kFoldGroup, kQuant, kW, kT, true>(
+                gp, msg, post, delta, gp.scratch, st.w, z, r, p0, st.u);
+        });
+      } else if constexpr (kCsState) {
         gs_check_cs_deg<kCsMaxDeg, kQuant, kW, kT>(
             deg, gp, mag, word, post, delta, st.w, z, c.b * z + r, r, p0,
             st.u);
-      else
+      } else {
         sp_check_deg<kCsMaxDeg, kFoldGroup, kQuant, kW, kT>(
             deg, gp, msg, post, delta, gp.scratch, st.w, z, r, p0, st.u);
+      }
     }
     __syncthreads();
     const int f0 = gp.fold_ptr[g], f1 = gp.fold_ptr[g + 1];
@@ -1491,9 +1593,9 @@ __device__ __forceinline__ void iterate_gs(
   }
   if constexpr (kW) {
     if constexpr (kCsState)
-      flood_rebuild_cs<true, false, kT>(gp, mag, word, post, nullptr, l,
-                                        st.w_next, st.wl_next, z, nb, wk,
-                                        st.u.sstep);
+      flood_rebuild_cs<true, false, kT, S>(gp, mag, word, post, nullptr, l,
+                                           st.w_next, st.wl_next, z, nb, wk,
+                                           st.u.sstep);
     else
       rebuild_sr<true, false, kT>(gp, msg, post, nullptr, l, st.w_next,
                                   st.wl_next, z, nb, wk, st.u.sstep);
@@ -1660,8 +1762,11 @@ __device__ __forceinline__ int local_unsat_cs(const FloodPlan& fp,
 // group-serial forms (layered, group > 1) with their plan read from gp (and
 // fp, the same parameter): min-sum on the compressed state (kCs),
 // sum-product on full messages. Else the full messages, and the three are
-// unused. kWide: the compressed state's wide word (the _cw kernels,
-// serial-C and flooding min-sum on rows of degree 8-18).
+// unused. kWide: the wide rows (degree 8-18, the bodies of CwDegrees):
+// min-sum on the compressed state's wide word, serial-C and flooding (the
+// _cw kernels) and group-serial (the _gw kernels), and sum-product with a
+// check's slots in registers, serial-C (the _rw kernels) and group-serial
+// (the _gw kernels).
 template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
           int kT, bool kCs = false, bool kSr = false, bool kGs = false,
           bool kWide = false>
@@ -1681,8 +1786,8 @@ __device__ __forceinline__ void decode(
   static_assert(!kGs || (kLayered && !kSr && kCs == (kMethod == kMinSum)),
                 "the _gs kernels are the group-serial layered forms', "
                 "min-sum on the compressed state");
-  static_assert(!kWide || (kCs && !kGs),
-                "the wide word is the serial-C and flooding min-sum forms'");
+  static_assert(!kWide || kCs || kSr || kGs,
+                "the wide rows' kernels read their plan from the parameter");
   using S = CsState<kWide>;
   using Word = typename S::Word;
   // flooding on the compressed state: no plan in shared memory
@@ -1773,8 +1878,8 @@ __device__ __forceinline__ void decode(
 
   auto one = [&](const Step& st) {
     if constexpr (kGs) {
-      iterate_gs<kCs, kQuant, kW, kT>(*gp, msg, mag, word, post, delta, l, z,
-                                      mb, nb, group, walk, st);
+      iterate_gs<kCs, kQuant, kW, kT, kWide>(*gp, msg, mag, word, post, delta,
+                                             l, z, mb, nb, group, walk, st);
     } else if constexpr (kFloodCs) {
       flood_checks_cs<kQuant, kW, kT, S>(*fp, mag, word, post, st.w, z, mb,
                                          walk, st.u);
@@ -1787,8 +1892,8 @@ __device__ __forceinline__ void decode(
       iterate_cs<kQuant, kW, kT, S>(pl, *pp, mag, word, post, l, z, mb, n,
                                     st);
     } else if constexpr (kSr) {
-      iterate_sr<kLayered, kQuant, kW, kLlrShared, kT>(*fp, msg, post, lv, l,
-                                                       z, mb, nb, walk, st);
+      iterate_sr<kLayered, kQuant, kW, kLlrShared, kT, kWide>(
+          *fp, msg, post, lv, l, z, mb, nb, walk, st);
     } else {
       iterate<kMethod, kLayered, kQuant, kW, kT>(pl, msg, post, delta, l, z,
                                                  mb, n, group, st);
@@ -1905,10 +2010,11 @@ constexpr int kStorage = kInt8;
         sinv, nullptr, &fp, nullptr);                                       \
   }
 
-// The sum-product forms with a check's slots in registers (name_sr): the
-// same arguments and the plan, rows and columns, as a parameter.
-#define QC_KERNEL_SR(name, layered, early_stop, quant, weighted)            \
-  __global__ void QC_CAT(QC_CAT(name, _sr), QC_SUFFIX)(                     \
+// The sum-product forms with a check's slots in registers (name_sr, or
+// name_rw on the wide rows, serial-C alone): the same arguments and the
+// plan, rows and columns, as a parameter.
+#define QC_KERNEL_SR(name, sfx, wide, layered, early_stop, quant, weighted) \
+  __global__ void QC_CAT(QC_CAT(name, sfx), QC_SUFFIX)(                     \
       const float* llr, float* post_out, int8_t* bits_out,                  \
       const int* done_in, int* aux_out, const int* plan, const float* ab,   \
       const float* wm, const float* wl, int z, int mb, int nb, int P,       \
@@ -1916,16 +2022,24 @@ constexpr int kStorage = kInt8;
       float qclip, float sstep, float sinv,                                 \
       const __grid_constant__ FloodPlan fp) {                               \
     decode<kSumProduct, layered, early_stop, quant, weighted, kStorage,     \
-           false, true>(llr, post_out, bits_out, done_in, aux_out, plan,    \
-                        ab, wm, wl, z, mb, nb, P, iterations, check_every,  \
-                        group, clamp, qstep, qclip, sstep, sinv, nullptr,   \
-                        &fp, nullptr);                                      \
+           false, true, false, wide>(                                       \
+        llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
+        nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
+        sinv, nullptr, &fp, nullptr);                                       \
   }
 
-// The group-serial layered forms (name_gs): the same arguments and the
-// per-group plan as a parameter; min-sum on the compressed state.
-#define QC_KERNEL_GS(name, method, early_stop, quant, weighted)             \
-  __global__ void QC_CAT(QC_CAT(name, _gs), QC_SUFFIX)(                     \
+// The group-serial layered forms (name_gs, or name_gw on the wide rows):
+// the same arguments and the per-group plan as a parameter; min-sum on the
+// compressed state. bounds: the kernel's launch bounds, or QC_NO_BOUNDS.
+// The weighted min-sum _gw kernels are held to 80 registers a thread
+// (QC_GW_WEIGHTED_BOUNDS: 8 CTAs of 96 threads an SM), which spills 16-32
+// B and ran 1.25x faster than with their 103 registers on qc1944_r34; the
+// same bounds made the other min-sum _gw kernels 3-7% slower (PERF.md).
+#define QC_NO_BOUNDS
+#define QC_GW_WEIGHTED_BOUNDS __launch_bounds__(96, 8)
+#define QC_KERNEL_GS(name, sfx, wide, bounds, method, early_stop, quant,   \
+                     weighted)                                              \
+  __global__ void bounds QC_CAT(QC_CAT(name, sfx), QC_SUFFIX)(              \
       const float* llr, float* post_out, int8_t* bits_out,                  \
       const int* done_in, int* aux_out, const int* plan, const float* ab,   \
       const float* wm, const float* wl, int z, int mb, int nb, int P,       \
@@ -1933,7 +2047,7 @@ constexpr int kStorage = kInt8;
       float qclip, float sstep, float sinv,                                 \
       const __grid_constant__ GroupPlan gp) {                               \
     decode<method, true, early_stop, quant, weighted, kStorage,             \
-           method == kMinSum, false, true>(                                 \
+           method == kMinSum, false, true, wide>(                           \
         llr, post_out, bits_out, done_in, aux_out, plan, ab, wm, wl, z, mb, \
         nb, P, iterations, check_every, group, clamp, qstep, qclip, sstep,  \
         sinv, nullptr, &gp, &gp);                                           \
@@ -1990,30 +2104,74 @@ QC_KERNEL_FLOOD_CS(minsum_qc_flooding_msgq, _cw, true, false, true, false)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es_msgq, _cw, true, true, true, false)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w, _cw, true, false, false, true)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, _cw, true, false, true, true)
-QC_KERNEL_SR(sumproduct_qc_flooding, false, false, false, false)
-QC_KERNEL_SR(sumproduct_qc_layered, true, false, false, false)
-QC_KERNEL_SR(sumproduct_qc_flooding_es, false, true, false, false)
-QC_KERNEL_SR(sumproduct_qc_layered_es, true, true, false, false)
-QC_KERNEL_SR(sumproduct_qc_flooding_msgq, false, false, true, false)
-QC_KERNEL_SR(sumproduct_qc_layered_msgq, true, false, true, false)
-QC_KERNEL_SR(sumproduct_qc_flooding_es_msgq, false, true, true, false)
-QC_KERNEL_SR(sumproduct_qc_layered_es_msgq, true, true, true, false)
-QC_KERNEL_SR(sumproduct_qc_flooding_w, false, false, false, true)
-QC_KERNEL_SR(sumproduct_qc_layered_w, true, false, false, true)
-QC_KERNEL_SR(sumproduct_qc_flooding_w_msgq, false, false, true, true)
-QC_KERNEL_SR(sumproduct_qc_layered_w_msgq, true, false, true, true)
-QC_KERNEL_GS(minsum_qc_layered, kMinSum, false, false, false)
-QC_KERNEL_GS(minsum_qc_layered_es, kMinSum, true, false, false)
-QC_KERNEL_GS(minsum_qc_layered_msgq, kMinSum, false, true, false)
-QC_KERNEL_GS(minsum_qc_layered_es_msgq, kMinSum, true, true, false)
-QC_KERNEL_GS(minsum_qc_layered_w, kMinSum, false, false, true)
-QC_KERNEL_GS(minsum_qc_layered_w_msgq, kMinSum, false, true, true)
-QC_KERNEL_GS(sumproduct_qc_layered, kSumProduct, false, false, false)
-QC_KERNEL_GS(sumproduct_qc_layered_es, kSumProduct, true, false, false)
-QC_KERNEL_GS(sumproduct_qc_layered_msgq, kSumProduct, false, true, false)
-QC_KERNEL_GS(sumproduct_qc_layered_es_msgq, kSumProduct, true, true, false)
-QC_KERNEL_GS(sumproduct_qc_layered_w, kSumProduct, false, false, true)
-QC_KERNEL_GS(sumproduct_qc_layered_w_msgq, kSumProduct, false, true, true)
+QC_KERNEL_SR(sumproduct_qc_flooding, _sr, false, false, false, false, false)
+QC_KERNEL_SR(sumproduct_qc_layered, _sr, false, true, false, false, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_es, _sr, false, false, true, false, false)
+QC_KERNEL_SR(sumproduct_qc_layered_es, _sr, false, true, true, false, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_msgq, _sr, false, false, false, true, false)
+QC_KERNEL_SR(sumproduct_qc_layered_msgq, _sr, false, true, false, true, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_es_msgq, _sr, false, false, true, true,
+             false)
+QC_KERNEL_SR(sumproduct_qc_layered_es_msgq, _sr, false, true, true, true, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_w, _sr, false, false, false, false, true)
+QC_KERNEL_SR(sumproduct_qc_layered_w, _sr, false, true, false, false, true)
+QC_KERNEL_SR(sumproduct_qc_flooding_w_msgq, _sr, false, false, false, true,
+             true)
+QC_KERNEL_SR(sumproduct_qc_layered_w_msgq, _sr, false, true, false, true, true)
+QC_KERNEL_SR(sumproduct_qc_layered, _rw, true, true, false, false, false)
+QC_KERNEL_SR(sumproduct_qc_layered_es, _rw, true, true, true, false, false)
+QC_KERNEL_SR(sumproduct_qc_layered_msgq, _rw, true, true, false, true, false)
+QC_KERNEL_SR(sumproduct_qc_layered_es_msgq, _rw, true, true, true, true, false)
+QC_KERNEL_SR(sumproduct_qc_layered_w, _rw, true, true, false, false, true)
+QC_KERNEL_SR(sumproduct_qc_layered_w_msgq, _rw, true, true, false, true, true)
+QC_KERNEL_GS(minsum_qc_layered, _gs, false, QC_NO_BOUNDS, kMinSum, false, false,
+             false)
+QC_KERNEL_GS(minsum_qc_layered_es, _gs, false, QC_NO_BOUNDS, kMinSum, true,
+             false, false)
+QC_KERNEL_GS(minsum_qc_layered_msgq, _gs, false, QC_NO_BOUNDS, kMinSum, false,
+             true, false)
+QC_KERNEL_GS(minsum_qc_layered_es_msgq, _gs, false, QC_NO_BOUNDS, kMinSum, true,
+             true, false)
+QC_KERNEL_GS(minsum_qc_layered_w, _gs, false, QC_NO_BOUNDS, kMinSum, false,
+             false, true)
+QC_KERNEL_GS(minsum_qc_layered_w_msgq, _gs, false, QC_NO_BOUNDS, kMinSum, false,
+             true, true)
+QC_KERNEL_GS(sumproduct_qc_layered, _gs, false, QC_NO_BOUNDS, kSumProduct,
+             false, false, false)
+QC_KERNEL_GS(sumproduct_qc_layered_es, _gs, false, QC_NO_BOUNDS, kSumProduct,
+             true, false, false)
+QC_KERNEL_GS(sumproduct_qc_layered_msgq, _gs, false, QC_NO_BOUNDS, kSumProduct,
+             false, true, false)
+QC_KERNEL_GS(sumproduct_qc_layered_es_msgq, _gs, false, QC_NO_BOUNDS,
+             kSumProduct, true, true, false)
+QC_KERNEL_GS(sumproduct_qc_layered_w, _gs, false, QC_NO_BOUNDS, kSumProduct,
+             false, false, true)
+QC_KERNEL_GS(sumproduct_qc_layered_w_msgq, _gs, false, QC_NO_BOUNDS,
+             kSumProduct, false, true, true)
+QC_KERNEL_GS(minsum_qc_layered, _gw, true, QC_NO_BOUNDS, kMinSum, false, false,
+             false)
+QC_KERNEL_GS(minsum_qc_layered_es, _gw, true, QC_NO_BOUNDS, kMinSum, true,
+             false, false)
+QC_KERNEL_GS(minsum_qc_layered_msgq, _gw, true, QC_NO_BOUNDS, kMinSum, false,
+             true, false)
+QC_KERNEL_GS(minsum_qc_layered_es_msgq, _gw, true, QC_NO_BOUNDS, kMinSum, true,
+             true, false)
+QC_KERNEL_GS(minsum_qc_layered_w, _gw, true, QC_GW_WEIGHTED_BOUNDS, kMinSum,
+             false, false, true)
+QC_KERNEL_GS(minsum_qc_layered_w_msgq, _gw, true, QC_GW_WEIGHTED_BOUNDS,
+             kMinSum, false, true, true)
+QC_KERNEL_GS(sumproduct_qc_layered, _gw, true, QC_NO_BOUNDS, kSumProduct, false,
+             false, false)
+QC_KERNEL_GS(sumproduct_qc_layered_es, _gw, true, QC_NO_BOUNDS, kSumProduct,
+             true, false, false)
+QC_KERNEL_GS(sumproduct_qc_layered_msgq, _gw, true, QC_NO_BOUNDS, kSumProduct,
+             false, true, false)
+QC_KERNEL_GS(sumproduct_qc_layered_es_msgq, _gw, true, QC_NO_BOUNDS,
+             kSumProduct, true, true, false)
+QC_KERNEL_GS(sumproduct_qc_layered_w, _gw, true, QC_NO_BOUNDS, kSumProduct,
+             false, false, true)
+QC_KERNEL_GS(sumproduct_qc_layered_w_msgq, _gw, true, QC_NO_BOUNDS, kSumProduct,
+             false, true, true)
 
 #define QC_K(name) QC_CAT(name, QC_SUFFIX)
 
@@ -2089,6 +2247,23 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   static const KernelGs kGroupSerialW[2][2] = {
       {QC_K(minsum_qc_layered_w_gs), QC_K(minsum_qc_layered_w_msgq_gs)},
       {QC_K(sumproduct_qc_layered_w_gs), QC_K(sumproduct_qc_layered_w_msgq_gs)}};
+  // the same forms on the wide rows: the _rw kernels (serial-C) by
+  // [early_stop][quant], weighted by [quant], and the _gw kernels
+  static const KernelFloodCs kRegistersWide[2][2] = {
+      {QC_K(sumproduct_qc_layered_rw), QC_K(sumproduct_qc_layered_msgq_rw)},
+      {QC_K(sumproduct_qc_layered_es_rw),
+       QC_K(sumproduct_qc_layered_es_msgq_rw)}};
+  static const KernelFloodCs kRegistersWideW[2] = {
+      QC_K(sumproduct_qc_layered_w_rw), QC_K(sumproduct_qc_layered_w_msgq_rw)};
+  static const KernelGs kGroupWide[2][2][2] = {
+      {{QC_K(minsum_qc_layered_gw), QC_K(minsum_qc_layered_msgq_gw)},
+       {QC_K(minsum_qc_layered_es_gw), QC_K(minsum_qc_layered_es_msgq_gw)}},
+      {{QC_K(sumproduct_qc_layered_gw), QC_K(sumproduct_qc_layered_msgq_gw)},
+       {QC_K(sumproduct_qc_layered_es_gw),
+        QC_K(sumproduct_qc_layered_es_msgq_gw)}}};
+  static const KernelGs kGroupWideW[2][2] = {
+      {QC_K(minsum_qc_layered_w_gw), QC_K(minsum_qc_layered_w_msgq_gw)},
+      {QC_K(sumproduct_qc_layered_w_gw), QC_K(sumproduct_qc_layered_w_msgq_gw)}};
   // [method][layered][early_stop][quant]
   static const Kernel kKernels[2][2][2][2] = {
       {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
@@ -2115,27 +2290,33 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   // the compressed state (min-sum) and the _sr kernels (sum-product):
   // flooding or serial-C; the _gs kernels: group-serial (both rules); each
   // on a code whose rows, block rows, planes and block columns fit the
-  // state's word, the register arrays and the parameter's plan. The _cw
-  // kernels: min-sum flooding or serial-C on a code whose rows fit the
-  // wide word and each have a body of their degree (CwDegrees)
+  // state's word, the register arrays and the parameter's plan. The same
+  // on a code whose rows fit the wide word and each have a body of their
+  // degree (CwDegrees): the _cw kernels (min-sum), the _rw kernels
+  // (sum-product serial-C) and the _gw kernels (group-serial)
   if (group > mb) group = mb;
-  if (design < kDesignFull || design > kDesignCw)
+  if (design < kDesignFull || design > kDesignRw)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int max_deg = design == kDesignCw ? kCwMaxDeg : kCsMaxDeg;
+  const bool wide =
+      design == kDesignCw || design == kDesignGw || design == kDesignRw;
+  const bool group_design = design == kDesignGs || design == kDesignGw;
+  const bool registers = design == kDesignSr || design == kDesignRw;
+  const int max_deg = wide ? kCwMaxDeg : kCsMaxDeg;
   if (design != kDesignFull &&
-      ((design == kDesignGs) != (group > 1) ||
-       (design != kDesignGs && method != (design == kDesignSr ? 1 : 0)) ||
+      (group_design != (group > 1) ||
+       (!group_design && method != (registers ? 1 : 0)) ||
+       (design == kDesignRw && !layered) ||
        plan_host == nullptr || row_deg > max_deg || mb > kCsMaxRows ||
        P > kCsMaxPlanes || nb > kCsMaxCols))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (design == kDesignCw) {
+  if (wide) {
     for (int i = 0; i < mb; ++i)
       if (((kCwDegreeMask >> (plan_host[i + 1] - plan_host[i])) & 1u) == 0)
         return static_cast<int>(cudaErrorInvalidValue);
   }
   // the group plan's header: G, groups, fold entries, shared planes, the
   // largest group's shared planes (kernels/minsum_qc.py:group_plan)
-  if (design == kDesignGs &&
+  if (group_design &&
       (group_host == nullptr || group_host[0] != group ||
        group_host[1] != (mb + group - 1) / group ||
        group_host[1] > kGsMaxGroups || group_host[2] > kGsMaxFolds ||
@@ -2157,22 +2338,25 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     fn_fp = weighted ? kFloodWideW[qu] : kFloodWide[es][qu];
   else if (design == kDesignSr)
     fn_fp = weighted ? kRegistersW[ly][qu] : kRegisters[ly][es][qu];
+  else if (design == kDesignRw)
+    fn_fp = weighted ? kRegistersWideW[qu] : kRegistersWide[es][qu];
   else if (design == kDesignGs)
     fn_gs = weighted ? kGroupSerialW[sp][qu] : kGroupSerial[sp][es][qu];
+  else if (design == kDesignGw)
+    fn_gs = weighted ? kGroupWideW[sp][qu] : kGroupWide[sp][es][qu];
   const void* entry =
       fn_cs != nullptr   ? reinterpret_cast<const void*>(fn_cs)
       : fn_fp != nullptr ? reinterpret_cast<const void*>(fn_fp)
       : fn_gs != nullptr ? reinterpret_cast<const void*>(fn_gs)
                          : reinterpret_cast<const void*>(fn);
-  // the scratch: the _gs kernels' largest group's shared planes, the full
-  // messages' group planes
+  // the scratch: the _gs and _gw kernels' largest group's shared planes,
+  // the full messages' group planes
   const int scratch_planes =
-      design == kDesignGs ? group_host[4]
+      group_design ? group_host[4]
       : group > 1         ? (group * row_deg < P ? group * row_deg : P)
                           : 0;
-  const bool compressed =
-      design == kDesignCs || design == kDesignCw ||
-      (design == kDesignGs && method == 0);
+  const bool compressed = design == kDesignCs || design == kDesignCw ||
+                          (group_design && method == 0);
   const int smem = smem_bytes<kStorage>(z, mb, nb, P, scratch_planes, design,
                                         layered != 0, compressed);
   cudaError_t err = cudaFuncSetAttribute(
@@ -2189,8 +2373,9 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   // room for fewer than four CTAs an SM (the 5G-class codes), and else one
   // block row's warps, serial-C's CTA, whose warps walk the group's rows
   // (its barriers wait for fewer warps, and more CTAs share the SM; PERF.md
-  // times both on wifi648, wifi1944, qc8448 and qc12288)
-  if (design == kDesignGs) {
+  // times both on wifi648, wifi1944, qc8448 and qc12288, and for the _gw
+  // kernels on qc1944_r34 and r56)
+  if (group_design) {
     const int chunks = (z + 31) / 32;
     const bool row = method == 0 && 4 * (smem + kSmemPerCta) <= kSmemPerSm;
     const int warps = row ? chunks : group * chunks;
@@ -2221,8 +2406,7 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     for (int j = 0; j <= nb; ++j) gp.col_ptr[j] = col_ptr[j];
     // the slot's sign bit and index field where the design's word keeps
     // them (8 sign bits, or 24 on the wide word)
-    const int shift =
-        design == kDesignCw ? CsWide::kIdxShift : CsNarrow::kIdxShift;
+    const int shift = wide ? CsWide::kIdxShift : CsNarrow::kIdxShift;
     for (int e = 0; e < P; ++e) {
       const int4 pl = gp.plane[col_planes[e]];
       gp.col[e] = make_int4(pl.z, pl.y, (1 << pl.w) | (pl.w << shift),
@@ -2295,7 +2479,10 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // kernels), which also read group_host (kernels/minsum_qc.py:group_plan)
 // into the parameter's GroupPlan (or null for the other designs); each
 // within the limits of bp_qc_compressed_limits, reading plan_host into the
-// kernel's parameter. clamp = +inf for no clamp. done_in:
+// kernel's parameter. On the codes of the _cw kernels, kDesignRw (6) the
+// serial-C forms of kDesignSr (the _rw kernels) and kDesignGw (5) those of
+// kDesignGs (the _gw kernels, min-sum on the wide word), each row's slots
+// unrolled to its degree. clamp = +inf for no clamp. done_in:
 // (batch,) int32 flags of codewords to skip, or null. aux_out: (batch,)
 // int32, the iterations run when early_stop != 0 (then required), else the
 // unsatisfied-check counts, or null. check_every must divide iterations; a

@@ -23,10 +23,13 @@ both rules take the ``_gs`` kernels: the per-group plan of
 folded at once and only the shared planes through the scratch, min-sum on
 the compressed state and sum-product with its slots in registers. Codes
 beyond the limits by their row degree alone (rows of 8-18 slots: the
-rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes) take the ``_cw`` kernels for
-min-sum flooding and serial-C: the compressed state with a 32-bit word
-(``WIDE_LIMITS``). Every other form beyond the limits keeps the full
-messages with the plan in shared memory. The source is
+rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes) take the same designs with
+each row's slots unrolled to its degree (``WIDE_LIMITS``): the ``_cw``
+kernels for min-sum flooding and serial-C (the compressed state with a
+32-bit word), the ``_rw`` kernels for sum-product serial-C and the
+``_gw`` kernels for the group-serial forms of both rules; their
+sum-product flooding, and every form of any other code beyond the limits,
+keeps the full messages with the plan in shared memory. The source is
 compiled with ``nvcc`` for ``sm_90a``, once per storage type in
 parallel, into ``build/kernels/`` of the checkout on first use, linked
 into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
@@ -143,10 +146,13 @@ COMPRESSED_LIMITS = (8, 64, 192, 64)
 # rows, planes and block columns are COMPRESSED_LIMITS'
 WIDE_LIMITS = (24, (8, 9, 11, 12, 17, 18))
 # the kernel designs, bp_qc_decode's `design` (csrc/minsum_qc.cu:
-# kDesignFull, kDesignCs, kDesignSr, kDesignGs, kDesignCw) and the entry
-# points' suffix
+# kDesignFull, kDesignCs, kDesignSr, kDesignGs, kDesignCw, kDesignGw,
+# kDesignRw) and the entry points' suffix
 DESIGNS = {"full": (0, ""), "compressed": (1, "_cs"), "registers": (2, "_sr"),
-           "group": (3, "_gs"), "compressed-wide": (4, "_cw")}
+           "group": (3, "_gs"), "compressed-wide": (4, "_cw"),
+           "group-wide": (5, "_gw"), "registers-wide": (6, "_rw")}
+# the group-serial designs
+GROUP_DESIGNS = ("group", "group-wide")
 # the group-serial plan in the kernel parameter (csrc/minsum_qc.cu:
 # GroupPlan): groups (G ≥ 2 over at most 64 block rows) and fold entries
 # (two planes or more each, of at most 192), and the bytes a kernel's
@@ -218,7 +224,8 @@ def entry_point(qc: QcStructure, method: str, schedule: str,
     storage suffix on the compressed check state (serial-C and flooding
     min-sum), ``_sr`` with the sum-product slots in registers (serial-C and
     flooding sum-product) and ``_gs`` for the group-serial forms of both
-    rules (:func:`design`)."""
+    rules, or on the wide rows ``_cw``, ``_rw`` and ``_gw`` for the same
+    forms (:func:`design`)."""
     sfx = DESIGNS[design(qc, method, schedule, layered_group)][1]
     return (kernel_name(method, schedule, early_stop, quantized, weighted)
             + sfx + STORAGE[storage_dtype(dtype)][1])
@@ -365,9 +372,8 @@ def compressed_state(qc: QcStructure, method: str = "min-sum",
     two stored magnitudes and a word of signs and index a check): the
     min-sum forms, flooding, serial-C and group-serial, on a code within
     ``COMPRESSED_LIMITS`` (row degree, block rows, planes, block columns),
-    and flooding and serial-C on the wide word on a code beyond them by
-    its row degree alone (:func:`design`). Every other form keeps the full
-    messages."""
+    and on the wide word on a code beyond them by its row degree alone
+    (:func:`design`). Every other form keeps the full messages."""
     return (method == "min-sum"
             and design(qc, method, schedule, layered_group) != "full")
 
@@ -381,7 +387,9 @@ def sumproduct_registers(qc: QcStructure, method: str = "sum-product",
     check's degree, the plan in the kernel parameter): the sum-product
     forms of every schedule and group on a code within
     ``COMPRESSED_LIMITS``, the register arrays' 8 slots and the
-    parameter's plan. The codes beyond the limits keep the full-message
+    parameter's plan, and on a code beyond them by its row degree alone
+    (each row's degree one of ``WIDE_LIMITS``') serial-C and group-serial
+    on the _rw and _gw kernels. The other decodes keep the full-message
     kernels with the plan in shared memory."""
     return (method == "sum-product"
             and design(qc, method, schedule, layered_group) != "full")
@@ -393,17 +401,24 @@ def design(qc: QcStructure, method: str, schedule: str,
     within ``COMPRESSED_LIMITS``: 'group' for the group-serial forms
     (layered, ``min(layered_group, mb) > 1``), else 'compressed'
     (min-sum) or 'registers' (sum-product). Beyond the limits by the row
-    degree alone (each row's degree one of ``WIDE_LIMITS``'), min-sum
-    flooding and serial-C take 'compressed-wide'; every other decode
-    beyond the limits 'full'."""
+    degree alone (each row's degree one of ``WIDE_LIMITS``': the rate-2/3,
+    3/4 and 5/6 qc648 and qc1944 codes), the same forms on the wide rows:
+    'group-wide', 'compressed-wide' or 'registers-wide', but for
+    sum-product flooding, which keeps 'full' there (its kernel with the
+    slots in registers measured slower, PERF.md). Every other decode
+    beyond the limits takes 'full'."""
     group = schedule == "layered" and min(layered_group, qc.mb) > 1
-    if not _within_limits(qc):
-        wide = (method == "min-sum" and not group
-                and _within_limits(qc, wide=True))
-        return "compressed-wide" if wide else "full"
+    if _within_limits(qc):
+        rows = ""
+    elif _within_limits(qc, wide=True):
+        rows = "-wide"
+        if method == "sum-product" and schedule == "flooding":
+            return "full"
+    else:
+        return "full"
     if group:
-        return "group"
-    return "compressed" if method == "min-sum" else "registers"
+        return "group" + rows
+    return ("compressed" if method == "min-sum" else "registers") + rows
 
 
 def group_plan_bytes() -> int:
@@ -488,10 +503,10 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     planes (4, 2 or 1 B a message for f32, bf16, int8) or, on the
     compressed state (:func:`compressed_state`), two stored magnitudes and
     a 2-byte word a check (a 4-byte word on the wide word's kernels,
-    'compressed-wide'); the posterior (2 B a variable for bf16, else 4),
-    and the LLRs in its type for the flooding forms that read their plan
-    from the parameter; and for a group-serial launch the f32 scratch of
-    the message changes: the largest group's shared planes
+    'compressed-wide' and 'group-wide'); the posterior (2 B a variable for
+    bf16, else 4), and the LLRs in its type for the flooding forms that
+    read their plan from the parameter; and for a group-serial launch the
+    f32 scratch of the message changes: the largest group's shared planes
     (:func:`group_plan`) for the group-serial kernels, a group's planes (at
     most ``min(P, G·row degree)``) for the full-message kernels, each z
     floats; each region on a 16-byte boundary."""
@@ -508,14 +523,15 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     degree = max(len(ps) for ps in group_c)
     checks = qc.mb * qc.z
     kind = design(qc, method, schedule, layered_group)
-    sr, gs = kind == "registers", kind == "group"
+    sr = kind in ("registers", "registers-wide")
+    gs = kind in GROUP_DESIGNS
     cs = compressed_state(qc, method, schedule, layered_group)
     if gs:
         scratch = int(group_plan(qc, G)[4]) * qc.z
     else:
         scratch = min(P, G * degree) * qc.z if G > 1 else 0
     flooding = schedule == "flooding"
-    word = 4 if kind == "compressed-wide" else 2
+    word = 4 if kind in ("compressed-wide", "group-wide") else 2
     state = (a16(2 * msg * checks) + a16(word * checks) if cs
              else a16(msg * P * qc.z))
     param_plan = (cs and flooding) or sr or gs
@@ -725,7 +741,8 @@ def bp_qc_cuda(
     kind = design(qc, method, schedule, layered_group)
     # the group-serial kernels' per-group plan (raises when it does not fit
     # the kernel parameter)
-    group = (group_plan(qc, layered_group) if kind == "group" else None)
+    group = (group_plan(qc, layered_group) if kind in GROUP_DESIGNS
+             else None)
     plan, ab = _device_tables(qc, alpha, beta, iterations, str(llr.device))
     wm = wl = None
     if weights is not None:

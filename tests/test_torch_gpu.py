@@ -635,9 +635,29 @@ def test_serial_c_minsum_integer_llrs(cuda, name, dtype, schedule):
         mq.entry_point(code.qc, "min-sum", schedule, dtype=dtype): 1}
 
 
+def code_of(name):
+    """A library code, or ``degree-10``: qc1944_r34's base with the
+    circulant of its second block row's first column dropped (a row of
+    degree 10, which no body of the wide rows has: the full-message
+    kernels, chip_smoke.py's degree10_code)."""
+    if name != "degree-10":
+        return get_code(name)
+    from ldpc_sims_tpu_torch.codes.qc_construct import qc_from_base
+
+    base = [list(r) for r in get_code("qc1944_r34").qc.base]
+    base[1][0] = -1
+    return qc_from_base(base, 81, "qc1944_r34_d10")
+
+
+# the entry points' design suffix of the sum-product and group-serial
+# kernels by code: the slots in registers and group-serial within the
+# narrow limits, the same on the wide rows, the full messages
+SUFFIX = {"qc1944_r23": ("_rw", "_gw"), "degree-10": ("", "")}
+
+
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
 @pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc8448_r12",
-                                  "qc1944_r23"])
+                                  "qc1944_r23", "degree-10"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8], ids=["f32", "bf16", "int8"])
 def test_sumproduct_registers_match_plain_version(cuda, name, dtype,
@@ -646,11 +666,17 @@ def test_sumproduct_registers_match_plain_version(cuda, name, dtype,
     on a saturated row and the channel's regimes: fixed with its
     unsatisfied-check count, early stop at K = 2, per-edge weights, each
     with and without 4-bit messages, exactly equal to the plain version;
-    qc1944_r23 (rows of degree 8-9) keeps the full-message kernels."""
-    code = get_code(name)
+    qc1944_r23 (rows of degree 8-9) serial-C on the wide rows' _rw entry
+    points and flooding on the full-message kernels, the degree-10 code on
+    the full-message kernels."""
+    code = code_of(name)
     x = saturated(mixed_llrs(code, 40, cuda, seed=11))
     entry = mq.entry_point(code.qc, "sum-product", schedule, dtype=dtype)
-    assert ("_sr" in entry) == (name != "qc1944_r23")
+    sfx = SUFFIX.get(name, ("_sr",))[0]
+    if sfx == "_rw" and schedule == "flooding":
+        sfx = ""
+    assert entry == (mq.kernel_name("sum-product", schedule) + sfx
+                     + mq.STORAGE[dtype][1])
     w = random_edge_weights(code, 3, seed=12)
     mq.reset_launch_counts()
     for qb in (None, 4):
@@ -694,7 +720,8 @@ def test_sumproduct_registers_in_the_wifi648_sweep_preset(cuda):
 
 
 @pytest.mark.parametrize("method", ["min-sum", "sum-product"])
-@pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc1944_r23"])
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc1944_r23",
+                                  "degree-10"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8], ids=["f32", "bf16", "int8"])
 def test_group_serial_kernels_exactly_equal(cuda, name, dtype, method):
@@ -703,9 +730,9 @@ def test_group_serial_kernels_exactly_equal(cuda, name, dtype, method):
     with and without 3-bit messages, exactly equal to the plain version on
     integer LLRs (min-sum: ties, zero magnitudes, β above the minimum) or
     channel LLRs with saturated rows (sum-product); qc1944_r23 (rows of
-    degree 8-9) keeps the full-message kernels for G > 1 (its min-sum G = 1
-    takes the wide word's _cw kernel, sum-product the full messages)."""
-    code = get_code(name)
+    degree 8-9) on the wide rows' _gw kernels (its G = 1 on the _cw and
+    _rw kernels), the degree-10 code on the full-message kernels."""
+    code = code_of(name)
     if method == "min-sum":
         gen = torch.Generator(device=cuda)
         gen.manual_seed(5)
@@ -731,13 +758,16 @@ def test_group_serial_kernels_exactly_equal(cuda, name, dtype, method):
                 for g, r in (zip(got, want) if isinstance(got, tuple)
                              else [(got, want)]):
                     assert torch.equal(g, r), (G, qb, extra.get("output"))
-        gs = name != "qc1944_r23"
-        assert all(("_qc_layered" in e) and ("_gs" in e) == gs
-                   for e in mq.ENTRY_LAUNCHES)
+        sfx = SUFFIX.get(name, (None, "_gs"))[1]
+        forms = {*mq.KERNELS.values(), *mq.KERNELS_W.values()}
+        for e in mq.ENTRY_LAUNCHES:
+            base = e.removesuffix(mq.STORAGE[dtype][1])
+            assert "_qc_layered" in e and base.endswith(sfx)
+            assert base[:len(base) - len(sfx)] in forms
         assert sum(mq.ENTRY_LAUNCHES.values()) == 8
-    want = {("qc1944_r23", "min-sum"): "compressed-wide",
-            ("qc1944_r23", "sum-product"): "full"}.get(
-        (name, method), "compressed" if method == "min-sum" else "registers")
+    rows = {"qc1944_r23": "-wide", "degree-10": None}.get(name, "")
+    want = "full" if rows is None else (
+        ("compressed" if method == "min-sum" else "registers") + rows)
     assert mq.design(code.qc, method, "layered", 1) == want
 
 

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from ldpc_sims_tpu_torch.codes import get_code, list_codes
+from ldpc_sims_tpu_torch.codes.library import QcStructure
 from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 from ldpc_sims_tpu_torch.ops import init_neural_bp_weights
 from ldpc_sims_tpu_torch.ops.bp_roll import (
@@ -48,6 +49,16 @@ def cached_code(name):
     """get_code, built once per test process (the 5G-class codes' girth
     search takes seconds)."""
     return get_code(name)
+
+
+def degree10_qc():
+    """qc1944_r34's base (z = 81) with the circulant of its second block
+    row's first column dropped: 66 planes, rows of degree 10-12, a degree
+    (10) no body of the wide rows has (chip_smoke.py's degree10_code)."""
+    base = [list(r) for r in cached_code("qc1944_r34").qc.base]
+    assert sum(s >= 0 for s in base[1]) == 11 and base[1][0] >= 0
+    base[1][0] = -1
+    return QcStructure(z=81, base=tuple(tuple(r) for r in base))
 
 
 def parse_group_plan(qc, G):
@@ -107,12 +118,13 @@ def warp_tasks(z, warps, rows):
 def emulate_group_serial(llr, qc, G, iterations, method="min-sum",
                          alpha=1.0, beta=0.0, clamp=None, msg_qbits=None,
                          msg_qclip=20.0, dtype=torch.float32, weights=None,
-                         early_stop=False, check_every=1):
+                         early_stop=False, check_every=1, word_bits=8):
     """The _gs kernels (csrc/minsum_qc.cu: iterate_gs with gs_check_cs for
     min-sum on the compressed state, sp_check with kFoldGroup for
     sum-product, the fold pass, the weighted re-base) in torch, vectorized
-    over a warp task's lanes and the batch. Returns the posterior (log
-    Pr1/Pr0) and, with early stop, the iterations run."""
+    over a warp task's lanes and the batch; with ``word_bits=24`` the _gw
+    kernels, min-sum's word the wide one (24 sign bits). Returns the
+    posterior (log Pr1/Pr0) and, with early stop, the iterations run."""
     gp = parse_group_plan(qc, G)
     row_ptr, plane, col_ptr, col_planes = param_plan(qc)
     z, mb, nb = qc.z, qc.mb, qc.nb
@@ -227,9 +239,10 @@ def emulate_group_serial(llr, qc, G, iterations, method="min-sum",
                 return postlude(torch.clamp_min(mn - b, 0.0) * a)
 
             t1, t2 = T(min1), T(min2)
-            signs = negs ^ torch.where(odd == 1, 0xFF, 0)
+            mask = (1 << word_bits) - 1
+            signs = negs ^ torch.where(odd == 1, mask, 0)
             first = torch.clamp_min(idx, 0)
-            for s, new in zip(state, (code_of(t1), code_of(t2), signs & 0xFF,
+            for s, new in zip(state, (code_of(t1), code_of(t2), signs & mask,
                                       first)):
                 s[i][:, rs] = new
             if int8:  # the change of the stored message
@@ -482,22 +495,20 @@ QC_CODES = [n for n in list_codes() if n.startswith(("wifi", "qc"))]
 
 @pytest.mark.parametrize("name", QC_CODES)
 def test_group_plan_invariants(name):
-    """For every G in 2..mb on each library QC code within
-    COMPRESSED_LIMITS: each plane appears once (in its group's rows); the
-    private planes are exactly those alone in their column block within
-    the group; each fold entry is a column block of two or more planes of
-    its group, its shared planes on consecutive scratch rows in block-row
-    order, the group's rows distinct and below the largest group's; the
-    plan fits the kernel parameter's arrays. Codes beyond the limits take
-    no plan: full messages for G > 1 (min-sum's G = 1 takes the wide
-    word, sum-product's full messages)."""
+    """For every G in 2..mb on each library QC code, all of which the
+    group-serial kernels take (within COMPRESSED_LIMITS the _gs kernels,
+    beyond them by the row degree alone the _gw kernels): each plane
+    appears once (in its group's rows); the private planes are exactly
+    those alone in their column block within the group; each fold entry is
+    a column block of two or more planes of its group, its shared planes
+    on consecutive scratch rows in block-row order, the group's rows
+    distinct and below the largest group's; the plan fits the kernel
+    parameter's arrays."""
     qc = cached_code(name).qc
-    if not mq._within_limits(qc):
-        assert mq.design(qc, "min-sum", "layered", 2) == "full"
-        assert mq.design(qc, "sum-product", "layered", 2) == "full"
-        assert mq.design(qc, "min-sum", "layered", 1) == "compressed-wide"
-        assert mq.design(qc, "sum-product", "layered", 1) == "full"
-        return
+    kind = "group" if mq._within_limits(qc) else "group-wide"
+    assert kind == "group" or mq._within_limits(qc, wide=True)
+    for rule in ("min-sum", "sum-product"):
+        assert mq.design(qc, rule, "layered", 2) == kind
     planes, group_c, _ = qc_plan(qc)
     z = qc.z
     max_groups, max_folds = mq.GROUP_PLAN_LIMITS
@@ -570,28 +581,31 @@ def test_group_plan_beyond_the_parameter_raises():
     """A plan with more groups than the parameter's arrays hold raises,
     naming the limit (no code within COMPRESSED_LIMITS gets there: 64 block
     rows make at most 32 groups of G ≥ 2)."""
-    from ldpc_sims_tpu_torch.codes.library import QcStructure
-
     qc = QcStructure(z=4, base=((0, 0),) * 66)  # 66 block rows
     with pytest.raises(ValueError, match="at most 32"):
         mq.group_plan(qc, 2)
 
 
-@pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc1944_r23"])
+@pytest.mark.parametrize("name", ["wifi648", "wifi1944", "qc1944_r23",
+                                  "degree-10"])
 def test_group_serial_routing(name):
     """Every group-taking form of both rules at each storage type routes a
     G in 2..mb on a code within the limits to the _gs entry points (G = 1
     and G that covers a one-row group stay serial-C); a code beyond the
-    limits (qc1944_r23, rows of degree 8-9) keeps the full-message
-    kernels for G > 1, and at G = 1 takes the wide word's _cw kernel
-    (min-sum) or the full messages (sum-product). The scratch counts the
-    largest group's shared planes only."""
-    qc = cached_code(name).qc
-    fits = name != "qc1944_r23"
+    limits by its row degree alone (qc1944_r23, rows of degree 8-9) to
+    the _gw entry points, and at G = 1 to the wide word's _cw kernel
+    (min-sum) or the _rw kernel (sum-product); a code with a row of a
+    degree no wide body has (qc1944_r34's base with one circulant dropped)
+    keeps the full-message kernels. The scratch counts the largest group's
+    shared planes only."""
+    qc = degree10_qc() if name == "degree-10" else cached_code(name).qc
+    fits = name != "degree-10"
+    want, sfx_g = {"qc1944_r23": ("group-wide", "_gw"),
+                   "degree-10": ("full", "")}.get(name, ("group", "_gs"))
     for rule in RULES:
         for G in (2, 4, qc.mb, qc.mb + 1):
             kind = mq.design(qc, rule, "layered", G)
-            assert kind == ("group" if fits else "full")
+            assert kind == want
             for es, q, w in ((False, False, False), (True, False, False),
                              (False, True, False), (True, True, False),
                              (False, False, True), (False, True, True)):
@@ -600,11 +614,11 @@ def test_group_serial_routing(name):
                     entry = mq.entry_point(qc, rule, "layered", es, q, w,
                                            DTYPES[dt], G)
                     base = mq.kernel_name(rule, "layered", es, q, w)
-                    assert entry == base + ("_gs" if fits else "") + sfx
-        assert mq.design(qc, rule, "layered", 1) != "group"
-        if not fits:
+                    assert entry == base + sfx_g + sfx
+        assert mq.design(qc, rule, "layered", 1) not in mq.GROUP_DESIGNS
+        if name == "qc1944_r23":
             assert mq.design(qc, rule, "layered", 1) == (
-                "compressed-wide" if rule == "min-sum" else "full")
+                "compressed-wide" if rule == "min-sum" else "registers-wide")
     if fits:
         assert mq.compressed_state(qc, "min-sum", "layered", 4)
         assert mq.sumproduct_registers(qc, "sum-product", "layered", 4)

@@ -38,6 +38,7 @@ from ldpc_sims_tpu_torch.ops.bp_roll import (
     pack_edge_weights,
     qc_plan,
 )
+from test_torch_group_serial import degree10_qc
 
 SCHEDULES = os.path.join(os.path.dirname(__file__), "..", "docs",
                          "artifacts", "minsum_trained_schedules.json")
@@ -433,15 +434,25 @@ def test_plan_table_rebuilds_H(name):
 
 def test_smem_bytes_wifi1944():
     # full messages with the plan (group-serial, G = 2, of both rules on a
-    # code beyond the limits: qc1944_r23, rows of degree 8-9): plan 9 +
-    # 3·65 + 25 = 229 ints (232 padded), 65·81 message and 1944 posterior
-    # f32 and the f32 scratch of 2·9 planes, each region on a 16-byte
-    # boundary (the messages' 21,060 B take 21,072)
-    r23 = get_code("qc1944_r23").qc
+    # code with a row of a degree no wide body has: qc1944_r34's base with
+    # one circulant dropped, rows of degree 10-12): plan 7 + 3·66 + 25 =
+    # 230 ints (232 padded), 66·81 message and 1944 posterior f32 and the
+    # f32 scratch of 2·12 planes, each region on a 16-byte boundary (the
+    # messages' 21,384 B take 21,392)
+    d10 = degree10_qc()
     for rule in ("sum-product", "min-sum"):
-        assert mq.smem_bytes(r23, 2, method=rule,
-                             schedule="layered") == 4 * 232 + 21_072 + \
-            4 * 1944 + 4 * 18 * 81
+        assert mq.smem_bytes(d10, 2, method=rule,
+                             schedule="layered") == 4 * 232 + 21_392 + \
+            4 * 1944 + 4 * 24 * 81
+    # qc1944_r23 (rows of degree 8-9) at G = 2 on the _gw kernels: no plan
+    # and the scratch of its largest group's 12 shared planes; sum-product
+    # the 65·81 messages (21,060 B take 21,072), min-sum the wide word's
+    # state (648 checks: two f32 magnitudes and a 4-byte word each)
+    r23 = get_code("qc1944_r23").qc
+    assert mq.smem_bytes(r23, 2, method="sum-product", schedule="layered") \
+        == 21_072 + 4 * 1944 + 4 * 12 * 81
+    assert mq.smem_bytes(r23, 2, method="min-sum", schedule="layered") == \
+        648 * 8 + 648 * 4 + 4 * 1944 + 4 * 12 * 81
     # wifi1944 group-serial (the _gs kernels): no plan (the kernel's
     # parameter holds it) and the scratch of the largest group's shared
     # planes only, 8 at G = 2 and 22 at G = 4: sum-product's messages,
@@ -717,9 +728,15 @@ def emulate_sumproduct_sr(llr, qc, iterations, layered, msg_qbits=None,
     stores the message and, layered, the posterior. Flooding
     walks warps over (block row, 32 checks), then over (column block, 32
     variables) for the rebuild from the LLRs in the posterior's storage.
-    Returns the posterior, log(Pr1/Pr0)."""
+    On the codes beyond the narrow limits by their row degree alone the
+    serial-C loop is the _rw kernels', each row's slots unrolled to its
+    degree (8-18; the kernel reads a slot's old message and posterior
+    again in pass 2, the same values), the plan's entries packed for the
+    wide word as the launcher packs them. Returns the posterior,
+    log(Pr1/Pr0)."""
     f32 = torch.float32
-    row_ptr, plane, col_ptr, cols = flood_plan(qc)
+    row_ptr, plane, col_ptr, cols = flood_plan(
+        qc, 8 if mq._within_limits(qc) else mq.WIDE_LIMITS[0])
     z, mb, nb = qc.z, qc.mb, qc.nb
     x = torch.from_numpy(llr)
     B = x.shape[0]
@@ -915,39 +932,49 @@ def test_sumproduct_registers_loop_matches_pallas_interpret():
 
 @pytest.mark.parametrize("name, fits", [
     ("wifi648", True), ("wifi1944", True), ("qc8448_r12", True),
-    ("qc12288_r12", True), ("qc1944_r23", False), ("qc648_r56", False)])
+    ("qc12288_r12", True), ("qc1944_r23", False), ("qc648_r56", False),
+    ("degree-10", None)])
 def test_sumproduct_registers_selection(name, fits):
     """Which decodes keep a sum-product check's slots in registers: every
     sum-product decode on a code within the register arrays' 8 slots and
     the parameter plan's limits, flooding and serial-C (G = 1) on the _sr
-    kernels, group-serial (G > 1) on the _gs kernels; the codes beyond
-    keep the full-message kernels at every G. Min-sum keeps its compressed
-    state (_cs, and _gs for G > 1) within the limits and, beyond them by
-    the row degree alone, its wide word for flooding and G = 1 (_cw),
-    full messages for G > 1."""
-    qc = cached_code(name).qc
+    kernels, group-serial (G > 1) on the _gs kernels; beyond them by the
+    row degree alone (``fits`` False) serial-C and group-serial on the wide
+    rows (_rw, _gw) and flooding on the full-message kernel, and a code
+    with a row of a degree no wide body has (``fits`` None) the
+    full-message kernels at every G. Min-sum keeps its
+    compressed state (_cs, and _gs for G > 1) within the limits and on the
+    wide rows its wide word (_cw, and _gw for G > 1)."""
+    qc = degree10_qc() if fits is None else cached_code(name).qc
+    rows = "" if fits else "-wide"
     for sched, G in (("flooding", 1), ("layered", 1), ("layered", 2),
                      ("layered", 4)):
         group = G > 1
-        assert mq.sumproduct_registers(qc, "sum-product", sched, G) == fits
+        full = fits is None or (not fits and sched == "flooding")
+        assert mq.sumproduct_registers(qc, "sum-product", sched, G) == (
+            not full)
         assert not mq.sumproduct_registers(qc, "min-sum", sched, G)
         kind = mq.design(qc, "sum-product", sched, G)
-        want = ("group" if group else "registers") if fits else "full"
+        want = "full" if full else (
+            ("group" if group else "registers") + rows)
         assert kind == want
         entry = mq.entry_point(qc, "sum-product", sched, dtype=torch.int8,
                                layered_group=G)
         assert entry == f"sumproduct_qc_{sched}" + mq.DESIGNS[want][1] \
             + "_i8"
-        assert mq.design(qc, "min-sum", sched, G) == (
-            ("group" if group else "compressed") if fits
-            else ("full" if group else "compressed-wide"))
+        assert mq.design(qc, "min-sum", sched, G) == ("full" if fits is None
+                                                      else ("group" if group
+                                                            else "compressed")
+                                                      + rows)
+    sr, cs = {True: ("_sr", "_cs"), False: ("_rw", "_cw"),
+              None: ("", "")}[fits]
     assert mq.entry_point(qc, "sum-product", "layered", True, True) == (
-        "sumproduct_qc_layered_es_msgq" + ("_sr" if fits else ""))
+        "sumproduct_qc_layered_es_msgq" + sr)
     assert mq.entry_point(qc, "sum-product", "flooding", weighted=True,
                           dtype=torch.bfloat16) == (
         "sumproduct_qc_flooding_w" + ("_sr" if fits else "") + "_bf16")
     assert mq.entry_point(qc, "min-sum", "layered", True, True) == (
-        "minsum_qc_layered_es_msgq" + ("_cs" if fits else "_cw"))
+        "minsum_qc_layered_es_msgq" + cs)
 
 
 def test_launch_table_keys_the_method():

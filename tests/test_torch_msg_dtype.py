@@ -24,6 +24,7 @@ from ldpc_sims_tpu_torch.codes import get_code
 from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 from ldpc_sims_tpu_torch.ops import bp_decode
 from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, message_storage
+from test_torch_group_serial import degree10_qc
 
 NAME = "wifi648"
 JAX_DTYPES = {torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}
@@ -242,9 +243,12 @@ def test_smem_bytes_per_storage_type():
     flooding, keeps the compressed check state: two stored magnitudes and
     a 2-byte word a check, flooding without the plan and with the LLRs
     beside the posterior, in its storage type. A code beyond the limits
-    (qc1944_r23) keeps the full messages and the plan for G > 1, with the
-    scratch of a group's planes; its min-sum flooding and serial-C keep
-    the compressed state with a 4-byte word a check (the wide word)."""
+    by its row degree alone (qc1944_r23) takes the same designs on the
+    wide rows: min-sum's compressed state with a 4-byte word a check (the
+    wide word), sum-product's messages without the plan, G > 1 with the
+    scratch of the largest group's shared planes; a code with a row of a
+    degree no wide body has keeps the full messages and the plan, with
+    the scratch of a group's planes for G > 1."""
     sp = dict(method="sum-product", schedule="layered")
     ms = dict(method="min-sum", schedule="layered")
     fl = dict(method="min-sum", schedule="flooding")
@@ -263,13 +267,20 @@ def test_smem_bytes_per_storage_type():
     # largest group's 8 shared planes
     assert mq.smem_bytes(big, 2, **sp) == 174_976 - 896 + 4 * 8 * 512
     assert mq.smem_bytes(big, **sp) == 174_976 - 896
-    # beyond the limits (qc1944_r23: 65 planes, rows of degree 8-9) G = 2
-    # keeps the full messages with the plan (229 ints, 928 B) and the
-    # scratch of min(P, 2·9) planes
+    # beyond the limits by the row degree alone (qc1944_r23: 65 planes,
+    # rows of degree 8-9) G = 2 takes the _gw kernels: the messages and
+    # the scratch of its largest group's 12 shared planes, no plan; with a
+    # row of degree 10 (qc1944_r34's base with one circulant dropped: 66
+    # planes, rows of degree 10-12) G = 2 keeps the full messages with
+    # the plan (230 ints, 928 B) and the scratch of min(P, 2·12) planes
     r23 = get_code("qc1944_r23").qc
-    assert mq.smem_bytes(r23, 2, **sp) == 928 + 21_072 + 7776 + 4 * 18 * 81
+    assert mq.smem_bytes(r23, 2, **sp) == 21_072 + 7776 + 4 * 12 * 81
     assert mq.smem_bytes(r23, 2, torch.bfloat16, **sp) == (
-        928 + 10_544 + 3888 + 4 * 18 * 81)
+        10_544 + 3888 + 4 * 12 * 81)
+    d10 = degree10_qc()
+    assert mq.smem_bytes(d10, 2, **sp) == 928 + 21_392 + 7776 + 4 * 24 * 81
+    assert mq.smem_bytes(d10, 2, torch.bfloat16, **sp) == (
+        928 + 10_704 + 3888 + 4 * 24 * 81)
     assert mq.smem_bytes(big, 1, torch.bfloat16, **sp) == 87_936 - 896
     assert mq.smem_bytes(big, 1, torch.int8, **sp) == 81_280 - 896
     # two f32 CTAs an SM (115,712 B each with the 1 KB a CTA reserves)
@@ -309,12 +320,18 @@ def test_smem_bytes_per_storage_type():
         assert mq.compressed_state(get_code("wifi648").qc, **kw)
         assert mq.compressed_state(r23, **kw)
         assert mq.design(r23, **kw) == "compressed-wide"
-    assert not mq.compressed_state(r23, layered_group=2, **ms)
-    assert mq.smem_bytes(r23, 2, **ms) == mq.smem_bytes(r23, 2, **sp)
+        assert not mq.compressed_state(d10, **kw)
+    assert mq.compressed_state(r23, layered_group=2, **ms)
+    assert mq.design(r23, layered_group=2, **ms) == "group-wide"
+    assert mq.smem_bytes(r23, 2, **ms) == (648 * 8 + 648 * 4 + 7776
+                                           + 4 * 12 * 81)
+    assert mq.smem_bytes(d10, 2, **ms) == mq.smem_bytes(d10, 2, **sp)
     assert mq.smem_bytes(r23, **ms) == 928 + 648 * 8 + 648 * 4 + 7776
     assert mq.smem_bytes(r23, **fl) == 648 * 8 + 648 * 4 + 2 * 7776
     assert not mq.compressed_state(qc, "sum-product", "flooding")
+    assert mq.sumproduct_registers(r23, "sum-product", "layered")
     assert not mq.sumproduct_registers(r23, "sum-product", "flooding")
+    assert not mq.sumproduct_registers(d10, "sum-product", "layered")
 
 
 def test_bigcode_and_tuner_need_a_card(monkeypatch, capsys):

@@ -24,6 +24,7 @@ from ldpc_sims_tpu_torch.codes.library import QcStructure
 from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 from ldpc_sims_tpu_torch.ops import init_neural_bp_weights
 from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, qc_plan
+from test_torch_group_serial import degree10_qc
 from test_torch_kernels import (
     FLOODING_CS_CASES,
     bpsk_llrs,
@@ -133,8 +134,10 @@ def test_wide_word_packing():
 def test_wide_design_selection(name):
     """On the six codes beyond the narrow word by their row degree alone,
     min-sum flooding and serial-C (G = 1) take the wide word's _cw entry
-    points at every storage type and form; min-sum G > 1 and every
-    sum-product form keep the full-message kernels."""
+    points at every storage type and form, sum-product serial-C the _rw
+    entry points and the group-serial forms of both rules (G > 1) the _gw
+    entry points; sum-product flooding alone keeps the full-message
+    kernel."""
     qc = cached_code(name).qc
     assert not mq._within_limits(qc) and mq._within_limits(qc, wide=True)
     degrees = {len(ps) for ps in qc_plan(qc)[1]}
@@ -142,31 +145,42 @@ def test_wide_design_selection(name):
     for sched in ("flooding", "layered"):
         assert mq.design(qc, "min-sum", sched) == "compressed-wide"
         assert mq.compressed_state(qc, "min-sum", sched)
-        assert mq.design(qc, "sum-product", sched) == "full"
+        sp = "_rw" if sched == "layered" else ""
+        assert mq.design(qc, "sum-product", sched) == (
+            "registers-wide" if sp else "full")
         for es, q, w in ((False, False, False), (True, True, False),
                          (False, True, True)):
             for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16"),
                             (torch.int8, "_i8")):
-                base = mq.kernel_name("min-sum", sched, es, q, w)
-                assert mq.entry_point(qc, "min-sum", sched, es, q, w,
-                                      dt) == base + "_cw" + sfx
+                for rule, kind in (("min-sum", "_cw"), ("sum-product", sp)):
+                    base = mq.kernel_name(rule, sched, es, q, w)
+                    assert mq.entry_point(qc, rule, sched, es, q, w,
+                                          dt) == base + kind + sfx
     for G in (2, 4, qc.mb):
-        assert mq.design(qc, "min-sum", "layered", G) == "full"
-        assert mq.design(qc, "sum-product", "layered", G) == "full"
-        assert not mq.compressed_state(qc, "min-sum", "layered", G)
+        assert mq.design(qc, "min-sum", "layered", G) == "group-wide"
+        assert mq.design(qc, "sum-product", "layered", G) == "group-wide"
+        assert mq.compressed_state(qc, "min-sum", "layered", G)
+        assert mq.sumproduct_registers(qc, "sum-product", "layered", G)
     # G above mb is taken as mb; a one-row code's G is 1
     assert mq.design(qc, "min-sum", "layered", 1) == "compressed-wide"
 
 
 def test_wide_design_needs_a_body_of_each_degree():
     """A code within the limits but for a row of a degree the wide kernels
-    have no body for (10) keeps the full messages; the codes within the
-    narrow word keep its _cs kernels."""
+    have no body for (10) keeps the full messages in every form of both
+    rules, at z = 4 and on qc1944_r34's base with one circulant dropped
+    (z = 81); the codes within the narrow word keep its _cs kernels."""
     row = (0,) * 10 + (-1,) * 2
-    qc = QcStructure(z=4, base=(row, row[::-1]))
-    assert 10 not in mq.WIDE_LIMITS[1]
-    assert mq.design(qc, "min-sum", "flooding") == "full"
-    assert mq.design(qc, "min-sum", "layered") == "full"
+    for qc in (QcStructure(z=4, base=(row, row[::-1])), degree10_qc()):
+        assert 10 in {len(ps) for ps in qc_plan(qc)[1]}
+        assert 10 not in mq.WIDE_LIMITS[1]
+        for rule in ("min-sum", "sum-product"):
+            for sched, G in (("flooding", 1), ("layered", 1),
+                             ("layered", 2), ("layered", qc.mb)):
+                assert mq.design(qc, rule, sched, G) == "full"
+                assert mq.entry_point(qc, rule, sched, dtype=torch.int8,
+                                      layered_group=G) == (
+                    mq.kernel_name(rule, sched) + "_i8")
     w648 = cached_code("wifi648").qc
     assert mq.design(w648, "min-sum", "flooding") == "compressed"
     assert mq.entry_point(w648, "min-sum", "layered", True) == \
@@ -187,6 +201,12 @@ def test_smem_bytes_wide_state():
     assert mq.smem_bytes(qc, 1, torch.bfloat16, **ms) == (960 + 1296 + 1296
                                                           + 3888)
     assert mq.smem_bytes(qc, 1, torch.int8, **fl) == 656 + 1296 + 2 * 7776
-    # the full messages of its G > 1 and sum-product forms: 69 planes
+    # the full messages of its sum-product forms: 69 planes, with their
+    # plan in the kernel parameter (the _rw kernels)
     sp = mq.smem_bytes(qc, 1, method="sum-product", schedule="layered")
-    assert sp == 960 + 22_368 + 7776  # 22,356 B of messages, aligned
+    assert sp == 22_368 + 7776  # 22,356 B of messages, aligned
+    # the full-message kernels on a code with a row of degree 10 keep the
+    # plan (7 + 3·66 + 25 = 230 ints, 928 B padded) in shared memory
+    d10 = degree10_qc()
+    assert mq.smem_bytes(d10, 1, method="sum-product",
+                         schedule="layered") == 928 + 21_392 + 7776
