@@ -12,10 +12,12 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    group-serial kernels (the _gs kernels) and each of the 36 min-sum
    kernels on the compressed state's wide word (the _cw kernels) has a 0 B
    stack frame, printing their registers, and unless the 18 serial-C
-   sum-product kernels on the wide rows (_rw) and the 36 group-serial
-   kernels there (_gw) were built, printing their registers and stack
-   frames (a _gw or _rw row of phase 4 whose kernel has a stack frame
-   fails unless it runs faster than the full-message kernel it replaces);
+   sum-product kernels on the wide rows (_rw), the 36 group-serial
+   kernels there (_gw) and the 18 flooding sum-product kernels there
+   (_lw) were built, printing their registers and stack frames (a _gw,
+   _rw or _lw row of phase 4 whose kernel has a stack frame fails unless
+   it runs faster than the full-message kernel it replaces); the build's
+   nine translation units each print their compile time;
 2. hold each kernel against its plain PyTorch version on the card at
    batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75, β=0.1,
    clamp 20), the registry's trained layered-8 on wifi1944 and wifi648
@@ -53,7 +55,8 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    layered form (fixed with its unsatisfied-check count, early stop at
    K = 1 and 2, ``done_in``, weighted; with and without 3-bit messages)
    and both drivers at f32, bf16 and int8 and G = 1, 2, 3, 4 and mb on
-   integer LLRs in {-3, ..., 3} (tied minima, zero magnitudes, an offset
+   1024 codewords of integer LLRs in {-3, ..., 3} (tied minima, zero
+   magnitudes, an offset
    above the minimum: the inputs a compressed check state could get
    wrong) on wifi1944 and wifi648 (serial-C on the _cs kernels, G > 1 on
    the _gs kernels), at G = 1 on qc648_r23, qc648_r56, qc1944_r23 and
@@ -67,15 +70,16 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    (the wide word), each exactly equal, each decode failing unless it
    takes its design. Then (2g) every sum-product form (fixed with its
    unsatisfied-check count, early stop at K = 1 and 2, ``done_in``,
-   weighted; with and without 4-bit messages; both schedules) and both
-   drivers at f32, bf16 and int8 on wifi1944, wifi648 and qc8448_r12,
-   which take the _sr kernels, on wifi1944 and wifi648 at G = 2, 3, 4
-   and mb, which take the _gs kernels, on qc648_r23, qc648_r56, qc1944_r34
-   and qc1944_r56 at G = 1 (serial-C on the _rw kernels, flooding on the
-   full-message kernels those codes keep for it) and 2, 4 and mb (the _gw
-   kernels), and on the degree-10 code at G = 1 and 2, which keeps the
-   full-message kernels, on channel LLRs with 64 rows saturated at |LLR| =
-   60, each exactly equal;
+   weighted; with and without 4-bit messages; both schedules; 4
+   iterations) and both drivers (2 + 4 iterations) at f32, bf16 and int8
+   on wifi1944, wifi648 and qc8448_r12, which take the _sr kernels, on
+   wifi1944 and wifi648 at G = 2, 3, 4 and mb, which take the _gs kernels,
+   on qc648_r23, qc648_r56, qc1944_r34 and qc1944_r56 at G = 1 (serial-C
+   on the _rw kernels, flooding on the _lw kernels) and 2, 4 and mb (the
+   _gw kernels), flooding on qc648_r34 and qc1944_r23 (the _lw kernels:
+   all six wide codes), and on the degree-10 code at G = 1 and 2, which
+   keeps the full-message kernels, on 1024 codewords of channel LLRs with
+   64 rows saturated at |LLR| = 60, each exactly equal;
 3. the main paths at full width, each through ``run_sweep`` → ``mc_step``
    → ``link_step`` → ``bp_decode`` on wifi1944, QPSK, OFDM-32, batch
    32768, with the launch counters set to 0 just before and read just
@@ -138,9 +142,15 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    entry point: min-sum layered-20 at G = 4 and 2, layered-20 G = 4 with
    ``es_mode='freeze'``, layered-6 G = 4 with random per-edge weights,
    sum-product layered-20 with ``es_mode='auto'``, layered-20 with
-   ``es_mode='freeze'`` and layered-20 G = 4; the G = 4 BLER between
-   min-sum layered-20's and flooding-20's on the same frames within 4σ,
-   sum-product's at or below min-sum layered-20's within 4σ;
+   ``es_mode='freeze'`` and layered-20 G = 4, and the two forms the _lw
+   kernels took over on qc1944_r56, sum-product flooding-20 and its
+   ``es_mode='freeze'``; the G = 4 BLER between min-sum layered-20's and
+   flooding-20's on the same frames within 4σ, sum-product's at or below
+   min-sum layered-20's within 4σ; and the other 16 entry points of the
+   _lw kernels (``LW_ROWS``: 4-bit messages, per-edge weights, bf16 and
+   int8 storage) each decoded once through ``bp_decode`` on qc1944_r56's
+   channel at its TPU-sweep point, batch 32768, failing unless exactly its
+   entry point launched once;
 3e. the bigcode scale run (``ldpc_sims_tpu_torch.examples.bigcode``) at
    full width on qc8448_r12 and qc12288_r12, batch 16384, its pipe cut
    from 16 to 4 decodes: the rates of flooding-20 f32 and layered-10 at
@@ -313,7 +323,9 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    and ``minsum_qc_layered_w@train-edge-layered`` (the trained layered-6
    weights with their α/β table), each on the examples' BPSK frames at
    2.0 dB with the launches of its example's run;
-   then the times of both drivers; then the storage rows with the launches
+   the 16 ``LW_ROWS`` (the _lw kernels' other entry points at phase 3d's
+   shape, each exactly equal to the plain version, whose one run is its
+   time); then the times of both drivers; then the storage rows with the launches
    of phase 3e: ``minsum_qc_layered@bf16`` and ``@int8`` (trained
    layered-8 on wifi1944, beside ``minsum_qc_layered``), and at batch
    16384 on qc12288 ``minsum_qc_layered@qc12288`` at f32, bf16 and int8
@@ -649,6 +661,11 @@ FULL_MESSAGE_MS = {
     "sumproduct_qc_layered@qc1944_r56": 38.687,
     "sumproduct_qc_layered_es@qc1944_r34": 10.243,
     "sumproduct_qc_layered@qc1944_r34-g4": 44.729,
+    # the full-message kernel the _lw kernels replaced: flooding-20 (the
+    # same step 1 of commit 9be01e8) and its early stop (the old turns of
+    # `python -m ldpc_sims_tpu_torch.kernels.compare` of commit 8f8e08f)
+    "sumproduct_qc_flooding@qc1944_r56": 35.931,
+    "sumproduct_qc_flooding_es@qc1944_r56": 15.048,
 }
 # the forms the _gw and _rw kernels took over from the full-message
 # kernels on the high-rate codes: the rows of kernels/compare.py (batch
@@ -684,7 +701,32 @@ WIDE_ROWS = {
                            layered_group=4),
         ("--method", "sum-product", "--iters", "20", "--layered-group",
          "4")),
+    # the _lw kernels (sum-product flooding with one lt an edge)
+    "sumproduct_qc_flooding@qc1944_r56": (
+        "qc1944_r56", dict(iterations=20, method="sum-product",
+                           schedule="flooding"),
+        ("--method", "sum-product", "--iters", "20")),
+    "sumproduct_qc_flooding_es@qc1944_r56": (
+        "qc1944_r56", dict(iterations=20, method="sum-product",
+                           schedule="flooding", early_stop=True),
+        ("--method", "sum-product", "--iters", "20", "--early-stop",
+         "--es-mode", "freeze")),
 }
+# the other 16 entry points of the _lw kernels: each form (4-bit
+# messages, random per-edge weights on flooding-12, early stop with 4-bit
+# messages) at each storage type, and the fixed and early-stop forms at
+# bf16 and int8, decoded once each through bp_decode in phase 3d at
+# qc1944_r56's TPU-sweep point (batch 32768) and timed in phase 4: row →
+# (form, storage)
+LW_CODE = "qc1944_r56"
+LW_FORMS = {"": {}, "_es": dict(early_stop=True), "_msgq": dict(msg_qbits=4),
+            "_es_msgq": dict(early_stop=True, msg_qbits=4),
+            "_w": dict(weights=True), "_w_msgq": dict(weights=True,
+                                                      msg_qbits=4)}
+LW_STORAGE = {"": "float32", "-bf16": "bfloat16", "-int8": "int8"}
+LW_ROWS = {f"sumproduct_qc_flooding{f}@{LW_CODE}{d}": (f, d)
+           for f in LW_FORMS for d in LW_STORAGE
+           if f"sumproduct_qc_flooding{f}@{LW_CODE}{d}" not in WIDE_ROWS}
 # each high-rate code's TPU-sweep point in Eb/N0 (its Es/N0 in
 # kernels/compare.py's HIGH_RATE_SWEEP)
 WIDE_EBN0 = {"qc1944_r34": 3.0, "qc1944_r56": 3.5}
@@ -810,10 +852,11 @@ def start_edge_probe():
     src.write_text(f'#include "{mq.SOURCE}"\n' + EDGE_PROBE)
     flags = [f for f in mq.NVCC_FLAGS if f not in (
         "-Xptxas", "-v", "-Xcompiler", "-fPIC")]
+    # the source's device functions alone, no entry point (QC_FAMILY=-1)
     proc = subprocess.Popen(
-        [mq._nvcc(), *flags, "-DQC_STORAGE=0", "-cubin", "-o", str(cubin),
-         str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+        [mq._nvcc(), *flags, "-DQC_STORAGE=0", "-DQC_FAMILY=-1", "-cubin",
+         "-o", str(cubin), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc, cubin
 
@@ -870,8 +913,9 @@ def smem_instructions(lib) -> tuple[dict, dict]:
     beyond the limits) and the ones with a check's slots in registers
     (``sumproduct_qc_layered_sr``, ``sumproduct_qc_flooding_sr``), and the
     group-serial kernels of both rules (``minsum_qc_layered_gs``,
-    ``sumproduct_qc_layered_gs``) and the min-sum kernels on the wide word
-    (``minsum_qc_layered_cw``, ``minsum_qc_flooding_cw``), each innermost
+    ``sumproduct_qc_layered_gs``), the min-sum kernels on the wide word
+    (``minsum_qc_layered_cw``, ``minsum_qc_flooding_cw``) and sum-product
+    flooding on the wide rows (``sumproduct_qc_flooding_lw``), each innermost
     loop (a backward branch that holds no other) as (instructions, LDS,
     STS, LDL + STL); and each kernel's SASS instructions in all."""
     import re
@@ -900,7 +944,9 @@ def smem_instructions(lib) -> tuple[dict, dict]:
                "_Z20minsum_qc_layered_cwPKf": "serial-C compressed-wide",
                "_Z21minsum_qc_flooding_cwPKf": "flooding compressed-wide",
                "_Z24sumproduct_qc_layered_gsPKf":
-                   "sum-product group-serial registers"}.get(
+                   "sum-product group-serial registers",
+               "_Z25sumproduct_qc_flooding_lwPKf":
+                   "sum-product flooding lt-wide"}.get(
                    name[:name.index("PKf") + 3] if "PKf" in name else "")
         if key is None:
             continue
@@ -928,6 +974,22 @@ def smem_instructions(lib) -> tuple[dict, dict]:
                  if lo <= a <= hi and op in ("LDL", "STL")))
             for lo, hi in inner)
     return found, sizes
+
+
+def plain_fixed(llr, qc, **kw):
+    """One fixed decode of the plain version: its posterior, and the hard
+    bits and unsatisfied-check counts its ``hard_unsat`` output derives
+    from that posterior (``ops.bp_roll._emit``). The kernels' ``done_in``
+    rows are held to the same posterior: the plain version decodes each
+    codeword alone, so a row it skips leaves the others' values as they
+    are."""
+    import torch
+
+    from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll, unsat_checks
+
+    post = decode_roll(llr, qc, output="posterior", **kw)
+    internal = (-post).reshape(post.shape[0], qc.nb, qc.z)
+    return post, ((post > 0).to(torch.int8), unsat_checks(internal, qc))
 
 
 def adversarial(schedule, cases, storage_rows, max_err) -> None:
@@ -978,12 +1040,11 @@ def adversarial(schedule, cases, storage_rows, max_err) -> None:
                     kw = dict(st, msg_qbits=qb, iterations=4,
                               alpha=(1.0, 0.75, 0.5, 1.0),
                               beta=(0.0, 1.0, 2.5, 0.5), clamp=2.0)
-                    pairs = []
-                    for out in ("posterior", "hard_unsat"):
-                        k = mq.bp_qc_cuda(llr, qc, output=out, **kw)
-                        p = decode_roll(llr, qc, output=out, **kw)
-                        pairs += (list(zip(k, p)) if isinstance(k, tuple)
-                                  else [(k, p)])
+                    p_post, p_hard = plain_fixed(llr, qc, **kw)
+                    pairs = [(mq.bp_qc_cuda(llr, qc, output="posterior",
+                                            **kw), p_post),
+                             *zip(mq.bp_qc_cuda(llr, qc, output="hard_unsat",
+                                                **kw), p_hard)]
                     name = mq.kernel_name("min-sum", schedule, False,
                                           qb is not None, dtype=dt)
                     max_err[name] = max(max_err[name],
@@ -999,9 +1060,7 @@ def adversarial(schedule, cases, storage_rows, max_err) -> None:
                             f"{at} early stop K={K}"))
                     k = mq.bp_qc_cuda(llr, qc, output="posterior",
                                       done_in=skip, **kw)
-                    p = decode_roll(llr, qc, output="posterior",
-                                    done_in=skip, **kw)
-                    exact([(k[~skip], p[~skip])], f"{at} done_in")
+                    exact([(k[~skip], p_post[~skip])], f"{at} done_in")
                     kw_w = dict(kw, weights=w, output="posterior")
                     name = mq.kernel_name("min-sum", schedule, False,
                                           qb is not None, True, dt)
@@ -1015,25 +1074,25 @@ def adversarial(schedule, cases, storage_rows, max_err) -> None:
                           flush=True)
                     continue
                 # both drivers, against plain compositions of their passes
-                rb, ri = mq.bp_qc_requeue(llr, qc, 6, probe_iters=2,
+                rb, ri = mq.bp_qc_requeue(llr, qc, 4, probe_iters=2,
                                           es_check_every=1,
                                           output="hard_iters", **st)
                 es = dict(st, early_stop=True, output="hard_iters")
                 b1, i1 = decode_roll(llr, qc, iterations=2, **es)
-                b2, i2 = decode_roll(llr, qc, iterations=6, **es)
+                b2, i2 = decode_roll(llr, qc, iterations=4, **es)
                 done = i1 < 2
                 exact([(rb, torch.where(done[:, None], b1, b2)),
                        (ri, torch.where(done, i1, 2 + i2))],
                       f"{code.name} {sfx} G={G} bp_qc_requeue")
                 pb_, pi_ = mq.bp_qc_probe_requeue(
-                    llr, qc, 6, probe_iters=2, output="hard_iters", **st)
+                    llr, qc, 4, probe_iters=2, output="hard_iters", **st)
                 b1, u1 = decode_roll(llr, qc, iterations=2,
                                      output="hard_unsat", **st)
-                b2 = decode_roll(llr, qc, iterations=6, **st)
+                b2 = decode_roll(llr, qc, iterations=4, **st)
                 keep = (u1 == 0) & (B - int((u1 == 0).sum())
                                     <= mq.probe_capacity(B))
                 exact([(pb_, torch.where(keep[:, None], b1, b2)),
-                       (pi_, torch.where(keep, 2, 8).to(torch.int32))],
+                       (pi_, torch.where(keep, 2, 6).to(torch.int32))],
                       f"{code.name} {sfx} G={G} bp_qc_probe_requeue")
                 print(f"  {code.name} {sfx} G={G} ({state}): fixed, "
                       "unsatisfied counts, early stop, done_in, weighted "
@@ -1049,9 +1108,11 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
     60, each exactly equal to the plain version, for each (code, group,
     entry point suffix) of ``cases``: ``_sr`` (a check's slots in
     registers), ``_gs`` (group-serial), their forms on the wide rows
-    ``_rw`` (serial-C) and ``_gw``, or ``""`` (the full-message kernels a
-    code with a row of a degree no wide body has keeps, and the wide rows'
-    flooding), or a dict of them by schedule."""
+    ``_rw`` (serial-C), ``_lw`` (flooding) and ``_gw``, or ``""`` (the
+    full-message kernels a code with a row of a degree no wide body has
+    keeps), or a dict of them by schedule (the schedules it names alone;
+    the drivers where it names layered). Batch 1024, 4 iterations (the
+    drivers 2 + 4): the plain version on the card is most of the time."""
     import torch
 
     from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
@@ -1059,15 +1120,15 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
 
     for code, G, want in cases:
         qc = code.qc
-        B = 4096 if code.n <= 1944 and G == 1 else 1024
+        B = 1024
         llr = channel_llrs(code, B, 1.5, seed=81)
         llr[:64] = torch.where(llr[:64] > 0, 60.0, -60.0)
         skip = torch.arange(B, device="cuda") % 3 == 0
         w = random_edge_weights(code, 4, seed=82)
         wants = want if isinstance(want, dict) else dict.fromkeys(
-            ("flooding", "layered"), want)
+            ("flooding", "layered") if G == 1 else ("layered",), want)
         for dt, sfx in {torch.float32: "f32", **storage_rows}.items():
-            for sched in ("flooding", "layered") if G == 1 else ("layered",):
+            for sched in wants:
                 st = dict(schedule=sched, method="sum-product", dtype=dt,
                           msg_qclip=20.0, layered_group=G)
                 entry = mq.entry_point(qc, "sum-product", sched, dtype=dt,
@@ -1077,13 +1138,12 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
                     fail(f"{code.name} G={G} {sched}: launches {entry}")
                 for qb in (None, 4):
                     at = f"{code.name} {sched} {sfx} G={G} msg_qbits={qb}"
-                    kw = dict(st, msg_qbits=qb, iterations=6)
-                    pairs = []
-                    for out in ("posterior", "hard_unsat"):
-                        k = mq.bp_qc_cuda(llr, qc, output=out, **kw)
-                        p = decode_roll(llr, qc, output=out, **kw)
-                        pairs += (list(zip(k, p)) if isinstance(k, tuple)
-                                  else [(k, p)])
+                    kw = dict(st, msg_qbits=qb, iterations=4)
+                    p_post, p_hard = plain_fixed(llr, qc, **kw)
+                    pairs = [(mq.bp_qc_cuda(llr, qc, output="posterior",
+                                            **kw), p_post),
+                             *zip(mq.bp_qc_cuda(llr, qc, output="hard_unsat",
+                                                **kw), p_hard)]
                     name = mq.kernel_name("sum-product", sched, False,
                                           qb is not None, dtype=dt)
                     max_err[name] = max(max_err[name],
@@ -1099,9 +1159,7 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
                             f"{at} early stop K={K}"))
                     k = mq.bp_qc_cuda(llr, qc, output="posterior",
                                       done_in=skip, **kw)
-                    p = decode_roll(llr, qc, output="posterior",
-                                    done_in=skip, **kw)
-                    exact([(k[~skip], p[~skip])], f"{at} done_in")
+                    exact([(k[~skip], p_post[~skip])], f"{at} done_in")
                     kw_w = dict(kw, iterations=4, weights=w,
                                 output="posterior")
                     name = mq.kernel_name("sum-product", sched, False,
@@ -1113,32 +1171,60 @@ def sumproduct_registers(cases, storage_rows, max_err) -> None:
                       "unsatisfied counts, early stop K = 1, 2, done_in, "
                       "weighted (each with and without 4-bit messages) "
                       "equal", flush=True)
+            if "layered" not in wants:
+                continue
             # both drivers, against plain compositions of their passes
             st = dict(schedule="layered", method="sum-product", dtype=dt,
                       msg_qclip=20.0, layered_group=G)
-            rb, ri = mq.bp_qc_requeue(llr, qc, 8, probe_iters=2,
+            rb, ri = mq.bp_qc_requeue(llr, qc, 4, probe_iters=2,
                                       es_check_every=2, output="hard_iters",
                                       **st)
             es = dict(st, early_stop=True, es_check_every=2,
                       output="hard_iters")
             b1, i1 = decode_roll(llr, qc, iterations=2, **es)
-            b2, i2 = decode_roll(llr, qc, iterations=8, **es)
+            b2, i2 = decode_roll(llr, qc, iterations=4, **es)
             done = i1 < 2
             exact([(rb, torch.where(done[:, None], b1, b2)),
                    (ri, torch.where(done, i1, 2 + i2))],
                   f"{code.name} {sfx} G={G} sum-product bp_qc_requeue")
-            pb_, pi_ = mq.bp_qc_probe_requeue(llr, qc, 8, probe_iters=2,
+            pb_, pi_ = mq.bp_qc_probe_requeue(llr, qc, 4, probe_iters=2,
                                               output="hard_iters", **st)
             b1, u1 = decode_roll(llr, qc, iterations=2, output="hard_unsat",
                                  **st)
-            b2 = decode_roll(llr, qc, iterations=8, **st)
+            b2 = decode_roll(llr, qc, iterations=4, **st)
             keep = (u1 == 0) & (B - int((u1 == 0).sum())
                                 <= mq.probe_capacity(B))
             exact([(pb_, torch.where(keep[:, None], b1, b2)),
-                   (pi_, torch.where(keep, 2, 10).to(torch.int32))],
+                   (pi_, torch.where(keep, 2, 6).to(torch.int32))],
                   f"{code.name} {sfx} G={G} sum-product bp_qc_probe_requeue")
             print(f"  {code.name} {sfx} G={G}: sum-product drivers equal",
                   flush=True)
+
+
+def lw_kwargs(form: str, dsfx: str, weights) -> dict:
+    """The decode of an LW_ROWS row: sum-product flooding-20 (flooding-12
+    with ``weights``) in its form, at its storage type (bf16 and int8 on
+    the ±24 grid)."""
+    import torch
+
+    kw = dict(iterations=20, method="sum-product", schedule="flooding",
+              dtype=getattr(torch, LW_STORAGE[dsfx]))
+    kw.update({k: v for k, v in LW_FORMS[form].items() if k != "weights"})
+    if LW_FORMS[form].get("weights"):
+        kw.update(iterations=12, weights=weights)
+    if dsfx:
+        kw["msg_qclip"] = 24.0
+    return kw
+
+
+def lw_entry(code, kw: dict) -> str:
+    """The entry point a decode of ``lw_kwargs`` launches."""
+    from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
+
+    return mq.entry_point(code.qc, "sum-product", "flooding",
+                          kw.get("early_stop", False),
+                          kw.get("msg_qbits") is not None, "weights" in kw,
+                          kw["dtype"])
 
 
 def degree10_code():
@@ -2749,7 +2835,8 @@ def main() -> None:
     print(f"built {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
+        if ("registers" in line or "Compiling entry" in line or "spill" in line
+                or line.startswith("# nvcc")):
             print("  " + line.strip(), flush=True)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -2768,7 +2855,7 @@ def main() -> None:
     # up to 18 slots a check in registers; a stack frame is allowed where
     # the kernel beats the full-message one (phase 4)
     wide_stack = {}
-    for sfx, built in (("_rw", 18), ("_gw", 36)):
+    for sfx, built in (("_rw", 18), ("_gw", 36), ("_lw", 18)):
         ks = {k: v for k, v in ptxas_entries(report).items() if sfx in k}
         for k, (stack, regs) in sorted(ks.items()):
             print(f"  {k}: {stack} B stack frame, {regs} registers",
@@ -2798,7 +2885,7 @@ def main() -> None:
         *mq.LAUNCHES, ES_AUTO_ROW, MSGQ_ROW, G4_ROW, EVAL_ROW,
         TRAIN_MINSUM_ROW, TRAIN_PROBE_ROW, GRID_ROW, DE_ROW,
         *(r for r, _ in FLOOR_ROWS.values()),
-        *(r for _, r in EXAMPLE_ROWS.values()), *WIDE_ROWS,
+        *(r for _, r in EXAMPLE_ROWS.values()), *WIDE_ROWS, *LW_ROWS,
         *(f"{k}@wifi648" for k in SP_KERNELS))}
     for name, code, kw, tag in cases:
         llr = channel_llrs(code, 4096, 1.5, seed=len(tag))
@@ -3188,14 +3275,17 @@ def main() -> None:
 
     # -- phase 2g: sum-product with a check's slots in registers -----------
     print("== phase 2g: every sum-product form on the kernels with a check's "
-          "slots in registers, serial-C, flooding and group-serial (and on "
-          "the full-message kernels a code beyond the limits keeps) vs plain "
+          "slots in registers, serial-C, flooding and group-serial, on the "
+          "wide rows' flooding kernels with one lt an edge (and on the "
+          "full-message kernels a code beyond the limits keeps) vs plain "
           "versions", flush=True)
     t2g = time.perf_counter()
     sumproduct_registers(
         [(c, 1, "_sr") for c in (w1944, w648, get_code("qc8448_r12"))]
         + [(c, G, "_gs") for c in (w1944, w648) for G in (2, 3, 4, c.qc.mb)]
-        + [(c, 1, {"flooding": "", "layered": "_rw"}) for c in wide_g]
+        + [(c, 1, {"flooding": "_lw", "layered": "_rw"}) for c in wide_g]
+        + [(get_code(c), 1, {"flooding": "_lw"})
+           for c in ("qc648_r34", "qc1944_r23")]
         + [(c, G, "_gw") for c in wide_g for G in sorted({2, 4, c.qc.mb})]
         + [(d10, 1, ""), (d10, 2, "")], storage_rows, max_err)
     print(f"  phase 2g took {time.perf_counter() - t2g:.1f} s", flush=True)
@@ -3599,7 +3689,8 @@ def main() -> None:
              else None)
         res, counts, ev, _ = drive(f"{wrow} ({' '.join(flags)})", wcode,
                                    wcfg, wsweep, [kname], card, weights=w)
-        if set(ev.entries) != {entry} or not entry.endswith(("_gw", "_rw")):
+        if set(ev.entries) != {entry} or not entry.endswith(
+                ("_gw", "_rw", "_lw")):
             fail(f"{wrow}: launched {ev.entries}, not the wide rows' {entry}")
         launches[wrow] = counts[kname]
         per_step[wrow] = counts[kname] / ev.mc_steps
@@ -3633,6 +3724,29 @@ def main() -> None:
             if wrow == SP_WIDE_ROW and got - base > band:
                 fail(f"{wrow}: sum-product BLER {got} is above min-sum's "
                      f"{base} by more than 4σ")
+    # the other forms of the _lw kernels (LW_ROWS), each decoded once
+    # through bp_decode, the counters set to 0 just before and read just
+    # after: exactly its entry point, once
+    from ldpc_sims_tpu_torch.kernels.compare import HIGH_RATE_SWEEP as TPU_AT
+
+    lw_code = get_code(LW_CODE)
+    lw_x, lw_cw = channel_llrs(lw_code, batch, TPU_AT[LW_CODE], seed=15,
+                               with_coded=True)
+    lw_w = random_edge_weights(lw_code, 12, seed=54)
+    for row, (form, dsfx) in LW_ROWS.items():
+        kw = lw_kwargs(form, dsfx, lw_w)
+        mq.reset_launch_counts()
+        bits = bp_decode(lw_x, lw_code, **kw)
+        torch.cuda.synchronize()
+        entry = lw_entry(lw_code, kw)
+        if dict(mq.ENTRY_LAUNCHES) != {entry: 1}:
+            fail(f"{row}: launched {dict(mq.ENTRY_LAUNCHES)}, not {entry} "
+                 "once")
+        launches[row], per_step[row] = 1, 1  # a decode
+        ber = float((bits != lw_cw).float().mean())
+        print(f"  {row} ({entry}, bp_decode at Es/N0 "
+              f"{TPU_AT[LW_CODE]:.3f} dB): coded BER {ber!r} [{card}]",
+              flush=True)
     print(f"  the wide rows' runs took {time.perf_counter() - t3w:.1f} s",
           flush=True)
 
@@ -4265,7 +4379,6 @@ def main() -> None:
     # full-message kernel's time; the early-stop rows bound by the
     # iterations they ran. A kernel with a stack frame fails unless it runs
     # faster than the full-message kernel.
-    from ldpc_sims_tpu_torch.kernels.compare import HIGH_RATE_SWEEP as TPU_AT
 
     for name, (cname, want, _) in WIDE_ROWS.items():
         wcode = get_code(cname)
@@ -4584,6 +4697,43 @@ def main() -> None:
             print(f"  {name} ({entry}): {ms!r} ms (plain {plain_ms!r} ms, "
                   f"bound {b_ms!r} ms, {b_by}, share {b_ms / ms:.3f}) "
                   f"[{card}]", flush=True)
+    # the other forms of the _lw kernels (LW_ROWS), at the shape phase 3d
+    # decoded them (qc1944_r56's TPU-sweep point, batch 32768), each exactly
+    # equal to the plain version, whose one run is its time; bound as the
+    # sum-product rows above, early stop by the iterations it ran and its
+    # syndrome checks
+    lqc = lw_code.qc
+    Elw, nlw = len(qc_plan(lqc)[0]) * lqc.z, lw_code.n
+    lw_tables = pack_decoder_weights(lw_w, lw_code, 12, "cuda")["tables"]
+    for name, (form, dsfx) in LW_ROWS.items():
+        kw = lw_kwargs(form, dsfx, lw_tables)
+        es = kw.get("early_stop", False)
+        out = "hard_iters" if es else "posterior"
+        got = mq.bp_qc_cuda(lw_x, lqc, output=out, **kw)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = decode_roll(lw_x, lqc, output=out, **kw)
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        max_err[name] = exact(list(zip(got, want)) if es else [(got, want)],
+                              f"{name} at batch {batch}")
+        ms = cuda_time_ms(lambda: mq.bp_qc_cuda(lw_x, lqc, **kw), 10)
+        ran = int(got[1].sum()) if es else batch * kw["iterations"]
+        dt = kw["dtype"]
+        per = (SP_OPS_PER_EDGE_ITER["flooding"] + sp_f32
+               + (q_f32 if "msg_qbits" in kw else 0)
+               + (sp_cv[dt]["flooding"] if dt != torch.float32 else 0)
+               + (2 if "weights" in kw else 0))
+        mufu = sp_mufu + (q_mufu if "msg_qbits" in kw else 0)
+        nbytes = batch * nlw * 5 + (batch * 4 if es else 0) + (
+            4 * 13 * (Elw + nlw) if "weights" in kw else 0)
+        extra = ((batch + ran) * Elw * OPS_PER_EDGE_CHECK if es else 0) + (
+            batch * nlw * 13 if "weights" in kw else 0)
+        kernels.append(row(name, ms, plain_ms,
+                           bound(nbytes, ran * Elw * per + extra,
+                                 ran * Elw * mufu), lw_entry(lw_code, kw)))
     # the shared-memory instructions of min-sum, serial-C and flooding,
     # both designs each. Serial-C: the full-message edge loops are unrolled
     # by 4 (a pass-1 loop of 4 loads an edge, a pass-2 loop of 4 loads and 2

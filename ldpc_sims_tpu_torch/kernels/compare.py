@@ -40,7 +40,11 @@ its first SNR (all-zero codewords, BPSK, LLR = −2r/σ²), and flooding-20
 and layered-20 on qc1944_r56 at bf16 and int8; on qc1944_r34 and r56 at
 their TPU sweeps' points, min-sum layered-20 at G = 4 and 2 and with early
 stop at G = 4, layered-6 with random weights at G = 4, and sum-product
-layered-20, flooding-20, layered-20 with early stop and at G = 4.
+layered-20, flooding-20, layered-20 with early stop and at G = 4; sum-product
+flooding-20 and its early stop on qc1944_r23, r34 and r56 at their TPU
+sweeps' points, the same on qc648_r56 and flooding-20 on qc648_r34 and r23
+at batch 4096 at the point of the qc1944 code of the same rate, and
+qc1944_r56's flooding-20 at bf16 and int8.
 """
 
 from __future__ import annotations
@@ -173,6 +177,10 @@ def time_rows(root: str) -> dict:
     floor = {c: get_code(c) for c in ERROR_FLOOR_SNR}
     x_floor = {c: floor_llrs(floor[c], batch, s, 91)
                for c, s in ERROR_FLOOR_SNR.items()}
+    # the qc648 codes at the qc1944 codes' TPU-sweep points, batch 4096
+    q648 = {c: get_code("qc648" + c[6:]) for c in HIGH_RATE_SWEEP}
+    x648w = {c: _channel_llrs(q648[c], 4096, s, seed=16)
+             for c, s in HIGH_RATE_SWEEP.items()}
 
     lay8 = dict(iterations=8, schedule="layered", alpha=a8, beta=b8)
     lay20 = dict(iterations=20, schedule="layered")
@@ -321,6 +329,25 @@ def time_rows(root: str) -> dict:
             x_high["qc1944_r56"], high["qc1944_r56"].qc, iterations=20,
             schedule=s, method="sum-product"))
            for s in ("layered", "flooding")},
+        # sum-product flooding-20 and its early stop on the other wide
+        # codes (the _lw kernels), qc1944 at the TPU sweeps' points, qc648
+        # at batch 4096 at the points of the qc1944 code of its rate, and
+        # qc1944_r56 at bf16 and int8
+        **{f"sumproduct_qc_flooding@{c}": (lambda c=c: cuda(
+            x_high[c], high[c].qc, iterations=20, method="sum-product"))
+           for c in ("qc1944_r34", "qc1944_r23")},
+        **{f"sumproduct_qc_flooding_es@{c}": (lambda c=c: cuda(
+            x_high[c], high[c].qc, iterations=20, method="sum-product",
+            early_stop=True, output="hard_iters")) for c in HIGH_RATE_SWEEP},
+        **{f"sumproduct_qc_flooding@{q648[c].name}": (lambda c=c: cuda(
+            x648w[c], q648[c].qc, iterations=20, method="sum-product"))
+           for c in HIGH_RATE_SWEEP},
+        "sumproduct_qc_flooding_es@qc648_r56": lambda: cuda(
+            x648w["qc1944_r56"], q648["qc1944_r56"].qc, iterations=20,
+            method="sum-product", early_stop=True, output="hard_iters"),
+        **{f"sumproduct_qc_flooding@qc1944_r56-{k}": (lambda kw=kw: cuda(
+            x_high["qc1944_r56"], high["qc1944_r56"].qc, iterations=20,
+            method="sum-product", **kw)) for k, kw in st.items()},
         "sumproduct_qc_layered_es@qc1944_r34": lambda: cuda(
             x_high["qc1944_r34"], high["qc1944_r34"].qc, method="sum-product",
             early_stop=True, output="hard_iters", **lay20),

@@ -71,11 +71,17 @@
 // 8-18: the rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes). On the same
 // codes the six serial-C name_sr forms have a name_rw kernel (18 more) and
 // the twelve name_gs forms a name_gw kernel (36 more): the same designs
-// with each row's slots unrolled to its degree, min-sum on the wide word.
+// with each row's slots unrolled to its degree, min-sum on the wide word;
+// and the six flooding name_sr forms a name_lw kernel (18 more): one lt an
+// edge kept between a check's passes, its slots in a runtime loop.
 //
-// Storage. The source is compiled once per storage type (-DQC_STORAGE=0, 1
-// or 2; the three objects are built in parallel and linked into one
-// library), and that translation unit's 24 entry points store:
+// Storage. The source is compiled once per storage type and design family
+// (-DQC_STORAGE=0, 1 or 2 and -DQC_FAMILY=0, 1 or 2, design_family: the
+// full messages, the compressed state's _cs kernels and the _lw kernels;
+// the _sr, _rw and _cw kernels; the _gs and _gw kernels; the nine objects
+// are built in parallel and linked into one library, bp_qc_decode
+// dispatching to each unit's launcher), and a storage type's entry points
+// store:
 //   * f32: everything in f32, as before;
 //   * bf16: the messages, the posterior and the channel LLRs (rounded on
 //     entry) as __nv_bfloat16, rounded to nearest even (XLA's convert);
@@ -254,13 +260,39 @@
 // a check in registers (72 weighted); these bodies keep only the v2c and
 // read each slot's old message, posterior and weight again in pass 2
 // (kReload), which cut the registers of the sum-product serial-C kernel
-// from 179 to 141 and made it faster than the full messages. Sum-product
-// flooding on these rows keeps the full-message kernel: with the slots in
-// registers it ran 1.04-1.07x slower at every CTA size (80 registers a
-// thread, the flooding check's 18 lt values live across its calls).
-// PERF.md has ptxas's registers and stack frame of every entry point and
-// their times against the full-message kernels they replace, which a code
-// with a row of another degree still takes.
+// from 179 to 141 and made it faster than the full messages. PERF.md has
+// ptxas's registers and stack frame of every entry point and their times
+// against the full-message kernels they replace, which a code with a row
+// of another degree still takes.
+//
+// Sum-product flooding on the wide rows (the _lw kernels). With a check's
+// slots unrolled in registers it ran 1.04-1.07x slower than the full
+// messages at every CTA size: 80 registers a thread, the check's 18 lt
+// values live across the sp_lt2/sp_mag2 calls. The full-message check
+// keeps its lt values in a local array indexed at run time, reads each
+// slot's message, posterior and plan from shared memory twice and
+// recomputes the v2c in pass 2 for its sign. The _lw check keeps no slot
+// array live across a call: a flooding check reads only its own old
+// messages, and within a block row the checks touch disjoint slots, so
+// pass 1 reads each slot's message and posterior once, passes the v2c
+// through the storage, sets its sign bit in one register word (24 bits
+// hold the widest row) and keeps the slot's lt over the slot's own f32
+// message (bf16 and int8: in a local array, which ran faster than an f32
+// scratch in shared memory); pass 2 reads each lt back and
+// stores sgn * sp_mag(min(total - lt, -1e-12)) postluded over it. That
+// is 2 loads and 1 store, then 1 load and 1 store an edge, two slots a
+// call in a runtime loop (one body for every degree), the plan from the
+// kernel parameter with no index divided by z in the loops, the rebuild of
+// the _sr kernels with the LLRs in shared memory. Threads run lane-dense over
+// the checks and then the variables (DenseWalk), not in the _sr kernels'
+// warp walks: those keep every plan index warp-uniform but leave 15 of 96
+// lanes idle at z = 81, and ran 1.05-1.23x slower on qc1944_r23/r34/r56; a
+// warp that straddles two block rows reads two plan entries instead. The
+// arithmetic is check_update's in its order, so every output byte equals
+// the full-message kernel's. The sp_lt/sp_mag sequence is 207 of the ~257
+// instructions an edge issues (SASS, chip_smoke.py phase 4), so the kernel
+// stays issue bound near half its f32 bound; PERF.md times it against the
+// full messages on the six codes.
 //
 // Flooding min-sum on the compressed state. A flooding check reads only
 // its own old messages, so its new state overwrites its old one in place;
@@ -478,6 +510,9 @@ constexpr int kDesignGw = 5;
 // sum-product serial-C with a check's slots in registers on the wide rows
 // (the _rw kernels)
 constexpr int kDesignRw = 6;
+// sum-product flooding with one lt an edge on the wide rows (the _lw
+// kernels)
+constexpr int kDesignLw = 7;
 // whether the flooding _sr kernels keep the LLRs in shared memory (else
 // each rebuild reads them again through L2; PERF.md times both)
 constexpr bool kSrFloodLlrShared = true;
@@ -500,7 +535,8 @@ template <int kT>
 inline int smem_bytes(int z, int mb, int nb, int P, int scratch_planes,
                       int design, bool layered, bool compressed) {
   using S = Storage<kT>;
-  const bool sr = design == kDesignSr || design == kDesignRw;
+  const bool sr =
+      design == kDesignSr || design == kDesignRw || design == kDesignLw;
   const bool gs = design == kDesignGs || design == kDesignGw;
   const int msg = static_cast<int>(sizeof(typename S::Msg));
   // CsState's Word
@@ -1442,17 +1478,45 @@ __device__ __forceinline__ void sp_check_deg(
                                         r, p0, u);
 }
 
+// A thread's walk over blocks of z checks or variables, lane-dense:
+// thread t takes items t, t + T, t + 2T, ... of the blocks laid end to end,
+// as (block b, offset k), stepped without a division. A warp meets
+// ceil(31 / z) + 1 blocks at most (two at z = 27 and 81), so a plan index
+// read from the parameter takes that many constant-cache reads where a
+// warp straddles a block boundary, one elsewhere.
+struct DenseWalk {
+  int b, k;    // the item
+  int db, dk;  // the step: T = db*z + dk
+  int z;
+  __device__ __forceinline__ void next() {
+    b += db;
+    k += dk;
+    if (k >= z) {
+      k -= z;
+      ++b;
+    }
+  }
+  // this thread's check or variable offset in block b
+  __device__ __forceinline__ int at() const { return k; }
+};
+
+__device__ __forceinline__ DenseWalk dense_walk(int z) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  return DenseWalk{t / z, t % z, nt / z, nt % z, z};
+}
+
 // The posterior rebuilt from the full messages, warps walking (column
-// block, 32 variables): (wl*) LLR + the sum of the (w*) c2v messages of
-// each variable in check-sorted order, in f32 and stored once, no
-// atomics. The LLR as the posterior's storage holds it: from lv in shared
-// memory (kLlrShared), else rounded from l.
-template <bool kW, bool kLlrShared, int kT>
+// block, 32 variables), or the _lw kernels' threads lane-dense over the
+// variables (Walk: DenseWalk): (wl*) LLR + the sum of the (w*) c2v
+// messages of each variable in check-sorted order, in f32 and stored once,
+// no atomics. The LLR as the posterior's storage holds it: from lv in
+// shared memory (kLlrShared), else rounded from l.
+template <bool kW, bool kLlrShared, int kT, typename Walk>
 __device__ __forceinline__ void rebuild_sr(
     const FloodPlan& fp, const typename Storage<kT>::Msg* msg,
     typename Storage<kT>::Post* post, const typename Storage<kT>::Post* lv,
     const float* l, const float* __restrict__ w,
-    const float* __restrict__ wl, int z, int nb, WarpWalk wk, float sstep) {
+    const float* __restrict__ wl, int z, int nb, Walk wk, float sstep) {
   using Post = typename Storage<kT>::Post;
   for (; wk.b < nb; wk.next()) {
     const int q = wk.at();
@@ -1516,6 +1580,102 @@ __device__ __forceinline__ void iterate_sr(
   }
   rebuild_sr<kW, kLlrShared, kT>(fp, msg, post, lv, l, st.w_next, st.wl_next,
                                  z, nb, wk, st.u.sstep);
+  __syncthreads();
+}
+
+// ---- Sum-product flooding with one lt an edge (the _lw kernels) ----
+//
+// The wide rows' flooding forms (rows of degree 8-18): a check's slots in
+// a runtime loop, two slots a call, with no slot array live across the
+// calls (the header says why).
+
+// Sum-product flooding check r of the block row whose deg planes start at
+// p0, check_update's arithmetic in its order. Pass 1, two slots a call:
+// each slot's stored message and posterior read once, its v2c through the
+// message storage, the sign as a bit of negs, its lt (sp_lt2) kept, and
+// the row sum left to right. Pass 2, two slots a call: each lt read back,
+// sgn * sp_mag(min(total - lt, -1e-12)), the postlude and the store. Only
+// scalars stay live across the calls. f32 keeps each lt over the slot's
+// own message (a flooding check reads only its own old messages, so a
+// slot is free once read); bf16 and int8 in a per-thread array of
+// kCwMaxDeg floats indexed at run time (local memory, a 96 B stack
+// frame), which ran 1-2% faster than an f32 scratch of P*z floats in
+// shared memory (PERF.md).
+template <bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void lw_check(
+    const FloodPlan& fp, typename Storage<kT>::Msg* msg,
+    const typename Storage<kT>::Post* post, const float* __restrict__ w,
+    int z, int r, int p0, int deg, const Rule& u) {
+  using Msg = typename Storage<kT>::Msg;
+  const int m0 = p0 * z + r;  // slot e's message and weight: m0 + e*z
+  float local[kT == kF32 ? 1 : kCwMaxDeg];
+  auto lt = [&](int e) -> float& {
+    if constexpr (kT == kF32)
+      return reinterpret_cast<float*>(msg)[m0 + e * z];
+    else
+      return local[e];
+  };
+  // the v2c of slot e as the message storage holds it
+  auto v2c = [&](int e) {
+    const int4 pl = fp.plane[p0 + e];
+    int q = r + pl.y;
+    if (q >= z) q -= z;
+    float m = lift(msg[m0 + e * z], u.sstep);
+    if constexpr (kW) m = __ldg(w + m0 + e * z) * m;
+    return lift(store<Msg>(lift(post[pl.x + q], 1.f) - m, u.sinv), u.sstep);
+  };
+  unsigned negs = 0;  // bit e: the v2c of slot e is < 0
+  float total = 0.f;
+  int e = 0;
+  for (; e + 1 < deg; e += 2) {
+    const float a = v2c(e), b = v2c(e + 1);
+    negs |= ((a < 0.f ? 1u : 0u) | (b < 0.f ? 2u : 0u)) << e;
+    const float2 t = sp_lt2(a, b);
+    total = total + t.x;
+    total = total + t.y;
+    lt(e) = t.x;
+    lt(e + 1) = t.y;
+  }
+  if (e < deg) {
+    const float a = v2c(e);
+    negs |= (a < 0.f ? 1u : 0u) << e;
+    const float t = sp_lt1(a);
+    total = total + t;
+    lt(e) = t;
+  }
+  // the exclusive sign of slot e: the parity of the other slots' negatives
+  const unsigned odd = static_cast<unsigned>(__popc(negs)) & 1u;
+  auto finish = [&](int e, float mag) {
+    const float sgn = (((negs >> e) & 1u) ^ odd) ? -1.f : 1.f;
+    msg[m0 + e * z] = store<Msg>(postlude<kQuant>(sgn * mag, u), u.sinv);
+  };
+  for (e = 0; e + 1 < deg; e += 2) {
+    const float2 t = sp_mag2(fminf(total - lt(e), -1e-12f),
+                             fminf(total - lt(e + 1), -1e-12f));
+    finish(e, t.x);
+    finish(e + 1, t.y);
+  }
+  if (e < deg) finish(e, sp_mag1(fminf(total - lt(e), -1e-12f)));
+}
+
+// One flooding iteration on the _lw kernels: the check pass, threads
+// lane-dense over the mb*z checks, then rebuild_sr (the LLRs in shared
+// memory), threads lane-dense over the n variables. The warp walks of the _sr kernels keep
+// every plan index warp-uniform but leave 15 of 96 lanes idle at z = 81
+// (PERF.md times both). Ends with __syncthreads().
+template <bool kQuant, bool kW, int kT>
+__device__ __forceinline__ void iterate_lw(
+    const FloodPlan& fp, typename Storage<kT>::Msg* msg,
+    typename Storage<kT>::Post* post, const typename Storage<kT>::Post* lv,
+    int z, int mb, int nb, const Step& st) {
+  for (DenseWalk c = dense_walk(z); c.b < mb; c.next()) {
+    const int p0 = fp.row_ptr[c.b];
+    lw_check<kQuant, kW, kT>(fp, msg, post, st.w, z, c.at(), p0,
+                             fp.row_ptr[c.b + 1] - p0, st.u);
+  }
+  __syncthreads();
+  rebuild_sr<kW, true, kT>(fp, msg, post, lv, nullptr, st.w_next,
+                           st.wl_next, z, nb, dense_walk(z), st.u.sstep);
   __syncthreads();
 }
 
@@ -1766,7 +1926,8 @@ __device__ __forceinline__ int local_unsat_cs(const FloodPlan& fp,
 // min-sum on the compressed state's wide word, serial-C and flooding (the
 // _cw kernels) and group-serial (the _gw kernels), and sum-product with a
 // check's slots in registers, serial-C (the _rw kernels) and group-serial
-// (the _gw kernels).
+// (the _gw kernels), and sum-product flooding with one lt an edge (kSr and
+// kWide, flooding: the _lw kernels).
 template <int kMethod, bool kLayered, bool kEarlyStop, bool kQuant, bool kW,
           int kT, bool kCs = false, bool kSr = false, bool kGs = false,
           bool kWide = false>
@@ -1891,6 +2052,8 @@ __device__ __forceinline__ void decode(
     } else if constexpr (kCs) {
       iterate_cs<kQuant, kW, kT, S>(pl, *pp, mag, word, post, l, z, mb, n,
                                     st);
+    } else if constexpr (kSr && kWide && !kLayered) {
+      iterate_lw<kQuant, kW, kT>(*fp, msg, post, lv, z, mb, nb, st);
     } else if constexpr (kSr) {
       iterate_sr<kLayered, kQuant, kW, kLlrShared, kT, kWide>(
           *fp, msg, post, lv, l, z, mb, nb, walk, st);
@@ -1957,6 +2120,22 @@ constexpr int kStorage = kInt8;
 #else
 #error "QC_STORAGE must be 0, 1 or 2"
 #endif
+
+// The design family this translation unit builds (-DQC_FAMILY): 0 the full
+// messages, the compressed min-sum state and the _lw kernels; 1 the _sr,
+// _rw and _cw kernels; 2 the group-serial _gs and _gw kernels; -1 none (the
+// device functions alone, for probes that include this source). Each
+// (storage, family) pair is one nvcc process, all built in parallel.
+#ifndef QC_FAMILY
+#error "compile once per design family too: -DQC_FAMILY=0, 1, 2 (or -1)"
+#endif
+constexpr int kFamilies = 3;
+__host__ __device__ constexpr int design_family(int design) {
+  return design == kDesignSr || design == kDesignCw || design == kDesignRw
+             ? 1
+         : design == kDesignGs || design == kDesignGw ? 2
+                                                      : 0;
+}
 
 }  // namespace
 
@@ -2053,6 +2232,7 @@ constexpr int kStorage = kInt8;
         sinv, nullptr, &gp, &gp);                                           \
   }
 
+#if QC_FAMILY == 0
 QC_KERNEL(minsum_qc_flooding, kMinSum, false, false, false, false)
 QC_KERNEL(minsum_qc_layered, kMinSum, true, false, false, false)
 QC_KERNEL(minsum_qc_flooding_es, kMinSum, false, true, false, false)
@@ -2092,6 +2272,16 @@ QC_KERNEL_FLOOD_CS(minsum_qc_flooding_msgq, _cs, false, false, true, false)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_es_msgq, _cs, false, true, true, false)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w, _cs, false, false, false, true)
 QC_KERNEL_FLOOD_CS(minsum_qc_flooding_w_msgq, _cs, false, false, true, true)
+// the wide rows' sum-product flooding forms with one lt an edge
+QC_KERNEL_SR(sumproduct_qc_flooding, _lw, true, false, false, false, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_es, _lw, true, false, true, false, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_msgq, _lw, true, false, false, true, false)
+QC_KERNEL_SR(sumproduct_qc_flooding_es_msgq, _lw, true, false, true, true,
+             false)
+QC_KERNEL_SR(sumproduct_qc_flooding_w, _lw, true, false, false, false, true)
+QC_KERNEL_SR(sumproduct_qc_flooding_w_msgq, _lw, true, false, false, true,
+             true)
+#elif QC_FAMILY == 1
 QC_KERNEL_CS(minsum_qc_layered, _cw, true, false, false, false)
 QC_KERNEL_CS(minsum_qc_layered_es, _cw, true, true, false, false)
 QC_KERNEL_CS(minsum_qc_layered_msgq, _cw, true, false, true, false)
@@ -2124,6 +2314,7 @@ QC_KERNEL_SR(sumproduct_qc_layered_msgq, _rw, true, true, false, true, false)
 QC_KERNEL_SR(sumproduct_qc_layered_es_msgq, _rw, true, true, true, true, false)
 QC_KERNEL_SR(sumproduct_qc_layered_w, _rw, true, true, false, false, true)
 QC_KERNEL_SR(sumproduct_qc_layered_w_msgq, _rw, true, true, false, true, true)
+#elif QC_FAMILY == 2
 QC_KERNEL_GS(minsum_qc_layered, _gs, false, QC_NO_BOUNDS, kMinSum, false, false,
              false)
 QC_KERNEL_GS(minsum_qc_layered_es, _gs, false, QC_NO_BOUNDS, kMinSum, true,
@@ -2172,12 +2363,15 @@ QC_KERNEL_GS(sumproduct_qc_layered_w, _gw, true, QC_NO_BOUNDS, kSumProduct,
              false, false, true)
 QC_KERNEL_GS(sumproduct_qc_layered_w_msgq, _gw, true, QC_NO_BOUNDS, kSumProduct,
              false, true, true)
+#endif
 
 #define QC_K(name) QC_CAT(name, QC_SUFFIX)
+#define QC_LAUNCH(family) QC_CAT(QC_CAT(bp_qc_launch_f, family), QC_SUFFIX)
 
-// The launch of one decode with this translation unit's storage type (the
-// arguments of bp_qc_decode, below).
-extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
+#if QC_FAMILY >= 0
+// The launch of one decode with this translation unit's storage type on a
+// design of its family (the arguments of bp_qc_decode, below).
+extern "C" int QC_LAUNCH(QC_FAMILY)(
     int method, int layered, int early_stop, int quant, const float* llr,
     void* out, int out_hard, const int* done_in, int* aux_out,
     const int* plan, const int* plan_host, const int* group_host, int design,
@@ -2202,84 +2396,6 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
                             const int*, const float*, const float*,
                             const float*, int, int, int, int, int, int, int,
                             float, float, float, float, float, GroupPlan);
-  // [early_stop][quant], and the weighted forms by [quant]
-  static const KernelCs kCompressed[2][2] = {
-      {QC_K(minsum_qc_layered_cs), QC_K(minsum_qc_layered_msgq_cs)},
-      {QC_K(minsum_qc_layered_es_cs), QC_K(minsum_qc_layered_es_msgq_cs)}};
-  static const KernelCs kCompressedW[2] = {QC_K(minsum_qc_layered_w_cs),
-                                           QC_K(minsum_qc_layered_w_msgq_cs)};
-  static const KernelFloodCs kFloodCompressed[2][2] = {
-      {QC_K(minsum_qc_flooding_cs), QC_K(minsum_qc_flooding_msgq_cs)},
-      {QC_K(minsum_qc_flooding_es_cs), QC_K(minsum_qc_flooding_es_msgq_cs)}};
-  static const KernelFloodCs kFloodCompressedW[2] = {
-      QC_K(minsum_qc_flooding_w_cs), QC_K(minsum_qc_flooding_w_msgq_cs)};
-  // the same forms on the wide word (the _cw kernels)
-  static const KernelCs kCompressedWide[2][2] = {
-      {QC_K(minsum_qc_layered_cw), QC_K(minsum_qc_layered_msgq_cw)},
-      {QC_K(minsum_qc_layered_es_cw), QC_K(minsum_qc_layered_es_msgq_cw)}};
-  static const KernelCs kCompressedWideW[2] = {
-      QC_K(minsum_qc_layered_w_cw), QC_K(minsum_qc_layered_w_msgq_cw)};
-  static const KernelFloodCs kFloodWide[2][2] = {
-      {QC_K(minsum_qc_flooding_cw), QC_K(minsum_qc_flooding_msgq_cw)},
-      {QC_K(minsum_qc_flooding_es_cw), QC_K(minsum_qc_flooding_es_msgq_cw)}};
-  static const KernelFloodCs kFloodWideW[2] = {
-      QC_K(minsum_qc_flooding_w_cw), QC_K(minsum_qc_flooding_w_msgq_cw)};
-  // the _sr kernels by [layered][early_stop][quant], weighted by
-  // [layered][quant]
-  static const KernelFloodCs kRegisters[2][2][2] = {
-      {{QC_K(sumproduct_qc_flooding_sr), QC_K(sumproduct_qc_flooding_msgq_sr)},
-       {QC_K(sumproduct_qc_flooding_es_sr),
-        QC_K(sumproduct_qc_flooding_es_msgq_sr)}},
-      {{QC_K(sumproduct_qc_layered_sr), QC_K(sumproduct_qc_layered_msgq_sr)},
-       {QC_K(sumproduct_qc_layered_es_sr),
-        QC_K(sumproduct_qc_layered_es_msgq_sr)}}};
-  static const KernelFloodCs kRegistersW[2][2] = {
-      {QC_K(sumproduct_qc_flooding_w_sr), QC_K(sumproduct_qc_flooding_w_msgq_sr)},
-      {QC_K(sumproduct_qc_layered_w_sr), QC_K(sumproduct_qc_layered_w_msgq_sr)}};
-  // the _gs kernels by [method][early_stop][quant], weighted by
-  // [method][quant]
-  static const KernelGs kGroupSerial[2][2][2] = {
-      {{QC_K(minsum_qc_layered_gs), QC_K(minsum_qc_layered_msgq_gs)},
-       {QC_K(minsum_qc_layered_es_gs), QC_K(minsum_qc_layered_es_msgq_gs)}},
-      {{QC_K(sumproduct_qc_layered_gs), QC_K(sumproduct_qc_layered_msgq_gs)},
-       {QC_K(sumproduct_qc_layered_es_gs),
-        QC_K(sumproduct_qc_layered_es_msgq_gs)}}};
-  static const KernelGs kGroupSerialW[2][2] = {
-      {QC_K(minsum_qc_layered_w_gs), QC_K(minsum_qc_layered_w_msgq_gs)},
-      {QC_K(sumproduct_qc_layered_w_gs), QC_K(sumproduct_qc_layered_w_msgq_gs)}};
-  // the same forms on the wide rows: the _rw kernels (serial-C) by
-  // [early_stop][quant], weighted by [quant], and the _gw kernels
-  static const KernelFloodCs kRegistersWide[2][2] = {
-      {QC_K(sumproduct_qc_layered_rw), QC_K(sumproduct_qc_layered_msgq_rw)},
-      {QC_K(sumproduct_qc_layered_es_rw),
-       QC_K(sumproduct_qc_layered_es_msgq_rw)}};
-  static const KernelFloodCs kRegistersWideW[2] = {
-      QC_K(sumproduct_qc_layered_w_rw), QC_K(sumproduct_qc_layered_w_msgq_rw)};
-  static const KernelGs kGroupWide[2][2][2] = {
-      {{QC_K(minsum_qc_layered_gw), QC_K(minsum_qc_layered_msgq_gw)},
-       {QC_K(minsum_qc_layered_es_gw), QC_K(minsum_qc_layered_es_msgq_gw)}},
-      {{QC_K(sumproduct_qc_layered_gw), QC_K(sumproduct_qc_layered_msgq_gw)},
-       {QC_K(sumproduct_qc_layered_es_gw),
-        QC_K(sumproduct_qc_layered_es_msgq_gw)}}};
-  static const KernelGs kGroupWideW[2][2] = {
-      {QC_K(minsum_qc_layered_w_gw), QC_K(minsum_qc_layered_w_msgq_gw)},
-      {QC_K(sumproduct_qc_layered_w_gw), QC_K(sumproduct_qc_layered_w_msgq_gw)}};
-  // [method][layered][early_stop][quant]
-  static const Kernel kKernels[2][2][2][2] = {
-      {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
-        {QC_K(minsum_qc_flooding_es), QC_K(minsum_qc_flooding_es_msgq)}},
-       {{QC_K(minsum_qc_layered), QC_K(minsum_qc_layered_msgq)},
-        {QC_K(minsum_qc_layered_es), QC_K(minsum_qc_layered_es_msgq)}}},
-      {{{QC_K(sumproduct_qc_flooding), QC_K(sumproduct_qc_flooding_msgq)},
-        {QC_K(sumproduct_qc_flooding_es), QC_K(sumproduct_qc_flooding_es_msgq)}},
-       {{QC_K(sumproduct_qc_layered), QC_K(sumproduct_qc_layered_msgq)},
-        {QC_K(sumproduct_qc_layered_es), QC_K(sumproduct_qc_layered_es_msgq)}}}};
-  // [method][layered][quant]
-  static const Kernel kWeighted[2][2][2] = {
-      {{QC_K(minsum_qc_flooding_w), QC_K(minsum_qc_flooding_w_msgq)},
-       {QC_K(minsum_qc_layered_w), QC_K(minsum_qc_layered_w_msgq)}},
-      {{QC_K(sumproduct_qc_flooding_w), QC_K(sumproduct_qc_flooding_w_msgq)},
-       {QC_K(sumproduct_qc_layered_w), QC_K(sumproduct_qc_layered_w_msgq)}}};
   const bool weighted = wm != nullptr;
   if (weighted && (early_stop || wl == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2293,19 +2409,23 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   // state's word, the register arrays and the parameter's plan. The same
   // on a code whose rows fit the wide word and each have a body of their
   // degree (CwDegrees): the _cw kernels (min-sum), the _rw kernels
-  // (sum-product serial-C) and the _gw kernels (group-serial)
+  // (sum-product serial-C), the _lw kernels (sum-product flooding) and the
+  // _gw kernels (group-serial)
   if (group > mb) group = mb;
-  if (design < kDesignFull || design > kDesignRw)
+  if (design < kDesignFull || design > kDesignLw ||
+      design_family(design) != QC_FAMILY)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide =
-      design == kDesignCw || design == kDesignGw || design == kDesignRw;
+  const bool wide = design == kDesignCw || design == kDesignGw ||
+                    design == kDesignRw || design == kDesignLw;
   const bool group_design = design == kDesignGs || design == kDesignGw;
-  const bool registers = design == kDesignSr || design == kDesignRw;
+  const bool registers =
+      design == kDesignSr || design == kDesignRw || design == kDesignLw;
   const int max_deg = wide ? kCwMaxDeg : kCsMaxDeg;
   if (design != kDesignFull &&
       (group_design != (group > 1) ||
        (!group_design && method != (registers ? 1 : 0)) ||
        (design == kDesignRw && !layered) ||
+       (design == kDesignLw && layered) ||
        plan_host == nullptr || row_deg > max_deg || mb > kCsMaxRows ||
        P > kCsMaxPlanes || nb > kCsMaxCols))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2324,26 +2444,119 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
     return static_cast<int>(cudaErrorInvalidValue);
   const int ly = layered != 0, es = early_stop != 0, qu = quant != 0;
   const int sp = method != 0;
-  const Kernel fn = weighted ? kWeighted[sp][ly][qu] : kKernels[sp][ly][es][qu];
+  Kernel fn = nullptr;            // the plan in shared memory
   KernelCs fn_cs = nullptr;       // the plan's rows in the parameter
   KernelFloodCs fn_fp = nullptr;  // its rows and columns
   KernelGs fn_gs = nullptr;       // and its groups
-  if (design == kDesignCs && layered)
+#if QC_FAMILY == 0
+  // [method][layered][early_stop][quant]
+  static const Kernel kKernels[2][2][2][2] = {
+      {{{QC_K(minsum_qc_flooding), QC_K(minsum_qc_flooding_msgq)},
+        {QC_K(minsum_qc_flooding_es), QC_K(minsum_qc_flooding_es_msgq)}},
+       {{QC_K(minsum_qc_layered), QC_K(minsum_qc_layered_msgq)},
+        {QC_K(minsum_qc_layered_es), QC_K(minsum_qc_layered_es_msgq)}}},
+      {{{QC_K(sumproduct_qc_flooding), QC_K(sumproduct_qc_flooding_msgq)},
+        {QC_K(sumproduct_qc_flooding_es), QC_K(sumproduct_qc_flooding_es_msgq)}},
+       {{QC_K(sumproduct_qc_layered), QC_K(sumproduct_qc_layered_msgq)},
+        {QC_K(sumproduct_qc_layered_es), QC_K(sumproduct_qc_layered_es_msgq)}}}};
+  // [method][layered][quant]
+  static const Kernel kWeighted[2][2][2] = {
+      {{QC_K(minsum_qc_flooding_w), QC_K(minsum_qc_flooding_w_msgq)},
+       {QC_K(minsum_qc_layered_w), QC_K(minsum_qc_layered_w_msgq)}},
+      {{QC_K(sumproduct_qc_flooding_w), QC_K(sumproduct_qc_flooding_w_msgq)},
+       {QC_K(sumproduct_qc_layered_w), QC_K(sumproduct_qc_layered_w_msgq)}}};
+  // [early_stop][quant], and the weighted forms by [quant]
+  static const KernelCs kCompressed[2][2] = {
+      {QC_K(minsum_qc_layered_cs), QC_K(minsum_qc_layered_msgq_cs)},
+      {QC_K(minsum_qc_layered_es_cs), QC_K(minsum_qc_layered_es_msgq_cs)}};
+  static const KernelCs kCompressedW[2] = {QC_K(minsum_qc_layered_w_cs),
+                                           QC_K(minsum_qc_layered_w_msgq_cs)};
+  static const KernelFloodCs kFloodCompressed[2][2] = {
+      {QC_K(minsum_qc_flooding_cs), QC_K(minsum_qc_flooding_msgq_cs)},
+      {QC_K(minsum_qc_flooding_es_cs), QC_K(minsum_qc_flooding_es_msgq_cs)}};
+  static const KernelFloodCs kFloodCompressedW[2] = {
+      QC_K(minsum_qc_flooding_w_cs), QC_K(minsum_qc_flooding_w_msgq_cs)};
+  // the wide rows' sum-product flooding (the _lw kernels)
+  static const KernelFloodCs kLtWide[2][2] = {
+      {QC_K(sumproduct_qc_flooding_lw), QC_K(sumproduct_qc_flooding_msgq_lw)},
+      {QC_K(sumproduct_qc_flooding_es_lw),
+       QC_K(sumproduct_qc_flooding_es_msgq_lw)}};
+  static const KernelFloodCs kLtWideW[2] = {
+      QC_K(sumproduct_qc_flooding_w_lw), QC_K(sumproduct_qc_flooding_w_msgq_lw)};
+  if (design == kDesignFull)
+    fn = weighted ? kWeighted[sp][ly][qu] : kKernels[sp][ly][es][qu];
+  else if (design == kDesignCs && layered)
     fn_cs = weighted ? kCompressedW[qu] : kCompressed[es][qu];
   else if (design == kDesignCs)
     fn_fp = weighted ? kFloodCompressedW[qu] : kFloodCompressed[es][qu];
+  else
+    fn_fp = weighted ? kLtWideW[qu] : kLtWide[es][qu];
+#elif QC_FAMILY == 1
+  // the _sr kernels by [layered][early_stop][quant], weighted by
+  // [layered][quant]
+  static const KernelFloodCs kRegisters[2][2][2] = {
+      {{QC_K(sumproduct_qc_flooding_sr), QC_K(sumproduct_qc_flooding_msgq_sr)},
+       {QC_K(sumproduct_qc_flooding_es_sr),
+        QC_K(sumproduct_qc_flooding_es_msgq_sr)}},
+      {{QC_K(sumproduct_qc_layered_sr), QC_K(sumproduct_qc_layered_msgq_sr)},
+       {QC_K(sumproduct_qc_layered_es_sr),
+        QC_K(sumproduct_qc_layered_es_msgq_sr)}}};
+  static const KernelFloodCs kRegistersW[2][2] = {
+      {QC_K(sumproduct_qc_flooding_w_sr), QC_K(sumproduct_qc_flooding_w_msgq_sr)},
+      {QC_K(sumproduct_qc_layered_w_sr), QC_K(sumproduct_qc_layered_w_msgq_sr)}};
+  // the min-sum forms on the wide word (the _cw kernels)
+  static const KernelCs kCompressedWide[2][2] = {
+      {QC_K(minsum_qc_layered_cw), QC_K(minsum_qc_layered_msgq_cw)},
+      {QC_K(minsum_qc_layered_es_cw), QC_K(minsum_qc_layered_es_msgq_cw)}};
+  static const KernelCs kCompressedWideW[2] = {
+      QC_K(minsum_qc_layered_w_cw), QC_K(minsum_qc_layered_w_msgq_cw)};
+  static const KernelFloodCs kFloodWide[2][2] = {
+      {QC_K(minsum_qc_flooding_cw), QC_K(minsum_qc_flooding_msgq_cw)},
+      {QC_K(minsum_qc_flooding_es_cw), QC_K(minsum_qc_flooding_es_msgq_cw)}};
+  static const KernelFloodCs kFloodWideW[2] = {
+      QC_K(minsum_qc_flooding_w_cw), QC_K(minsum_qc_flooding_w_msgq_cw)};
+  // the sum-product serial-C forms on the wide rows (the _rw kernels) by
+  // [early_stop][quant], weighted by [quant]
+  static const KernelFloodCs kRegistersWide[2][2] = {
+      {QC_K(sumproduct_qc_layered_rw), QC_K(sumproduct_qc_layered_msgq_rw)},
+      {QC_K(sumproduct_qc_layered_es_rw),
+       QC_K(sumproduct_qc_layered_es_msgq_rw)}};
+  static const KernelFloodCs kRegistersWideW[2] = {
+      QC_K(sumproduct_qc_layered_w_rw), QC_K(sumproduct_qc_layered_w_msgq_rw)};
+  if (design == kDesignSr)
+    fn_fp = weighted ? kRegistersW[ly][qu] : kRegisters[ly][es][qu];
   else if (design == kDesignCw && layered)
     fn_cs = weighted ? kCompressedWideW[qu] : kCompressedWide[es][qu];
   else if (design == kDesignCw)
     fn_fp = weighted ? kFloodWideW[qu] : kFloodWide[es][qu];
-  else if (design == kDesignSr)
-    fn_fp = weighted ? kRegistersW[ly][qu] : kRegisters[ly][es][qu];
-  else if (design == kDesignRw)
+  else
     fn_fp = weighted ? kRegistersWideW[qu] : kRegistersWide[es][qu];
-  else if (design == kDesignGs)
+#else
+  // the _gs kernels by [method][early_stop][quant], weighted by
+  // [method][quant], and the same forms on the wide rows (the _gw kernels)
+  static const KernelGs kGroupSerial[2][2][2] = {
+      {{QC_K(minsum_qc_layered_gs), QC_K(minsum_qc_layered_msgq_gs)},
+       {QC_K(minsum_qc_layered_es_gs), QC_K(minsum_qc_layered_es_msgq_gs)}},
+      {{QC_K(sumproduct_qc_layered_gs), QC_K(sumproduct_qc_layered_msgq_gs)},
+       {QC_K(sumproduct_qc_layered_es_gs),
+        QC_K(sumproduct_qc_layered_es_msgq_gs)}}};
+  static const KernelGs kGroupSerialW[2][2] = {
+      {QC_K(minsum_qc_layered_w_gs), QC_K(minsum_qc_layered_w_msgq_gs)},
+      {QC_K(sumproduct_qc_layered_w_gs), QC_K(sumproduct_qc_layered_w_msgq_gs)}};
+  static const KernelGs kGroupWide[2][2][2] = {
+      {{QC_K(minsum_qc_layered_gw), QC_K(minsum_qc_layered_msgq_gw)},
+       {QC_K(minsum_qc_layered_es_gw), QC_K(minsum_qc_layered_es_msgq_gw)}},
+      {{QC_K(sumproduct_qc_layered_gw), QC_K(sumproduct_qc_layered_msgq_gw)},
+       {QC_K(sumproduct_qc_layered_es_gw),
+        QC_K(sumproduct_qc_layered_es_msgq_gw)}}};
+  static const KernelGs kGroupWideW[2][2] = {
+      {QC_K(minsum_qc_layered_w_gw), QC_K(minsum_qc_layered_w_msgq_gw)},
+      {QC_K(sumproduct_qc_layered_w_gw), QC_K(sumproduct_qc_layered_w_msgq_gw)}};
+  if (design == kDesignGs)
     fn_gs = weighted ? kGroupSerialW[sp][qu] : kGroupSerial[sp][es][qu];
-  else if (design == kDesignGw)
+  else
     fn_gs = weighted ? kGroupWideW[sp][qu] : kGroupWide[sp][es][qu];
+#endif
   const void* entry =
       fn_cs != nullptr   ? reinterpret_cast<const void*>(fn_cs)
       : fn_fp != nullptr ? reinterpret_cast<const void*>(fn_fp)
@@ -2447,20 +2660,25 @@ extern "C" int QC_CAT(bp_qc_launch, QC_SUFFIX)(
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // QC_FAMILY >= 0
 
-#if QC_STORAGE == 0
+#if QC_STORAGE == 0 && QC_FAMILY == 0
 extern "C" {
 
-int bp_qc_launch_bf16(int, int, int, int, const float*, void*, int,
-                      const int*, int*, const int*, const int*, const int*,
-                      int, const float*, const float*, const float*, int, int,
-                      int, int, int, int, int, int, int, float, float, float,
-                      float, float, int, cudaStream_t);
-int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
-                    int*, const int*, const int*, const int*, int,
-                    const float*, const float*, const float*, int, int, int,
-                    int, int, int, int, int, int, float, float, float, float,
-                    float, int, cudaStream_t);
+// the launchers of every (storage, family) translation unit
+#define QC_LAUNCH_ARGS                                                        \
+  int, int, int, int, const float*, void*, int, const int*, int*,           \
+      const int*, const int*, const int*, int, const float*, const float*,  \
+      const float*, int, int, int, int, int, int, int, int, int, float,     \
+      float, float, float, float, int, cudaStream_t
+int bp_qc_launch_f1(QC_LAUNCH_ARGS);
+int bp_qc_launch_f2(QC_LAUNCH_ARGS);
+int bp_qc_launch_f0_bf16(QC_LAUNCH_ARGS);
+int bp_qc_launch_f1_bf16(QC_LAUNCH_ARGS);
+int bp_qc_launch_f2_bf16(QC_LAUNCH_ARGS);
+int bp_qc_launch_f0_i8(QC_LAUNCH_ARGS);
+int bp_qc_launch_f1_i8(QC_LAUNCH_ARGS);
+int bp_qc_launch_f2_i8(QC_LAUNCH_ARGS);
 
 // Launches one decode on `stream`: grid = batch CTAs, one codeword each.
 // dtype: the message storage, 0 f32, 1 bf16, 2 int8 (its grid's step sstep
@@ -2480,9 +2698,11 @@ int bp_qc_launch_i8(int, int, int, int, const float*, void*, int, const int*,
 // into the parameter's GroupPlan (or null for the other designs); each
 // within the limits of bp_qc_compressed_limits, reading plan_host into the
 // kernel's parameter. On the codes of the _cw kernels, kDesignRw (6) the
-// serial-C forms of kDesignSr (the _rw kernels) and kDesignGw (5) those of
-// kDesignGs (the _gw kernels, min-sum on the wide word), each row's slots
-// unrolled to its degree. clamp = +inf for no clamp. done_in:
+// serial-C forms of kDesignSr (the _rw kernels), kDesignLw (7) the
+// flooding sum-product forms with one lt an edge (the _lw kernels) and
+// kDesignGw (5) those of kDesignGs (the _gw kernels, min-sum on the wide
+// word), each row's slots unrolled to its degree (the _lw kernels: a
+// runtime loop over a row's slots). clamp = +inf for no clamp. done_in:
 // (batch,) int32 flags of codewords to skip, or null. aux_out: (batch,)
 // int32, the iterations run when early_stop != 0 (then required), else the
 // unsatisfied-check counts, or null. check_every must divide iterations; a
@@ -2506,15 +2726,19 @@ int bp_qc_decode(int dtype, int method, int layered, int early_stop,
                  int check_every, int group, float clamp, float qstep,
                  float qclip, float sstep, float sinv, int threads,
                  cudaStream_t stream) {
-  auto* launch = dtype == kF32    ? bp_qc_launch
-                 : dtype == kBf16 ? bp_qc_launch_bf16
-                 : dtype == kInt8 ? bp_qc_launch_i8
-                                  : nullptr;
-  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(method, layered, early_stop, quant, llr, out, out_hard,
-                done_in, aux_out, plan, plan_host, group_host, design, ab, wm,
-                wl, batch, z, mb, nb, P, row_deg, iterations, check_every,
-                group, clamp, qstep, qclip, sstep, sinv, threads, stream);
+  using Launch = int (*)(QC_LAUNCH_ARGS);
+  static const Launch kLaunch[3][kFamilies] = {
+      {bp_qc_launch_f0, bp_qc_launch_f1, bp_qc_launch_f2},
+      {bp_qc_launch_f0_bf16, bp_qc_launch_f1_bf16, bp_qc_launch_f2_bf16},
+      {bp_qc_launch_f0_i8, bp_qc_launch_f1_i8, bp_qc_launch_f2_i8}};
+  if (dtype < kF32 || dtype > kInt8 || design < kDesignFull ||
+      design > kDesignLw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return kLaunch[dtype][design_family(design)](
+      method, layered, early_stop, quant, llr, out, out_hard, done_in,
+      aux_out, plan, plan_host, group_host, design, ab, wm, wl, batch, z, mb,
+      nb, P, row_deg, iterations, check_every, group, clamp, qstep, qclip,
+      sstep, sinv, threads, stream);
 }
 
 // The limits of the compressed state and the _sr kernels: row degree,

@@ -26,13 +26,14 @@ beyond the limits by their row degree alone (rows of 8-18 slots: the
 rate-2/3, 3/4 and 5/6 qc648 and qc1944 codes) take the same designs with
 each row's slots unrolled to its degree (``WIDE_LIMITS``): the ``_cw``
 kernels for min-sum flooding and serial-C (the compressed state with a
-32-bit word), the ``_rw`` kernels for sum-product serial-C and the
-``_gw`` kernels for the group-serial forms of both rules; their
-sum-product flooding, and every form of any other code beyond the limits,
+32-bit word), the ``_rw`` kernels for sum-product serial-C, the ``_gw``
+kernels for the group-serial forms of both rules and the ``_lw`` kernels
+for sum-product flooding (one lt an edge written over the check's own
+message, ``'lt-wide'``); every form of any other code beyond the limits
 keeps the full messages with the plan in shared memory. The source is
-compiled with ``nvcc`` for ``sm_90a``, once per storage type in
-parallel, into ``build/kernels/`` of the checkout on first use, linked
-into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
+compiled with ``nvcc`` for ``sm_90a``, once per storage type and design
+family (``FAMILIES``), all in parallel, into ``build/kernels/`` of the
+checkout on first use, linked into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
 :func:`bp_qc_probe_requeue` port the JAX functions of the same names
 (``:820-901``, ``:912-1053``). :func:`default_threads` and
 ``_LAUNCH_TABLE`` are the counterparts of JAX's ``default_tile`` and
@@ -57,6 +58,8 @@ import math
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -112,6 +115,11 @@ METHODS = ("min-sum", "sum-product")
 # suffix of its entry points, per message storage type
 STORAGE = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16"),
            torch.int8: (2, "_i8")}
+# the source's design families (-DQC_FAMILY, csrc/minsum_qc.cu:
+# design_family): the full messages, the compressed min-sum state and the
+# _lw kernels; the _sr, _rw and _cw kernels; the _gs and _gw kernels. One
+# nvcc a (storage type, family), all started together
+FAMILIES = (0, 1, 2)
 # entry point of csrc/minsum_qc.cu per (method, schedule, early_stop,
 # quantized): minsum_qc_flooding, ..., sumproduct_qc_layered_es_msgq
 KERNELS = {
@@ -147,12 +155,15 @@ COMPRESSED_LIMITS = (8, 64, 192, 64)
 WIDE_LIMITS = (24, (8, 9, 11, 12, 17, 18))
 # the kernel designs, bp_qc_decode's `design` (csrc/minsum_qc.cu:
 # kDesignFull, kDesignCs, kDesignSr, kDesignGs, kDesignCw, kDesignGw,
-# kDesignRw) and the entry points' suffix
+# kDesignRw, kDesignLw) and the entry points' suffix
 DESIGNS = {"full": (0, ""), "compressed": (1, "_cs"), "registers": (2, "_sr"),
            "group": (3, "_gs"), "compressed-wide": (4, "_cw"),
-           "group-wide": (5, "_gw"), "registers-wide": (6, "_rw")}
+           "group-wide": (5, "_gw"), "registers-wide": (6, "_rw"),
+           "lt-wide": (7, "_lw")}
 # the group-serial designs
 GROUP_DESIGNS = ("group", "group-wide")
+# the sum-product designs with a check's slots in registers
+REGISTER_DESIGNS = ("registers", "registers-wide", "group", "group-wide")
 # the group-serial plan in the kernel parameter (csrc/minsum_qc.cu:
 # GroupPlan): groups (G ≥ 2 over at most 64 block rows) and fold entries
 # (two planes or more each, of at most 192), and the bytes a kernel's
@@ -194,14 +205,31 @@ _LAUNCH_TABLE: dict[tuple[int, str, str, str], int] = {
     (12288, "bfloat16", "flooding", "sum-product"): 512,
     (12288, "int8", "flooding", "sum-product"): 1024,
 }
+# The 'lt-wide' kernels' CTA size where the sweep (threads 128-768 on
+# qc1944_r23/r34/r56 at batch 32768, 64-384 on qc648_r23/r34/r56 at 4096,
+# each × the three types; NVIDIA H100 80GB HBM3, 700 W) found one faster
+# than 256 by more than 0.5% on the codes of that n, keyed by (n, dtype
+# name): their own table, since the qc1944 codes share n with wifi1944,
+# whose int8 entry (384) ran 3-5% slower here. bf16 and int8 at n = 1944
+# take 128 (1.2-1.9% faster on r23 and r56, within 0.2% on r34), f32 at
+# n = 648 128 (5-7% on each code; bf16 and int8 there split by code).
+_LT_WIDE_THREADS: dict[tuple[int, str], int] = {
+    (1944, "bfloat16"): 128,
+    (1944, "int8"): 128,
+    (648, "float32"): 128,
+}
 
 
 def default_threads(qc: QcStructure, dtype=torch.float32,
                     schedule: str = "flooding",
                     method: str = "min-sum") -> int:
     """The measured-best flooding CTA size for this (code, dtype,
-    schedule, method): ``_LAUNCH_TABLE``'s entry, else 256."""
+    schedule, method): ``_LAUNCH_TABLE``'s entry, else 256; on the 'lt-wide'
+    kernels ``_LT_WIDE_THREADS``' entry, else 256."""
     name = str(storage_dtype(dtype)).removeprefix("torch.")
+    if (method, schedule) == ("sum-product", "flooding") and design(
+            qc, method, schedule) == "lt-wide":
+        return _LT_WIDE_THREADS.get((qc.nb * qc.z, name), 256)
     return _LAUNCH_TABLE.get((qc.nb * qc.z, name, schedule, method), 256)
 
 
@@ -252,12 +280,28 @@ def _nvcc() -> str:
     return path
 
 
+def _compile(obj: Path, storage: int, family: int) -> tuple[str, float]:
+    """One translation unit of the source: its ptxas report and seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, f"-DQC_STORAGE={storage}",
+         f"-DQC_FAMILY={family}", "-c", "-o", str(obj), str(SOURCE)],
+        capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc (QC_STORAGE={storage}, QC_FAMILY="
+                           f"{family}) failed with code {res.returncode}:\n"
+                           f"{res.stderr}")
+    return res.stderr, time.perf_counter() - t0
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels once per source content: one ``nvcc`` per
-    storage type, all started together, then one link.
+    storage type and design family (``FAMILIES``), all started together,
+    then one link.
 
     Returns the shared library's path and ptxas's register and
-    shared-memory report from the build that made it.
+    shared-memory report from the build that made it, each translation
+    unit's compile time on a line of its own.
     """
     tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
     lib = BUILD_DIR / f"libminsum_qc_{tag}.so"
@@ -265,20 +309,14 @@ def build() -> tuple[Path, str]:
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        objs = [lib.with_name(f"{lib.stem}.{code}.{os.getpid()}.o")
-                for code, _ in STORAGE.values()]
-        procs = [subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, f"-DQC_STORAGE={code}", "-c", "-o",
-             str(obj), str(SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for (code, _), obj in zip(STORAGE.values(), objs)]
-        logs = []
-        for proc in procs:
-            _, err = proc.communicate()
-            logs.append(err)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {proc.returncode}:\n{err}")
+        units = [(code, f) for code, _ in STORAGE.values() for f in FAMILIES]
+        objs = [lib.with_name(f"{lib.stem}.{code}.{f}.{os.getpid()}.o")
+                for code, f in units]
+        with ThreadPoolExecutor(len(units)) as pool:
+            done = list(pool.map(_compile, objs, *zip(*units)))
+        logs = [err + f"# nvcc QC_STORAGE={code} QC_FAMILY={f}: "
+                      f"{secs:.1f} s\n"
+                for (err, secs), (code, f) in zip(done, units)]
         res = subprocess.run(
             [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
             capture_output=True, text=True,
@@ -389,10 +427,13 @@ def sumproduct_registers(qc: QcStructure, method: str = "sum-product",
     ``COMPRESSED_LIMITS``, the register arrays' 8 slots and the
     parameter's plan, and on a code beyond them by its row degree alone
     (each row's degree one of ``WIDE_LIMITS``') serial-C and group-serial
-    on the _rw and _gw kernels. The other decodes keep the full-message
-    kernels with the plan in shared memory."""
+    on the _rw and _gw kernels (``REGISTER_DESIGNS``). Flooding there runs
+    the _lw kernels (one lt an edge in shared memory, 'lt-wide') and the
+    other decodes the full-message kernels with the plan in shared
+    memory."""
     return (method == "sum-product"
-            and design(qc, method, schedule, layered_group) != "full")
+            and design(qc, method, schedule, layered_group)
+            in REGISTER_DESIGNS)
 
 
 def design(qc: QcStructure, method: str, schedule: str,
@@ -403,17 +444,16 @@ def design(qc: QcStructure, method: str, schedule: str,
     (min-sum) or 'registers' (sum-product). Beyond the limits by the row
     degree alone (each row's degree one of ``WIDE_LIMITS``': the rate-2/3,
     3/4 and 5/6 qc648 and qc1944 codes), the same forms on the wide rows:
-    'group-wide', 'compressed-wide' or 'registers-wide', but for
-    sum-product flooding, which keeps 'full' there (its kernel with the
-    slots in registers measured slower, PERF.md). Every other decode
-    beyond the limits takes 'full'."""
+    'group-wide', 'compressed-wide' or 'registers-wide', and for
+    sum-product flooding 'lt-wide' (one lt an edge written in place, the
+    _lw kernels). Every other decode beyond the limits takes 'full'."""
     group = schedule == "layered" and min(layered_group, qc.mb) > 1
     if _within_limits(qc):
         rows = ""
     elif _within_limits(qc, wide=True):
         rows = "-wide"
         if method == "sum-product" and schedule == "flooding":
-            return "full"
+            return "lt-wide"
     else:
         return "full"
     if group:
@@ -523,7 +563,7 @@ def smem_bytes(qc: QcStructure, layered_group: int = 1,
     degree = max(len(ps) for ps in group_c)
     checks = qc.mb * qc.z
     kind = design(qc, method, schedule, layered_group)
-    sr = kind in ("registers", "registers-wide")
+    sr = kind in ("registers", "registers-wide", "lt-wide")
     gs = kind in GROUP_DESIGNS
     cs = compressed_state(qc, method, schedule, layered_group)
     if gs:

@@ -667,14 +667,14 @@ def test_sumproduct_registers_match_plain_version(cuda, name, dtype,
     unsatisfied-check count, early stop at K = 2, per-edge weights, each
     with and without 4-bit messages, exactly equal to the plain version;
     qc1944_r23 (rows of degree 8-9) serial-C on the wide rows' _rw entry
-    points and flooding on the full-message kernels, the degree-10 code on
-    the full-message kernels."""
+    points and flooding on their _lw entry points (one lt an edge), the
+    degree-10 code on the full-message kernels."""
     code = code_of(name)
     x = saturated(mixed_llrs(code, 40, cuda, seed=11))
     entry = mq.entry_point(code.qc, "sum-product", schedule, dtype=dtype)
     sfx = SUFFIX.get(name, ("_sr",))[0]
     if sfx == "_rw" and schedule == "flooding":
-        sfx = ""
+        sfx = "_lw"
     assert entry == (mq.kernel_name("sum-product", schedule) + sfx
                      + mq.STORAGE[dtype][1])
     w = random_edge_weights(code, 3, seed=12)

@@ -717,7 +717,8 @@ def test_warp_walks_visit_in_plain_order(name):
 
 def emulate_sumproduct_sr(llr, qc, iterations, layered, msg_qbits=None,
                           msg_qclip=20.0, clamp=None, dtype=torch.float32,
-                          weights=None, threads=256):
+                          weights=None, threads=256, lt_wide=False,
+                          every=False):
     """The sum-product _sr kernels (csrc/minsum_qc.cu: sp_check,
     iterate_sr, rebuild_sr) in torch, with the plain version's exp,
     expm1, log1p and log, vectorized over a block row's threads (layered)
@@ -732,8 +733,10 @@ def emulate_sumproduct_sr(llr, qc, iterations, layered, msg_qbits=None,
     serial-C loop is the _rw kernels', each row's slots unrolled to its
     degree (8-18; the kernel reads a slot's old message and posterior
     again in pass 2, the same values), the plan's entries packed for the
-    wide word as the launcher packs them. Returns the posterior,
-    log(Pr1/Pr0)."""
+    wide word as the launcher packs them. ``lt_wide``: flooding runs the
+    _lw kernels' check and CTA instead (:func:`emulate_sumproduct_lw`).
+    Returns the posterior, log(Pr1/Pr0); with ``every``, the LLRs as the
+    posterior holds them and each iteration's posterior."""
     f32 = torch.float32
     row_ptr, plane, col_ptr, cols = flood_plan(
         qc, 8 if mq._within_limits(qc) else mq.WIDE_LIMITS[0])
@@ -832,23 +835,104 @@ def emulate_sumproduct_sr(llr, qc, iterations, layered, msg_qbits=None,
                 post[:, v] = store_post(acc)
         return post
 
+    def check_lw(msg, lts, post, it, i, rs):
+        """lw_check of the checks rs of block row i: pass 1, two slots a
+        call, each slot's v2c through the storage, its sign a bit of negs,
+        its lt written over its message (f32) or into lts; pass 2 reads
+        each lt back."""
+        p0, deg = row_ptr[i], row_ptr[i + 1] - row_ptr[i]
+        at = msg if dtype == torch.float32 else lts
+        negs = torch.zeros((B, rs.size), dtype=torch.int64)
+        total = torch.zeros((B, rs.size), dtype=f32)
+        for e0 in range(0, deg, 2):
+            pair = range(e0, min(e0 + 2, deg))
+            vs = []
+            for e in pair:
+                cx, s = plane[p0 + e, :2]
+                m = msg[p0 + e][:, rs]
+                if wm is not None:
+                    m = wm[it, p0 + e, rs] * m
+                vs.append(store_msg(
+                    post[:, torch.from_numpy(cx + (rs + s) % z)] - m))
+            for e, v in zip(pair, vs):
+                negs |= (v < 0).to(torch.int64) << e
+                t = sp_lt(v)
+                total = total + t
+                at[p0 + e][:, rs] = t
+        odd = sum((negs >> e) & 1 for e in range(deg)) & 1
+        for e in range(deg):
+            mag = sp_mag(torch.clamp_max(total - at[p0 + e][:, rs], -1e-12))
+            sgn = torch.where(((negs >> e) & 1) ^ odd == 1, -1.0, 1.0)
+            msg[p0 + e][:, rs] = store_msg(postlude(sgn * mag))
+
     lv = store_post(-x)  # (B, n): the LLRs as the posterior holds them
     msg = [torch.zeros((B, z), dtype=f32) for _ in range(len(plane))]
+    lts = [torch.zeros((B, z), dtype=f32) for _ in range(len(plane))]
     post = lv.clone() if wm is None else rebuild(msg, lv, 0)
     if layered:
         threads = -(-z // 32) * 32
+    posts = []
     for it in range(iterations):
         if layered:
             for i in range(mb):
                 check(msg, post, it, i, np.arange(z))
             if wm is not None:
                 post = rebuild(msg, lv, it + 1)
+        elif lt_wide:
+            # threads lane-dense over the checks: a block row's z checks at
+            # once (the checks are independent, so any order gives these
+            # values)
+            for i in range(mb):
+                check_lw(msg, lts, post, it, i, np.arange(z))
+            post = rebuild(msg, lv, it + 1)
         else:
             for tasks in warp_walk(z, threads, mb):
                 for i, rs in tasks:
                     check(msg, post, it, i, rs)
             post = rebuild(msg, lv, it + 1)
+        posts.append(-post)
+    if every:
+        return lv, posts
     return (-post).numpy()
+
+
+def emulate_sumproduct_lw(llr, code, iterations, msg_qbits=None,
+                          msg_qclip=20.0, clamp=None, dtype=torch.float32,
+                          weights=None, early_stop_k=None):
+    """The wide rows' sum-product flooding _lw kernels (csrc/minsum_qc.cu:
+    lw_check, iterate_lw) in torch: each check's slots in a loop two at a
+    time, pass 1 keeping its lt values over its own messages (f32) or
+    apart (bf16, int8: the kernel's local array or f32 scratch) and its
+    signs in one word, pass 2 reading them back; then the posterior
+    rebuilt in the plain version's order. Returns the posterior (log
+    Pr1/Pr0), or with
+    ``early_stop_k`` = K (the _es forms: the syndrome checked at entry and
+    after every K-th iteration, a codeword frozen at its first satisfying
+    state) the hard bits and the iterations each codeword ran."""
+    kw = dict(msg_qbits=msg_qbits, msg_qclip=msg_qclip, clamp=clamp,
+              dtype=dtype, weights=weights, lt_wide=True)
+    if early_stop_k is None:
+        return emulate_sumproduct_sr(llr, code.qc, iterations, False, **kw)
+    lv, posts = emulate_sumproduct_sr(llr, code.qc, iterations, False,
+                                      every=True, **kw)
+    H = torch.from_numpy(np.asarray(code.H, np.float32))
+
+    def satisfied(p):  # p: log Pr1/Pr0
+        bits = (p > 0).to(torch.float32)
+        return torch.remainder(bits @ H.T, 2.0).sum(1) == 0
+
+    out, ran = -lv, torch.full((llr.shape[0],), iterations,
+                               dtype=torch.int32)
+    done = satisfied(out)
+    ran[done] = 0
+    for r in range(iterations // early_stop_k):
+        p = posts[(r + 1) * early_stop_k - 1]
+        now = ~done & satisfied(p)
+        out = torch.where(now[:, None], p, out)
+        ran[now] = (r + 1) * early_stop_k
+        done |= now
+    out = torch.where(done[:, None], out, posts[-1])
+    return (out > 0).to(torch.int8).numpy(), ran.numpy()
 
 
 def saturated_llrs(code, batch, seed):
@@ -940,9 +1024,9 @@ def test_sumproduct_registers_selection(name, fits):
     the parameter plan's limits, flooding and serial-C (G = 1) on the _sr
     kernels, group-serial (G > 1) on the _gs kernels; beyond them by the
     row degree alone (``fits`` False) serial-C and group-serial on the wide
-    rows (_rw, _gw) and flooding on the full-message kernel, and a code
-    with a row of a degree no wide body has (``fits`` None) the
-    full-message kernels at every G. Min-sum keeps its
+    rows (_rw, _gw) and flooding on the _lw kernels (one lt an edge, not
+    in registers), and a code with a row of a degree no wide body has
+    (``fits`` None) the full-message kernels at every G. Min-sum keeps its
     compressed state (_cs, and _gs for G > 1) within the limits and on the
     wide rows its wide word (_cw, and _gw for G > 1)."""
     qc = degree10_qc() if fits is None else cached_code(name).qc
@@ -950,12 +1034,13 @@ def test_sumproduct_registers_selection(name, fits):
     for sched, G in (("flooding", 1), ("layered", 1), ("layered", 2),
                      ("layered", 4)):
         group = G > 1
-        full = fits is None or (not fits and sched == "flooding")
+        full = fits is None
+        lt = fits is False and sched == "flooding"
         assert mq.sumproduct_registers(qc, "sum-product", sched, G) == (
-            not full)
+            not full and not lt)
         assert not mq.sumproduct_registers(qc, "min-sum", sched, G)
         kind = mq.design(qc, "sum-product", sched, G)
-        want = "full" if full else (
+        want = "full" if full else "lt-wide" if lt else (
             ("group" if group else "registers") + rows)
         assert kind == want
         entry = mq.entry_point(qc, "sum-product", sched, dtype=torch.int8,
@@ -972,7 +1057,8 @@ def test_sumproduct_registers_selection(name, fits):
         "sumproduct_qc_layered_es_msgq" + sr)
     assert mq.entry_point(qc, "sum-product", "flooding", weighted=True,
                           dtype=torch.bfloat16) == (
-        "sumproduct_qc_flooding_w" + ("_sr" if fits else "") + "_bf16")
+        "sumproduct_qc_flooding_w" + {True: "_sr", False: "_lw",
+                                      None: ""}[fits] + "_bf16")
     assert mq.entry_point(qc, "min-sum", "layered", True, True) == (
         "minsum_qc_layered_es_msgq" + cs)
 

@@ -219,17 +219,16 @@ def test_wide_sumproduct_registers_loop_matches_pallas_interpret():
 
 @pytest.mark.parametrize("name", HIGH_RATE)
 def test_wide_kernel_pins(name):
-    """On each of the six codes, every form of both rules but sum-product
-    flooding takes a design of the wide rows: min-sum flooding and
-    serial-C the _cw kernels, sum-product serial-C the _rw kernels, the
-    group-serial forms of both rules (G = 2, 3, 4, mb) the _gw kernels, at
-    every storage type; sum-product flooding keeps the full-message
-    kernel. Their shared memory: the full messages (sum-product) or the
-    wide word's state (min-sum: two stored magnitudes and a 4-byte word a
-    check), the posterior, for min-sum flooding the LLRs beside it, for
-    G > 1 the largest group's shared planes of f32 scratch; a plan for
-    min-sum serial-C and the full-message kernel (the parameter holds the
-    others')."""
+    """On each of the six codes, every form of both rules takes a design of
+    the wide rows: min-sum flooding and serial-C the _cw kernels,
+    sum-product serial-C the _rw kernels, sum-product flooding the _lw
+    kernels, the group-serial forms of both rules (G = 2, 3, 4, mb) the _gw
+    kernels, at every storage type. Their shared memory: the full messages
+    (sum-product) or the wide word's state (min-sum: two stored magnitudes
+    and a 4-byte word a check), the posterior, for flooding the LLRs
+    beside it, for G > 1 the largest group's shared planes of
+    f32 scratch; a plan for min-sum serial-C alone (the parameter holds
+    the others')."""
     qc = cached_code(name).qc
     planes, group_c, _ = qc_plan(qc)
     P, z, mb, n = len(planes), qc.z, qc.mb, qc.nb * qc.z
@@ -246,15 +245,15 @@ def test_wide_kernel_pins(name):
         for sched, G in (("flooding", 1), ("layered", 1), ("layered", 2),
                          ("layered", 3), ("layered", 4), ("layered", mb)):
             kind = mq.design(qc, rule, sched, G)
-            full = rule == "sum-product" and sched == "flooding"
-            want = ("full" if full else "group-wide" if G > 1
+            lt = rule == "sum-product" and sched == "flooding"
+            want = ("lt-wide" if lt else "group-wide" if G > 1
                     else "compressed-wide" if rule == "min-sum"
                     else "registers-wide")
             assert kind == want
             assert mq.compressed_state(qc, rule, sched, G) == (
                 rule == "min-sum")
             assert mq.sumproduct_registers(qc, rule, sched, G) == (
-                rule == "sum-product" and not full)
+                rule == "sum-product" and not lt)
             for es, q, w in ((False, False, False), (True, False, False),
                              (False, True, False), (True, True, False),
                              (False, False, True), (False, True, True)):
@@ -269,12 +268,11 @@ def test_wide_kernel_pins(name):
                     msg, post = SIZES[dt]
                     state = (a16(2 * msg * mb * z) + a16(4 * mb * z)
                              if rule == "min-sum" else a16(msg * P * z))
-                    posts = (2 if sched == "flooding" and not full else 1) \
-                        * a16(post * n)
+                    posts = (2 if sched == "flooding" else 1) * a16(post * n)
                     scratch = (4 * int(mq.group_plan(qc, G)[4]) * z
                                if G > 1 else 0)
-                    with_plan = full or (kind == "compressed-wide"
-                                         and sched == "layered")
+                    with_plan = (kind == "compressed-wide"
+                                 and sched == "layered")
                     assert mq.smem_bytes(qc, G, DTYPES[dt], rule, sched) \
                         == plan * with_plan + state + posts + scratch
     assert {len(ps) for ps in group_c} <= set(mq.WIDE_LIMITS[1])
@@ -285,8 +283,8 @@ def test_wide_smem_bytes_qc1944_r34():
     G = 4 on the wide word 5,840 B of state (5,832 aligned), 7,776 B of
     posterior and 35 shared planes of scratch (11,340 B); sum-product's
     21,708 B of messages (21,712 aligned) serial-C, and with G = 4's
-    scratch; its flooding on the full-message kernel with the plan (7 +
-    3·67 + 25 = 233 ints, 944 B padded) and no LLRs."""
+    scratch; its flooding on the _lw kernels with the LLRs beside the
+    posterior and no plan."""
     qc = cached_code("qc1944_r34").qc
     scratch = 4 * 35 * 81
     assert int(mq.group_plan(qc, 4)[4]) == 35
@@ -295,6 +293,8 @@ def test_wide_smem_bytes_qc1944_r34():
     assert mq.smem_bytes(qc, 1, method="sum-product",
                          schedule="layered") == 21_712 + 7776
     assert mq.smem_bytes(qc, 1, method="sum-product",
-                         schedule="flooding") == 944 + 21_712 + 7776
+                         schedule="flooding") == 21_712 + 2 * 7776
+    assert mq.smem_bytes(qc, 1, torch.bfloat16, "sum-product",
+                         "flooding") == 10_864 + 2 * 3888
     assert mq.smem_bytes(qc, 4, method="sum-product", schedule="layered") \
         == 21_712 + 7776 + scratch

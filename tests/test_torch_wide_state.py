@@ -145,9 +145,9 @@ def test_wide_design_selection(name):
     for sched in ("flooding", "layered"):
         assert mq.design(qc, "min-sum", sched) == "compressed-wide"
         assert mq.compressed_state(qc, "min-sum", sched)
-        sp = "_rw" if sched == "layered" else ""
+        sp = "_rw" if sched == "layered" else "_lw"
         assert mq.design(qc, "sum-product", sched) == (
-            "registers-wide" if sp else "full")
+            "registers-wide" if sched == "layered" else "lt-wide")
         for es, q, w in ((False, False, False), (True, True, False),
                          (False, True, True)):
             for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16"),
