@@ -1,0 +1,7 @@
+"""The sum-product flooding decode's bytes and operations a step."""
+
+from portbench.roofline import work as _work
+
+
+def work(code, dec, batch, iterations_run):
+    return _work(code, dec, batch, iterations_run, "sum-product", "flooding")
