@@ -16,6 +16,13 @@ from ldpc_sims_tpu_torch.codes.library import LdpcCode
 from ldpc_sims_tpu_torch.ops import phy
 from ldpc_sims_tpu_torch.ops.bp import bp_decode
 from ldpc_sims_tpu_torch.ops.encode import encode
+from ldpc_sims_tpu_torch.utils.metrics import (
+    LINK_COUNTS,
+    LINK_DECODE,
+    LINK_ENCODE,
+    LINK_PHY,
+    span,
+)
 
 __all__ = ["LinkConfig", "link_step", "BITS_PER_SYMBOL"]
 
@@ -104,7 +111,10 @@ def link_step(
     sweep engine makes once). With ``return_arrays=True`` also returns the
     LLRs, coded bits, time samples and the linear SNR of each OFDM symbol
     (``snr_sym``, rows × symbols a row), and the quantized LLRs and
-    samples with ``qbits``.
+    samples with ``qbits``. While a profiler records, the encode, the
+    channel and LLRs, the decode and the counts are spans
+    (:func:`..utils.metrics.span`), and the decode's iterations are
+    counted (an early-stop decode reports them per codeword).
     """
     _check_config(cfg)
     n, k = code.n, code.k
@@ -122,85 +132,92 @@ def link_step(
     rows = batch_cw // g
     dev = gen.device
 
-    info = phy.random_bits(gen, (batch_cw, k))
-    coded = encode(info, code)
-    tx_sym = _MODULATE[cfg.modulation](coded)  # (B, S)
+    with span(LINK_ENCODE, dev):
+        info = phy.random_bits(gen, (batch_cw, k))
+        coded = encode(info, code)
+    with span(LINK_PHY, dev):
+        tx_sym = _MODULATE[cfg.modulation](coded)  # (B, S)
 
-    tx_time = phy.ofdm_modulate(tx_sym.reshape(rows, -1), cfg.ofdm_size)
-    if cfg.cyclic_prefix:
-        tx_time = phy.add_cyclic_prefix(tx_time, cfg.cyclic_prefix)
-
-    n_ofdm = tx_time.shape[1]
-    if cfg.snr_per_symbol:
-        # one SNR an OFDM symbol, uniform in dB over [low, high]
-        u = torch.rand((rows, n_ofdm), generator=gen, device=dev)
-        snrdb_sym = cfg.snrdb_low + (cfg.snrdb_high - cfg.snrdb_low) * u
-        snr = 10.0 ** (snrdb_sym / 10.0)  # (rows, n_ofdm)
-        snr_bc = snr[..., None]
-        # each subcarrier's LLR takes its OFDM symbol's SNR
-        snr_llr = snr.repeat_interleave(cfg.ofdm_size, dim=1)
-    else:
-        snr = 10.0 ** (torch.as_tensor(snrdb, dtype=torch.float32,
-                                       device=dev) / 10.0)
-        snr_bc = snr_llr = snr
-    rx_time = phy.awgn(gen, tx_time, snr_bc)
-
-    def demod_and_llr(samples):
+        tx_time = phy.ofdm_modulate(tx_sym.reshape(rows, -1), cfg.ofdm_size)
         if cfg.cyclic_prefix:
-            samples = phy.remove_cyclic_prefix(samples, cfg.cyclic_prefix)
-        rx_sym = phy.ofdm_demodulate(samples)  # (rows, g·S)
-        return _LLR[cfg.modulation](rx_sym, snr_llr).reshape(batch_cw, n)
+            tx_time = phy.add_cyclic_prefix(tx_time, cfg.cyclic_prefix)
 
-    llrs = demod_and_llr(rx_time)
-    decode_llrs = llrs
-    if cfg.qbits is not None:
-        if cfg.agc == "global":
-            clip = phy.agc_global(rx_time) * cfg.clip_ratio
-            q_time = phy.quantize_complex(rx_time, cfg.qbits, clip,
-                                          cfg.legacy_clip)
-        else:  # per OFDM symbol, from the known SNR
-            factor = phy.agc_per_symbol(
-                snr.expand(rows, n_ofdm), cfg.agc_clip,
-                cfg.clip_ratio)[..., None]
-            q = phy.quantize_complex(rx_time * factor, cfg.qbits,
-                                     cfg.agc_clip, cfg.legacy_clip)
-            q_time = q / factor
-        decode_llrs = demod_and_llr(q_time)
+        n_ofdm = tx_time.shape[1]
+        if cfg.snr_per_symbol:
+            # one SNR an OFDM symbol, uniform in dB over [low, high]
+            u = torch.rand((rows, n_ofdm), generator=gen, device=dev)
+            snrdb_sym = cfg.snrdb_low + (cfg.snrdb_high - cfg.snrdb_low) * u
+            snr = 10.0 ** (snrdb_sym / 10.0)  # (rows, n_ofdm)
+            snr_bc = snr[..., None]
+            # each subcarrier's LLR takes its OFDM symbol's SNR
+            snr_llr = snr.repeat_interleave(cfg.ofdm_size, dim=1)
+        else:
+            snr = 10.0 ** (torch.as_tensor(snrdb, dtype=torch.float32,
+                                           device=dev) / 10.0)
+            snr_bc = snr_llr = snr
+        rx_time = phy.awgn(gen, tx_time, snr_bc)
 
-    bits_est = bp_decode(
-        decode_llrs,
-        code,
-        iterations=cfg.bp_iterations,
-        method=cfg.bp_method,
-        alpha=cfg.alpha,
-        beta=cfg.beta,
-        clamp=cfg.clamp,
-        early_stop=cfg.early_stop,
-        es_mode=cfg.es_mode,
-        es_check_every=cfg.es_check_every,
-        es_probe_iters=cfg.es_probe_iters,
-        es_probe_alpha=cfg.es_probe_alpha,
-        es_probe_beta=cfg.es_probe_beta,
-        layered_group=cfg.bp_layered_group,
-        msg_qbits=cfg.msg_qbits,
-        msg_qclip=cfg.msg_qclip,
-        weights=weights,
-        output="hard",
-        schedule=cfg.bp_schedule,
-    )
+        def demod_and_llr(samples):
+            if cfg.cyclic_prefix:
+                samples = phy.remove_cyclic_prefix(samples, cfg.cyclic_prefix)
+            rx_sym = phy.ofdm_demodulate(samples)  # (rows, g·S)
+            return _LLR[cfg.modulation](rx_sym, snr_llr).reshape(batch_cw, n)
 
-    i32 = torch.int32
-    uncoded_est = (llrs > 0).to(torch.int8)
-    info_err = (bits_est[:, :k] != coded[:, :k]).sum(dtype=i32)
-    frame_err = (bits_est != coded).any(dim=1).sum(dtype=i32)
-    out = dict(
-        uncoded_bit_errors=(uncoded_est != coded).sum(dtype=i32),
-        coded_bit_errors=info_err,
-        frame_errors=frame_err,
-        uncoded_bits=torch.full((), batch_cw * n, dtype=i32, device=dev),
-        info_bits=torch.full((), batch_cw * k, dtype=i32, device=dev),
-        frames=torch.full((), batch_cw, dtype=i32, device=dev),
-    )
+        llrs = demod_and_llr(rx_time)
+        decode_llrs = llrs
+        if cfg.qbits is not None:
+            if cfg.agc == "global":
+                clip = phy.agc_global(rx_time) * cfg.clip_ratio
+                q_time = phy.quantize_complex(rx_time, cfg.qbits, clip,
+                                              cfg.legacy_clip)
+            else:  # per OFDM symbol, from the known SNR
+                factor = phy.agc_per_symbol(
+                    snr.expand(rows, n_ofdm), cfg.agc_clip,
+                    cfg.clip_ratio)[..., None]
+                q = phy.quantize_complex(rx_time * factor, cfg.qbits,
+                                         cfg.agc_clip, cfg.legacy_clip)
+                q_time = q / factor
+            decode_llrs = demod_and_llr(q_time)
+
+    with span(LINK_DECODE, dev) as rec:
+        bits_est = bp_decode(
+            decode_llrs,
+            code,
+            iterations=cfg.bp_iterations,
+            method=cfg.bp_method,
+            alpha=cfg.alpha,
+            beta=cfg.beta,
+            clamp=cfg.clamp,
+            early_stop=cfg.early_stop,
+            es_mode=cfg.es_mode,
+            es_check_every=cfg.es_check_every,
+            es_probe_iters=cfg.es_probe_iters,
+            es_probe_alpha=cfg.es_probe_alpha,
+            es_probe_beta=cfg.es_probe_beta,
+            layered_group=cfg.bp_layered_group,
+            msg_qbits=cfg.msg_qbits,
+            msg_qclip=cfg.msg_qclip,
+            weights=weights,
+            output="hard_iters" if rec and cfg.early_stop else "hard",
+            schedule=cfg.bp_schedule,
+        )
+        if rec:
+            bits_est = rec.count_iterations(bits_est, cfg.bp_iterations,
+                                            batch_cw)
+
+    with span(LINK_COUNTS, dev):
+        i32 = torch.int32
+        uncoded_est = (llrs > 0).to(torch.int8)
+        info_err = (bits_est[:, :k] != coded[:, :k]).sum(dtype=i32)
+        frame_err = (bits_est != coded).any(dim=1).sum(dtype=i32)
+        out = dict(
+            uncoded_bit_errors=(uncoded_est != coded).sum(dtype=i32),
+            coded_bit_errors=info_err,
+            frame_errors=frame_err,
+            uncoded_bits=torch.full((), batch_cw * n, dtype=i32, device=dev),
+            info_bits=torch.full((), batch_cw * k, dtype=i32, device=dev),
+            frames=torch.full((), batch_cw, dtype=i32, device=dev),
+        )
     if return_arrays:
         def strip(t):
             return (phy.remove_cyclic_prefix(t, cfg.cyclic_prefix)

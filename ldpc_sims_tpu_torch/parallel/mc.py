@@ -48,7 +48,12 @@ from ldpc_sims_tpu_torch.ops.bp import pack_decoder_weights
 from ldpc_sims_tpu_torch.ops.chain import LinkConfig, link_step
 from ldpc_sims_tpu_torch.parallel.mesh import local_batch_multiple, make_mesh
 from ldpc_sims_tpu_torch.utils.device import resolve_device
-from ldpc_sims_tpu_torch.utils.metrics import PhaseTimer
+from ldpc_sims_tpu_torch.utils.metrics import (
+    STEP,
+    SWEEP_READ,
+    PhaseTimer,
+    span,
+)
 
 __all__ = [
     "SweepConfig",
@@ -147,6 +152,8 @@ def mc_step(
     one ``all_reduce`` a call, so every rank returns the global counts.
     ``weights``: decoder weights (JAX's dict), moved to ``device`` and
     packed into the kernels' tables here, once, not in every step.
+    While a profiler records, a call is the span ``ldpc.mc.step``
+    (:data:`..utils.metrics.STEP`), whose host syncs are counted.
     """
     if mesh is None:
         mesh = make_mesh()
@@ -169,17 +176,19 @@ def mc_step(
     weights = pack_decoder_weights(weights, code, cfg.bp_iterations, dev)
 
     def run(seed: int, snrdb: float) -> dict[str, torch.Tensor]:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(shard_seed(seed, shard, n_dev))
-        acc = None
-        for _ in range(steps_per_sync):
-            out = link_step(gen, snrdb, code, cfg, per_dev, weights=weights)
-            c = {k: out[k] for k in _COUNT_KEYS}
-            acc = c if acc is None else {k: acc[k] + c[k] for k in c}
-        if n_dev > 1:
-            acc = dict(zip(_COUNT_KEYS,
-                           mesh.all_reduce_sum(_stack_counts(acc)).unbind()))
-        return acc
+        with span(STEP, dev):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(shard_seed(seed, shard, n_dev))
+            acc = None
+            for _ in range(steps_per_sync):
+                out = link_step(gen, snrdb, code, cfg, per_dev,
+                                weights=weights)
+                c = {k: out[k] for k in _COUNT_KEYS}
+                acc = c if acc is None else {k: acc[k] + c[k] for k in c}
+            if n_dev > 1:
+                acc = dict(zip(_COUNT_KEYS, mesh.all_reduce_sum(
+                    _stack_counts(acc)).unbind()))
+            return acc
 
     return run
 
@@ -306,7 +315,9 @@ def run_sweep(
             with timer.phase(phase):
                 out = steps[mode](seed, snrdb)
                 # one host read of the chunk's counts
-                vals = torch.stack([out[k] for k in _COUNT_KEYS]).tolist()
+                with span(SWEEP_READ):
+                    vals = torch.stack([out[k]
+                                        for k in _COUNT_KEYS]).tolist()
                 counts = {k: float(v) for k, v in zip(_COUNT_KEYS, vals)}
             dt = time.perf_counter() - t0
             if chosen is None:

@@ -1,26 +1,60 @@
-"""Structured metrics: JSONL events, phase timers, profiler traces and
-process-stable seed folding (the port of ``utils/metrics.py``:
-``MetricsLogger``, ``PhaseTimer``, ``profile_trace``, ``stable_fold_in``)."""
+"""Structured metrics: JSONL events, phase timers, profiler traces, the
+program's spans and process-stable seed folding (the port of
+``utils/metrics.py``: ``MetricsLogger``, ``PhaseTimer``, ``profile_trace``,
+``stable_fold_in``; ``span`` and ``TRACE`` are the port's own).
+
+Spans. :func:`span` names a region of the Monte-Carlo step. It does
+nothing unless a ``torch.profiler`` session is recording: it then opens a
+``record_function`` (the span shares the profiler's clock with the
+device's kernels in the same trace) and adds the region's host seconds,
+and on a CUDA device the device seconds between a pair of CUDA events
+recorded at its ends, to :data:`TRACE`. ``TRACE`` also counts the steps,
+the host syncs inside a step (torch's own sync detection, on only inside
+a recorded step) and the decodes' iterations and codewords. It restarts
+at the first recorded span after one that was not recorded, so it holds
+the latest profiled region; device times are resolved only when read.
+"""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
 import time
+import warnings
 import zlib
 from typing import Any
 
 import numpy as np
+import torch
 
 __all__ = [
+    "LINK_COUNTS",
+    "LINK_DECODE",
+    "LINK_ENCODE",
+    "LINK_PHY",
     "MetricsLogger",
     "PhaseTimer",
+    "STEP",
+    "SWEEP_READ",
+    "TRACE",
     "fold_seed",
     "fold_tag",
     "profile_trace",
+    "span",
     "stable_fold_in",
 ]
+
+# the spans of the Monte-Carlo step, from the entry down
+STEP = "ldpc.mc.step"  # mc_step's closure
+LINK_ENCODE = "ldpc.link.encode"  # info bits and the encode
+LINK_PHY = "ldpc.link.phy"  # modulation, OFDM, AWGN, demodulation, LLRs
+LINK_DECODE = "ldpc.link.decode"  # bp_decode
+LINK_COUNTS = "ldpc.link.counts"  # the six counts
+SWEEP_READ = "ldpc.sweep.read"  # run_sweep's host read of the counts
+# what torch's sync detection says of a host sync
+_SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def fold_tag(*parts) -> int:
@@ -81,9 +115,11 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        """Time the region, a span of the same name besides."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
@@ -115,3 +151,161 @@ def profile_trace(log_dir: str | None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class SpanTotals:
+    """The totals of the latest profiled region: host seconds by span,
+    device seconds by span on CUDA, the device's gaps between steps, and
+    the counters ``steps``, ``syncs``, ``iterations``, ``codewords``.
+
+    Read it once the region has ended: device times are resolved from
+    their events here, after a synchronisation, never inside a step.
+    """
+
+    def __init__(self):
+        self._free: list = []  # the CUDA event pool
+        self._pending: list = []  # (name, start event, end event)
+        self.live = False  # the latest span was recorded
+        self.reset()
+
+    def reset(self) -> None:
+        """Forget every total; the events go back to the pool."""
+        self._recycle()
+        self._device: dict[str, float] = collections.defaultdict(float)
+        self._gap_s = 0.0
+        self._iters_dev = None  # early-stop iterations, summed on the device
+        self.host: dict[str, float] = collections.defaultdict(float)
+        self.counters: collections.Counter = collections.Counter()
+
+    @property
+    def steps(self) -> int:
+        return self.counters["steps"]
+
+    def host_seconds(self, name: str) -> float:
+        return self.host.get(name, 0.0)
+
+    def device_seconds(self, name: str) -> float | None:
+        """Device seconds of span ``name``, or None where it recorded no
+        events (a span on the CPU)."""
+        self._resolve()
+        return self._device.get(name)
+
+    def gap_seconds(self) -> float | None:
+        """Device seconds from each step's end to the next step's start,
+        or None where the steps recorded no events."""
+        self._resolve()
+        return self._gap_s if STEP in self._device else None
+
+    def iterations(self) -> int:
+        """Decoder iterations run, summed over every codeword decoded."""
+        n = self.counters["iterations"]
+        return n if self._iters_dev is None else n + int(self._iters_dev)
+
+    def _begin(self) -> None:
+        if not self.live:
+            self.reset()
+            self.live = True
+
+    def _event(self):
+        if self._free:
+            return self._free.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _recycle(self) -> None:
+        for _, a, b in self._pending:
+            self._free += (a, b)
+        self._pending = []
+
+    def _resolve(self) -> None:
+        if not self._pending:
+            return
+        torch.cuda.synchronize()
+        prev_end = None  # the previous step's
+        for name, a, b in self._pending:
+            self._device[name] += a.elapsed_time(b) * 1e-3
+            if name == STEP:
+                if prev_end is not None:
+                    self._gap_s += prev_end.elapsed_time(a) * 1e-3
+                prev_end = b
+        self._recycle()
+
+
+TRACE = SpanTotals()
+_NULL = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
+
+
+class _Span:
+    """A span while a profiler records (:func:`span`)."""
+
+    def __init__(self, name: str, device: torch.device | None):
+        self.name = name
+        self.stream = (torch.cuda.current_stream(device)
+                       if device is not None and device.type == "cuda"
+                       else None)
+
+    def __enter__(self):
+        TRACE._begin()
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        if self.name == STEP:
+            self.caught = warnings.catch_warnings(record=True)
+            self.warned = self.caught.__enter__()
+            warnings.simplefilter("always")
+            if self.stream is not None:
+                self.mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+        if self.stream is not None:
+            self.start = TRACE._event()
+            self.start.record(self.stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        TRACE.host[self.name] += time.perf_counter() - self.t0
+        if self.stream is not None:
+            end = TRACE._event()
+            end.record(self.stream)
+            TRACE._pending.append((self.name, self.start, end))
+        if self.name == STEP:
+            if self.stream is not None:
+                torch.cuda.set_sync_debug_mode(self.mode)
+            self.caught.__exit__(*exc)
+            syncs = 0
+            for w in self.warned:
+                if _SYNC_WARNING in str(w.message):
+                    syncs += 1
+                else:  # not ours to swallow
+                    warnings.warn_explicit(w.message, w.category,
+                                           w.filename, w.lineno)
+            TRACE.counters["steps"] += 1
+            TRACE.counters["syncs"] += syncs
+        return self.rf.__exit__(*exc)
+
+    def count_iterations(self, out, iterations: int, batch: int):
+        """Count a decode's iterations and codewords; returns its bits.
+        ``out``: ``bp_decode``'s (bits, per-codeword iterations) of an
+        early-stop decode, summed on the device, or the bits of a fixed
+        decode of ``iterations``."""
+        if isinstance(out, tuple):
+            out, iters = out
+            total = iters.sum(dtype=torch.int64)
+            if TRACE._iters_dev is None:
+                TRACE._iters_dev = total
+            else:
+                TRACE._iters_dev += total
+        else:
+            TRACE.counters["iterations"] += iterations * batch
+        TRACE.counters["codewords"] += batch
+        return out
+
+
+def span(name: str, device: torch.device | None = None):
+    """A named span of the step, live only while a ``torch.profiler``
+    session records; otherwise the one shared null context (entered, it
+    gives None). ``device``: where the region's work runs; on a CUDA
+    device its device time is timed by a pair of events."""
+    if not _recording():
+        TRACE.live = False
+        return _NULL
+    return _Span(name, device)
