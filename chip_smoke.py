@@ -5,8 +5,8 @@
 Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
 ``ldpc_sims_tpu``), in these phases:
 
-1. build the CUDA decode kernels from the checkout's sources, print
-   ptxas's register/shared-memory report and the card's name and power
+1. build the CUDA decode and encode kernels from the checkout's sources,
+   print ptxas's register/shared-memory report and the card's name and power
    limit, and fail unless each of the 36 sum-product kernels with a
    check's slots in registers (the _sr kernels), each of the 36
    group-serial kernels (the _gs kernels) and each of the 36 min-sum
@@ -17,7 +17,8 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    (_lw) were built, printing their registers and stack frames (a _gw,
    _rw or _lw row of phase 4 whose kernel has a stack frame fails unless
    it runs faster than the full-message kernel it replaces); the build's
-   nine translation units each print their compile time;
+   ten translation units (nine of the decode, one of the encode) each
+   print their compile time;
 2. hold each kernel against its plain PyTorch version on the card at
    batch 4096: flooding-20 (α=1, β=0), flooding-20 (α=0.75, β=0.1,
    clamp 20), the registry's trained layered-8 on wifi1944 and wifi648
@@ -279,8 +280,11 @@ Drives ``ldpc_sims_tpu_torch`` only (it imports neither ``jax`` nor
    ``docs/artifacts/`` changed;
 4. at batch 32768, holds each kernel against its plain version once more,
    times both with CUDA events and prints the ``kernels`` JSON line with
-   each kernel's bound: one row per kernel with the launches of its own
-   main-path run, and a row ``minsum_qc_layered@es_auto`` for the layered
+   each kernel's bound: first ``encode@wifi1944``, the GF(2) encode kernel
+   (exactly the plain version; its time, the plain version's, the float32
+   product alone as ``library_ms``, its bound in bytes and LOP3, its
+   launches in one ``mc_step``, which must be 1), then one row per decode
+   kernel with the launches of its own main-path run, and a row ``minsum_qc_layered@es_auto`` for the layered
    kernel's launches on the es-auto path, timed as one probe chunk at 3.5
    dB (the ``hard_unsat`` probe and the ``done_in`` pass); the four
    sum-product kernels, at wifi1944 and again at the wifi648-sweep
@@ -735,6 +739,13 @@ G4_WIDE_ROW = "minsum_qc_layered@qc1944_r34-g4"
 SP_WIDE_ROW = "sumproduct_qc_layered@qc1944_r56"
 KERNEL_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/minsum_qc.cu"
 TPU_KERNEL = "ldpc_sims_tpu/kernels/minsum_qc.py:788"
+# the GF(2) encode kernel's row: it replaces no Pallas kernel (the JAX
+# package's encode is an XLA int8 dot)
+ENCODE_ROW = "encode@wifi1944"
+ENCODE_SOURCE = "ldpc_sims_tpu_torch/kernels/csrc/encode.cu"
+# H100 SXM 32-bit bitwise operations (LOP3): 64 results per clock per SM,
+# 132 SMs at the 1.98 GHz boost clock
+INT_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def ptxas_entries(report: str) -> dict:
@@ -757,6 +768,73 @@ def ptxas_entries(report: str) -> dict:
             found[name] = (stack, int(m.group(1)))
             name = None
     return found
+
+
+def encode_row(card: str, batch: int) -> dict:
+    """The encode kernel on wifi1944 at ``batch``, the ``kernels`` line's
+    row ``encode@wifi1944``: exactly the plain version, its time beside
+    its bound (info bits read and codewords written once; one LOP3 a parity
+    row and packed info word), the plain version's time, the float32
+    ``torch.matmul`` of the plain version alone as ``library_ms`` (a
+    yardstick: the port never calls it) and its launches in one
+    ``mc_step``."""
+    import importlib
+
+    import torch
+
+    from ldpc_sims_tpu_torch.codes import get_code
+    from ldpc_sims_tpu_torch.ops import LinkConfig, phy
+    from ldpc_sims_tpu_torch.parallel import mc_step
+
+    enc = importlib.import_module("ldpc_sims_tpu_torch.ops.encode")
+    code = get_code("wifi1944")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    u = phy.random_bits(gen, (batch, code.k))
+    exact([(enc.encode(u, code), enc.encode_plain(u, code))], ENCODE_ROW)
+    ms = cuda_time_ms(lambda: enc.encode(u, code), 50)
+    plain_ms = cuda_time_ms(lambda: enc.encode_plain(u, code), 10)
+    gt = torch.from_numpy(code.G.T.copy()).to("cuda", torch.float32)
+    uf = u.to(torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        library_ms = cuda_time_ms(lambda: torch.matmul(uf, gt), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    step = mc_step(code, LinkConfig(bp_iterations=20, bp_method="min-sum",
+                                    clamp=None), batch)
+    step(1, 1.5)
+    n0 = enc.ENCODE_LAUNCHES
+    step(2, 1.5)
+    launches = enc.ENCODE_LAUNCHES - n0
+    if launches != 1:
+        fail(f"{ENCODE_ROW}: {launches} encode launches in one mc_step")
+    plan = enc.encode_plan(code)
+    ops = len(plan.par_pos) * -(-code.k // 32) * batch
+    t_bytes = batch * (code.k + code.n) / BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  {ENCODE_ROW} (encode_gf2): {ms!r} ms (plain {plain_ms!r} ms, "
+          f"float32 product alone {library_ms!r} ms, bound {bound_ms!r} "
+          f"ms, {bound_by}; bytes {t_bytes!r} ms, LOP3 {t_ops!r} ms), "
+          f"{launches} launch an mc_step [{card}]", flush=True)
+    return {
+        "name": ENCODE_ROW,
+        "entry": "encode_gf2",
+        "route": "cuda",
+        "source": ENCODE_SOURCE,
+        "replaces": None,
+        "launches": launches,
+        "launches_per_mc_step": launches,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
 
 
 def fail(msg: str) -> None:
@@ -3979,7 +4057,7 @@ def main() -> None:
         "minsum_qc_layered": dict(iterations=8, schedule="layered",
                                   alpha=a8, beta=b8),
     }
-    kernels = []
+    kernels = [encode_row(card, batch)]
     for name, kw in timed.items():
         # the kernel against its plain version at the main path's shape
         max_err[name] = max(max_err[name], compare(

@@ -33,7 +33,9 @@ message, ``'lt-wide'``); every form of any other code beyond the limits
 keeps the full messages with the plan in shared memory. The source is
 compiled with ``nvcc`` for ``sm_90a``, once per storage type and design
 family (``FAMILIES``), all in parallel, into ``build/kernels/`` of the
-checkout on first use, linked into one library and loaded with ctypes. The drivers :func:`bp_qc_requeue` and
+checkout on first use, linked with the GF(2) encode kernel
+(``csrc/encode.cu``, :func:`..ops.encode.encode`'s) into one library and
+loaded with ctypes. The drivers :func:`bp_qc_requeue` and
 :func:`bp_qc_probe_requeue` port the JAX functions of the same names
 (``:820-901``, ``:912-1053``). :func:`default_threads` and
 ``_LAUNCH_TABLE`` are the counterparts of JAX's ``default_tile`` and
@@ -104,6 +106,8 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "minsum_qc.cu"
+# the encode kernel, one more translation unit of the same library
+ENCODE_SOURCE = SOURCE.with_name("encode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -280,43 +284,46 @@ def _nvcc() -> str:
     return path
 
 
-def _compile(obj: Path, storage: int, family: int) -> tuple[str, float]:
-    """One translation unit of the source: its ptxas report and seconds."""
+def _compile(obj: Path, source: Path, defines: tuple[str, ...]
+             ) -> tuple[str, float]:
+    """One translation unit: its ptxas report and seconds."""
     t0 = time.perf_counter()
     res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, f"-DQC_STORAGE={storage}",
-         f"-DQC_FAMILY={family}", "-c", "-o", str(obj), str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c", "-o",
+         str(obj), str(source)],
         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc (QC_STORAGE={storage}, QC_FAMILY="
-                           f"{family}) failed with code {res.returncode}:\n"
-                           f"{res.stderr}")
+        raise RuntimeError(f"nvcc {source.name} {' '.join(defines)} failed "
+                           f"with code {res.returncode}:\n{res.stderr}")
     return res.stderr, time.perf_counter() - t0
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernels once per source content: one ``nvcc`` per
-    storage type and design family (``FAMILIES``), all started together,
-    then one link.
+    """Compile the kernels once per sources' content: one ``nvcc`` per
+    storage type and design family (``FAMILIES``) and one of the encode
+    kernel, all started together, then one link.
 
     Returns the shared library's path and ptxas's register and
     shared-memory report from the build that made it, each translation
     unit's compile time on a line of its own.
     """
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    tag = hashlib.sha256(SOURCE.read_bytes()
+                         + ENCODE_SOURCE.read_bytes()).hexdigest()[:12]
     lib = BUILD_DIR / f"libminsum_qc_{tag}.so"
     report = BUILD_DIR / f"libminsum_qc_{tag}.ptxas.txt"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        units = [(code, f) for code, _ in STORAGE.values() for f in FAMILIES]
-        objs = [lib.with_name(f"{lib.stem}.{code}.{f}.{os.getpid()}.o")
-                for code, f in units]
+        units = [(SOURCE, (f"QC_STORAGE={code}", f"QC_FAMILY={f}"))
+                 for code, _ in STORAGE.values() for f in FAMILIES]
+        units.append((ENCODE_SOURCE, ()))
+        objs = [lib.with_name(f"{lib.stem}.{i}.{os.getpid()}.o")
+                for i in range(len(units))]
         with ThreadPoolExecutor(len(units)) as pool:
             done = list(pool.map(_compile, objs, *zip(*units)))
-        logs = [err + f"# nvcc QC_STORAGE={code} QC_FAMILY={f}: "
+        logs = [err + f"# nvcc {' '.join(defines) or src.name}: "
                       f"{secs:.1f} s\n"
-                for (err, secs), (code, f) in zip(done, units)]
+                for (err, secs), (src, defines) in zip(done, units)]
         res = subprocess.run(
             [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
             capture_output=True, text=True,
@@ -370,6 +377,9 @@ def _library() -> ctypes.CDLL:
                            f"fold entries) {tuple(group)} is not {want}")
     lib.bp_qc_error_string.argtypes = [i32]
     lib.bp_qc_error_string.restype = ctypes.c_char_p
+    lib.ldpc_encode.argtypes = [vp] * 8 + [ctypes.c_longlong, *[i32] * 10,
+                                          vp]
+    lib.ldpc_encode.restype = i32
     return lib
 
 

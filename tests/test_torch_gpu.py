@@ -1,4 +1,5 @@
-"""The CUDA decode kernels against their plain version, on the card.
+"""The CUDA decode kernels and the GF(2) encode kernel against their plain
+versions, on the card.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips
 without one (the decision is taken in the ``cuda`` fixture, at run time).
@@ -11,6 +12,8 @@ same order, so the comparison asks for the stated tolerance and, in
 practice, sees equality.
 """
 
+import functools
+import importlib
 import json
 import math
 import os
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 from ldpc_sims_tpu_torch.codes import get_code
-from ldpc_sims_tpu_torch.codes.library import QcStructure
+from ldpc_sims_tpu_torch.codes.library import QcStructure, list_codes
 from ldpc_sims_tpu_torch.kernels import minsum_qc as mq
 from ldpc_sims_tpu_torch.ops import LinkConfig, bp_decode, link_step
 from ldpc_sims_tpu_torch.ops.bp_roll import decode_roll
@@ -889,3 +892,93 @@ def test_auto_with_gradient_decodes_on_the_plain_version(cuda, method):
     assert mq.LAUNCHES[mq.KERNELS[method, "layered", False, False]] == 1
     torch.testing.assert_close(got, decode_roll(
         x.detach(), code.qc, output="posterior", **kw), rtol=1e-4, atol=1e-4)
+
+
+# -- the GF(2) encode kernel (csrc/encode.cu) ------------------------------
+
+ENCODE = importlib.import_module("ldpc_sims_tpu_torch.ops.encode")
+
+
+@functools.cache
+def encode_code(name):
+    return get_code(name)
+
+
+def card_info_bits(code, batch, device, seed=0):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    u = torch.randint(0, 2, (batch, code.k), generator=gen, device=device,
+                      dtype=torch.int8)
+    # one row of arbitrary bytes: both versions take bit = byte & 1
+    u[-1] = torch.randint(-128, 128, (code.k,), generator=gen,
+                          device=device, dtype=torch.int8)
+    return u
+
+
+@pytest.mark.parametrize("name", list_codes())
+def test_encode_kernel_matches_plain_version(cuda, name):
+    """Every library code (peg256_128's info bits are off [0, k)) at a
+    batch that is not a multiple of the kernel's 32-codeword tile."""
+    code = encode_code(name)
+    u = card_info_bits(code, 1000, cuda)
+    got = ENCODE.encode(u, code)
+    want = ENCODE.encode_plain(u, code)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == (1000, code.n)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got[:8].cpu().numpy(),
+                                  code.encode_np(u[:8].cpu().numpy() & 1))
+
+
+@pytest.mark.parametrize("batch", [1, 31, 1000, 32768])
+def test_encode_kernel_wifi1944_batches(cuda, batch):
+    code = encode_code("wifi1944")
+    u = card_info_bits(code, batch, cuda, seed=batch)
+    assert torch.equal(ENCODE.encode(u, code), ENCODE.encode_plain(u, code))
+
+
+@pytest.mark.parametrize("name", ["wifi1944", "peg256_128", "qc1944_r23"])
+def test_encode_kernel_in_chunks(cuda, name, monkeypatch):
+    """Less shared memory than the card has: the table through L2 and the
+    positions staged in chunks, as the 5G-class codes run."""
+    code = get_code(name)  # a fresh code: its own plan cache
+    packed = 32 * ENCODE.encode_plan(code).stride * 4
+    monkeypatch.setattr(ENCODE, "SMEM_LIMIT", packed + 32 * 200)
+    plan = ENCODE.encode_plan(code)
+    assert not plan.smem_table and plan.chunks > 1
+    u = card_info_bits(code, 999, cuda, seed=3)
+    assert torch.equal(ENCODE.encode(u, code), ENCODE.encode_plain(u, code))
+
+
+def test_encode_counts_one_launch_a_call_and_a_link_step(cuda):
+    code = encode_code("wifi1944")
+    u = card_info_bits(code, 64, cuda)
+    n0 = ENCODE.ENCODE_LAUNCHES
+    ENCODE.encode(u, code)
+    assert ENCODE.ENCODE_LAUNCHES == n0 + 1
+    ENCODE.encode(u, code)
+    assert ENCODE.ENCODE_LAUNCHES == n0 + 2
+    ENCODE.encode_plain(u, code)
+    assert ENCODE.ENCODE_LAUNCHES == n0 + 2
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    link_step(gen, 1.5, code, LinkConfig(bp_iterations=2,
+                                         bp_method="min-sum"), 512)
+    assert ENCODE.ENCODE_LAUNCHES == n0 + 3
+
+
+@pytest.mark.parametrize("bad, match", [
+    (lambda u: u.float(), "int8"),
+    (lambda u: u.to(torch.int32), "int8"),
+    (lambda u: u.cpu(), "CUDA"),
+    (lambda u: u.t().contiguous().t(), "contiguous"),
+    (lambda u: u[:, :100], r"\(batch, 972\)"),
+    (lambda u: u[:0], "empty batch"),
+])
+def test_encode_kernel_rejects_what_it_does_not_take(cuda, bad, match):
+    code = encode_code("wifi1944")
+    u = card_info_bits(code, 8, cuda)
+    n0 = ENCODE.ENCODE_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        ENCODE.encode_cuda(bad(u), code)
+    assert ENCODE.ENCODE_LAUNCHES == n0
